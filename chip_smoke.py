@@ -1,29 +1,46 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's two serving paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
+Phases, each printing JSON lines; any failure raises and exits non-zero:
 
-  1. env     — the card (name and power limit, from nvidia-smi), the torch,
-               CUDA and nvcc versions, and the time to build the kernels
-               from ``src/repro_torch/csrc``.
-  2. kernel  — every kernel against its plain PyTorch version on the card:
-               the lockstep-advance kernel at 16 envs x 1,024 experts
-               (16,384 rows, R=W=5) over 100 consecutive advances per
-               admission order, with arrivals pushed between advances,
-               ragged caps, about 1/8 of experts down, admission floors on
-               some rows and a t_next per env.  Queues, clocks and
-               wait-valid bits must be bit-exact, done/viol exact, the
-               other accumulators within rtol 1e-6.  Times both.
-  3. serve   — the main path, ``launch/route.py``'s policies through
-               ``engine_backend="cuda"``: N=6 with 4 envs (padded obs) and
-               N=1,024 with 16 envs (segments obs, ragged caps); RR, SQF, BR,
-               QLL and a seeded SAC router, greedy.  Each run must launch
-               the kernel once per env step; a shorter QLL run on the plain
-               engine must end in the same state as on the kernel.
-  4. profile — for QLL and SAC in each setting: host time per layer of a
-               step, and the device's busy share under torch.profiler.
-  5. kernels — the kernel table line.
+  1. env      — the card (name and power limit, from nvidia-smi), the torch,
+                CUDA and nvcc versions, and the time to build the kernels
+                from ``src/repro_torch/csrc`` (one nvcc each, in parallel).
+  2. kernel   — the lockstep-advance kernel (B1) against its plain PyTorch
+                version: 16 envs x 1,024 experts (16,384 rows, R=W=5) over
+                100 consecutive advances per admission order, with arrivals
+                pushed between advances, ragged caps, about 1/8 of experts
+                down, admission floors on some rows and a t_next per env.
+                Queues, clocks and wait-valid bits must be bit-exact,
+                done/viol exact, the other accumulators within rtol 1e-6.
+                Times both.
+  3. serve    — the routing path, ``launch/route.py``'s policies through
+                ``engine_backend="cuda"``: N=6 with 4 envs (padded obs) and
+                N=1,024 with 16 envs (segments obs, ragged caps); RR, SQF, BR,
+                QLL and a seeded SAC router, greedy.  Each run must launch
+                B1 once per env step; a shorter QLL run on the plain engine
+                must end in the same state as on the kernel.
+  4. profile  — for QLL and SAC in each setting: host time per layer of a
+                step, and the device's busy share under torch.profiler.
+  5. flash    — the flash-attention kernel (B2) against its plain version:
+                each expert's full-width heads at S=16 and 128, danube's
+                heads at S=1,024 under a binding window of 256, starcoder2's
+                at S=4,096 causal; bf16 within 2e-2 and float32 within 2e-5
+                (max abs).  Times the kernel, the plain version and
+                PyTorch's scaled_dot_product_attention, beside the bound:
+                their time on the card with the launches queued ahead, and
+                the call's time (host launch time included).
+  6. lm_serve — the LM path, ``launch/serve.py`` at the published widths in
+                bf16 (``build_cluster(reduce=False)``): per expert, a prefill
+                through B2 against the same prefill with the plain attention
+                on the same weights; a reduced cluster on the card against
+                the same on the CPU, token for token; then, counted, the
+                calibration (k1, k2) and two request streams (SQF, RR; 30
+                requests at 20/s, L = 30 ms).  B2 must launch n_layers times
+                per prefill.  Then a profiled window per expert.
+  7. kernels  — the kernel table line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a result when CUDA is unavailable or the package is missing.
@@ -84,6 +101,29 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` on the card with its launches queued
+    ahead: a spin kernel holds the card while the host queues ``reps``
+    calls between two events, so the host's time between launches, which
+    sets a short call's time in ``cuda_ms``, drops out.  Fails if the host
+    could not queue them before the spin ended."""
+    fn()
+    torch.cuda.synchronize()
+    for spin_cycles in (10**8, 10**9):          # ~0.05 s, ~0.5 s
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        ahead = not a.query()                   # the card still spinning
+        b.synchronize()
+        if ahead:
+            return a.elapsed_time(b) / reps
+    raise RuntimeError("the host could not queue the calls ahead of the card")
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +392,275 @@ def profile_window(env_cfg, pool, policy, n_envs, steps=30):
             "lockstep_ms_per_step": lock_us / steps / 1e3}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (label, H, KV, dh, S, window): full-width heads of each expert
+FLASH_CASES = [
+    ("qwen1.5-0.5b", 16, 16, 64, 16, 0), ("qwen1.5-0.5b", 16, 16, 64, 128, 0),
+    ("h2o-danube-3-4b", 32, 8, 120, 16, 4096),
+    ("h2o-danube-3-4b", 32, 8, 120, 128, 4096),
+    ("starcoder2-15b", 48, 4, 128, 16, 0), ("starcoder2-15b", 48, 4, 128, 128, 0),
+    ("h2o-danube-3-4b", 32, 8, 120, 1024, 256),
+    ("starcoder2-15b", 48, 4, 128, 4096, 0)]
+LINE_CASE = ("starcoder2-15b", 128, "bfloat16")   # the kernels line's row
+
+
+def visible_pairs(s: int, window: int) -> int:
+    """Query-key pairs a causal (and windowed) attention over S positions
+    computes: sum over queries of the keys it sees."""
+    seen = np.arange(1, s + 1)
+    if window > 0:
+        seen = np.minimum(seen, window)
+    return int(seen.sum())
+
+
+def sdpa(q, k, v, window):
+    """PyTorch's fused attention on the same inputs: the yardstick, never
+    called by the port."""
+    import torch.nn.functional as F
+    if window <= 0:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    s = q.shape[2]
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def flash_phase(dev):
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    rows = []
+    for label, h, kv, dh, s, window in FLASH_CASES:
+        gen = torch.Generator(device=dev).manual_seed(s * h + dh)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((1, n, s, dh), generator=gen,
+                                   device=dev).to(dtype)
+                       for n in (h, kv, kv))
+            got = ops.flash_attn(q, k, v, causal=True, window=window)
+            ref = attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            if not err <= FLASH_TOL[dtype]:
+                raise AssertionError(f"flash_attn {label} S={s} window={window} "
+                                     f"{dtype}: max abs error {err}")
+            lib = sdpa(q, k, v, window)
+            lib_err = float((lib.float() - ref.float()).abs().max())
+            reps = 5 if s >= 1024 else 20
+            nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+            flops = 4 * h * dh * visible_pairs(s, window)
+            rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / rate * 1e3
+            fns = {"": lambda: ops.flash_attn(q, k, v, causal=True,
+                                              window=window),
+                   "plain_": lambda: attention_ref(q, k, v, causal=True,
+                                                   window=window),
+                   "library_": lambda: sdpa(q, k, v, window)}
+            row = {"phase": "flash", "expert_heads": label, "H": h, "KV": kv,
+                   "dh": dh, "S": s, "window": window,
+                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                   "tol": FLASH_TOL[dtype], "library_max_abs_err": lib_err}
+            for key, fn in fns.items():     # time on the card; call time
+                row[f"{key}ms"] = device_ms(fn, reps)
+                row[f"{key}call_ms"] = cuda_ms(fn, reps)
+            row.update({"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                     else "operations")})
+            emit(row)
+            rows.append(row)
+            del q, k, v, got, ref, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LM experts at full width
+# ---------------------------------------------------------------------------
+
+STREAM = dict(n_requests=30, rate=20.0, latency_L=0.030)
+# B2 and the plain attention differ only in float32 summation order inside
+# attention, which flips a few bf16 roundings of its output per layer; the
+# logits (bf16) of the two prefills must stay within 2^-4 of the largest
+# logit (8-16 bf16 ulps of it), and give the same greedy token
+LOGIT_REL_TOL = 2.0 ** -4
+
+
+def prefill_plain_vs_kernel(srv, rng):
+    """One full-width prefill through B2 and the same through the plain
+    attention (``transformer.flash_attn`` swapped for its plain version),
+    same weights, same prompt."""
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.models import transformer
+
+    p = 100
+    toks = torch.zeros((1, 128), dtype=torch.int32, device=srv.device)
+    toks[0, :p] = torch.as_tensor(rng.integers(2, srv.cfg.vocab, p))
+    lengths = torch.tensor([p], dtype=torch.int32, device=srv.device)
+    got, _ = transformer.prefill(srv.params, srv.cfg, toks, srv.max_len,
+                                 lengths=lengths)
+    kernel_fn = transformer.flash_attn
+    transformer.flash_attn = attention_ref
+    try:
+        ref, _ = transformer.prefill(srv.params, srv.cfg, toks, srv.max_len,
+                                     lengths=lengths)
+    finally:
+        transformer.flash_attn = kernel_fn
+    got, ref = got.float()[0, :srv.cfg.vocab], ref.float()[0, :srv.cfg.vocab]
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    top2 = torch.topk(ref, 2).values
+    row = {"phase": "lm_serve", "check": "prefill_b2_vs_plain",
+           "expert": srv.name, "prompt": p, "bucket": 128,
+           "max_abs_logit_diff": err, "max_abs_logit": scale,
+           "tol": LOGIT_REL_TOL * scale,
+           "greedy": [int(got.argmax()), int(ref.argmax())],
+           "plain_top2_margin": float(top2[0] - top2[1]),
+           "finite": bool(torch.isfinite(got).all())}
+    emit(row)
+    assert row["finite"], row
+    assert err <= LOGIT_REL_TOL * scale, row
+    assert row["greedy"][0] == row["greedy"][1], row
+
+
+def small_cluster_matches_cpu(dev):
+    """A reduced cluster on the card (B2, float32) against the same weights
+    on the CPU (plain attention): the same requests give the same
+    iterations and tokens."""
+    from repro_torch.env.serve_engine import ExpertServer, Request
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Transformer
+
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(2, 250, p), n)
+               for p, n in ((12, 5), (30, 7), (100, 9), (9, 3), (61, 6))]
+    for srv in serve.build_cluster(serve.DEFAULT_EXPERTS, slots=2, device=dev):
+        cpu_params = Transformer(srv.cfg, torch.device("cpu"))
+        cpu_params.load_state_dict(srv.params.state_dict())
+        cpu = ExpertServer(srv.name, srv.cfg, cpu_params, slots=2,
+                           max_len=srv.max_len)
+        runs = []
+        for server in (srv, cpu):
+            for rid, (toks, n) in enumerate(prompts):
+                server.submit(Request(rid=rid, tokens=toks, max_new=n))
+            done = []
+            while server.has_work():
+                done.extend(server.step())
+            runs.append(([(e["kind"], e["x"]) for e in server.iteration_log],
+                         [(r.rid, r.generated) for r in done]))
+        assert runs[0] == runs[1], (srv.name, runs)
+        emit({"phase": "lm_serve", "check": "reduced_card_vs_cpu",
+              "expert": srv.name, "iterations": len(runs[0][0]),
+              "tokens": sum(len(g) for _, g in runs[0][1]), "same": True})
+
+
+def lm_window(srv, n_prefill=3, n_decode=12):
+    """Where an iteration's time goes, per expert: synchronised wall time of
+    prefills (bucket 128) and full decodes, then one window of the same
+    under torch.profiler for the device's busy time and B2's share (the
+    idle share sets that busy time against the unprofiled wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(2, 250, 128), dtype=torch.int32,
+                           device=srv.device)
+    dec = torch.as_tensor(rng.integers(2, 250, srv.slots), dtype=torch.int32,
+                          device=srv.device)
+
+    def run():
+        t0 = time.perf_counter()
+        for j in range(n_prefill):
+            int(srv._prefill_one(toks, 120, j % srv.slots).cpu())
+        t1 = time.perf_counter()
+        for _ in range(n_decode):
+            srv._decode_all(dec).cpu()
+        return t1 - t0, time.perf_counter() - t1
+
+    run()                                                   # warm up
+    pre_s, dec_s = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    b2 = [e.time_range.elapsed_us() for e in kernels
+          if "flash_attn" in e.name]
+    return {"phase": "lm_profile", "expert": srv.name,
+            "prefill_ms": pre_s / n_prefill * 1e3,
+            "decode_ms": dec_s / n_decode * 1e3,
+            "iterations_profiled": n_prefill + n_decode,
+            "device_busy_ms": busy_ms,
+            "wall_ms": (pre_s + dec_s) * 1e3,
+            "device_idle_share": 1.0 - busy_ms / ((pre_s + dec_s) * 1e3),
+            "kernels": len(kernels),
+            "b2_launches": len(b2),
+            "b2_ms_per_launch": float(np.mean(b2)) / 1e3 if b2 else None}
+
+
+def lm_serve_phase(dev):
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.lockstep_advance import ops as b1_ops
+    from repro_torch.launch import serve
+
+    small_cluster_matches_cpu(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    servers = serve.build_cluster(serve.DEFAULT_EXPERTS, reduce=False,
+                                  device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "lm_serve", "check": "build", "experts": [
+              {"name": s.name, "params": sum(p.numel()
+                                             for p in s.params.parameters()),
+               "bytes": sum(p.numel() * p.element_size()
+                            for p in s.params.parameters()),
+               "dtype": s.cfg.param_dtype} for s in servers],
+          "init_s": time.perf_counter() - t0,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    rng = np.random.default_rng(4)
+    for srv in servers:
+        prefill_plain_vs_kernel(srv, rng)
+
+    # the main path, counted: calibration, then two streams
+    n_warm = 8
+    fa_ops.LAUNCHES = 0
+    b1_ops.LAUNCHES = 0
+    fits = serve.profile_cluster(servers, n_warm=n_warm)
+    streams = {router: serve.run_stream(servers, router=router, **STREAM)
+               for router in ("sqf", "rr")}
+    launches = fa_ops.LAUNCHES
+    prefills = [4 + n_warm + sum(e["kind"] == "prefill"
+                                 for e in s.iteration_log) for s in servers]
+    expected = sum(p * s.cfg.n_layers for p, s in zip(prefills, servers))
+    assert launches == expected, (launches, expected, prefills)
+    assert b1_ops.LAUNCHES == 0
+    for srv, fit in zip(servers, fits):
+        assert all(np.isfinite(v) for v in fit.values()), fit
+        emit({"phase": "lm_serve", "check": "calibrate", "expert": srv.name,
+              "n_layers": srv.cfg.n_layers, **fit})
+    for router, m in streams.items():
+        assert m["completed"] == STREAM["n_requests"], m
+        assert all(np.isfinite(v) for v in m.values()), m
+        emit({"phase": "lm_serve", "check": "stream", "router": router,
+              **STREAM, **m})
+    emit({"phase": "lm_serve", "check": "launches", "b2_launches": launches,
+          "prefills": prefills, "expected": expected,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    for srv in servers:
+        emit(lm_window(srv))
+    del servers
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -365,7 +674,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = gpu_line()
     t0 = time.perf_counter()
-    build.build("lockstep_advance")
+    build.build_all()
     build_s = time.perf_counter() - t0
     nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
@@ -378,7 +687,11 @@ def main() -> int:
     launches = serve_phase(dev, 6, 4, 750, 150, "padded", False, seed=0)
     launches += serve_phase(dev, 1024, 16, 200, 100, "segments", True,
                             seed=0)
+    flash = flash_phase(dev)
+    lm_launches = lm_serve_phase(dev)
 
+    line = next(r for r in flash
+                if (r["expert_heads"], r["S"], r["dtype"]) == LINE_CASE)
     emit({"kernels": [{
         "name": "lockstep_advance", "route": "cuda",
         "source": "src/repro_torch/csrc/lockstep_advance.cu",
@@ -386,7 +699,14 @@ def main() -> int:
         "launches": launches, "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "flash_attn", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/kernel.py:78",
+        "launches": lm_launches, "max_abs_err": line["max_abs_err"],
+        "ms": line["ms"], "plain_ms": line["plain_ms"],
+        "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+        "library_ms": line["library_ms"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,10 @@
+"""Qwen1.5-0.5B — small dense LM with QKV bias [hf:Qwen/Qwen1.5-0.5B]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b", family="dense",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16, d_head=64,
+    d_ff=2816, vocab=151936,
+    qkv_bias=True, tie_embeddings=True,
+    notes="MHA (kv=16 == heads); QKV bias; tied embeddings.",
+)

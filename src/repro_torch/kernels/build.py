@@ -6,14 +6,18 @@ use it is compiled by ``nvcc`` into a shared library under
 source and the flags, and loaded with ``ctypes``.  Nothing is built when
 this module is imported.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o <lib> <source>
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         [kernel flags] -shared -Xcompiler -fPIC -o <lib> <source>
 
-``--fmad=false`` keeps nvcc from contracting multiply-adds on its own: the
-kernels write ``__fmaf_rn`` exactly where the reference contracts.
+Flags differ per kernel (``KERNEL_FLAGS``).  The lockstep-advance kernel
+takes ``--fmad=false``, which keeps nvcc from contracting multiply-adds on
+its own: it writes ``__fmaf_rn`` exactly where the reference contracts, and
+must be bit-exact.  Flash attention is held to a tolerance and keeps nvcc's
+default contraction (without it every multiply-add is two instructions).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -25,7 +29,8 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
+KERNEL_FLAGS = {"lockstep_advance": ("--fmad=false",), "flash_attn": ()}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -41,9 +46,13 @@ def nvcc() -> str:
     return path
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + KERNEL_FLAGS[name]
+
+
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -56,12 +65,19 @@ def build(name: str) -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.stem}.{os.getpid()}.so")
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
     os.replace(tmp, path)  # atomic: a reader never sees a partial library
     return path
+
+
+def build_all() -> Dict[str, pathlib.Path]:
+    """Compile every kernel at the same time, one nvcc each; returns their
+    libraries' paths.  Raises as ``build`` does."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_FLAGS)) as pool:
+        return dict(zip(KERNEL_FLAGS, pool.map(build, KERNEL_FLAGS)))
 
 
 def load(name: str) -> ctypes.CDLL:

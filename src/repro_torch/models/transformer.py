@@ -1,0 +1,317 @@
+"""Decoder-only transformer LM, dense family (port of
+``repro/models/transformer.py``: starcoder2, granite, h2o-danube, qwen1.5,
+chameleon).
+
+Parameters live in ``nn.Module``s with the reference's names and shapes
+(``wq (d, H, dh)``, ``wo (H, dh, d)``, ...), one ``Block`` per layer where
+the reference stacks layers on a leading axis and scans them; the
+functions keep the reference's names and contracts.  Prefill attention
+always goes through the flash-attention kernel
+(``kernels/flash_attn/ops.py``), the reference's ``attn_impl="pallas"``
+path; decode attention is plain PyTorch, as in the reference.
+
+The KV cache is a dict with the reference's layout (``k``/``v`` of
+``(n_layers, B, S, KV, dh)``, ``kv_pos (B, S)``, ``pos (B,)``), but
+``decode_step`` updates it in place and returns the same dict, where the
+reference builds a new one.  The MoE family is not ported yet (ROADMAP
+queue A).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from repro_torch.device import generator, resolve
+from repro_torch.kernels.flash_attn.ops import flash_attn
+from repro_torch.models import layers
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported; the port serves "
+            "the dense family (MoE serving is ROADMAP queue A)")
+
+
+def _param(*shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        self.wq = _param(d, h, dh, dtype=dtype, device=device)
+        self.wk = _param(d, kv, dh, dtype=dtype, device=device)
+        self.wv = _param(d, kv, dh, dtype=dtype, device=device)
+        self.wo = _param(h, dh, d, dtype=dtype, device=device)
+        for name, heads in (("bq", h), ("bk", kv), ("bv", kv)):
+            self.register_parameter(
+                name, _param(heads, dh, dtype=dtype, device=device)
+                if cfg.qkv_bias else None)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_gate = _param(d, f, dtype=dtype, device=device)
+        self.w_up = _param(d, f, dtype=dtype, device=device)
+        self.w_down = _param(f, d, dtype=dtype, device=device)
+
+
+class Block(nn.Module):
+    """One pre-norm layer: attention then SwiGLU MLP, each residual."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.attn_norm = _param(cfg.d_model, dtype=dtype, device=device)
+        self.mlp_norm = _param(cfg.d_model, dtype=dtype, device=device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+    def forward(self, x, positions):
+        """Whole sequences (forward, prefill): x (B, S, d) -> (x, k, v)."""
+        cfg = self.cfg
+        h, k, v = attention_full(self.attn, cfg,
+                                 layers.rms_norm(x, self.attn_norm, cfg.norm_eps),
+                                 positions)
+        x = x + h
+        y = layers.rms_norm(x, self.mlp_norm, cfg.norm_eps)
+        return x + mlp_block(self.mlp, cfg, y), k, v
+
+    def decode(self, x, pos, slot, k_cache, v_cache, kv_pos):
+        """One token per sequence: x (B, 1, d).  The token's K/V go into this
+        layer's cache (B, S, KV, dh) at ``slot``, in place, before attending
+        (self-attention includes the current token)."""
+        cfg = self.cfg
+        bidx = torch.arange(x.shape[0], device=x.device)
+        hn = layers.rms_norm(x, self.attn_norm, cfg.norm_eps)
+        q, k, v = _qkv(self.attn, cfg, hn, pos[:, None])
+        k_cache[bidx, slot] = k[:, 0]
+        v_cache[bidx, slot] = v[:, 0]
+        o = layers.decode_attention(q[:, 0], k_cache, v_cache, kv_pos, pos)
+        x = x + torch.einsum("bhe,hed->bd", o, self.attn.wo)[:, None]
+        y = layers.rms_norm(x, self.mlp_norm, cfg.norm_eps)
+        return x + mlp_block(self.mlp, cfg, y)
+
+
+class Transformer(nn.Module):
+    """The parameters of one dense LM, uninitialised (``init_params`` draws
+    them, ``io.lm_params_from_numpy`` copies the reference's)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        _check_family(cfg)
+        dtype = getattr(torch, cfg.param_dtype)
+        d, vp = cfg.d_model, cfg.vocab_padded
+        self.embed = _param(vp, d, dtype=dtype, device=device)
+        self.final_norm = _param(d, dtype=dtype, device=device)
+        self.register_parameter(
+            "lm_head", None if cfg.tie_embeddings
+            else _param(d, vp, dtype=dtype, device=device))
+        self.layers = nn.ModuleList(Block(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg, seed: int = 0, device=None) -> Transformer:
+    """Random weights as the reference draws them (normal, std
+    ``scale/sqrt(shape[0])``, output projections scaled by
+    ``1/sqrt(2 n_layers)``, embeddings 0.02, norms and biases 0), from a
+    ``torch.Generator`` seeded with ``seed``, on ``device`` (CUDA by
+    default).  Each tensor is drawn in float32 and cast to the parameter
+    dtype on its own, so no float32 copy of the whole model ever exists."""
+    dev = resolve(device)
+    model = Transformer(cfg, dev)
+    gen = generator(dev, seed)
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "embed":
+            p.copy_(layers.embed_init(p.shape, gen))
+        elif leaf in ("wq", "wk", "wv", "w_gate", "w_up", "lm_head"):
+            p.copy_(layers.dense_init(p.shape, gen))
+        elif leaf in ("wo", "w_down"):
+            p.copy_(layers.dense_init(p.shape, gen, scale=out_scale))
+        else:                                   # norms and biases
+            p.zero_()
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _qkv(p: Attention, cfg, x, positions):
+    """x (B, S, d) -> q (B, S, H, dh), k/v (B, S, KV, dh) with RoPE."""
+    q = torch.einsum("bsd,dhe->bshe", x, p.wq)
+    k = torch.einsum("bsd,dke->bske", x, p.wk)
+    v = torch.einsum("bsd,dke->bske", x, p.wv)
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = layers.apply_rope(q.transpose(1, 2), positions[:, None, :],
+                          cfg.rope_theta).transpose(1, 2)
+    k = layers.apply_rope(k.transpose(1, 2), positions[:, None, :],
+                          cfg.rope_theta).transpose(1, 2)
+    return q, k, v
+
+
+def attention_full(p: Attention, cfg, x, positions):
+    """Causal (or sliding-window) attention over whole sequences, through
+    the flash-attention kernel.  Returns (out, k, v)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    window = cfg.window if cfg.attention == "swa" else 0
+    o = flash_attn(q.transpose(1, 2).contiguous(),
+                   k.transpose(1, 2).contiguous(),
+                   v.transpose(1, 2).contiguous(),
+                   causal=True, window=window).transpose(1, 2)
+    return torch.einsum("bshe,hed->bsd", o, p.wo), k, v
+
+
+def mlp_block(p: MLP, cfg, x):
+    return layers.swiglu(x, p.w_gate, p.w_up, p.w_down)
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+def _embed(params: Transformer, cfg, tokens):
+    return params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def forward(params: Transformer, cfg, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) int -> (logits (B, S, Vp), aux loss 0)."""
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = _positions(b, s, x.device)
+    for blk in params.layers:
+        x, _, _ = blk(x, positions)
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def unembed(params: Transformer, cfg, x):
+    """Logits over the padded vocab; padded ids get -1e9."""
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, params.embed)
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, params.lm_head)
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        logits = torch.where(pad, -1e9, logits.float()).to(logits.dtype)
+    return logits
+
+
+# --------------------------- KV cache ---------------------------------------
+
+
+def cache_len(cfg, max_len: int) -> int:
+    if cfg.attention == "swa":
+        return min(cfg.window, max_len)
+    return max_len
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    """Slot-based cache with a position per sequence (``pos`` (B,)), so a
+    continuous-batching engine can stagger requests across slots."""
+    _check_family(cfg)
+    dev = resolve(device)
+    s = cache_len(cfg, max_len)
+    shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.d_head)
+    dtype = getattr(torch, cfg.compute_dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "kv_pos": torch.full((batch, s), -1, dtype=torch.int32, device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def decode_step(params: Transformer, cfg, cache: dict, token: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+    """token (B,) int: one autoregressive step for every slot.  The ring
+    slot is ``pos % S`` under a sliding window, else ``min(pos, S-1)``.
+    Updates ``cache`` in place and returns (logits (B, Vp), cache)."""
+    b = token.shape[0]
+    pos = cache["pos"].expand(b)
+    s = cache["k"].shape[2]
+    slot = pos % s if cfg.attention == "swa" else pos.clamp(max=s - 1)
+    x = _embed(params, cfg, token)[:, None]
+    cache["kv_pos"][torch.arange(b, device=x.device), slot] = pos
+    for i, blk in enumerate(params.layers):
+        x = blk.decode(x, pos, slot, cache["k"][i], cache["v"][i],
+                       cache["kv_pos"])
+    cache["pos"] = pos + 1
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x)[:, 0], cache
+
+
+def prefill(params: Transformer, cfg, tokens: torch.Tensor, max_len: int,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Process the prompt; returns (next-token logits (B, Vp), primed cache).
+
+    ``lengths`` (B,) serves right-padded prompts of different lengths:
+    logits come from position ``lengths-1`` and cache entries at or past
+    the length are marked empty (-1).  With ``lengths=None`` the whole row
+    is the prompt.
+
+    Under a sliding window shorter than the prompt, the cache keeps the
+    last ``window`` positions of the padded row, placed at slot ``p %
+    window``; with ``lengths`` the padded ones among them are then marked
+    empty, so a padded prompt keeps fewer than ``window`` of its own
+    positions.  This is the reference's behaviour (ROADMAP queue C)."""
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens)
+    dev = x.device
+    positions = _positions(b, s, dev)
+    ks, vs = [], []
+    for blk in params.layers:
+        x, k, v = blk(x, positions)
+        ks.append(k)
+        vs.append(v)
+    k, v = torch.stack(ks), torch.stack(vs)          # (L, B, S, KV, dh)
+
+    c = cache_len(cfg, max_len)
+    if cfg.attention == "swa" and s > c:
+        # keep the last `c` tokens, position p at ring slot p % c
+        kept = torch.arange(s - c, s, dtype=torch.int32, device=dev)
+        order = torch.argsort(kept % c)
+        k, v = k[:, :, s - c:][:, :, order], v[:, :, s - c:][:, :, order]
+        kv_pos = torch.zeros((b, c), dtype=torch.int32, device=dev)
+        kv_pos[:, (kept % c).long()] = kept
+    else:
+        if s > c:
+            raise ValueError(f"prompt of {s} tokens does not fit a cache of {c}")
+        pad = (0, 0, 0, 0, 0, c - s)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        kv_pos = torch.cat([positions, torch.full((b, c - s), -1,
+                                                  dtype=torch.int32, device=dev)], 1)
+
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    if lengths is None:
+        cache = {"k": k, "v": v, "kv_pos": kv_pos,
+                 "pos": torch.full((b,), s, dtype=torch.int32, device=dev)}
+        return unembed(params, cfg, x[:, -1:])[:, 0], cache
+    lengths = lengths.to(torch.int32)
+    valid = (kv_pos < lengths[:, None]) & (kv_pos >= 0)
+    kv_pos = torch.where(valid, kv_pos, -1).to(torch.int32)
+    cache = {"k": k, "v": v, "kv_pos": kv_pos, "pos": lengths}
+    last = (lengths - 1).clamp(min=0).long()
+    x_last = x[torch.arange(b, device=dev), last][:, None]
+    return unembed(params, cfg, x_last)[:, 0], cache

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (B1 lockstep advance, B2 flash attention) against
+their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  The file imports neither ``jax`` nor the reference package, so
@@ -10,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.env import engine, engine_layout as layout, env as env_lib
 from repro_torch.env import profiles
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.lockstep_advance import ops
+from repro_torch.models import transformer
 
 N, R, W = 6, 4, 4
 LAT_L = 0.030
@@ -120,3 +125,94 @@ def test_env_step_on_card_launches_once_per_step(cuda_device):
                                 torch.full((4,), k % N + 1, device=dev))
     assert ops.LAUNCHES == before + 20
     assert bool(torch.isfinite(r).all())
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (B2)
+# ---------------------------------------------------------------------------
+
+# (H, KV, dh, S, window): each expert's heads at full width (qwen 16/16/64,
+# danube 32/8/120 with a window, starcoder2 48/4/128), at serving buckets
+# and ragged lengths (S < 32, S not a multiple of 32), and the reduced
+# configs' small heads
+FLASH_SHAPES = [(16, 16, 64, 16, 0), (32, 8, 120, 40, 0), (48, 4, 128, 128, 0),
+                (32, 8, 120, 200, 64), (8, 2, 24, 7, 0), (4, 4, 16, 70, 8),
+                (48, 4, 128, 1, 0)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,dh,s,window", FLASH_SHAPES)
+def test_flash_attn_kernel_matches_plain_version_on_card(
+        cuda_device, h, kv, dh, s, window, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(h * s + dh)
+    q = torch.randn((2, h, s, dh), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((2, kv, s, dh), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((2, kv, s, dh), generator=gen, device=cuda_device).to(dtype)
+    before = fa_ops.LAUNCHES
+    for causal in (True, False):
+        got = fa_ops.flash_attn(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal=causal, window=window)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=FLASH_TOL[dtype])
+    assert fa_ops.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_attn_kernel_unequal_lengths_and_empty_rows_on_card(cuda_device):
+    """Sq != Skv (a row past the last key sees all keys under causal), and
+    a window of 1 with Sq > Skv leaves rows that see nothing: they are 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((1, 8, 50, 64), generator=gen, device=cuda_device)
+    k = torch.randn((1, 2, 37, 64), generator=gen, device=cuda_device)
+    for causal, window in ((True, 0), (True, 1), (False, 9)):
+        got = fa_ops.flash_attn(q, k, k, causal=causal, window=window)
+        ref = attention_ref(q, k, k, causal=causal, window=window)
+        torch.testing.assert_close(got, ref, rtol=0, atol=2e-5)
+    empty = fa_ops.flash_attn(q, k, k, causal=True, window=1)[:, :, 37:]
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+@pytest.mark.cuda
+def test_flash_attn_wrapper_rejects_bad_operands_on_card(cuda_device):
+    q = torch.zeros((1, 4, 16, 64), device=cuda_device)
+    k = torch.zeros((1, 2, 16, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attn(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError):
+        fa_ops.flash_attn(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError):                       # head dim 132
+        fa_ops.flash_attn(torch.zeros((1, 4, 16, 132), device=cuda_device),
+                          torch.zeros((1, 2, 16, 132), device=cuda_device),
+                          torch.zeros((1, 2, 16, 132), device=cuda_device))
+    with pytest.raises(ValueError):                       # 4 heads on 3
+        fa_ops.flash_attn(q, k[:, :1].expand(1, 3, 16, 64).contiguous(),
+                          k[:, :1].expand(1, 3, 16, 64).contiguous())
+    with pytest.raises(ValueError):
+        fa_ops.flash_attn(q.transpose(2, 3), k, k)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attn(q, k.cpu(), k.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-3-4b",
+                                  "starcoder2-15b"])
+def test_prefill_on_card_launches_b2_per_layer(cuda_device, arch):
+    """A reduced model's prefill on the card goes through the kernel once
+    per layer and agrees with the same prefill on the CPU (plain
+    attention) on the same weights, in float32."""
+    cfg = reduce_config(get_config(arch))
+    model = transformer.init_params(cfg, seed=1, device=cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 40)), dtype=torch.int32)
+    lengths = torch.tensor([40, 23], dtype=torch.int32)
+    before = fa_ops.LAUNCHES
+    got, cache = transformer.prefill(model, cfg, toks.to(cuda_device), 64,
+                                     lengths=lengths.to(cuda_device))
+    assert fa_ops.LAUNCHES == before + cfg.n_layers
+    ref, rcache = transformer.prefill(model.cpu(), cfg, toks, 64,
+                                      lengths=lengths)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+    assert torch.equal(cache["kv_pos"].cpu(), rcache["kv_pos"])
