@@ -1,16 +1,19 @@
-"""Drive the PyTorch/CUDA port's two serving paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
   1. env      — the card (name and power limit, from nvidia-smi), the torch,
-                CUDA and nvcc versions, and the time to build the kernels
-                from ``src/repro_torch/csrc`` (one nvcc each, in parallel).
+                CUDA and nvcc versions, the time to build the kernels from
+                ``src/repro_torch/csrc`` (one nvcc each, in parallel) and
+                ptxas's registers, spills and static shared memory per
+                kernel function (``nvcc --resource-usage``, alongside).
   2. kernel   — the lockstep-advance kernel (B1) against its plain PyTorch
                 version: 16 envs x 1,024 experts (16,384 rows, R=W=5) over
-                100 consecutive advances per admission order, with arrivals
+                100 consecutive advances per admission order, every other
+                one held against the plain loop, with arrivals
                 pushed between advances, ragged caps, about 1/8 of experts
                 down, admission floors on some rows and a t_next per env.
                 Queues, clocks and wait-valid bits must be bit-exact,
@@ -32,24 +35,52 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 PyTorch's scaled_dot_product_attention, beside the bound:
                 their time on the card with the launches queued ahead, and
                 the call's time (host launch time included).
-  6. lm_serve — the LM path, ``launch/serve.py`` at the published widths in
+  6. decode_attn — the decode-attention kernel (B3) against its plain
+                version at the full-attention experts' heads (qwen, starcoder2,
+                dbrx), 4 sequences of ragged lengths over the serving cache
+                (S=192, read in its (B, S, KV, dh) layout) and starcoder2's
+                over S=4,096; bf16 2e-2, float32 2e-5.  Times as in 5, with
+                scaled_dot_product_attention under a length mask as the
+                library call.
+  7. moe_gemm — the grouped SwiGLU (B4b) and grouped GEMM (B4a) kernels
+                against their plain versions at dbrx's expert shapes (16 x
+                6144 x 10752) for capacities 4 (a decode), 5, 10, 20 and 40
+                (prefill buckets 16 to 128); each element within atol + rtol * |ref|,
+                both 2e-2 in bf16 and 2e-5 in float32.  Times against the
+                weight-stream bound and torch.bmm (B4a; for B4b two bmm and
+                silu*mul, not one call).
+  8. lm_serve — the LM path, ``launch/serve.py`` at the published widths in
                 bf16 (``build_cluster(reduce=False)``): per expert, a prefill
-                through B2 against the same prefill with the plain attention
-                on the same weights; a reduced cluster on the card against
-                the same on the CPU, token for token; then, counted, the
-                calibration (k1, k2) and two request streams (SQF, RR; 30
-                requests at 20/s, L = 30 ms).  B2 must launch n_layers times
-                per prefill.  Then a profiled window per expert.
-  7. kernels  — the kernel table line.
+                and a decode step through the kernels against the same
+                through their plain versions on the same weights; a reduced
+                cluster on the card against the same on the CPU, token for
+                token; then, counted, the calibration (k1, k2) and two
+                request streams (SQF, RR; 30 requests at 20/s, L = 30 ms).
+                B2 must launch n_layers times per prefill, B3 n_layers times
+                per decode of a full-attention expert.  Then a profiled
+                window per expert.
+  9. lm_moe   — the same for a mixed cluster with one MoE expert:
+                qwen1.5-0.5b, h2o-danube-3-4b and dbrx-132b at its published
+                widths cut to 4 of its 40 layers (``reduced``), after the
+                dense cluster is freed.  B4b and B4a must launch once per MoE
+                layer per prefill and per decode, B3 as in 8; the plain
+                run of the kernels-vs-plain check replays the kernel run's
+                expert routing (the free-running difference is reported).
+                Then a profiled window of the dbrx expert.
+ 10. kernels  — the kernel table line; each kernel's launches are those of
+                the counted main paths (3 for B1, 8 and 9 for the others).
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a result when CUDA is unavailable or the package is missing.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +95,36 @@ FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_report(build, name: str) -> dict:
+    """ptxas's registers, spills (bytes) and static shared memory per kernel
+    function of ``csrc/<name>.cu``, from ``nvcc --resource-usage`` with the
+    kernel's own flags (a cubin beside the built libraries)."""
+    cubin = build.BUILD_DIR / f"{name}.resources.cubin"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in build.flags(name)
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    text = subprocess.run(
+        [build.nvcc(), *flags, "--resource-usage", "-cubin", "-o", str(cubin),
+         str(build.CSRC / f"{name}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, check=True, timeout=600).stdout
+    out, func = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            func = out.setdefault(m.group(1), {})
+        elif func is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                func["spill_stores"], func["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                func["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                func["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def gpu_line() -> str:
@@ -181,7 +242,7 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
                              admit_min).reshape(-1, layout.PAR_CH)
     rows = n_envs * n
     max_err, final, timing = 0.0, {}, None
-    launches0 = ops.LAUNCHES
+    compared = 0
     for order in engine.ADMIT_ORDERS:
         rng = np.random.default_rng(1)
         q = layout.empty_queues(n, r, w, batch=n_envs, device=dev)
@@ -199,24 +260,28 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
             args = tuple(a.contiguous() for a in args)
             got = ops.lockstep_advance(*args, latency_L=lat_l,
                                        admit_order=order)
-            counts = {}
-            ref = engine.advance_shard(*args, latency_L=lat_l,
-                                       admit_order=order, counts=counts)
-            torch.cuda.synchronize()
-            for name, a, b in zip(("run_i", "run_f", "wait_valid", "clocks"),
-                                  got[:4], ref[:4]):
-                if not torch.equal(a, b):
-                    bad = int((a != b).sum())
-                    raise AssertionError(f"{order} step {k}: {name} differs "
-                                         f"from the plain version in {bad} "
-                                         f"elements")
-            for i, key in enumerate(engine.ACC_KEYS):
-                a, b = got[4][:, i], ref[4][:, i]
-                if key in ("done", "viol"):
-                    assert torch.equal(a, b), (order, k, key)
-                else:
-                    torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
-                max_err = max(max_err, float((a - b).abs().max()))
+            # every other advance against the plain loop, whose ~0.3 s per
+            # call sets this phase's time; the kernel runs every advance
+            if k % 2 == 0:
+                compared += 1
+                counts = {}
+                ref = engine.advance_shard(*args, latency_L=lat_l,
+                                           admit_order=order, counts=counts)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("run_i", "run_f", "wait_valid",
+                                       "clocks"), got[:4], ref[:4]):
+                    if not torch.equal(a, b):
+                        bad = int((a != b).sum())
+                        raise AssertionError(f"{order} step {k}: {name} "
+                                             f"differs from the plain version "
+                                             f"in {bad} elements")
+                for i, key in enumerate(engine.ACC_KEYS):
+                    a, b = got[4][:, i], ref[4][:, i]
+                    if key in ("done", "viol"):
+                        assert torch.equal(a, b), (order, k, key)
+                    else:
+                        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+                    max_err = max(max_err, float((a - b).abs().max()))
             if k == steps // 2 and order == "fifo":
                 done = int(ref[4][:, engine.ACC_KEYS.index("done")].sum())
                 timing = (args, counts["turns"], done)
@@ -233,7 +298,6 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
         assert final[order]["running"] > 0, order
 
     args, turns, done = timing
-    compared = ops.LAUNCHES - launches0
     ms = cuda_ms(lambda: ops.lockstep_advance(*args, latency_L=lat_l,
                                               admit_order="fifo"), 50)
     plain_ms = cuda_ms(lambda: engine.advance_shard(
@@ -482,57 +546,336 @@ def flash_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the LM experts at full width
+# Phase 6: the decode-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (label, H, KV, dh, S): the full-attention experts' heads at the serving
+# cache (4 slots x 192 positions), and starcoder2's over a long cache
+DECODE_CASES = [("qwen1.5-0.5b", 16, 16, 64, 192),
+                ("starcoder2-15b", 48, 4, 128, 192),
+                ("dbrx-132b", 48, 8, 128, 192),
+                ("starcoder2-15b", 48, 4, 128, 4096)]
+DECODE_LINE_CASE = ("dbrx-132b", 192, "bfloat16")   # the kernels line's row
+
+
+def sdpa_decode(q, k, v, lengths):
+    """PyTorch's fused attention with a boolean length mask on the same
+    inputs: the yardstick, never called by the port."""
+    import torch.nn.functional as F
+    s = k.shape[2]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                          enable_gqa=True)[:, :, 0]
+
+
+def decode_attn_phase(dev):
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+
+    rows = []
+    b = 4
+    for label, h, kv, dh, s in DECODE_CASES:
+        gen = torch.Generator(device=dev).manual_seed(s * h + dh)
+        lengths = torch.as_tensor(np.random.default_rng(s + h).integers(
+            1, s + 1, b), dtype=torch.int32)
+        lengths[-1] = s
+        lengths = lengths.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, h, dh), generator=gen, device=dev).to(dtype)
+            # the serving cache's layout (B, S, KV, dh), read as (B, KV, S, dh)
+            cache = torch.randn((2, b, s, kv, dh), generator=gen,
+                                device=dev).to(dtype)
+            k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+            got = ops.decode_attn(q, k, v, lengths)
+            ref = decode_attention_ref(q, k, v, lengths)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            if not err <= FLASH_TOL[dtype]:
+                raise AssertionError(f"decode_attn {label} S={s} {dtype}: max "
+                                     f"abs error {err}")
+            lib_err = float((sdpa_decode(q, k, v, lengths).float()
+                             - ref.float()).abs().max())
+            seen = int(lengths.sum())
+            size = q.element_size()
+            nbytes = (2 * seen * kv * dh + 2 * b * h * dh) * size + 4 * b
+            flops = 4 * h * dh * seen
+            rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / rate * 1e3
+            fns = {"": lambda: ops.decode_attn(q, k, v, lengths),
+                   "plain_": lambda: decode_attention_ref(q, k, v, lengths),
+                   "library_": lambda: sdpa_decode(q, k, v, lengths)}
+            row = {"phase": "decode_attn", "expert_heads": label, "B": b,
+                   "H": h, "KV": kv, "dh": dh, "S": s,
+                   "lengths": lengths.tolist(),
+                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                   "tol": FLASH_TOL[dtype], "library_max_abs_err": lib_err}
+            for key, fn in fns.items():
+                row[f"{key}ms"] = device_ms(fn, 50)
+                row[f"{key}call_ms"] = cuda_ms(fn, 20)
+            row.update({"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                     else "operations")})
+            emit(row)
+            rows.append(row)
+            del q, cache, k, v, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the grouped expert GEMM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# dbrx's expert FFN: E=16, d=6144, f=10752; C=4 is a decode of 4 slots, 5,
+# 10, 20 and 40 the prefill buckets 16 to 128 (``moe._capacity``).  With weights
+# at 1/sqrt(fan-in) the outputs reach ~20 (products of two unit normals),
+# where one bf16 rounding step is 2^-3, so each element is held to atol +
+# rtol * |ref| (both 2e-2 in bf16, 2e-5 in f32)
+MOE_E, MOE_D, MOE_F = 16, 6144, 10752
+MOE_CAPACITIES = (4, 5, 10, 20, 40)
+MOE_LINE_CASE = (4, "bfloat16")                      # the kernels line's rows
+
+
+def moe_gemm_phase(dev):
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
+
+    rows = []
+    e, d, f = MOE_E, MOE_D, MOE_F
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        # the scale of a trained layer's weights: outputs of order 1
+        wg, wu = ((torch.randn((e, d, f), generator=gen, device=dev)
+                   / d ** 0.5).to(dtype) for _ in range(2))
+        wd = (torch.randn((e, f, d), generator=gen, device=dev)
+              / f ** 0.5).to(dtype)
+        size = wg.element_size()
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        for c in MOE_CAPACITIES:
+            x = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
+            h = ops.expert_swiglu(x, wg, wu)
+            y = ops.expert_gemm(h, wd)
+            h_ref = grouped_swiglu_ref(x, wg, wu)
+            y_ref = grouped_gemm_ref(h, wd)
+            torch.cuda.synchronize()
+            cases = {
+                "grouped_swiglu": (h, h_ref, 2 * e * d * f + e * c * (d + f),
+                                   4 * e * c * d * f,
+                                   {"": lambda: ops.expert_swiglu(x, wg, wu),
+                                    "plain_": lambda: grouped_swiglu_ref(x, wg, wu),
+                                    "library_composite_": lambda: torch.nn.functional.silu(
+                                        torch.bmm(x, wg)) * torch.bmm(x, wu)}),
+                "grouped_gemm": (y, y_ref, e * f * d + e * c * (f + d),
+                                 2 * e * c * f * d,
+                                 {"": lambda: ops.expert_gemm(h, wd),
+                                  "plain_": lambda: grouped_gemm_ref(h, wd),
+                                  "library_": lambda: torch.bmm(h, wd)})}
+            for name, (got, ref, n_el, flops, fns) in cases.items():
+                tol = FLASH_TOL[dtype]
+                diff = (got.float() - ref.float()).abs()
+                err = float(diff.max())
+                top = float(ref.float().abs().max())
+                over = float((diff / (tol + tol * ref.float().abs())).max())
+                if not over <= 1.0:
+                    raise AssertionError(f"{name} C={c} {dtype}: error {over}x "
+                                         f"its limit {tol} + {tol} |ref|")
+                nbytes = n_el * size
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = flops / rate * 1e3
+                row = {"phase": "moe_gemm", "name": name, "E": e, "C": c,
+                       "D": d, "F": f, "dtype": str(dtype).split(".")[-1],
+                       "max_abs_err": err, "atol": tol, "rtol": tol,
+                       "err_over_limit": over, "max_abs_out": top}
+                for key, fn in fns.items():
+                    row[f"{key}ms"] = device_ms(fn, 10)
+                if "library_ms" not in row:
+                    row["library_ms"] = None
+                    row["library_composite"] = ("two torch.bmm and silu*mul: "
+                                                "not one call")
+                row.update({"bytes": nbytes, "flops": flops,
+                            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                            "bound_ms": max(bytes_ms, ops_ms),
+                            "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                         else "operations")})
+                emit(row)
+                rows.append(row)
+            del x, h, y, h_ref, y_ref, cases
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: the LM experts at full width
 # ---------------------------------------------------------------------------
 
 STREAM = dict(n_requests=30, rate=20.0, latency_L=0.030)
-# B2 and the plain attention differ only in float32 summation order inside
-# attention, which flips a few bf16 roundings of its output per layer; the
-# logits (bf16) of the two prefills must stay within 2^-4 of the largest
-# logit (8-16 bf16 ulps of it), and give the same greedy token
+# a kernel and its plain version differ only in float32 summation order,
+# which flips a few bf16 roundings of its output per layer; the logits
+# (bf16) of the two paths must stay within 2^-4 of the largest logit (8-16
+# bf16 ulps of it), and give the same greedy token
 LOGIT_REL_TOL = 2.0 ** -4
 
 
-def prefill_plain_vs_kernel(srv, rng):
-    """One full-width prefill through B2 and the same through the plain
-    attention (``transformer.flash_attn`` swapped for its plain version),
-    same weights, same prompt."""
+def counters() -> dict:
+    """Each LM kernel's launch count so far."""
+    from repro_torch.kernels.decode_attn import ops as b3
+    from repro_torch.kernels.flash_attn import ops as b2
+    from repro_torch.kernels.moe_gemm import ops as b4
+    from repro_torch.kernels.lockstep_advance import ops as b1
+    return {"lockstep_advance": b1.LAUNCHES, "flash_attn": b2.LAUNCHES,
+            "decode_attn": b3.LAUNCHES, "grouped_swiglu": b4.SWIGLU_LAUNCHES,
+            "grouped_gemm": b4.GEMM_LAUNCHES}
+
+
+def reset_counters() -> None:
+    from repro_torch.kernels.decode_attn import ops as b3
+    from repro_torch.kernels.flash_attn import ops as b2
+    from repro_torch.kernels.lockstep_advance import ops as b1
+    from repro_torch.kernels.moe_gemm import ops as b4
+    b1.LAUNCHES = b2.LAUNCHES = b3.LAUNCHES = 0
+    b4.SWIGLU_LAUNCHES = b4.GEMM_LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the LM path swapped for its plain version, through
+    the names the model modules call them by."""
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
+    from repro_torch.models import moe, transformer
+
+    swaps = [(transformer, "flash_attn", attention_ref),
+             (transformer, "decode_attn", decode_attention_ref),
+             (moe, "expert_swiglu", grouped_swiglu_ref),
+             (moe, "expert_gemm", grouped_gemm_ref)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    before = counters()
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    assert counters() == before, (counters(), before)
+
+
+@contextlib.contextmanager
+def moe_routing(replay=None):
+    """Record the expert ids of every MoE routing call of a run (a list,
+    one (T, k) tensor per call, in call order), or replay recorded ones:
+    ids from the record, gates this run's own router probabilities at
+    those ids, normalised as ``route_topk`` does."""
+    from repro_torch.models import moe
+
+    real = moe.route_topk
+    calls = []
+
+    def route(logits, top_k):
+        gates, ids, probs = real(logits, top_k)
+        if replay is not None:
+            ids = replay[len(calls)]
+            g = torch.gather(probs, 1, ids.long())
+            gates = g / g.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        calls.append(ids)
+        return gates, ids, probs
+
+    moe.route_topk = route
+    try:
+        yield calls
+    finally:
+        moe.route_topk = real
+
+
+def expected_launches(servers) -> dict:
+    """What the main path must have launched, from the servers' iteration
+    counts: B2 n_layers per prefill; B3 n_layers per decode of a
+    full-attention expert; B4a and B4b once per MoE layer per prefill and
+    per decode; B1 none."""
+    out = dict.fromkeys(("lockstep_advance", "flash_attn", "decode_attn",
+                         "grouped_swiglu", "grouped_gemm"), 0)
+    for s in servers:
+        cfg, it = s.cfg, s.iterations
+        out["flash_attn"] += it["prefill"] * cfg.n_layers
+        if cfg.attention == "full":
+            out["decode_attn"] += it["decode"] * cfg.n_layers
+        if cfg.family == "moe":
+            n_moe = cfg.n_layers - cfg.n_dense_layers
+            out["grouped_swiglu"] += (it["prefill"] + it["decode"]) * n_moe
+            out["grouped_gemm"] += (it["prefill"] + it["decode"]) * n_moe
+    return out
+
+
+def plain_vs_kernel(srv, rng, phase):
+    """One full-width prefill (prompt 100, bucket 128) and one decode step
+    from its cache through the kernels, and the same through their plain
+    versions, same weights, same tokens.
+
+    An MoE layer's routing is discrete: where a token's top-k or an
+    expert's capacity is near a tie, one bf16 rounding of difference
+    between a kernel and its plain version sends the token elsewhere, and
+    the logits then differ by a whole expert's contribution.  So the plain
+    run replays the kernel run's expert ids (its gates are its own router
+    probabilities at those ids), and the logits are held to the tolerance
+    under the same routing; the free-running plain run is reported beside
+    it, with the number of (layer, token) routings that differ.  Without
+    an MoE layer the two plain runs are the same."""
     from repro_torch.models import transformer
 
     p = 100
     toks = torch.zeros((1, 128), dtype=torch.int32, device=srv.device)
     toks[0, :p] = torch.as_tensor(rng.integers(2, srv.cfg.vocab, p))
+    nxt = torch.as_tensor(rng.integers(2, srv.cfg.vocab, 1), dtype=torch.int32,
+                          device=srv.device)
     lengths = torch.tensor([p], dtype=torch.int32, device=srv.device)
-    got, _ = transformer.prefill(srv.params, srv.cfg, toks, srv.max_len,
-                                 lengths=lengths)
-    kernel_fn = transformer.flash_attn
-    transformer.flash_attn = attention_ref
-    try:
-        ref, _ = transformer.prefill(srv.params, srv.cfg, toks, srv.max_len,
-                                     lengths=lengths)
-    finally:
-        transformer.flash_attn = kernel_fn
-    got, ref = got.float()[0, :srv.cfg.vocab], ref.float()[0, :srv.cfg.vocab]
-    err = float((got - ref).abs().max())
-    scale = float(ref.abs().max())
-    top2 = torch.topk(ref, 2).values
-    row = {"phase": "lm_serve", "check": "prefill_b2_vs_plain",
-           "expert": srv.name, "prompt": p, "bucket": 128,
-           "max_abs_logit_diff": err, "max_abs_logit": scale,
-           "tol": LOGIT_REL_TOL * scale,
-           "greedy": [int(got.argmax()), int(ref.argmax())],
-           "plain_top2_margin": float(top2[0] - top2[1]),
-           "finite": bool(torch.isfinite(got).all())}
-    emit(row)
-    assert row["finite"], row
-    assert err <= LOGIT_REL_TOL * scale, row
-    assert row["greedy"][0] == row["greedy"][1], row
+
+    def run():
+        pre, cache = transformer.prefill(srv.params, srv.cfg, toks,
+                                         srv.max_len, lengths=lengths)
+        dec, _ = transformer.decode_step(srv.params, srv.cfg, cache, nxt)
+        return pre, dec
+
+    with moe_routing() as ids:
+        got = run()
+    with plain_kernels(), moe_routing() as free_ids:
+        free = run()
+    with plain_kernels(), moe_routing(replay=ids):
+        ref = run()
+    n_calls = len(ids) // 2                         # prefill's, then decode's
+    for i, (step, a, b, c) in enumerate(zip(("prefill", "decode"), got, ref,
+                                            free)):
+        a, b, c = (t.float()[0, :srv.cfg.vocab] for t in (a, b, c))
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        top2 = torch.topk(b, 2).values
+        calls = range(i * n_calls, (i + 1) * n_calls)
+        row = {"phase": phase, "check": f"{step}_kernels_vs_plain",
+               "expert": srv.name, "prompt": p, "bucket": 128,
+               "max_abs_logit_diff": err, "max_abs_logit": scale,
+               "tol": LOGIT_REL_TOL * scale,
+               "greedy": [int(a.argmax()), int(b.argmax())],
+               "plain_top2_margin": float(top2[0] - top2[1]),
+               "finite": bool(torch.isfinite(a).all()),
+               "moe_routing_calls": n_calls,
+               "free_routing_differs": sum(
+                   int((ids[j] != free_ids[j]).any(dim=-1).sum())
+                   for j in calls),
+               "free_max_abs_logit_diff": float((a - c).abs().max()),
+               "free_greedy": int(c.argmax())}
+        emit(row)
+        assert row["finite"], row
+        assert err <= LOGIT_REL_TOL * scale, row
+        assert row["greedy"][0] == row["greedy"][1], row
 
 
-def small_cluster_matches_cpu(dev):
-    """A reduced cluster on the card (B2, float32) against the same weights
-    on the CPU (plain attention): the same requests give the same
+def small_cluster_matches_cpu(dev, experts, phase):
+    """A reduced cluster on the card (kernels, float32) against the same
+    weights on the CPU (plain versions): the same requests give the same
     iterations and tokens."""
     from repro_torch.env.serve_engine import ExpertServer, Request
     from repro_torch.launch import serve
@@ -541,7 +884,7 @@ def small_cluster_matches_cpu(dev):
     rng = np.random.default_rng(3)
     prompts = [(rng.integers(2, 250, p), n)
                for p, n in ((12, 5), (30, 7), (100, 9), (9, 3), (61, 6))]
-    for srv in serve.build_cluster(serve.DEFAULT_EXPERTS, slots=2, device=dev):
+    for srv in serve.build_cluster(experts, slots=2, device=dev):
         cpu_params = Transformer(srv.cfg, torch.device("cpu"))
         cpu_params.load_state_dict(srv.params.state_dict())
         cpu = ExpertServer(srv.name, srv.cfg, cpu_params, slots=2,
@@ -556,16 +899,17 @@ def small_cluster_matches_cpu(dev):
             runs.append(([(e["kind"], e["x"]) for e in server.iteration_log],
                          [(r.rid, r.generated) for r in done]))
         assert runs[0] == runs[1], (srv.name, runs)
-        emit({"phase": "lm_serve", "check": "reduced_card_vs_cpu",
+        emit({"phase": phase, "check": "reduced_card_vs_cpu",
               "expert": srv.name, "iterations": len(runs[0][0]),
               "tokens": sum(len(g) for _, g in runs[0][1]), "same": True})
 
 
-def lm_window(srv, n_prefill=3, n_decode=12):
+def lm_window(srv, phase, n_prefill=3, n_decode=12):
     """Where an iteration's time goes, per expert: synchronised wall time of
     prefills (bucket 128) and full decodes, then one window of the same
-    under torch.profiler for the device's busy time and B2's share (the
-    idle share sets that busy time against the unprofiled wall time)."""
+    under torch.profiler for the device's busy time and each LM kernel's
+    launches and time (the idle share sets that busy time against the
+    unprofiled wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(5)
@@ -591,74 +935,130 @@ def lm_window(srv, n_prefill=3, n_decode=12):
     kernels = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    b2 = [e.time_range.elapsed_us() for e in kernels
-          if "flash_attn" in e.name]
-    return {"phase": "lm_profile", "expert": srv.name,
-            "prefill_ms": pre_s / n_prefill * 1e3,
-            "decode_ms": dec_s / n_decode * 1e3,
-            "iterations_profiled": n_prefill + n_decode,
-            "device_busy_ms": busy_ms,
-            "wall_ms": (pre_s + dec_s) * 1e3,
-            "device_idle_share": 1.0 - busy_ms / ((pre_s + dec_s) * 1e3),
-            "kernels": len(kernels),
-            "b2_launches": len(b2),
-            "b2_ms_per_launch": float(np.mean(b2)) / 1e3 if b2 else None}
+    row = {"phase": phase, "expert": srv.name,
+           "prefill_ms": pre_s / n_prefill * 1e3,
+           "decode_ms": dec_s / n_decode * 1e3,
+           "iterations_profiled": n_prefill + n_decode,
+           "device_busy_ms": busy_ms,
+           "wall_ms": (pre_s + dec_s) * 1e3,
+           "device_idle_share": 1.0 - busy_ms / ((pre_s + dec_s) * 1e3),
+           "kernels": len(kernels),
+           "kernels_per_iteration": len(kernels) / (n_prefill + n_decode)}
+    for tag, needle in (("b2", "flash_attn"), ("b3", "decode_attn"),
+                        ("b4", "moe_gemm")):
+        us = [e.time_range.elapsed_us() for e in kernels if needle in e.name]
+        row[f"{tag}_launches"] = len(us)
+        row[f"{tag}_ms_per_launch"] = float(np.mean(us)) / 1e3 if us else None
+        row[f"{tag}_ms"] = sum(us) / 1e3
+    return row
+
+
+def serve_counted(servers, phase, n_warm=8):
+    """The main path, counted: every kernel count set to 0, calibration,
+    then two streams, then the counts read and held against the servers'
+    iterations."""
+    from repro_torch.launch import serve
+
+    reset_counters()
+    fits = serve.profile_cluster(servers, n_warm=n_warm)
+    streams = {router: serve.run_stream(servers, router=router, **STREAM)
+               for router in ("sqf", "rr")}
+    got = counters()
+    expected = expected_launches(servers)
+    assert got == expected, (got, expected)
+    for srv, fit in zip(servers, fits):
+        assert all(np.isfinite(v) for v in fit.values()), fit
+        emit({"phase": phase, "check": "calibrate", "expert": srv.name,
+              "n_layers": srv.cfg.n_layers, **fit})
+    for router, m in streams.items():
+        assert m["completed"] == STREAM["n_requests"], m
+        assert all(np.isfinite(v) for v in m.values()), m
+        emit({"phase": phase, "check": "stream", "router": router,
+              **STREAM, **m})
+    emit({"phase": phase, "check": "launches", "launches": got,
+          "expected": expected,
+          "iterations": {s.name: dict(s.iterations) for s in servers},
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    return got
+
+
+def build_line(servers, phase, t0, reduced):
+    emit({"phase": phase, "check": "build", "experts": [
+              {"name": s.name, "family": s.cfg.family,
+               "n_layers": s.cfg.n_layers,
+               "params": sum(p.numel() for p in s.params.parameters()),
+               "bytes": sum(p.numel() * p.element_size()
+                            for p in s.params.parameters()),
+               "dtype": s.cfg.param_dtype} for s in servers],
+          "reduced": reduced, "init_s": time.perf_counter() - t0,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
 
 
 def lm_serve_phase(dev):
-    from repro_torch.kernels.flash_attn import ops as fa_ops
-    from repro_torch.kernels.lockstep_advance import ops as b1_ops
+    """The dense trio (``serve.DEFAULT_EXPERTS``) at full width."""
     from repro_torch.launch import serve
 
-    small_cluster_matches_cpu(dev)
+    small_cluster_matches_cpu(dev, serve.DEFAULT_EXPERTS, "lm_serve")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     servers = serve.build_cluster(serve.DEFAULT_EXPERTS, reduce=False,
                                   device=dev)
     torch.cuda.synchronize()
-    emit({"phase": "lm_serve", "check": "build", "experts": [
-              {"name": s.name, "params": sum(p.numel()
-                                             for p in s.params.parameters()),
-               "bytes": sum(p.numel() * p.element_size()
-                            for p in s.params.parameters()),
-               "dtype": s.cfg.param_dtype} for s in servers],
-          "init_s": time.perf_counter() - t0,
-          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    build_line(servers, "lm_serve", t0, {})
     rng = np.random.default_rng(4)
     for srv in servers:
-        prefill_plain_vs_kernel(srv, rng)
-
-    # the main path, counted: calibration, then two streams
-    n_warm = 8
-    fa_ops.LAUNCHES = 0
-    b1_ops.LAUNCHES = 0
-    fits = serve.profile_cluster(servers, n_warm=n_warm)
-    streams = {router: serve.run_stream(servers, router=router, **STREAM)
-               for router in ("sqf", "rr")}
-    launches = fa_ops.LAUNCHES
-    prefills = [4 + n_warm + sum(e["kind"] == "prefill"
-                                 for e in s.iteration_log) for s in servers]
-    expected = sum(p * s.cfg.n_layers for p, s in zip(prefills, servers))
-    assert launches == expected, (launches, expected, prefills)
-    assert b1_ops.LAUNCHES == 0
-    for srv, fit in zip(servers, fits):
-        assert all(np.isfinite(v) for v in fit.values()), fit
-        emit({"phase": "lm_serve", "check": "calibrate", "expert": srv.name,
-              "n_layers": srv.cfg.n_layers, **fit})
-    for router, m in streams.items():
-        assert m["completed"] == STREAM["n_requests"], m
-        assert all(np.isfinite(v) for v in m.values()), m
-        emit({"phase": "lm_serve", "check": "stream", "router": router,
-              **STREAM, **m})
-    emit({"phase": "lm_serve", "check": "launches", "b2_launches": launches,
-          "prefills": prefills, "expected": expected,
-          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        plain_vs_kernel(srv, rng, "lm_serve")
+    launches = serve_counted(servers, "lm_serve")
     for srv in servers:
-        emit(lm_window(srv))
+        emit(lm_window(srv, "lm_profile"))
     del servers
     torch.cuda.empty_cache()
     return launches
+
+
+# the heterogeneous cluster with one MoE expert: dbrx at its published
+# widths, cut to 4 of its 40 layers (28.5 GB of bf16 weights), beside two
+# dense experts; ~37.4 GB in all
+MOE_EXPERTS = ["qwen1.5-0.5b", "h2o-danube-3-4b", "dbrx-132b"]
+MOE_DEPTH = 4
+
+
+def lm_moe_phase(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.env.serve_engine import ExpertServer
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+
+    small_cluster_matches_cpu(dev, ["dbrx-132b"], "lm_moe")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    servers = serve.build_cluster(MOE_EXPERTS[:2], reduce=False, device=dev)
+    full = get_config("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=MOE_DEPTH)
+    servers.append(ExpertServer(
+        f"expert2:{cfg.name}", cfg,
+        model_lib.init_params(cfg, seed=2, device=dev), slots=4, max_len=192))
+    torch.cuda.synchronize()
+    build_line(servers, "lm_moe", t0,
+               {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"})
+    rng = np.random.default_rng(6)
+    plain_vs_kernel(servers[-1], rng, "lm_moe")
+    launches = serve_counted(servers, "lm_moe")
+    emit(lm_window(servers[-1], "lm_profile"))
+    del servers
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_line(name, source, replaces, launches, row, library_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": library_ms}
 
 
 def main() -> int:
@@ -674,39 +1074,57 @@ def main() -> int:
     dev = torch.device("cuda")
     card = gpu_line()
     t0 = time.perf_counter()
-    build.build_all()
-    build_s = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(len(build.KERNEL_FLAGS)) as pool:
+        ptxas = pool.map(lambda name: ptxas_report(build, name),
+                         build.KERNEL_FLAGS)
+        build.build_all()
+        build_s = time.perf_counter() - t0
+        ptxas = dict(zip(build.KERNEL_FLAGS, ptxas))
     nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     emit({"phase": "env", "gpu": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "nvcc": nvcc.strip().splitlines()[-1], "build_s": build_s,
-          "device_count": torch.cuda.device_count()})
+          "device_count": torch.cuda.device_count(),
+          "ptxas": ptxas})
 
     kernel = kernel_phase(dev)
-    launches = serve_phase(dev, 6, 4, 750, 150, "padded", False, seed=0)
-    launches += serve_phase(dev, 1024, 16, 200, 100, "segments", True,
+    launches = serve_phase(dev, 6, 4, 750, 75, "padded", False, seed=0)
+    launches += serve_phase(dev, 1024, 16, 200, 50, "segments", True,
                             seed=0)
     flash = flash_phase(dev)
-    lm_launches = lm_serve_phase(dev)
+    decode = decode_attn_phase(dev)
+    gemm = moe_gemm_phase(dev)
+    dense = lm_serve_phase(dev)
+    mixed = lm_moe_phase(dev)
+    lm = {k: dense[k] + mixed[k] for k in dense}
 
-    line = next(r for r in flash
-                if (r["expert_heads"], r["S"], r["dtype"]) == LINE_CASE)
-    emit({"kernels": [{
-        "name": "lockstep_advance", "route": "cuda",
-        "source": "src/repro_torch/csrc/lockstep_advance.cu",
-        "replaces": "src/repro/kernels/lockstep_advance/kernel.py:223",
-        "launches": launches, "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
-        "library_ms": None}, {
-        "name": "flash_attn", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attn.cu",
-        "replaces": "src/repro/kernels/flash_attn/kernel.py:78",
-        "launches": lm_launches, "max_abs_err": line["max_abs_err"],
-        "ms": line["ms"], "plain_ms": line["plain_ms"],
-        "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
-        "library_ms": line["library_ms"]}]})
+    flash_row = next(r for r in flash
+                     if (r["expert_heads"], r["S"], r["dtype"]) == LINE_CASE)
+    decode_row = next(r for r in decode if (r["expert_heads"], r["S"],
+                                            r["dtype"]) == DECODE_LINE_CASE)
+    gemm_rows = {r["name"]: r for r in gemm
+                 if (r["C"], r["dtype"]) == MOE_LINE_CASE}
+    moe_src = "src/repro/kernels/moe_gemm/kernel.py"
+    emit({"kernels": [
+        {"name": "lockstep_advance", "route": "cuda",
+         "source": "src/repro_torch/csrc/lockstep_advance.cu",
+         "replaces": "src/repro/kernels/lockstep_advance/kernel.py:223",
+         "launches": launches, "max_abs_err": kernel["max_abs_err"],
+         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+         "library_ms": None},
+        kernel_line("flash_attn", "flash_attn.cu",
+                    "src/repro/kernels/flash_attn/kernel.py:78",
+                    lm["flash_attn"], flash_row, flash_row["library_ms"]),
+        kernel_line("decode_attn", "decode_attn.cu",
+                    "src/repro/kernels/decode_attn/kernel.py:73",
+                    lm["decode_attn"], decode_row, decode_row["library_ms"]),
+        kernel_line("grouped_gemm", "moe_gemm.cu", f"{moe_src}:65",
+                    lm["grouped_gemm"], gemm_rows["grouped_gemm"],
+                    gemm_rows["grouped_gemm"]["library_ms"]),
+        kernel_line("grouped_swiglu", "moe_gemm.cu", f"{moe_src}:88",
+                    lm["grouped_swiglu"], gemm_rows["grouped_swiglu"], None)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -53,11 +53,16 @@ def _bucket(n: int, buckets=(16, 32, 64, 128, 256)) -> int:
 
 class ExpertServer:
     """One edge expert: a model instance + slot-based continuous batching.
-    The cache lives on the parameters' device; families other than dense
-    raise (``model.init_cache``)."""
+    The cache lives on the parameters' device.  It serves the LM families
+    the reference's engine serves, dense and MoE, and refuses the others as
+    the reference does.  ``iterations`` counts prefills and decodes over the
+    server's life (the iteration log is cleared by calibration)."""
 
     def __init__(self, name: str, cfg: ModelConfig, params, *,
                  slots: int = 4, max_len: int = 256, eos_token: int = 1):
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"{cfg.name}: the engine serves the dense and MoE "
+                             f"LM families, not {cfg.family!r}")
         self.name = name
         self.cfg = cfg
         self.params = params
@@ -71,6 +76,7 @@ class ExpertServer:
         self.waiting: collections.deque = collections.deque()
         self.cur_tokens = np.zeros((slots,), np.int32)
         self.iteration_log: List[dict] = []  # (kind, p or total_tokens, dt)
+        self.iterations = {"prefill": 0, "decode": 0}
 
     def _prefill_one(self, tokens: torch.Tensor, length: int, slot: int
                      ) -> torch.Tensor:
@@ -135,6 +141,7 @@ class ExpertServer:
             self.cur_tokens[slot] = first
             self.iteration_log.append(
                 {"kind": "prefill", "x": p, "dt": dt, "expert": self.name})
+            self.iterations["prefill"] += 1
             return finished
         if self.active:
             tokens = torch.as_tensor(self.cur_tokens, device=self.device)
@@ -147,6 +154,7 @@ class ExpertServer:
             self.iteration_log.append(
                 {"kind": "decode", "x": total_tokens, "dt": dt,
                  "expert": self.name})
+            self.iterations["decode"] += 1
             for rid in list(self.active):
                 req = self.active[rid]
                 tok = int(nxt[req.slot])

@@ -1,9 +1,12 @@
 """Carry LM weights across from the reference.
 
-The reference keeps a dense model's layers stacked on a leading axis
-(``params["layers"]["attn"]["wq"]`` is ``(n_layers, d, H, dh)``); the port
-has one ``Block`` per layer with the same names and shapes, so carrying
-them across is a copy.
+The reference keeps a model's layers stacked on a leading axis
+(``params["layers"]["attn"]["wq"]`` is ``(n_layers, d, H, dh)``; an MoE
+model has a ``dense_layers`` stack of ``n_dense_layers`` and a
+``moe_layers`` stack of the rest); the port has one ``Block`` per layer in
+execution order, with the same names and shapes, so carrying them across
+is a copy: ``layers[i]`` and ``dense_layers[i]`` go to ``layers.i``,
+``moe_layers[j]`` to ``layers.(n_dense + j)``.
 """
 from __future__ import annotations
 
@@ -28,12 +31,14 @@ def lm_params_from_numpy(tree: dict, cfg, device=None) -> Transformer:
     default), in ``cfg.param_dtype``.  Raises on a missing, extra or
     misshapen leaf."""
     model = Transformer(cfg, resolve(device))
+    offsets = {"layers": 0, "dense_layers": 0, "moe_layers": model.n_dense}
     state = {}
     for name, value in _flatten(tree):
         value = torch.from_numpy(np.array(value, np.float32))
-        if name.startswith("layers."):
-            for i in range(cfg.n_layers):
-                state[f"layers.{i}.{name[len('layers.'):]}"] = value[i]
+        stack, _, leaf = name.partition(".")
+        if stack in offsets:
+            for i in range(value.shape[0]):
+                state[f"layers.{offsets[stack] + i}.{leaf}"] = value[i]
         else:
             state[name] = value
     model.load_state_dict(state, strict=True)

@@ -6,8 +6,8 @@
     prefill(params, cfg, tokens, max_len, lengths=) -> (logits, cache)
     decode_step(params, cfg, cache, token)          -> (logits, cache)
 
-Only the dense family is ported; the others raise (ROADMAP queue A, items
-5-6).  ``lm_loss`` waits for training.
+The dense and MoE families (both ``transformer``) are ported; the others
+raise (ROADMAP queue A, item 5).  ``lm_loss`` waits for training.
 """
 from __future__ import annotations
 
@@ -15,11 +15,11 @@ from repro_torch.models import transformer
 
 
 def _family_mod(cfg):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return transformer
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r} is not ported; the port serves the "
-        "dense family (MoE, RWKV6, RG-LRU and enc-dec are ROADMAP queue A)")
+        "dense and MoE families (RWKV6, RG-LRU and enc-dec are ROADMAP queue A)")
 
 
 def init_params(cfg, seed: int = 0, device=None):

@@ -1,20 +1,31 @@
-"""Decoder-only transformer LM, dense family (port of
+"""Decoder-only transformer LM, dense and MoE families (port of
 ``repro/models/transformer.py``: starcoder2, granite, h2o-danube, qwen1.5,
-chameleon).
+chameleon, dbrx, kimi-k2).
 
 Parameters live in ``nn.Module``s with the reference's names and shapes
 (``wq (d, H, dh)``, ``wo (H, dh, d)``, ...), one ``Block`` per layer where
 the reference stacks layers on a leading axis and scans them; the
-functions keep the reference's names and contracts.  Prefill attention
-always goes through the flash-attention kernel
+functions keep the reference's names and contracts.  ``Transformer.layers``
+is in execution order: an MoE model's ``n_dense_layers`` dense blocks
+first, then its MoE blocks (the reference's ``dense_layers`` and
+``moe_layers`` stacks), which is also the cache's layer order.  An MoE
+block's FFN is ``models/moe.py`` (the grouped expert kernels B4b, B4a).
+
+Prefill attention always goes through the flash-attention kernel
 (``kernels/flash_attn/ops.py``), the reference's ``attn_impl="pallas"``
-path; decode attention is plain PyTorch, as in the reference.
+path.  Decode attention is chosen by the configuration, here and nowhere
+else (``Block.decode``): under full attention through the decode-attention
+kernel (``kernels/decode_attn/ops.py``) with ``lengths = min(pos+1, S)``,
+because such a cache is filled in order (see ``decode_step``); under a
+sliding window the ring cache is not a prefix of positions, so it stays
+the plain ``layers.decode_attention`` over ``kv_pos``, as in the
+reference.
 
 The KV cache is a dict with the reference's layout (``k``/``v`` of
 ``(n_layers, B, S, KV, dh)``, ``kv_pos (B, S)``, ``pos (B,)``), but
 ``decode_step`` updates it in place and returns the same dict, where the
-reference builds a new one.  The MoE family is not ported yet (ROADMAP
-queue A).
+reference builds a new one.  The other families are not ported yet
+(ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -24,15 +35,16 @@ import torch
 import torch.nn as nn
 
 from repro_torch.device import generator, resolve
+from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.flash_attn.ops import flash_attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the port serves "
-            "the dense family (MoE serving is ROADMAP queue A)")
+            f"{cfg.name}: family {cfg.family!r} is not ported; the transformer "
+            "covers the dense and MoE families (the others are ROADMAP queue A)")
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -64,45 +76,69 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One pre-norm layer: attention then SwiGLU MLP, each residual."""
+    """One pre-norm layer: attention then the FFN (a SwiGLU MLP, or the MoE
+    layer when ``use_moe``), each residual."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_moe = use_moe
         self.attn_norm = _param(cfg.d_model, dtype=dtype, device=device)
         self.mlp_norm = _param(cfg.d_model, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        if use_moe:
+            self.moe = moe_lib.MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg, dtype, device)
+
+    def ffn(self, y):
+        """y (B, S, d) -> (out (B, S, d), aux loss); the MoE layer routes
+        the B*S tokens together, as the reference does."""
+        if not self.use_moe:
+            return (mlp_block(self.mlp, self.cfg, y),
+                    torch.zeros((), device=y.device))
+        b, s, d = y.shape
+        out, aux = moe_lib.moe_block(self.moe, y.reshape(b * s, d), self.cfg)
+        return out.reshape(b, s, d), aux
 
     def forward(self, x, positions):
-        """Whole sequences (forward, prefill): x (B, S, d) -> (x, k, v)."""
+        """Whole sequences (forward, prefill): x (B, S, d) -> (x, k, v,
+        aux loss)."""
         cfg = self.cfg
         h, k, v = attention_full(self.attn, cfg,
                                  layers.rms_norm(x, self.attn_norm, cfg.norm_eps),
                                  positions)
         x = x + h
-        y = layers.rms_norm(x, self.mlp_norm, cfg.norm_eps)
-        return x + mlp_block(self.mlp, cfg, y), k, v
+        out, aux = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps))
+        return x + out, k, v, aux
 
-    def decode(self, x, pos, slot, k_cache, v_cache, kv_pos):
+    def decode(self, x, pos, slot, k_cache, v_cache, kv_pos, lengths):
         """One token per sequence: x (B, 1, d).  The token's K/V go into this
         layer's cache (B, S, KV, dh) at ``slot``, in place, before attending
-        (self-attention includes the current token)."""
+        (self-attention includes the current token).  Full attention reads
+        the cache's prefix of ``lengths`` slots through the decode-attention
+        kernel; a sliding window reads ``kv_pos`` (``decode_step``)."""
         cfg = self.cfg
         bidx = torch.arange(x.shape[0], device=x.device)
         hn = layers.rms_norm(x, self.attn_norm, cfg.norm_eps)
         q, k, v = _qkv(self.attn, cfg, hn, pos[:, None])
         k_cache[bidx, slot] = k[:, 0]
         v_cache[bidx, slot] = v[:, 0]
-        o = layers.decode_attention(q[:, 0], k_cache, v_cache, kv_pos, pos)
+        if cfg.attention == "full":
+            o = decode_attn(q[:, 0].contiguous(), k_cache.transpose(1, 2),
+                            v_cache.transpose(1, 2), lengths)
+        else:
+            o = layers.decode_attention(q[:, 0], k_cache, v_cache, kv_pos, pos)
         x = x + torch.einsum("bhe,hed->bd", o, self.attn.wo)[:, None]
-        y = layers.rms_norm(x, self.mlp_norm, cfg.norm_eps)
-        return x + mlp_block(self.mlp, cfg, y)
+        out, _ = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps))
+        return x + out
 
 
 class Transformer(nn.Module):
-    """The parameters of one dense LM, uninitialised (``init_params`` draws
-    them, ``io.lm_params_from_numpy`` copies the reference's)."""
+    """The parameters of one dense or MoE LM, uninitialised
+    (``init_params`` draws them, ``io.lm_params_from_numpy`` copies the
+    reference's).  ``layers`` is in execution order; an MoE model's first
+    ``n_dense`` are dense."""
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -114,8 +150,11 @@ class Transformer(nn.Module):
         self.register_parameter(
             "lm_head", None if cfg.tie_embeddings
             else _param(d, vp, dtype=dtype, device=device))
-        self.layers = nn.ModuleList(Block(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        self.n_dense = (cfg.n_dense_layers if cfg.family == "moe"
+                        else cfg.n_layers)
+        self.layers = nn.ModuleList(Block(cfg, dtype, device,
+                                          use_moe=i >= self.n_dense)
+                                    for i in range(cfg.n_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -125,10 +164,11 @@ class Transformer(nn.Module):
 
 def init_params(cfg, seed: int = 0, device=None) -> Transformer:
     """Random weights as the reference draws them (normal, std
-    ``scale/sqrt(shape[0])``, output projections scaled by
-    ``1/sqrt(2 n_layers)``, embeddings 0.02, norms and biases 0), from a
-    ``torch.Generator`` seeded with ``seed``, on ``device`` (CUDA by
-    default).  Each tensor is drawn in float32 and cast to the parameter
+    ``scale/sqrt(shape[0])``, so an expert weight ``(E, d, f)`` has std
+    ``1/sqrt(E)``; attention and dense-MLP output projections scaled by
+    ``1/sqrt(2 n_layers)``, the experts' ``w_down`` not; embeddings 0.02,
+    norms and biases 0), from a ``torch.Generator`` seeded with ``seed``,
+    on ``device`` (CUDA by default).  Each tensor is drawn in float32 and cast to the parameter
     dtype on its own, so no float32 copy of the whole model ever exists."""
     dev = resolve(device)
     model = Transformer(cfg, dev)
@@ -138,7 +178,8 @@ def init_params(cfg, seed: int = 0, device=None) -> Transformer:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "embed":
             p.copy_(layers.embed_init(p.shape, gen))
-        elif leaf in ("wq", "wk", "wv", "w_gate", "w_up", "lm_head"):
+        elif leaf in ("wq", "wk", "wv", "w_gate", "w_up", "lm_head") \
+                or ".moe." in name:
             p.copy_(layers.dense_init(p.shape, gen))
         elif leaf in ("wo", "w_down"):
             p.copy_(layers.dense_init(p.shape, gen, scale=out_scale))
@@ -197,14 +238,17 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def forward(params: Transformer, cfg, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) int -> (logits (B, S, Vp), aux loss 0)."""
+    """tokens (B, S) int -> (logits (B, S, Vp), aux loss: the MoE layers'
+    load-balancing losses summed, 0 for a dense model)."""
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = _positions(b, s, x.device)
+    aux = torch.zeros((), device=x.device)
     for blk in params.layers:
-        x, _, _ = blk(x, positions)
+        x, _, _, a = blk(x, positions)
+        aux = aux + a
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return unembed(params, cfg, x), torch.zeros((), device=x.device)
+    return unembed(params, cfg, x), aux
 
 
 def unembed(params: Transformer, cfg, x):
@@ -246,16 +290,24 @@ def decode_step(params: Transformer, cfg, cache: dict, token: torch.Tensor
                 ) -> Tuple[torch.Tensor, dict]:
     """token (B,) int: one autoregressive step for every slot.  The ring
     slot is ``pos % S`` under a sliding window, else ``min(pos, S-1)``.
-    Updates ``cache`` in place and returns (logits (B, Vp), cache)."""
+    Updates ``cache`` in place and returns (logits (B, Vp), cache).
+
+    Under full attention the cache is filled in order: ``prefill`` leaves
+    slots ``0..length-1`` valid and the rest empty, each step writes slot
+    ``min(pos, S-1)``, and a server rewrites a reused slot's whole row, so
+    after this step's write the valid slots are exactly ``0 ..
+    min(pos+1, S) - 1``.  The decode-attention kernel reads that prefix
+    through ``lengths`` and computes what the ``kv_pos`` mask computes."""
     b = token.shape[0]
     pos = cache["pos"].expand(b)
     s = cache["k"].shape[2]
     slot = pos % s if cfg.attention == "swa" else pos.clamp(max=s - 1)
+    lengths = (pos + 1).clamp(max=s).to(torch.int32)
     x = _embed(params, cfg, token)[:, None]
     cache["kv_pos"][torch.arange(b, device=x.device), slot] = pos
     for i, blk in enumerate(params.layers):
         x = blk.decode(x, pos, slot, cache["k"][i], cache["v"][i],
-                       cache["kv_pos"])
+                       cache["kv_pos"], lengths)
     cache["pos"] = pos + 1
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x)[:, 0], cache
@@ -282,7 +334,7 @@ def prefill(params: Transformer, cfg, tokens: torch.Tensor, max_len: int,
     positions = _positions(b, s, dev)
     ks, vs = [], []
     for blk in params.layers:
-        x, k, v = blk(x, positions)
+        x, k, v, _ = blk(x, positions)
         ks.append(k)
         vs.append(v)
     k, v = torch.stack(ks), torch.stack(vs)          # (L, B, S, KV, dh)

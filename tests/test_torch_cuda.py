@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (B1 lockstep advance, B2 flash attention) against
-their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (B1 lockstep advance, B2 flash attention, B3
+decode attention, B4a/B4b grouped expert GEMM and SwiGLU) against their
+plain PyTorch versions, on the card.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  The file imports neither ``jax`` nor the reference package, so
@@ -14,9 +15,13 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.env import engine, engine_layout as layout, env as env_lib
 from repro_torch.env import profiles
+from repro_torch.kernels.decode_attn import ops as da_ops
+from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.lockstep_advance import ops
+from repro_torch.kernels.moe_gemm import ops as moe_ops
+from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
 from repro_torch.models import transformer
 
 N, R, W = 6, 4, 4
@@ -215,4 +220,162 @@ def test_prefill_on_card_launches_b2_per_layer(cuda_device, arch):
     ref, rcache = transformer.prefill(model.cpu(), cfg, toks, 64,
                                       lengths=lengths)
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+    assert torch.equal(cache["kv_pos"].cpu(), rcache["kv_pos"])
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (B3)
+# ---------------------------------------------------------------------------
+
+# (B, H, KV, dh, S): the full-attention experts' heads (qwen 16/16/64,
+# starcoder2 48/4/128, dbrx 48/8/128) at the serving cache, the reduced
+# configs' small heads, and a long cache
+DECODE_SHAPES = [(4, 16, 16, 64, 192), (4, 48, 4, 128, 192),
+                 (4, 48, 8, 128, 192), (3, 8, 2, 24, 40), (2, 4, 4, 16, 7),
+                 (2, 48, 4, 128, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,dh,s", DECODE_SHAPES)
+def test_decode_attn_kernel_matches_plain_version_on_card(
+        cuda_device, b, h, kv, dh, s, dtype):
+    """Ragged lengths with 0 and S among them, read through the serving
+    cache's (B, S, KV, dh) layout as a transposed view."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * s + dh)
+    q = torch.randn((b, h, dh), generator=gen, device=cuda_device).to(dtype)
+    cache = torch.randn((2, b, s, kv, dh), generator=gen,
+                        device=cuda_device).to(dtype)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    lengths = torch.as_tensor(np.random.default_rng(s).integers(1, s + 1, b),
+                              dtype=torch.int32)
+    lengths[0], lengths[-1] = 0, s
+    lengths = lengths.to(cuda_device)
+    before = da_ops.LAUNCHES
+    got = da_ops.decode_attn(q, k, v, lengths)
+    ref = decode_attention_ref(q, k, v, lengths)
+    assert da_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    contiguous = da_ops.decode_attn(q, k.contiguous(), v.contiguous(), lengths)
+    assert torch.equal(contiguous, got)
+
+
+@pytest.mark.cuda
+def test_decode_attn_wrapper_rejects_bad_operands_on_card(cuda_device):
+    q = torch.zeros((2, 8, 64), device=cuda_device)
+    k = torch.zeros((2, 2, 16, 64), device=cuda_device)
+    n = torch.full((2,), 16, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        da_ops.decode_attn(q, k.bfloat16(), k.bfloat16(), n)
+    with pytest.raises(ValueError):                       # int64 lengths
+        da_ops.decode_attn(q, k, k, n.long())
+    with pytest.raises(ValueError):                       # lengths on the CPU
+        da_ops.decode_attn(q, k, k, n.cpu())
+    with pytest.raises(ValueError):                       # dh not contiguous
+        da_ops.decode_attn(q, k.transpose(2, 3), k.transpose(2, 3), n)
+    with pytest.raises(ValueError):                       # 8 heads on 3
+        da_ops.decode_attn(q, k[:, :1].expand(2, 3, 16, 64).contiguous(),
+                           k[:, :1].expand(2, 3, 16, 64).contiguous(), n)
+    with pytest.raises(ValueError):                       # head dim 132
+        da_ops.decode_attn(torch.zeros((2, 8, 132), device=cuda_device),
+                           torch.zeros((2, 2, 16, 132), device=cuda_device),
+                           torch.zeros((2, 2, 16, 132), device=cuda_device), n)
+
+
+# ---------------------------------------------------------------------------
+# Grouped expert GEMM and SwiGLU (B4a, B4b)
+# ---------------------------------------------------------------------------
+
+# (E, C, D, F): dbrx's decode and C=40 buckets at a cut depth, the serving
+# capacities 5, 10 and 20, C=64 (one block's most rows) and 70 (two row
+# tiles), and ragged tails in C, D and F (D or F not a multiple of 16
+# bytes' worth of elements takes the element-wise copies)
+MOE_SHAPES = [(16, 4, 6144, 1024), (16, 40, 512, 1280), (4, 5, 100, 130),
+              (3, 10, 64, 7), (2, 20, 33, 257), (1, 1, 8, 4), (2, 9, 70, 132),
+              (1, 64, 24, 256), (2, 70, 40, 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", MOE_SHAPES)
+def test_moe_gemm_kernels_match_plain_versions_on_card(cuda_device, e, c, d,
+                                                       f, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(e * c + d + f)
+    x = torch.randn((e, c, d), generator=gen, device=cuda_device).to(dtype)
+    wg, wu = ((torch.randn((e, d, f), generator=gen, device=cuda_device)
+               / d ** 0.5).to(dtype) for _ in range(2))
+    wd = (torch.randn((e, f, d), generator=gen, device=cuda_device)
+          / f ** 0.5).to(dtype)
+    before = (moe_ops.GEMM_LAUNCHES, moe_ops.SWIGLU_LAUNCHES)
+    h = moe_ops.expert_swiglu(x, wg, wu)
+    y = moe_ops.expert_gemm(h, wd)
+    assert (moe_ops.GEMM_LAUNCHES, moe_ops.SWIGLU_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert h.dtype == dtype and h.shape == (e, c, f) and y.shape == (e, c, d)
+    # outputs reach ~20 (products of unit normals), where a bf16 rounding
+    # step is 2^-3: each element is held to atol + rtol * |ref|
+    for got, ref in ((h, grouped_swiglu_ref(x, wg, wu)),
+                     (y, grouped_gemm_ref(h, wd))):
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_moe_gemm_wrappers_reject_bad_operands_on_card(cuda_device):
+    x = torch.zeros((2, 4, 16), device=cuda_device)
+    w = torch.zeros((2, 16, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        moe_ops.expert_gemm(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        moe_ops.expert_gemm(x.double(), w.double())
+    with pytest.raises(ValueError):                       # D mismatch
+        moe_ops.expert_gemm(x, torch.zeros((2, 15, 8), device=cuda_device))
+    with pytest.raises(ValueError):                       # E mismatch
+        moe_ops.expert_swiglu(x, w[:1], w[:1])
+    with pytest.raises(ValueError):                       # gate/up differ
+        moe_ops.expert_swiglu(x, w, torch.zeros((2, 16, 9), device=cuda_device))
+    with pytest.raises(ValueError):
+        moe_ops.expert_gemm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        moe_ops.expert_gemm(x, w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_prefill_and_decode_on_card_launch_b3_b4(cuda_device, arch):
+    """A reduced MoE model on the card: a prefill launches B4b and B4a once
+    per MoE layer (and B2 once per layer); each decode step launches B3 once
+    per layer and B4b, B4a once per MoE layer.  Logits agree with the same
+    steps on the CPU (plain versions) on the same weights, in float32."""
+    cfg = reduce_config(get_config(arch))
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    model = transformer.init_params(cfg, seed=1, device=cuda_device)
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)),
+                           dtype=torch.int32)
+    lengths = torch.tensor([40, 23], dtype=torch.int32)
+    steps = torch.as_tensor(rng.integers(0, cfg.vocab, (6, 2)),
+                            dtype=torch.int32)
+    counts = lambda: (fa_ops.LAUNCHES, da_ops.LAUNCHES, moe_ops.SWIGLU_LAUNCHES,
+                      moe_ops.GEMM_LAUNCHES)
+    before = counts()
+    got, cache = transformer.prefill(model, cfg, toks.to(cuda_device), 64,
+                                     lengths=lengths.to(cuda_device))
+    assert tuple(a - b for a, b in zip(counts(), before)) == \
+        (cfg.n_layers, 0, n_moe, n_moe)
+    cpu = transformer.init_params(cfg, seed=1, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    ref, rcache = transformer.prefill(cpu, cfg, toks, 64, lengths=lengths)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+    for i in range(6):
+        before = counts()
+        got, cache = transformer.decode_step(model, cfg, cache,
+                                             steps[i].to(cuda_device))
+        assert tuple(a - b for a, b in zip(counts(), before)) == \
+            (0, cfg.n_layers, n_moe, n_moe)
+        ref, rcache = transformer.decode_step(cpu, cfg, rcache, steps[i])
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
     assert torch.equal(cache["kv_pos"].cpu(), rcache["kv_pos"])

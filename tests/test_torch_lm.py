@@ -306,14 +306,16 @@ def test_init_params_shapes_scales_and_defaults():
 
 
 def test_unported_families_raise():
+    """The dense and MoE families are ported; RWKV6, RG-LRU and enc-dec
+    raise, through the family dispatch and through the transformer."""
     for arch in list_archs():
         cfg = reduce_config(get_config(arch))
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model_lib.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(reduce_config(get_config("dbrx-132b")),
+        transformer.init_params(reduce_config(get_config("rwkv6-7b")),
                                 device="cpu")
 
 
@@ -331,12 +333,13 @@ def test_carried_weights_reject_a_wrong_tree():
 
 def test_nvcc_flags_are_per_kernel():
     """B1 must not contract multiply-adds (bit-exact against an
-    FMA-contracted reference at four written sites); B2 keeps nvcc's
-    default contraction.  The library name hashes each kernel's own flags.
+    FMA-contracted reference at four written sites); B2, B3 and B4 keep
+    nvcc's default contraction.  The library name hashes each kernel's own flags.
     Nothing is compiled here."""
     from repro_torch.kernels import build
     assert "--fmad=false" in build.flags("lockstep_advance")
-    assert "--fmad=false" not in build.flags("flash_attn")
+    for name in ("flash_attn", "decode_attn", "moe_gemm"):
+        assert "--fmad=false" not in build.flags(name)
     assert set(build.KERNEL_FLAGS) == {p.stem for p in build.CSRC.glob("*.cu")}
     paths = {name: build.library_path(name) for name in build.KERNEL_FLAGS}
     assert paths["flash_attn"].parent == build.BUILD_DIR

@@ -124,11 +124,25 @@ def test_run_stream_routes_with_a_policy_and_profiles():
 
 
 def test_serving_defaults_to_cuda_and_serves_only_dense():
+    """Serving defaults to CUDA; the engine serves the LM families the
+    reference's engine serves (dense and MoE) and refuses the others, as
+    the reference does (an SSM expert)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve.build_cluster(["qwen1.5-0.5b"])
-    cfg = reduce_config(get_config("qwen1.5-0.5b"))
-    model = model_lib.init_params(cfg, device="cpu")
     moe = reduce_config(get_config("dbrx-132b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_engine.ExpertServer("moe", moe, model)
+    srv = serve_engine.ExpertServer(
+        "moe", moe, model_lib.init_params(moe, device="cpu"), slots=2,
+        max_len=32)
+    assert srv.cache["k"].shape == (moe.n_layers, 2, 32, moe.n_kv_heads,
+                                    moe.d_head)
+    cluster = serve.build_cluster(["qwen1.5-0.5b", "dbrx-132b"], device="cpu")
+    assert [s.cfg.family for s in cluster] == ["dense", "moe"]
+    ssm = reduce_config(get_config("rwkv6-7b"))
+    model = model_lib.init_params(reduce_config(get_config("qwen1.5-0.5b")),
+                                  device="cpu")
+    with pytest.raises(ValueError, match="dense and MoE"):
+        serve_engine.ExpertServer("ssm", ssm, model)
+    with pytest.raises(AssertionError):
+        jserve.ExpertServer("ssm", jax_reduce_config(jax_get_config("rwkv6-7b")),
+                            None)
