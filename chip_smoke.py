@@ -67,8 +67,33 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 run of the kernels-vs-plain check replays the kernel run's
                 expert routing (the free-running difference is reported).
                 Then a profiled window of the dbrx expert.
- 10. kernels  — the kernel table line; each kernel's launches are those of
-                the counted main paths (3 for B1, 8 and 9 for the others).
+ 10. rwkv6_scan — the chunked WKV scan (B5) against the token recurrence
+                (y and the final state) at rwkv6-7b's heads (H=64, K=V=64,
+                chunk 32): (B, T) = (4, 128), (4, 100) (a tail chunk) and
+                (1, 4,096), bf16 and float32; each element within atol +
+                rtol * |ref| (2e-2 bf16, 2e-4 float32; the state 2e-4).
+                Times the kernel and the plain chunk algorithm, beside the
+                bound: bytes, or exponentials and float32 operations.
+ 11. rglru_scan — the RG-LRU scan (B6) against its plain version at
+                recurrentgemma-2b's width (W=2,560), (B, T) = (4, 128) and
+                (1, 4,096), float32 and bf16, a non-zero h0 and some log_a
+                > 0 (clamped); 1e-5 float32, 2e-2 bf16.
+ 12. lm_recurrent — the recurrent families through the model API
+                (``launch/steps.py``): the reduced configs on the card
+                against the same weights on the CPU; then rwkv6-7b and
+                recurrentgemma-2b at their published widths in bf16 (seeds
+                0, 1), after the earlier clusters are freed.  Per model a
+                prefill of 4 x 128 tokens through the kernels against the
+                same through their plain versions (logits within 2^-4 of
+                the largest, greedy tokens, recurrent states), 32 greedy
+                decodes, timed prefills, a profiled window and a prefill of
+                1 x 4,096 (past recurrentgemma's 2,048 window).  B5 must
+                launch n_layers times per rwkv6 prefill, B6 once per
+                recurrent layer per recurrentgemma prefill, neither at
+                decode.
+ 13. kernels  — the kernel table line; each kernel's launches are those of
+                the counted main paths (3 for B1, 8, 9 and 12 for the
+                others).
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a result when CUDA is unavailable or the package is missing.
@@ -260,9 +285,9 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
             args = tuple(a.contiguous() for a in args)
             got = ops.lockstep_advance(*args, latency_L=lat_l,
                                        admit_order=order)
-            # every other advance against the plain loop, whose ~0.3 s per
-            # call sets this phase's time; the kernel runs every advance
-            if k % 2 == 0:
+            # every fourth advance against the plain loop, whose 0.3-0.5 s
+            # per call sets this phase's time; the kernel runs every advance
+            if k % 4 == 0 or k == steps // 2:
                 compared += 1
                 counts = {}
                 ref = engine.advance_shard(*args, latency_L=lat_l,
@@ -726,9 +751,12 @@ def counters() -> dict:
     from repro_torch.kernels.flash_attn import ops as b2
     from repro_torch.kernels.moe_gemm import ops as b4
     from repro_torch.kernels.lockstep_advance import ops as b1
+    from repro_torch.kernels.rglru_scan import ops as b6
+    from repro_torch.kernels.rwkv6_scan import ops as b5
     return {"lockstep_advance": b1.LAUNCHES, "flash_attn": b2.LAUNCHES,
             "decode_attn": b3.LAUNCHES, "grouped_swiglu": b4.SWIGLU_LAUNCHES,
-            "grouped_gemm": b4.GEMM_LAUNCHES}
+            "grouped_gemm": b4.GEMM_LAUNCHES, "rwkv6_scan": b5.LAUNCHES,
+            "rglru_scan": b6.LAUNCHES}
 
 
 def reset_counters() -> None:
@@ -736,23 +764,36 @@ def reset_counters() -> None:
     from repro_torch.kernels.flash_attn import ops as b2
     from repro_torch.kernels.lockstep_advance import ops as b1
     from repro_torch.kernels.moe_gemm import ops as b4
-    b1.LAUNCHES = b2.LAUNCHES = b3.LAUNCHES = 0
+    from repro_torch.kernels.rglru_scan import ops as b6
+    from repro_torch.kernels.rwkv6_scan import ops as b5
+    b1.LAUNCHES = b2.LAUNCHES = b3.LAUNCHES = b5.LAUNCHES = b6.LAUNCHES = 0
     b4.SWIGLU_LAUNCHES = b4.GEMM_LAUNCHES = 0
+
+
+def plain_lru(log_a, b, h0):
+    """B6's plain version behind the wrapper's clamp, as ``ops.lru`` runs
+    it on the CPU."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    return rglru_scan_ref(log_a.clamp(max=0.0), b, h0)
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel of the LM path swapped for its plain version, through
-    the names the model modules call them by."""
+    the names the model modules call them by (B5's is the chunk algorithm
+    with the model's rounding of D, as on the CPU)."""
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.kernels.flash_attn.ref import attention_ref
     from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
-    from repro_torch.models import moe, transformer
+    from repro_torch.kernels.rwkv6_scan.ref import wkv_chunked_ref
+    from repro_torch.models import moe, rglru, rwkv6, transformer
 
     swaps = [(transformer, "flash_attn", attention_ref),
              (transformer, "decode_attn", decode_attention_ref),
              (moe, "expert_swiglu", grouped_swiglu_ref),
-             (moe, "expert_gemm", grouped_gemm_ref)]
+             (moe, "expert_gemm", grouped_gemm_ref),
+             (rwkv6, "wkv", wkv_chunked_ref),
+             (rglru, "lru", plain_lru)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     before = counters()
     for mod, name, fn in swaps:
@@ -796,9 +837,8 @@ def expected_launches(servers) -> dict:
     """What the main path must have launched, from the servers' iteration
     counts: B2 n_layers per prefill; B3 n_layers per decode of a
     full-attention expert; B4a and B4b once per MoE layer per prefill and
-    per decode; B1 none."""
-    out = dict.fromkeys(("lockstep_advance", "flash_attn", "decode_attn",
-                         "grouped_swiglu", "grouped_gemm"), 0)
+    per decode; B1, B5 and B6 none."""
+    out = dict.fromkeys(counters(), 0)
     for s in servers:
         cfg, it = s.cfg, s.iterations
         out["flash_attn"] += it["prefill"] * cfg.n_layers
@@ -1052,6 +1092,431 @@ def lm_moe_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: the recurrent scans against their plain versions
+# ---------------------------------------------------------------------------
+
+# The special function units evaluate 16 ex2 per clock on each SM (NVIDIA's
+# table of arithmetic instruction throughput, compute capability 9.0), at
+# the 1.98 GHz that FP32_OPS_PER_S implies (132 SMs x 128 lanes x 2
+# flops); an expf is one ex2 beside FMAs
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# rwkv6-7b's heads: H=64, K=V=64, chunk 32; (B, T)
+WKV_H, WKV_K, WKV_CHUNK = 64, 64, 32
+WKV_CASES = [(4, 128), (4, 100), (1, 4096)]
+# float32: the chunk algorithm against the token recurrence differs by
+# float32 rounding of cumulative decays of up to ~240 (a few 1e-6 of
+# outputs of up to ~100); bf16: one rounding of y; the state is float32
+WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+WKV_LINE_CASE = (4, 128, "bfloat16")       # the kernels line's row
+# recurrentgemma-2b's width; (B, T)
+LRU_W = 2560
+LRU_CASES = [(4, 128), (1, 4096)]
+LRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LRU_LINE_CASE = (4, 128, "float32")        # the model's gates are float32
+
+
+def wkv_work(b, h, n, kd, vd, chunk):
+    """Exponentials and float32 operations of the chunk algorithm on these
+    shapes (each chunk counted at its own rows, so a tail chunk counts
+    less): the decay matrix (one exponential and three operations per
+    (i, s<i, k)), r e^p and k e^(p_end - q), e^p_end, the products with S
+    and within the chunk, the bonus and the state update."""
+    exps = flops = 0
+    for t0 in range(0, n, chunk):
+        rows = min(chunk, n - t0)
+        pairs = rows * (rows - 1) // 2
+        exps += pairs * kd + 2 * rows * kd + kd
+        flops += (3 * pairs * kd + 2 * rows * kd + 2 * rows * kd * vd
+                  + 2 * pairs * vd + 3 * rows * kd + 4 * rows * vd
+                  + kd * vd * (2 * rows + 2))
+    return b * h * exps, b * h * flops
+
+
+def bound_row(nbytes, flops, exps):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(flops / FP32_OPS_PER_S, exps / SFU_OPS_PER_S) * 1e3
+    return {"bytes": nbytes, "flops": flops, "exps": exps,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def over_limit(got, ref, tol):
+    """The largest error as a share of atol + rtol * |ref| (atol = rtol)."""
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).abs() / (tol + tol * ref.abs())).max())
+
+
+def rwkv6_scan_phase(dev):
+    from repro_torch.kernels.rwkv6_scan import ops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref, wkv_chunked_ref
+
+    rows = []
+    h, kd = WKV_H, WKV_K
+    for b, n in WKV_CASES:
+        gen = torch.Generator(device=dev).manual_seed(b * n)
+        for dtype in (torch.bfloat16, torch.float32):
+            r, k, v = (torch.randn((b, h, n, kd), generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
+            # the model's decays: -exp(clip(w0 + lora, -8, 2)), w0 ~ 0.3 N - 0.6,
+            # widened to reach both ends of the clip
+            expo = torch.randn((b, h, n, kd), generator=gen, device=dev) - 0.6
+            dlog = -torch.exp(expo.clamp(-8.0, 2.0))
+            u = (torch.randn((h, kd), generator=gen, device=dev) * 0.3).to(dtype)
+            y, state = ops.wkv(r, k, v, dlog, u, chunk=WKV_CHUNK)
+            y_ref, s_ref = rwkv6_scan_ref(r, k, v, dlog, u)
+            torch.cuda.synchronize()
+            row = {"phase": "rwkv6_scan", "B": b, "H": h, "T": n, "K": kd,
+                   "V": kd, "chunk": WKV_CHUNK,
+                   "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+                   "state_max_abs_err": float((state - s_ref).abs().max()),
+                   "max_abs_out": float(y_ref.float().abs().max()),
+                   "atol": WKV_TOL[dtype], "rtol": WKV_TOL[dtype],
+                   "err_over_limit": over_limit(y, y_ref, WKV_TOL[dtype]),
+                   "state_err_over_limit": over_limit(
+                       state, s_ref, WKV_TOL[torch.float32])}
+            if not (row["err_over_limit"] <= 1.0
+                    and row["state_err_over_limit"] <= 1.0):
+                raise AssertionError(f"rwkv6_scan disagrees with the token "
+                                     f"recurrence: {row}")
+            fn = lambda: ops.wkv(r, k, v, dlog, u, chunk=WKV_CHUNK)
+            plain = lambda: wkv_chunked_ref(r, k, v, dlog, u, WKV_CHUNK)
+            if n % WKV_CHUNK:          # the plain chunks need whole ones
+                plain = lambda: rwkv6_scan_ref(r, k, v, dlog, u)
+            row["ms"] = device_ms(fn, 5 if n > 1024 else 20)
+            row["call_ms"] = cuda_ms(fn, 5)
+            row["plain"] = ("wkv_chunked_ref" if n % WKV_CHUNK == 0
+                            else "rwkv6_scan_ref")
+            row["plain_ms"] = cuda_ms(plain, 2 if n > 1024 else 5)
+            row["library_ms"] = None
+            size = r.element_size()
+            nbytes = (4 * b * h * n * kd * size + 4 * b * h * n * kd
+                      + h * kd * size + 4 * b * h * kd * kd)
+            exps, flops = wkv_work(b, h, n, kd, kd, WKV_CHUNK)
+            row.update(bound_row(nbytes, flops, exps))
+            emit(row)
+            rows.append(row)
+            del r, k, v, dlog, u, y, state, y_ref, s_ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rglru_scan_phase(dev):
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    rows = []
+    w = LRU_W
+    for b, n in LRU_CASES:
+        gen = torch.Generator(device=dev).manual_seed(b * n + 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            # decays as the model's (-8 softplus(lam) r, lam in [0.4, 0.9))
+            # plus a few above 0, which the wrapper clamps
+            log_a = (-8 * torch.rand((b, n, w), generator=gen, device=dev)
+                     + 0.05).to(dtype)
+            x = torch.randn((b, n, w), generator=gen, device=dev).to(dtype)
+            h0 = torch.randn((b, w), generator=gen, device=dev)
+            got = ops.lru(log_a, x, h0)
+            ref = rglru_scan_ref(log_a.clamp(max=0.0), x, h0)
+            torch.cuda.synchronize()
+            row = {"phase": "rglru_scan", "B": b, "T": n, "W": w,
+                   "dtype": str(dtype).split(".")[-1],
+                   "clamped": int((log_a > 0).sum()),
+                   "max_abs_err": float((got.float() - ref.float()).abs().max()),
+                   "atol": LRU_TOL[dtype], "rtol": LRU_TOL[dtype],
+                   "err_over_limit": over_limit(got, ref, LRU_TOL[dtype])}
+            if not row["err_over_limit"] <= 1.0 or row["clamped"] == 0:
+                raise AssertionError(f"rglru_scan disagrees with its plain "
+                                     f"version: {row}")
+            fn = lambda: ops.lru(log_a, x, h0)
+            row["ms"] = device_ms(fn, 20)
+            row["call_ms"] = cuda_ms(fn, 5)
+            row["plain_ms"] = cuda_ms(lambda: plain_lru(log_a, x, h0),
+                                      2 if n > 1024 else 5)
+            row["library_ms"] = None
+            size = x.element_size()
+            row.update(bound_row(3 * b * n * w * size + 4 * b * w,
+                                 2 * b * n * w, b * n * w))
+            emit(row)
+            rows.append(row)
+            del log_a, x, h0, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the recurrent families at full width, through the model API
+# ---------------------------------------------------------------------------
+
+# (arch, seed): both at their published widths, nothing cut
+RECURRENT = [("rwkv6-7b", 0), ("recurrentgemma-2b", 1)]
+REC_BATCH, REC_PROMPT, REC_DECODE, REC_LONG = 4, 128, 32, 4096
+
+
+def scan_launches_per_pass(cfg) -> dict:
+    """B5 and B6 launches of one prefill or forward: B5 once per rwkv6
+    layer, B6 once per recurrent layer of recurrentgemma."""
+    from repro_torch.models import rglru
+    out = {"rwkv6_scan": 0, "rglru_scan": 0}
+    if cfg.family == "ssm":
+        out["rwkv6_scan"] = cfg.n_layers
+    else:
+        out["rglru_scan"] = sum(k == "rec" for k in rglru.layer_kinds(cfg))
+    return out
+
+
+def state_leaves(cfg, cache) -> dict:
+    """The recurrent state of a cache by name, each a tensor."""
+    if cfg.family == "ssm":
+        return {k: cache[k] for k in ("S", "tm_prev", "cm_prev")}
+    out = {}
+    for i, st in enumerate(cache["layers"]):
+        for k in ("h", "conv", "k", "v"):
+            if k in st:
+                out[f"layers.{i}.{k}"] = st[k]
+    return out
+
+
+def greedy_check(got, ref, vocab):
+    """Per row: the greedy tokens of two logits (B, Vp) and the plain top-2
+    margin; rows whose tokens differ must have a margin within the
+    tolerance."""
+    got, ref = got.float()[:, :vocab], ref.float()[:, :vocab]
+    scale = float(ref.abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    a, b = got.argmax(-1).tolist(), ref.argmax(-1).tolist()
+    flips = [{"row": i, "margin": margin[i]} for i in range(len(a))
+             if a[i] != b[i]]
+    ok = all(f["margin"] <= LOGIT_REL_TOL * scale for f in flips)
+    return {"max_abs_logit_diff": float((got - ref).abs().max()),
+            "max_abs_logit": scale, "tol": LOGIT_REL_TOL * scale,
+            "greedy": [a, b], "plain_top2_margin": margin, "flips": flips,
+            "finite": bool(torch.isfinite(got).all())}, ok
+
+
+def recurrent_small_matches_cpu(dev, phase):
+    """The reduced configs on the card (kernels, float32) against the same
+    weights on the CPU (plain versions): a prefill of 2 x 16 tokens and 6
+    greedy decode steps through the step functions give logits within
+    1e-4 and the same tokens; the card run launches B5 or B6 once per
+    layer of its family per prefill, none at decode."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+
+    rng = np.random.default_rng(9)
+    for arch, seed in RECURRENT:
+        cfg = reduce_config(get_config(arch))
+        card = model_lib.init_params(cfg, seed=seed, device=dev)
+        cpu = model_lib.init_params(cfg, seed=seed, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        toks = torch.as_tensor(rng.integers(2, cfg.vocab, (2, 16)),
+                               dtype=torch.int32)
+        prefill = steps.make_prefill_step(cfg, 32)
+        decode = steps.make_decode_step(cfg)
+        runs = []
+        for params, d in ((card, dev), (cpu, torch.device("cpu"))):
+            before = counters()
+            logits, cache = prefill(params, toks.to(d))
+            outs, tokens = [logits.cpu()], []
+            for i in range(6):
+                tok = (runs[0][1][i] if runs else
+                       logits.argmax(-1).to(torch.int32).cpu())
+                tokens.append(tok)
+                logits, cache = decode(params, cache, tok.to(d))
+                outs.append(logits.cpu())
+            got = {k: counters()[k] - before[k] for k in before}
+            runs.append((outs, tokens, got))
+        (card_out, card_tok, launched), (cpu_out, _, none) = runs
+        want = dict.fromkeys(launched, 0)
+        want.update(scan_launches_per_pass(cfg))
+        assert launched == want and not any(none.values()), (launched, none)
+        err = max(float((a - b).abs().max()) for a, b in zip(card_out, cpu_out))
+        same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                   for a, b in zip(card_out, cpu_out))
+        emit({"phase": phase, "check": "reduced_card_vs_cpu", "arch": arch,
+              "n_layers": cfg.n_layers, "max_abs_logit_diff": err,
+              "tol": 1e-4, "same_tokens": same, "launches": launched})
+        assert err <= 1e-4 and same, (arch, err, same)
+
+
+def recurrent_window(params, cfg, toks, n_decode=8):
+    """Where an iteration's time goes: one prefill and ``n_decode`` decodes,
+    synchronised for wall time, then the same under torch.profiler for the
+    device's busy time, kernels per iteration and B5/B6's launches and
+    time.  Runs two prefills."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    prefill = steps.make_prefill_step(cfg, toks.shape[1] + n_decode)
+    decode = steps.make_decode_step(cfg)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, toks)
+        tok = logits.argmax(-1).to(torch.int32)
+        tok.cpu()
+        t1 = time.perf_counter()
+        for _ in range(n_decode):
+            logits, cache = decode(params, cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+        tok.cpu()
+        return t1 - t0, time.perf_counter() - t1
+
+    pre_s, dec_s = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    wall_ms = (pre_s + dec_s) * 1e3
+    row = {"prefill_ms": pre_s * 1e3, "decode_ms": dec_s / n_decode * 1e3,
+           "iterations_profiled": 1 + n_decode, "device_busy_ms": busy_ms,
+           "wall_ms": wall_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "kernels": len(kernels),
+           "kernels_per_iteration": len(kernels) / (1 + n_decode)}
+    for tag, needle in (("b5", "rwkv6_scan"), ("b6", "rglru_scan")):
+        us = [e.time_range.elapsed_us() for e in kernels if needle in e.name]
+        row[f"{tag}_launches"] = len(us)
+        row[f"{tag}_ms_per_launch"] = float(np.mean(us)) / 1e3 if us else None
+        row[f"{tag}_ms"] = sum(us) / 1e3
+    return row
+
+
+def recurrent_serve(params, cfg, name, rng, phase):
+    """The model's main path through the step functions: a prefill of 4 x
+    128 tokens (held against the same through the plain versions), 32
+    greedy decodes (no B5/B6 launch), two timed prefills, a profiled window
+    and one long prefill (1 x 4,096).  Returns the number of prefills."""
+    from repro_torch.launch import steps
+
+    max_len = REC_PROMPT + REC_DECODE
+    prefill = steps.make_prefill_step(cfg, max_len)
+    decode = steps.make_decode_step(cfg)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (REC_BATCH, REC_PROMPT)),
+                           dtype=torch.int32, device=params.embed.device)
+    logits, cache = prefill(params, toks)
+    with plain_kernels():
+        plain_logits, plain_cache = prefill(params, toks)
+    row, ok = greedy_check(logits, plain_logits, cfg.vocab)
+    ref_states = state_leaves(cfg, plain_cache)
+    states = {}
+    for key, got in state_leaves(cfg, cache).items():
+        ref = ref_states[key].float()
+        states[key] = (float((got.float() - ref).abs().max())
+                       / max(float(ref.abs().max()), 1e-30))
+    worst = max(states, key=states.get)
+    row = {"phase": phase, "check": "prefill_kernels_vs_plain", "arch": name,
+           "B": REC_BATCH, "T": REC_PROMPT, **row,
+           "state_max_rel_diff": states[worst], "state_worst": worst,
+           "state_rel_tol": LOGIT_REL_TOL}
+    emit(row)
+    assert row["finite"] and ok, row
+    assert row["max_abs_logit_diff"] <= row["tol"], row
+    assert states[worst] <= LOGIT_REL_TOL, row
+    del plain_cache, ref_states
+
+    before = counters()
+    tok = logits.argmax(-1).to(torch.int32)
+    tokens = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REC_DECODE):
+        logits, cache = decode(params, cache, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+        tokens.append(tok)
+    tokens = torch.stack(tokens, 1).cpu()
+    dec_ms = (time.perf_counter() - t0) / REC_DECODE * 1e3
+    assert counters() == before, (counters(), before)
+    assert bool(torch.isfinite(logits).all()) and int(cache["pos"]) == max_len
+
+    pre_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = prefill(params, toks)
+        out.argmax(-1).cpu()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": phase, "check": "serve", "arch": name, "B": REC_BATCH,
+          "prompt": REC_PROMPT, "decode_steps": REC_DECODE,
+          "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+          "tokens_row0": tokens[0].tolist(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    emit({"phase": "lm_profile", "arch": name,
+          **recurrent_window(params, cfg, toks)})
+
+    long = torch.as_tensor(rng.integers(2, cfg.vocab, (1, REC_LONG)),
+                           dtype=torch.int32, device=toks.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = steps.make_prefill_step(cfg, REC_LONG + REC_DECODE)(
+        params, long)
+    logits.argmax(-1).cpu()
+    long_ms = (time.perf_counter() - t0) * 1e3
+    row = {"phase": phase, "check": "long_prefill", "arch": name, "B": 1,
+           "T": REC_LONG, "prefill_ms": long_ms,
+           "finite": bool(torch.isfinite(logits).all()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if cfg.family == "hybrid":               # the ring holds the last window
+        ring = next(st for st in cache["layers"] if "kv_pos" in st)["kv_pos"]
+        w = ring.shape[1]
+        kept = torch.arange(REC_LONG - w, REC_LONG, device=ring.device)
+        assert torch.equal(ring[0].sort().values, kept.to(ring.dtype))
+        assert torch.equal(ring[0] % w, torch.arange(w, device=ring.device))
+        row["ring"] = {"slots": w, "first": int(kept[0]), "last": REC_LONG - 1}
+    emit(row)
+    assert row["finite"], row
+    return 1 + 2 + 2 + 1                     # checked, timed, window, long
+
+
+def lm_recurrent_phase(dev):
+    """rwkv6-7b and recurrentgemma-2b at their published widths in bf16,
+    after the earlier clusters are freed; the counted main path is every
+    call of ``recurrent_serve``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    recurrent_small_matches_cpu(dev, "lm_recurrent")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = [(name, get_config(name),
+               model_lib.init_params(get_config(name), seed=seed, device=dev))
+              for name, seed in RECURRENT]
+    torch.cuda.synchronize()
+    emit({"phase": "lm_recurrent", "check": "build", "models": [
+              {"name": name, "family": cfg.family, "n_layers": cfg.n_layers,
+               "seed": seed,
+               "params": sum(p.numel() for p in params.parameters()),
+               "bytes": sum(p.numel() * p.element_size()
+                            for p in params.parameters()),
+               "dtype": cfg.param_dtype}
+              for (name, cfg, params), (_, seed) in zip(models, RECURRENT)],
+          "reduced": {}, "init_s": time.perf_counter() - t0,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    rng = np.random.default_rng(12)
+    reset_counters()
+    expected = dict.fromkeys(counters(), 0)
+    for name, cfg, params in models:
+        n_prefill = recurrent_serve(params, cfg, name, rng, "lm_recurrent")
+        for k, v in scan_launches_per_pass(cfg).items():
+            expected[k] += n_prefill * v
+    got = counters()
+    emit({"phase": "lm_recurrent", "check": "launches", "launches": got,
+          "expected": expected,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    assert got == expected, (got, expected)
+    del models
+    torch.cuda.empty_cache()
+    return got
+
+
 def kernel_line(name, source, replaces, launches, row, library_ms):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
@@ -1088,16 +1553,30 @@ def main() -> int:
           "device_count": torch.cuda.device_count(),
           "ptxas": ptxas})
 
-    kernel = kernel_phase(dev)
-    launches = serve_phase(dev, 6, 4, 750, 75, "padded", False, seed=0)
-    launches += serve_phase(dev, 1024, 16, 200, 50, "segments", True,
-                            seed=0)
-    flash = flash_phase(dev)
-    decode = decode_attn_phase(dev)
-    gemm = moe_gemm_phase(dev)
-    dense = lm_serve_phase(dev)
-    mixed = lm_moe_phase(dev)
-    lm = {k: dense[k] + mixed[k] for k in dense}
+    seconds = {"build": build_s}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    kernel = timed("kernel", kernel_phase, dev)
+    launches = timed("serve", serve_phase, dev, 6, 4, 750, 75, "padded",
+                     False, 0)
+    launches += timed("serve", serve_phase, dev, 1024, 16, 200, 50,
+                      "segments", True, 0)
+    flash = timed("flash", flash_phase, dev)
+    decode = timed("decode_attn", decode_attn_phase, dev)
+    gemm = timed("moe_gemm", moe_gemm_phase, dev)
+    wkv = timed("rwkv6_scan", rwkv6_scan_phase, dev)
+    lru = timed("rglru_scan", rglru_scan_phase, dev)
+    dense = timed("lm_serve", lm_serve_phase, dev)
+    mixed = timed("lm_moe", lm_moe_phase, dev)
+    recurrent = timed("lm_recurrent", lm_recurrent_phase, dev)
+    emit({"phase": "seconds", **seconds,
+          "total": time.perf_counter() - t0})
+    lm = {k: dense[k] + mixed[k] + recurrent[k] for k in dense}
 
     flash_row = next(r for r in flash
                      if (r["expert_heads"], r["S"], r["dtype"]) == LINE_CASE)
@@ -1105,6 +1584,8 @@ def main() -> int:
                                             r["dtype"]) == DECODE_LINE_CASE)
     gemm_rows = {r["name"]: r for r in gemm
                  if (r["C"], r["dtype"]) == MOE_LINE_CASE}
+    wkv_row = next(r for r in wkv if (r["B"], r["T"], r["dtype"]) == WKV_LINE_CASE)
+    lru_row = next(r for r in lru if (r["B"], r["T"], r["dtype"]) == LRU_LINE_CASE)
     moe_src = "src/repro/kernels/moe_gemm/kernel.py"
     emit({"kernels": [
         {"name": "lockstep_advance", "route": "cuda",
@@ -1124,7 +1605,13 @@ def main() -> int:
                     lm["grouped_gemm"], gemm_rows["grouped_gemm"],
                     gemm_rows["grouped_gemm"]["library_ms"]),
         kernel_line("grouped_swiglu", "moe_gemm.cu", f"{moe_src}:88",
-                    lm["grouped_swiglu"], gemm_rows["grouped_swiglu"], None)]})
+                    lm["grouped_swiglu"], gemm_rows["grouped_swiglu"], None),
+        kernel_line("rwkv6_scan", "rwkv6_scan.cu",
+                    "src/repro/kernels/rwkv6_scan/kernel.py:66",
+                    lm["rwkv6_scan"], wkv_row, None),
+        kernel_line("rglru_scan", "rglru_scan.cu",
+                    "src/repro/kernels/rglru_scan/kernel.py:45",
+                    lm["rglru_scan"], lru_row, None)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

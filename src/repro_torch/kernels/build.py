@@ -12,9 +12,10 @@ this module is imported.
 Flags differ per kernel (``KERNEL_FLAGS``).  The lockstep-advance kernel
 takes ``--fmad=false``, which keeps nvcc from contracting multiply-adds on
 its own: it writes ``__fmaf_rn`` exactly where the reference contracts, and
-must be bit-exact.  Flash attention, decode attention and the grouped
-expert GEMMs are held to a tolerance and keep nvcc's default contraction
-(without it every multiply-add is two instructions).
+must be bit-exact.  Flash attention, decode attention, the grouped
+expert GEMMs and the two recurrent scans are held to a tolerance and keep
+nvcc's default contraction (without it every multiply-add is two
+instructions).
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNEL_FLAGS = {"lockstep_advance": ("--fmad=false",), "flash_attn": (),
-                "decode_attn": (), "moe_gemm": ()}
+                "decode_attn": (), "moe_gemm": (), "rwkv6_scan": (),
+                "rglru_scan": ()}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

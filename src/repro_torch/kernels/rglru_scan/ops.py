@@ -1,0 +1,81 @@
+"""Wrapper of the RG-LRU scan CUDA kernel (``csrc/rglru_scan.cu``).
+
+``lru`` clamps ``log_a <= 0`` as the reference's ``ops.lru`` does, then
+runs the recurrence of ``ref.rglru_scan_ref``.  For CPU tensors it runs
+that plain version; for CUDA tensors it launches the kernel on the current
+stream or raises: there is no fallback.  The kernel clamps as it loads, so
+the clamp costs no pass of its own there.  The library is built at the
+first CUDA call, never at import.
+
+The reference's ``block_t``/``block_w`` are the TPU kernel's VMEM tiling
+and its padding of T to ``block_t``; neither changes the function, so the
+port takes neither (the kernel takes any T and W).
+
+``LAUNCHES`` counts kernel launches (plain-version calls do not count), so
+a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+NAME = "rglru_scan"
+LAUNCHES = 0
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(NAME)
+    fn = lib.rglru_scan_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(log_a, b, h0):
+    if log_a.dim() != 3 or b.shape != log_a.shape \
+            or h0.shape != (log_a.shape[0], log_a.shape[2]):
+        raise ValueError(f"expected log_a, b (B,T,W) and h0 (B,W), got "
+                         f"{tuple(log_a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(h0.shape)}")
+    for name, x in (("log_a", log_a), ("b", b), ("h0", h0)):
+        if x.device != log_a.device:
+            raise ValueError(f"{name} is on {x.device}, expected {log_a.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if b.dtype != log_a.dtype or b.dtype not in _DTYPES:
+        raise TypeError(f"log_a and b must share one of {_DTYPES}, got "
+                        f"{log_a.dtype}, {b.dtype}")
+    if h0.dtype != torch.float32:
+        raise TypeError(f"h0 must be float32, got {h0.dtype}")
+
+
+def lru(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+        ) -> torch.Tensor:
+    """log_a, b (B, T, W), float32 or bfloat16 alike; h0 (B, W) float32 ->
+    h (B, T, W) in b's dtype, ``h_t = exp(min(log_a_t, 0)) * h_{t-1} + b_t``
+    from ``h0`` (B6)."""
+    global LAUNCHES
+    if log_a.device.type == "cpu":
+        return rglru_scan_ref(log_a.clamp(max=0.0), b, h0)
+    if log_a.device.type != "cuda":
+        raise ValueError(f"unsupported device {log_a.device}")
+    _check(log_a, b, h0)
+    n_b, n_t, n_w = log_a.shape
+    out = torch.empty_like(b)
+    lib = _library()
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = lib.rglru_scan_launch(
+            log_a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(),
+            n_b, n_t, n_w, int(b.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{NAME} launch failed with CUDA error {rc}")
+    LAUNCHES += 1
+    return out

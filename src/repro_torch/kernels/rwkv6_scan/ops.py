@@ -1,0 +1,117 @@
+"""Wrapper of the chunked RWKV6 WKV scan CUDA kernel (``csrc/rwkv6_scan.cu``).
+
+``wkv`` computes the chunked scan from a zero state and returns ``(y,
+state)``.  For CPU tensors it runs the plain version ``ref.wkv_chunked_ref``
+(rounding ``D`` to ``d_dtype``, as the reference model does); for CUDA
+tensors it launches the kernel on the current stream or raises: there is no
+fallback.  The library is built at the first CUDA call, never at import.
+
+Either way T need not be a multiple of the chunk: the plain path pads the
+tail with ``k = v = 0`` and ``dlog = 0``, which leaves the state unchanged,
+as the reference's ``ops.wkv`` pads; the kernel masks its last chunk
+instead.  The kernel keeps ``D`` in float32 whatever ``d_dtype`` says, as
+the TPU kernel does.
+
+``r``, ``k``, ``v`` and ``dlog`` may be strided views: the model holds them
+as (B, T, H, K) and hands them over as ``x.transpose(1, 2)`` with no copy;
+only the last dimension must be contiguous.  ``y`` comes back in the same
+layout as ``r``.
+
+``LAUNCHES`` counts kernel launches (plain-version calls do not count), so
+a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rwkv6_scan.ref import wkv_chunked_ref
+
+NAME = "rwkv6_scan"
+MAX_CHUNK = 64
+MAX_HEAD = 64
+LAUNCHES = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 15 + [ctypes.c_int, ctypes.c_void_p])
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(NAME)
+    fn = lib.rwkv6_scan_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(r, k, v, dlog, u, chunk):
+    if r.dim() != 4 or k.shape != r.shape or dlog.shape != r.shape \
+            or v.dim() != 4 or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"expected r, k, dlog (B,H,T,K) and v (B,H,T,V), got "
+                         f"{tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(dlog.shape)}, {tuple(v.shape)}")
+    h, kd, vd = r.shape[1], r.shape[3], v.shape[3]
+    if u.shape != (h, kd):
+        raise ValueError(f"u {tuple(u.shape)} does not fit r {tuple(r.shape)}")
+    if kd > MAX_HEAD or vd > MAX_HEAD:
+        raise ValueError(f"K={kd} and V={vd} must be at most {MAX_HEAD}")
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} must be in 1..{MAX_CHUNK}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("dlog", dlog), ("u", u)):
+        if x.device != r.device:
+            raise ValueError(f"{name} is on {x.device}, expected {r.device}")
+    for name, x in (("r", r), ("k", k), ("v", v)):
+        if x.dtype != r.dtype or x.dtype not in _DTYPES:
+            raise TypeError(f"{name} has dtype {x.dtype}; r, k and v must share "
+                            f"one of {_DTYPES}")
+    if dlog.dtype != torch.float32:
+        raise TypeError(f"dlog must be float32, got {dlog.dtype}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("dlog", dlog)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dlog: torch.Tensor,
+        u: torch.Tensor, chunk: int = 32, d_dtype: Optional[torch.dtype] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, dlog (B, H, T, K); v (B, H, T, V); u (H, K) -> (y (B, H, T, V)
+    in r's dtype, state (B, H, K, V) float32), from a zero state, in chunks
+    of ``min(chunk, T)`` (B5).  On the card r, k, v are float32 or bfloat16
+    alike, dlog float32, K and V at most 64."""
+    global LAUNCHES
+    n = r.shape[2]
+    n_l = min(chunk, n)
+    if r.device.type == "cpu":
+        pad = (-n) % n_l
+        if pad:
+            r, k, v, dlog = (F.pad(x, (0, 0, 0, pad)) for x in (r, k, v, dlog))
+        y, state = wkv_chunked_ref(r, k, v, dlog, u, n_l, d_dtype)
+        return y[:, :, :n], state
+    if r.device.type != "cuda":
+        raise ValueError(f"unsupported device {r.device}")
+    n_l = max(n_l, 1)
+    _check(r, k, v, dlog, u, n_l)
+    b, h, _, kd = r.shape
+    vd = v.shape[3]
+    y = torch.empty_like(v, dtype=r.dtype)
+    state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
+    u32 = u.float().contiguous()
+    sms = torch.cuda.get_device_properties(r.device).multi_processor_count
+    vb = vd if b * h >= sms else (vd + 1) // 2    # split V to fill the SMs
+    strides = [s for x in (r, k, v, dlog, y) for s in x.stride()[:3]]
+    lib = _library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.rwkv6_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), dlog.data_ptr(),
+            u32.data_ptr(), y.data_ptr(), state.data_ptr(), b, h, n, kd, vd,
+            n_l, vb, *strides, int(r.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{NAME} launch failed with CUDA error {rc}")
+    LAUNCHES += 1
+    return y, state

@@ -3,23 +3,30 @@
     init_params(cfg, seed, device)                  -> params (nn.Module)
     forward(params, cfg, tokens)                    -> (logits, aux_loss)
     init_cache(cfg, batch, max_len, device)         -> serving cache
-    prefill(params, cfg, tokens, max_len, lengths=) -> (logits, cache)
+    prefill(params, cfg, tokens, max_len, **kw)     -> (logits, cache)
     decode_step(params, cfg, cache, token)          -> (logits, cache)
 
-The dense and MoE families (both ``transformer``) are ported; the others
-raise (ROADMAP queue A, item 5).  ``lm_loss`` waits for training.
+The dense and MoE families (``transformer``), RWKV6 (``ssm``) and
+RecurrentGemma (``hybrid``) are ported; enc-dec raises (ROADMAP queue A,
+item 5).  Only the transformer's prefill takes ``lengths``: the recurrent
+families' caches share one position across the batch.  ``lm_loss`` waits
+for training.
 """
 from __future__ import annotations
 
-from repro_torch.models import transformer
+from repro_torch.models import rglru, rwkv6, transformer
+
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
+             "hybrid": rglru}
 
 
 def _family_mod(cfg):
-    if cfg.family in ("dense", "moe"):
-        return transformer
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported; the port serves the "
-        "dense and MoE families (RWKV6, RG-LRU and enc-dec are ROADMAP queue A)")
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported; the port serves "
+            "the dense, MoE, RWKV6 and RG-LRU families (enc-dec is ROADMAP "
+            "queue A)")
+    return _FAMILIES[cfg.family]
 
 
 def init_params(cfg, seed: int = 0, device=None):

@@ -1,0 +1,331 @@
+"""RecurrentGemma (Griffin), the ``hybrid`` family (port of
+``repro/models/rglru.py``): RG-LRU recurrent blocks and local attention in
+the pattern (rec, rec, attn).
+
+  recurrent block:  x -> {linear -> causal depthwise conv1d -> RG-LRU}
+                         ⊙ gelu(linear gate) -> linear out
+  RG-LRU:  r_t = σ(x W_r), i_t = σ(x W_i), a_t = exp(-c softplus(Λ) r_t),
+           h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)      (c = 8)
+  attention block:  MQA local attention within ``cfg.window``, RoPE.
+
+Whole sequences (forward, prefill) run the recurrence through kernel B6
+(``kernels/rglru_scan/ops.py lru``), once per recurrent layer; a decode
+step computes its one step in plain PyTorch, and the local attention is
+plain PyTorch throughout, as the reference computes both in XLA.
+
+``RecurrentGemma.layers`` holds one module per layer in execution order:
+superblock i's (rec1, rec2, attn) are layers 3i, 3i+1, 3i+2, the tail's
+recurrent layers follow.  The serving cache is ``{"layers": [...], "pos":
+scalar}`` with, per layer, ``{"h" (B, r) float32, "conv" (B, cw-1, r)}``
+(recurrent) or a ring ``{"k", "v" (B, W, KV, dh), "kv_pos" (B, W)}``
+(attention), W = min(window, max_len); ``decode_step`` updates it in place
+and returns the same dict.  The batch shares one ``pos``, so prefill takes
+equal-length prompts.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.device import generator, resolve
+from repro_torch.kernels.rglru_scan.ops import lru
+from repro_torch.models import layers
+from repro_torch.models.transformer import MLP, unembed
+
+_C = 8.0                                   # RG-LRU temperature
+PATTERN = ("rec", "rec", "attn")
+
+
+class RecLayer(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, r, cw = cfg.d_model, cfg.rnn_width, cfg.conv_width
+        p = lambda *shape, dt=dtype: layers.param(*shape, dtype=dt,
+                                                  device=device)
+        self.norm1, self.norm2 = p(d), p(d)
+        self.w_x, self.w_gate = p(d, r), p(d, r)
+        self.conv_w, self.conv_b = p(cw, r), p(r)
+        self.w_r, self.b_r = p(r, r), p(r)
+        self.w_i, self.b_i = p(r, r), p(r)
+        self.lam = p(r, dt=torch.float32)  # float32 in a bf16 model too
+        self.w_out = p(r, d)
+        self.mlp = MLP(cfg, dtype, device)
+
+
+class AttnLayer(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        p = lambda *shape: layers.param(*shape, dtype=dtype, device=device)
+        self.norm1, self.norm2 = p(d), p(d)
+        self.wq, self.wk, self.wv = p(d, h, dh), p(d, kv, dh), p(d, kv, dh)
+        self.wo = p(h, dh, d)
+        self.mlp = MLP(cfg, dtype, device)
+
+
+def layer_kinds(cfg) -> List[str]:
+    """Each layer's kind in execution order: (rec, rec, attn) per
+    superblock, then the tail's recurrent layers."""
+    if tuple(cfg.block_pattern) != PATTERN:
+        raise ValueError(f"{cfg.name}: block pattern {cfg.block_pattern} is "
+                         f"not {PATTERN}")
+    n_super = cfg.n_layers // len(PATTERN)
+    return list(PATTERN) * n_super + ["rec"] * (cfg.n_layers - 3 * n_super)
+
+
+class RecurrentGemma(nn.Module):
+    """The parameters of one RecurrentGemma LM, uninitialised
+    (``init_params`` draws them, ``io.lm_params_from_numpy`` copies the
+    reference's)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        if cfg.family != "hybrid":
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not hybrid")
+        dtype = getattr(torch, cfg.param_dtype)
+        d, vp = cfg.d_model, cfg.vocab_padded
+        self.embed = layers.param(vp, d, dtype=dtype, device=device)
+        self.layers = nn.ModuleList(
+            (RecLayer if kind == "rec" else AttnLayer)(cfg, dtype, device)
+            for kind in layer_kinds(cfg))
+        self.final_norm = layers.param(d, dtype=dtype, device=device)
+        self.lm_head = layers.param(d, vp, dtype=dtype, device=device)
+
+
+def init_params(cfg, seed: int = 0, device=None) -> RecurrentGemma:
+    """Random weights with the reference's distributions
+    (``rglru.py:36-113``): projections normal with std ``1/sqrt(fan-in)``,
+    ``w_out``, ``wo`` and the MLPs' ``w_down`` scaled by ``1/sqrt(2
+    n_layers)``; ``conv_w`` at 0.1; ``lam`` uniform in [0.4, 0.9), kept in
+    float32; embeddings 0.02; norms and biases 0.  From a
+    ``torch.Generator`` seeded with ``seed``, on ``device`` (CUDA by
+    default)."""
+    dev = resolve(device)
+    model = RecurrentGemma(cfg, dev)
+    gen = generator(dev, seed)
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "embed":
+            p.copy_(layers.embed_init(p.shape, gen))
+        elif leaf in ("w_out", "wo", "w_down"):
+            p.copy_(layers.dense_init(p.shape, gen, scale=out_scale))
+        elif leaf in ("w_x", "w_gate", "w_r", "w_i", "w_up", "wq", "wk", "wv",
+                      "lm_head"):
+            p.copy_(layers.dense_init(p.shape, gen))
+        elif leaf == "conv_w":
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.1)
+        elif leaf == "lam":
+            p.copy_(torch.rand(p.shape, generator=gen, device=dev) * 0.5 + 0.4)
+        else:                                   # norms and biases
+            p.zero_()
+    return model
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU and conv
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x, w, b, conv_state):
+    """Depthwise causal conv: x (B, T, r), w (cw, r), conv_state (B, cw-1,
+    r) -> (out (B, T, r), the new state: the last cw-1 inputs)."""
+    cw, n = w.shape[0], x.shape[1]
+    xp = torch.cat([conv_state, x], dim=1)
+    out = sum(xp[:, i:i + n] * w[i] for i in range(cw))
+    new_state = xp[:, -(cw - 1):] if cw > 1 else conv_state
+    return out + b, new_state
+
+
+def _log_a(lam, r_gate):
+    return -_C * F.softplus(lam) * r_gate              # <= 0
+
+
+def _gated(a, i_gate, x):
+    """sqrt(1 - a²) (clipped to [1e-9, 1]) times the input gate's share."""
+    return torch.sqrt(torch.clamp(1.0 - torch.square(a), 1e-9, 1.0)) * (
+        i_gate * x)
+
+
+def rg_lru_scan(x, r_gate, i_gate, lam, h0):
+    """x, gates (B, T, r) float32; h0 (B, r) -> (h (B, T, r), h_last).  The
+    recurrence is kernel B6, which starts from ``h0`` (the reference folds
+    h0 into step 0 instead: the same function)."""
+    log_a = _log_a(lam, r_gate)
+    h = lru(log_a, _gated(torch.exp(log_a), i_gate, x), h0)
+    return h, h[:, -1]
+
+
+def rec_block(p: RecLayer, cfg, x, st: dict, *, single: bool):
+    """The temporal-mixing recurrent block: x (B, T, d); ``st`` {h, conv}
+    is updated in place."""
+    bx = torch.einsum("btd,dr->btr", x, p.w_x)
+    gate = F.gelu(torch.einsum("btd,dr->btr", x, p.w_gate), approximate="tanh")
+    bx, conv_state = causal_conv1d(bx, p.conv_w, p.conv_b, st["conv"])
+    bx32 = bx.float()
+    r_gate = torch.sigmoid(torch.einsum("btr,rs->bts", bx32, p.w_r.float())
+                           + p.b_r.float())
+    i_gate = torch.sigmoid(torch.einsum("btr,rs->bts", bx32, p.w_i.float())
+                           + p.b_i.float())
+    if single:
+        a = torch.exp(_log_a(p.lam, r_gate))
+        h = a * st["h"][:, None] + _gated(a, i_gate, bx32)
+        h_last = h[:, -1]
+    else:
+        h, h_last = rg_lru_scan(bx32, r_gate, i_gate, p.lam, st["h"])
+    st["h"].copy_(h_last)
+    st["conv"].copy_(conv_state)
+    return torch.einsum("btr,rd->btd", h.to(gate.dtype) * gate, p.w_out)
+
+
+def _qkv(p: AttnLayer, cfg, x, positions):
+    """x (B, S, d) -> q (B, S, H, dh), k/v (B, S, KV, dh) with RoPE."""
+    q = torch.einsum("bsd,dhe->bshe", x, p.wq)
+    k = torch.einsum("bsd,dke->bske", x, p.wk)
+    v = torch.einsum("bsd,dke->bske", x, p.wv)
+    q = layers.apply_rope(q.transpose(1, 2), positions[:, None, :],
+                          cfg.rope_theta).transpose(1, 2)
+    k = layers.apply_rope(k.transpose(1, 2), positions[:, None, :],
+                          cfg.rope_theta).transpose(1, 2)
+    return q, k, v
+
+
+def _mlp(p: MLP, x):
+    return layers.geglu(x, p.w_gate, p.w_up, p.w_down)
+
+
+def rec_layer(p: RecLayer, cfg, x, st, *, single: bool):
+    x = x + rec_block(p, cfg, layers.rms_norm(x, p.norm1, cfg.norm_eps), st,
+                      single=single)
+    return x + _mlp(p.mlp, layers.rms_norm(x, p.norm2, cfg.norm_eps))
+
+
+def attn_layer_full(p: AttnLayer, cfg, x, positions):
+    """Whole sequences: returns (x, k, v)."""
+    q, k, v = _qkv(p, cfg, layers.rms_norm(x, p.norm1, cfg.norm_eps), positions)
+    o = layers.local_attention(q, k, v, window=cfg.window)
+    x = x + torch.einsum("bshe,hed->bsd", o, p.wo)
+    return x + _mlp(p.mlp, layers.rms_norm(x, p.norm2, cfg.norm_eps)), k, v
+
+
+def attn_layer_decode(p: AttnLayer, cfg, x, pos, st: dict):
+    """One token against the ring cache ``st``, written in place at slot
+    ``pos % W`` before attending."""
+    b, w = x.shape[0], st["k"].shape[1]
+    slot = (pos % w).long().reshape(1)
+    q, k, v = _qkv(p, cfg, layers.rms_norm(x, p.norm1, cfg.norm_eps),
+                   pos.reshape(1, 1).expand(b, 1))
+    st["k"].index_copy_(1, slot, k)
+    st["v"].index_copy_(1, slot, v)
+    st["kv_pos"].index_fill_(1, slot, pos)
+    o = layers.decode_attention(q[:, 0], st["k"], st["v"], st["kv_pos"], pos)
+    x = x + torch.einsum("bhe,hed->bd", o, p.wo)[:, None]
+    return x + _mlp(p.mlp, layers.rms_norm(x, p.norm2, cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# Cache and full model
+# ---------------------------------------------------------------------------
+
+
+def _rec_state(cfg, batch, dev):
+    dtype = getattr(torch, cfg.compute_dtype)
+    return {"h": torch.zeros((batch, cfg.rnn_width), dtype=torch.float32,
+                             device=dev),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.rnn_width),
+                                dtype=dtype, device=dev)}
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    dev = resolve(device)
+    w = min(cfg.window, max_len)
+    dtype = getattr(torch, cfg.compute_dtype)
+    kv_shape = (batch, w, cfg.n_kv_heads, cfg.d_head)
+    return {"layers": [
+        _rec_state(cfg, batch, dev) if kind == "rec" else
+        {"k": torch.zeros(kv_shape, dtype=dtype, device=dev),
+         "v": torch.zeros(kv_shape, dtype=dtype, device=dev),
+         "kv_pos": torch.full((batch, w), -1, dtype=torch.int32, device=dev)}
+        for kind in layer_kinds(cfg)],
+        "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _embed(params: RecurrentGemma, cfg, tokens):
+    x = params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+    # gemma's scaling, the factor rounded to x's dtype first (50.5 in bf16
+    # at d = 2560, not 50.596)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+
+
+def _run_full(params: RecurrentGemma, cfg, tokens, cache):
+    """forward and prefill: every layer over the whole sequence, recurrent
+    states into ``cache`` in place; returns (x, [(k, v) per attention
+    layer])."""
+    b, n = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(n, dtype=torch.int32,
+                             device=x.device)[None].expand(b, n)
+    kvs = []
+    for p, st in zip(params.layers, cache["layers"]):
+        if isinstance(p, RecLayer):
+            x = rec_layer(p, cfg, x, st, single=False)
+        else:
+            x, k, v = attn_layer_full(p, cfg, x, positions)
+            kvs.append((k, v))
+    return layers.rms_norm(x, params.final_norm, cfg.norm_eps), kvs
+
+
+def forward(params: RecurrentGemma, cfg, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, T) -> (logits (B, T, Vp), aux loss 0)."""
+    cache = init_cache(cfg, tokens.shape[0], cfg.window, params.embed.device)
+    x, _ = _run_full(params, cfg, tokens, cache)
+    return unembed(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def prefill(params: RecurrentGemma, cfg, tokens: torch.Tensor, max_len: int
+            ) -> Tuple[torch.Tensor, dict]:
+    """tokens (B, T), equal-length prompts -> (next-token logits (B, Vp),
+    the cache, ``pos = T``).  Each ring keeps the last W positions at slot
+    ``p % W`` (``rglru.py:323-338``); a prompt shorter than W leaves the
+    rest empty (-1)."""
+    b, n = tokens.shape
+    cache = init_cache(cfg, b, max_len, params.embed.device)
+    x, kvs = _run_full(params, cfg, tokens, cache)
+    dev = x.device
+    w = min(cfg.window, max_len)
+    if n >= w:
+        kept = torch.arange(n - w, n, dtype=torch.int32, device=dev)
+        order = torch.argsort(kept % w)
+    else:
+        kept = torch.cat([torch.arange(n, dtype=torch.int32, device=dev),
+                          torch.full((w - n,), -1, dtype=torch.int32,
+                                     device=dev)])
+        order = torch.arange(w, device=dev)
+    attn = [st for st in cache["layers"] if "kv_pos" in st]
+    for st, (k, v) in zip(attn, kvs):
+        for name, t in (("k", k), ("v", v)):
+            t = t[:, -w:] if n >= w else F.pad(t, (0, 0, 0, 0, 0, w - n))
+            st[name] = t[:, order]
+        st["kv_pos"] = kept[order][None].expand(b, w).contiguous()
+    cache["pos"] = torch.full((), n, dtype=torch.int32, device=dev)
+    return unembed(params, cfg, x[:, -1:])[:, 0], cache
+
+
+def decode_step(params: RecurrentGemma, cfg, cache: dict, token: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+    """token (B,): one step; updates ``cache`` in place and returns
+    (logits (B, Vp), cache)."""
+    pos = cache["pos"]
+    x = _embed(params, cfg, token)[:, None]
+    for p, st in zip(params.layers, cache["layers"]):
+        if isinstance(p, RecLayer):
+            x = rec_layer(p, cfg, x, st, single=True)
+        else:
+            x = attn_layer_decode(p, cfg, x, pos, st)
+    cache["pos"] = pos + 1
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(params, cfg, x)[:, 0], cache

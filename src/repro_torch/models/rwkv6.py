@@ -1,0 +1,260 @@
+"""RWKV6 (Finch), the ``ssm`` family (port of ``repro/models/rwkv6.py``):
+an attention-free LM with a data-dependent per-channel decay.
+
+Per head, with a (K, V) state S:
+
+    S_t = diag(w_t) S_{t-1} + k_tᵀ v_t
+    y_t = r_t S_{t-1} + (r_t · (u ⊙ k_t)) v_t
+
+with ``log w_t = -exp(clip(w0 + tanh(x_w A) B, -8, 2))``.  Whole sequences
+(forward, prefill) take the chunked scan, kernel B5
+(``kernels/rwkv6_scan/ops.py wkv``), once per layer; a decode step takes
+the single-token recurrence ``wkv_step`` in plain PyTorch, as the
+reference computes it in XLA.
+
+Parameters live in ``nn.Module``s with the reference's names and shapes,
+one ``Layer`` per layer where the reference stacks them.  The serving
+state is a dict with the reference's layout (``tm_prev``, ``cm_prev``
+``(n_layers, B, d)`` in the compute dtype, ``S (n_layers, B, H, K, V)``
+float32, a scalar ``pos``); ``decode_step`` updates it in place and
+returns the same dict, where the reference builds a new one.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.device import generator, resolve
+from repro_torch.kernels.rwkv6_scan.ops import wkv
+from repro_torch.models import layers
+from repro_torch.models.transformer import unembed
+
+
+class Layer(nn.Module):
+    """One block: time mix (``mu``, ``wr`` ... ``u``, ``gn_*``) then channel
+    mix (``mu_c``, ``wk_c``, ``wv_c``, ``wr_c``), each behind a layer norm."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        p = lambda *shape: layers.param(*shape, dtype=dtype, device=device)
+        for name in ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "w0", "gn_w", "gn_b"):
+            setattr(self, name, p(d))
+        self.mu = p(5, d)                          # r, k, v, g, w
+        for name in ("wr", "wk", "wv", "wg", "wo", "wr_c"):
+            setattr(self, name, p(d, d))
+        self.wA = p(d, cfg.decay_lora)
+        self.wB = p(cfg.decay_lora, d)
+        self.u = p(cfg.n_heads, cfg.head_size)
+        self.mu_c = p(2, d)                        # k, r
+        self.wk_c = p(d, f)
+        self.wv_c = p(f, d)
+
+
+class RWKV6(nn.Module):
+    """The parameters of one RWKV6 LM, uninitialised (``init_params`` draws
+    them, ``io.lm_params_from_numpy`` copies the reference's)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        if cfg.family != "ssm":
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not rwkv6")
+        if cfg.n_heads * cfg.head_size != cfg.d_model:
+            raise ValueError(f"{cfg.name}: n_heads * head_size != d_model")
+        dtype = getattr(torch, cfg.param_dtype)
+        d, vp = cfg.d_model, cfg.vocab_padded
+        p = lambda *shape: layers.param(*shape, dtype=dtype, device=device)
+        self.embed = p(vp, d)
+        self.ln0_w, self.ln0_b = p(d), p(d)
+        self.layers = nn.ModuleList(Layer(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm_w, self.final_norm_b = p(d), p(d)
+        self.lm_head = p(d, vp)
+
+
+def init_params(cfg, seed: int = 0, device=None) -> RWKV6:
+    """Random weights with the reference's distributions
+    (``rwkv6.py:31-73``): ``mu``, ``mu_c`` uniform in [0, 1); the
+    projections normal with std ``1/sqrt(fan-in)``, ``wo`` and ``wv_c``
+    scaled by ``1/sqrt(2 n_layers)``; ``w0 = 0.3 N - 0.6``; ``wB`` at 0.01,
+    ``u`` at 0.3; embeddings 0.02; norm weights 1, biases 0.  From a
+    ``torch.Generator`` seeded with ``seed``, on ``device`` (CUDA by
+    default), each tensor drawn in float32 and cast on its own."""
+    dev = resolve(device)
+    model = RWKV6(cfg, dev)
+    gen = generator(dev, seed)
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    normal = lambda shape, std: torch.randn(shape, generator=gen,
+                                            device=dev) * std
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "embed":
+            p.copy_(layers.embed_init(p.shape, gen))
+        elif leaf in ("mu", "mu_c"):
+            p.copy_(torch.rand(p.shape, generator=gen, device=dev))
+        elif leaf in ("wo", "wv_c"):
+            p.copy_(layers.dense_init(p.shape, gen, scale=out_scale))
+        elif leaf in ("wr", "wk", "wv", "wg", "wA", "wk_c", "wr_c", "lm_head"):
+            p.copy_(layers.dense_init(p.shape, gen))
+        elif leaf == "w0":
+            p.copy_(normal(p.shape, 0.3) - 0.6)
+        elif leaf == "wB":
+            p.copy_(normal(p.shape, 0.01))
+        elif leaf == "u":
+            p.copy_(normal(p.shape, 0.3))
+        elif leaf.endswith("_w"):                  # norm weights
+            p.fill_(1.0)
+        else:                                      # norm biases
+            p.zero_()
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """x (B, T, d); prev (B, d), the last token of the previous segment."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def _decay_log(p: Layer, x_w: torch.Tensor) -> torch.Tensor:
+    """log w_t (B, T, d) in float32, in [-e^2, -e^-8]: the exponent is
+    clipped to [-8, 2] for the chunk cumsum's safety."""
+    lora = torch.tanh(torch.einsum("btd,dl->btl", x_w, p.wA))
+    lora = torch.einsum("btl,ld->btd", lora, p.wB)
+    return -torch.exp((p.w0.float() + lora.float()).clamp(-8.0, 2.0))
+
+
+def wkv_step(r, k, v, dlog, u, state):
+    """The single-token recurrence: r, k, v, dlog (B, H, K/V); state (B, H,
+    K, V) float32 -> (y (B, H, V) in r's dtype, new state)."""
+    r32, k32, v32 = r.float(), k.float(), v.float()
+    y = torch.einsum("bhk,bhkv->bhv", r32, state)
+    bonus = torch.einsum("bhk,hk,bhk->bh", r32, u.float(), k32)
+    y = y + bonus[..., None] * v32
+    state = (torch.exp(dlog.float())[..., None] * state
+             + k32[..., None] * v32[..., None, :])
+    return y.to(r.dtype), state
+
+
+def time_mix(p: Layer, cfg, x, tm_prev, state, *, single: bool):
+    """x (B, T, d), T = 1 when ``single``.  Returns (out, x's last token,
+    the new state).  A whole-sequence pass starts from the zero state, as
+    forward and prefill do, and takes the chunked scan (B5); a decode step
+    carries ``state``."""
+    b, n, d = x.shape
+    h, dh = cfg.n_heads, cfg.head_size
+    xs = _token_shift(x, tm_prev)
+    mu = p.mu.to(x.dtype)
+    xr, xk, xv, xg, xw = (x + mu[i] * (xs - x) for i in range(5))
+    r = torch.einsum("btd,de->bte", xr, p.wr).reshape(b, n, h, dh)
+    k = torch.einsum("btd,de->bte", xk, p.wk).reshape(b, n, h, dh)
+    v = torch.einsum("btd,de->bte", xv, p.wv).reshape(b, n, h, dh)
+    g = F.silu(torch.einsum("btd,de->bte", xg, p.wg))
+    dlog = _decay_log(p, xw).reshape(b, n, h, dh)
+    if single:
+        y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], dlog[:, 0], p.u, state)
+        y = y[:, None]
+    else:
+        chunk = min(cfg.rwkv_chunk, n)
+        if n % chunk:              # the reference asserts it (rwkv6.py:99)
+            raise ValueError(f"{cfg.name}: T={n} is not a multiple of the "
+                             f"chunk {chunk}")
+        d_dtype = r.dtype if cfg.rwkv_d_dtype == "compute" else torch.float32
+        y, state = wkv(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       dlog.transpose(1, 2), p.u, chunk=chunk, d_dtype=d_dtype)
+        y = y.transpose(1, 2)
+    y = layers.group_norm_heads(y.reshape(b, n, d), p.gn_w, p.gn_b, h, eps=1e-5)
+    return torch.einsum("btd,de->bte", y * g, p.wo), x[:, -1], state
+
+
+def channel_mix(p: Layer, cfg, x, cm_prev):
+    xs = _token_shift(x, cm_prev)
+    mu = p.mu_c.to(x.dtype)
+    xk = x + mu[0] * (xs - x)
+    xr = x + mu[1] * (xs - x)
+    k = torch.square(F.relu(torch.einsum("btd,df->btf", xk, p.wk_c)))
+    out = torch.einsum("btf,fd->btd", k, p.wv_c)
+    rgate = torch.sigmoid(torch.einsum("btd,de->bte", xr, p.wr_c))
+    return rgate * out, x[:, -1]
+
+
+def block(p: Layer, cfg, x, state: dict, i: int, *, single: bool):
+    """Layer ``i``: writes its ``tm_prev``, ``cm_prev`` and ``S`` into
+    ``state`` in place."""
+    h, tm_prev, s = time_mix(
+        p, cfg, layers.layer_norm(x, p.ln1_w, p.ln1_b, cfg.norm_eps),
+        state["tm_prev"][i], state["S"][i], single=single)
+    x = x + h
+    h, cm_prev = channel_mix(
+        p, cfg, layers.layer_norm(x, p.ln2_w, p.ln2_b, cfg.norm_eps),
+        state["cm_prev"][i])
+    state["tm_prev"][i].copy_(tm_prev)
+    state["cm_prev"][i].copy_(cm_prev)
+    state["S"][i].copy_(s)
+    return x + h
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg, batch: int, device=None) -> dict:
+    dev = resolve(device)
+    h, dh, d = cfg.n_heads, cfg.head_size, cfg.d_model
+    dtype = getattr(torch, cfg.compute_dtype)
+    return {"tm_prev": torch.zeros((cfg.n_layers, batch, d), dtype=dtype,
+                                   device=dev),
+            "cm_prev": torch.zeros((cfg.n_layers, batch, d), dtype=dtype,
+                                   device=dev),
+            "S": torch.zeros((cfg.n_layers, batch, h, dh, dh),
+                             dtype=torch.float32, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    del max_len                    # a constant-size state, whatever the length
+    return init_state(cfg, batch, device)
+
+
+def _run(params: RWKV6, cfg, tokens, state, *, single: bool):
+    x = params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+    x = layers.layer_norm(x, params.ln0_w, params.ln0_b, cfg.norm_eps)
+    for i, p in enumerate(params.layers):
+        x = block(p, cfg, x, state, i, single=single)
+    return layers.layer_norm(x, params.final_norm_w, params.final_norm_b,
+                             cfg.norm_eps)
+
+
+def forward(params: RWKV6, cfg, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, T) -> (logits (B, T, Vp), aux loss 0)."""
+    state = init_state(cfg, tokens.shape[0], params.embed.device)
+    x = _run(params, cfg, tokens, state, single=False)
+    return unembed(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def prefill(params: RWKV6, cfg, tokens: torch.Tensor, max_len: int
+            ) -> Tuple[torch.Tensor, dict]:
+    """tokens (B, T), equal-length prompts -> (next-token logits (B, Vp),
+    the state after them, ``pos = T``)."""
+    b, n = tokens.shape
+    state = init_state(cfg, b, params.embed.device)
+    x = _run(params, cfg, tokens, state, single=False)
+    state["pos"] = torch.full((), n, dtype=torch.int32, device=x.device)
+    return unembed(params, cfg, x[:, -1:])[:, 0], state
+
+
+def decode_step(params: RWKV6, cfg, cache: dict, token: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+    """token (B,): one step; updates ``cache`` in place and returns
+    (logits (B, Vp), cache)."""
+    x = _run(params, cfg, token[:, None], cache, single=True)
+    cache["pos"] = cache["pos"] + 1
+    return unembed(params, cfg, x)[:, 0], cache

@@ -47,22 +47,17 @@ def _check_family(cfg) -> None:
             "covers the dense and MoE families (the others are ROADMAP queue A)")
 
 
-def _param(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 class Attention(nn.Module):
     def __init__(self, cfg, dtype, device):
         super().__init__()
         d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        self.wq = _param(d, h, dh, dtype=dtype, device=device)
-        self.wk = _param(d, kv, dh, dtype=dtype, device=device)
-        self.wv = _param(d, kv, dh, dtype=dtype, device=device)
-        self.wo = _param(h, dh, d, dtype=dtype, device=device)
+        self.wq = layers.param(d, h, dh, dtype=dtype, device=device)
+        self.wk = layers.param(d, kv, dh, dtype=dtype, device=device)
+        self.wv = layers.param(d, kv, dh, dtype=dtype, device=device)
+        self.wo = layers.param(h, dh, d, dtype=dtype, device=device)
         for name, heads in (("bq", h), ("bk", kv), ("bv", kv)):
             self.register_parameter(
-                name, _param(heads, dh, dtype=dtype, device=device)
+                name, layers.param(heads, dh, dtype=dtype, device=device)
                 if cfg.qkv_bias else None)
 
 
@@ -70,9 +65,9 @@ class MLP(nn.Module):
     def __init__(self, cfg, dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.w_gate = _param(d, f, dtype=dtype, device=device)
-        self.w_up = _param(d, f, dtype=dtype, device=device)
-        self.w_down = _param(f, d, dtype=dtype, device=device)
+        self.w_gate = layers.param(d, f, dtype=dtype, device=device)
+        self.w_up = layers.param(d, f, dtype=dtype, device=device)
+        self.w_down = layers.param(f, d, dtype=dtype, device=device)
 
 
 class Block(nn.Module):
@@ -83,8 +78,8 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.use_moe = use_moe
-        self.attn_norm = _param(cfg.d_model, dtype=dtype, device=device)
-        self.mlp_norm = _param(cfg.d_model, dtype=dtype, device=device)
+        self.attn_norm = layers.param(cfg.d_model, dtype=dtype, device=device)
+        self.mlp_norm = layers.param(cfg.d_model, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype, device)
         if use_moe:
             self.moe = moe_lib.MoE(cfg, dtype, device)
@@ -145,11 +140,11 @@ class Transformer(nn.Module):
         _check_family(cfg)
         dtype = getattr(torch, cfg.param_dtype)
         d, vp = cfg.d_model, cfg.vocab_padded
-        self.embed = _param(vp, d, dtype=dtype, device=device)
-        self.final_norm = _param(d, dtype=dtype, device=device)
+        self.embed = layers.param(vp, d, dtype=dtype, device=device)
+        self.final_norm = layers.param(d, dtype=dtype, device=device)
         self.register_parameter(
             "lm_head", None if cfg.tie_embeddings
-            else _param(d, vp, dtype=dtype, device=device))
+            else layers.param(d, vp, dtype=dtype, device=device))
         self.n_dense = (cfg.n_dense_layers if cfg.family == "moe"
                         else cfg.n_layers)
         self.layers = nn.ModuleList(Block(cfg, dtype, device,

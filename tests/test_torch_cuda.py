@@ -1,6 +1,6 @@
 """The port's CUDA kernels (B1 lockstep advance, B2 flash attention, B3
-decode attention, B4a/B4b grouped expert GEMM and SwiGLU) against their
-plain PyTorch versions, on the card.
+decode attention, B4a/B4b grouped expert GEMM and SwiGLU, B5 chunked WKV
+scan, B6 RG-LRU scan) against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  The file imports neither ``jax`` nor the reference package, so
@@ -22,6 +22,10 @@ from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.lockstep_advance import ops
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
+from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models import transformer
 
 N, R, W = 6, 4, 4
@@ -379,3 +383,129 @@ def test_moe_prefill_and_decode_on_card_launch_b3_b4(cuda_device, arch):
         ref, rcache = transformer.decode_step(cpu, cfg, rcache, steps[i])
         torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
     assert torch.equal(cache["kv_pos"].cpu(), rcache["kv_pos"])
+
+
+# ---------------------------------------------------------------------------
+# Chunked WKV scan (B5) and RG-LRU scan (B6)
+# ---------------------------------------------------------------------------
+
+# (B, H, T, K, V, chunk): rwkv6-7b's heads (64 x 64, chunk 32) at B=4 and
+# at B=1 (B*H below the SM count: V split over two blocks), a tail chunk
+# (T=100), chunk > T, V != K, chunk 64 and the reduced config's heads
+WKV_SHAPES = [(4, 64, 128, 64, 64, 32), (1, 64, 100, 64, 64, 32),
+              (2, 3, 5, 64, 64, 32), (2, 3, 70, 64, 32, 16),
+              (1, 2, 130, 48, 64, 64), (2, 4, 64, 16, 16, 8)]
+# float32: the chunked algorithm against the token recurrence differs by
+# float32 rounding of cumulative decays of up to ~240 (a few 1e-6 of
+# outputs of up to ~100); bf16: one rounding of y (2^-8 relative), the
+# state stays float32
+WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _wkv_inputs(b, h, n, kd, vd, gen, dev, dtype):
+    r, k = (torch.randn((b, h, n, kd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    v = torch.randn((b, h, n, vd), generator=gen, device=dev).to(dtype)
+    expo = (torch.randn((b, h, n, kd), generator=gen, device=dev) - 0.6)
+    dlog = -torch.exp(expo.clamp(-8.0, 2.0))          # the model's range
+    u = torch.randn((h, kd), generator=gen, device=dev) * 0.3
+    return r, k, v, dlog, u
+
+
+def _within(got, ref, tol):
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,kd,vd,chunk", WKV_SHAPES)
+def test_wkv_kernel_matches_token_recurrence_on_card(cuda_device, b, h, n, kd,
+                                                     vd, chunk, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(b * h + n + kd)
+    r, k, v, dlog, u = _wkv_inputs(b, h, n, kd, vd, gen, cuda_device, dtype)
+    before = wkv_ops.LAUNCHES
+    y, state = wkv_ops.wkv(r, k, v, dlog, u.to(dtype), chunk=chunk)
+    assert wkv_ops.LAUNCHES == before + 1
+    assert y.dtype == dtype and y.shape == v.shape
+    assert state.dtype == torch.float32 and state.shape == (b, h, kd, vd)
+    y_ref, s_ref = rwkv6_scan_ref(r, k, v, dlog, u.to(dtype))
+    _within(y, y_ref, WKV_TOL[dtype])
+    _within(state, s_ref, WKV_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_reads_the_models_layout_on_card(cuda_device):
+    """r, k, v, dlog as (B, T, H, K) tensors handed over transposed: read in
+    place through strides; y comes back in the same layout."""
+    b, n, h, kd = 2, 96, 8, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    r, k, v, dlog, u = _wkv_inputs(b, h, n, kd, kd, gen, cuda_device,
+                                   torch.bfloat16)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (r, k, v, dlog)]
+    y, state = wkv_ops.wkv(*views, u, chunk=32)
+    assert y.transpose(1, 2).is_contiguous()
+    y_ref, s_ref = wkv_ops.wkv(r, k, v, dlog, u, chunk=32)
+    assert torch.equal(y, y_ref) and torch.equal(state, s_ref)
+
+
+@pytest.mark.cuda
+def test_wkv_wrapper_rejects_bad_operands_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    r, k, v, dlog, u = _wkv_inputs(1, 2, 16, 64, 64, gen, cuda_device,
+                                   torch.float32)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv(r, k.bfloat16(), v, dlog, u)
+    with pytest.raises(TypeError):                        # dlog in bf16
+        wkv_ops.wkv(r, k, v, dlog.bfloat16(), u)
+    with pytest.raises(ValueError):                       # u's heads
+        wkv_ops.wkv(r, k, v, dlog, u[:1])
+    with pytest.raises(ValueError):                       # chunk over 64
+        long = _wkv_inputs(1, 2, 130, 64, 64, gen, cuda_device, torch.float32)
+        wkv_ops.wkv(*long, chunk=128)
+    with pytest.raises(ValueError):                       # K over 64
+        big = torch.zeros((1, 2, 16, 128), device=cuda_device)
+        wkv_ops.wkv(big, big, big, big, torch.zeros((2, 128), device=cuda_device))
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r, k, v, dlog.transpose(2, 3).contiguous().transpose(2, 3), u)
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(r, k, v, dlog, u.cpu())
+
+
+# (B, T, W): recurrentgemma-2b's width at B=4, ragged T and W, one step
+LRU_SHAPES = [(4, 128, 2560), (1, 37, 100), (2, 1, 64), (3, 300, 33)]
+LRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,w", LRU_SHAPES)
+def test_lru_kernel_matches_plain_version_on_card(cuda_device, b, n, w, dtype):
+    """A non-zero h0 and some log_a > 0, which the wrapper clamps to 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * n + w)
+    log_a = (-torch.rand((b, n, w), generator=gen, device=cuda_device) * 2
+             + 0.1).to(dtype)
+    x = torch.randn((b, n, w), generator=gen, device=cuda_device).to(dtype)
+    h0 = torch.randn((b, w), generator=gen, device=cuda_device)
+    assert bool((log_a > 0).any())
+    before = lru_ops.LAUNCHES
+    got = lru_ops.lru(log_a, x, h0)
+    assert lru_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _within(got, rglru_scan_ref(log_a.clamp(max=0.0), x, h0), LRU_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_lru_wrapper_rejects_bad_operands_on_card(cuda_device):
+    z = torch.zeros((2, 8, 16), device=cuda_device)
+    h0 = torch.zeros((2, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        lru_ops.lru(z, z.bfloat16(), h0)
+    with pytest.raises(TypeError):
+        lru_ops.lru(z, z, h0.bfloat16())
+    with pytest.raises(ValueError):
+        lru_ops.lru(z, z, h0[:1])
+    with pytest.raises(ValueError):
+        lru_ops.lru(z, z.transpose(1, 2).contiguous().transpose(1, 2), h0)
+    with pytest.raises(ValueError):
+        lru_ops.lru(z, z, h0.cpu())

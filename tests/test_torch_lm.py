@@ -306,17 +306,22 @@ def test_init_params_shapes_scales_and_defaults():
 
 
 def test_unported_families_raise():
-    """The dense and MoE families are ported; RWKV6, RG-LRU and enc-dec
-    raise, through the family dispatch and through the transformer."""
+    """The dense, MoE, RWKV6 and RG-LRU families are ported; enc-dec alone
+    raises through the family dispatch, and the transformer still refuses
+    the other families."""
+    raised = []
     for arch in list_archs():
         cfg = reduce_config(get_config(arch))
-        if cfg.family in ("dense", "moe"):
+        if cfg.family != "encdec":
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model_lib.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(reduce_config(get_config("rwkv6-7b")),
-                                device="cpu")
+        raised.append(arch)
+    assert raised == ["whisper-medium"]
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            transformer.init_params(reduce_config(get_config(arch)),
+                                    device="cpu")
 
 
 def test_carried_weights_reject_a_wrong_tree():
@@ -333,12 +338,13 @@ def test_carried_weights_reject_a_wrong_tree():
 
 def test_nvcc_flags_are_per_kernel():
     """B1 must not contract multiply-adds (bit-exact against an
-    FMA-contracted reference at four written sites); B2, B3 and B4 keep
-    nvcc's default contraction.  The library name hashes each kernel's own flags.
-    Nothing is compiled here."""
+    FMA-contracted reference at four written sites); B2, B3, B4, B5 and B6
+    keep nvcc's default contraction.  The library name hashes each kernel's
+    own flags.  Nothing is compiled here."""
     from repro_torch.kernels import build
     assert "--fmad=false" in build.flags("lockstep_advance")
-    for name in ("flash_attn", "decode_attn", "moe_gemm"):
+    for name in ("flash_attn", "decode_attn", "moe_gemm", "rwkv6_scan",
+                 "rglru_scan"):
         assert "--fmad=false" not in build.flags(name)
     assert set(build.KERNEL_FLAGS) == {p.stem for p in build.CSRC.glob("*.cu")}
     paths = {name: build.library_path(name) for name in build.KERNEL_FLAGS}
