@@ -204,12 +204,11 @@ def _qkv(p: Attention, cfg, x, positions):
 
 def attention_full(p: Attention, cfg, x, positions):
     """Causal (or sliding-window) attention over whole sequences, through
-    the flash-attention kernel.  Returns (out, k, v)."""
+    the flash-attention kernel, which reads q, k and v as (B, H, S, dh)
+    views of the (B, S, H, dh) tensors (no copies).  Returns (out, k, v)."""
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.window if cfg.attention == "swa" else 0
-    o = flash_attn(q.transpose(1, 2).contiguous(),
-                   k.transpose(1, 2).contiguous(),
-                   v.transpose(1, 2).contiguous(),
+    o = flash_attn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    causal=True, window=window).transpose(1, 2)
     return torch.einsum("bshe,hed->bsd", o, p.wo), k, v
 

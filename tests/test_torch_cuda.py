@@ -18,7 +18,7 @@ from repro_torch.env import profiles
 from repro_torch.kernels.decode_attn import ops as da_ops
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 from repro_torch.kernels.flash_attn import ops as fa_ops
-from repro_torch.kernels.flash_attn.ref import attention_ref
+from repro_torch.kernels.flash_attn.ref import attention_ref, attention_tiled_ref
 from repro_torch.kernels.lockstep_advance import ops
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
@@ -141,13 +141,34 @@ def test_env_step_on_card_launches_once_per_step(cuda_device):
 # ---------------------------------------------------------------------------
 
 # (H, KV, dh, S, window): each expert's heads at full width (qwen 16/16/64,
-# danube 32/8/120 with a window, starcoder2 48/4/128), at serving buckets
-# and ragged lengths (S < 32, S not a multiple of 32), and the reduced
-# configs' small heads
+# danube 32/8/120 with a window, starcoder2 48/4/128, dbrx 48/8/128), at
+# serving buckets and ragged lengths (S < 32, S not a multiple of 32), and
+# the reduced configs' small heads.  starcoder2's G = 12 at S = 16 and 100
+# packs 12 heads of a position into 64-row tiles, so tiles split a
+# position's heads; a window of 37 binds inside a 64-key tile
 FLASH_SHAPES = [(16, 16, 64, 16, 0), (32, 8, 120, 40, 0), (48, 4, 128, 128, 0),
                 (32, 8, 120, 200, 64), (8, 2, 24, 7, 0), (4, 4, 16, 70, 8),
-                (48, 4, 128, 1, 0)]
+                (48, 4, 128, 1, 0), (48, 4, 128, 16, 0), (48, 4, 128, 100, 0),
+                (48, 8, 128, 128, 0), (48, 4, 128, 200, 37)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the bf16 kernel against its tile algorithm in plain PyTorch: float32
+# summation order and ex2.approx move an output by one bf16 rounding step
+# at most, 2^-7 of its magnitude (2^-7 absolute under 1)
+TILED_REL_TOL = 2.0 ** -7
+
+
+def _qkv_randn(b, h, kv, s, dh, dtype, dev, seed, layout="bhsd"):
+    """q (b, h, s, dh), k, v (b, kv, s, dh); ``layout="bshd"`` makes them
+    (B, H, S, dh) views of (B, S, H, dh) tensors, as the model holds them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for n in (h, kv, kv):
+        if layout == "bshd":
+            x = torch.randn((b, s, n, dh), generator=gen, device=dev).transpose(1, 2)
+        else:
+            x = torch.randn((b, n, s, dh), generator=gen, device=dev)
+        out.append(x.to(dtype))
+    return out
 
 
 @pytest.mark.cuda
@@ -167,6 +188,56 @@ def test_flash_attn_kernel_matches_plain_version_on_card(
         torch.testing.assert_close(got.float(), ref.float(), rtol=0,
                                    atol=FLASH_TOL[dtype])
     assert fa_ops.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,dh,s,window", FLASH_SHAPES)
+def test_flash_attn_bf16_kernel_matches_tile_algorithm_on_card(
+        cuda_device, h, kv, dh, s, window):
+    """The bf16 kernel against ``attention_tiled_ref`` (packed rows, key
+    tiles with the skip rule, P rounded to bf16) within one rounding step
+    of the output, causal and not."""
+    q, k, v = _qkv_randn(2, h, kv, s, dh, torch.bfloat16, cuda_device,
+                         h * s + dh + 1)
+    for causal in (True, False):
+        got = fa_ops.flash_attn(q, k, v, causal=causal, window=window).float()
+        tiled = attention_tiled_ref(q, k, v, causal=causal,
+                                    window=window).float()
+        scale = tiled.abs().clamp(min=1.0)
+        assert float(((got - tiled).abs() / scale).max()) <= TILED_REL_TOL
+
+
+@pytest.mark.cuda
+def test_flash_attn_bf16_kernel_long_prefill_on_card(cuda_device):
+    """starcoder2's heads at S = 4,096, bf16: 64 key tiles deep, the ring
+    of K/V stages reused 32 times per block."""
+    q, k, v = _qkv_randn(1, 48, 4, 4096, 128, torch.bfloat16, cuda_device, 7)
+    got = fa_ops.flash_attn(q, k, v).float()
+    torch.testing.assert_close(got, attention_ref(q, k, v).float(), rtol=0,
+                               atol=FLASH_TOL[torch.bfloat16])
+    tiled = attention_tiled_ref(q, k, v).float()
+    scale = tiled.abs().clamp(min=1.0)
+    assert float(((got - tiled).abs() / scale).max()) <= TILED_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,dh,s,window", [(48, 4, 128, 100, 0),
+                                              (32, 8, 120, 40, 8),
+                                              (8, 2, 24, 7, 0)])
+def test_flash_attn_kernel_reads_strided_views_on_card(
+        cuda_device, h, kv, dh, s, window, dtype):
+    """q, k, v as (B, H, S, dh) views of (B, S, H, dh) tensors give the same
+    output, bit for bit, as contiguous copies; the output is a (B, H, S,
+    dh) view of a (B, S, H, dh) tensor."""
+    q, k, v = _qkv_randn(2, h, kv, s, dh, dtype, cuda_device, s + dh,
+                         layout="bshd")
+    assert not v.is_contiguous()
+    got = fa_ops.flash_attn(q, k, v, window=window)
+    want = fa_ops.flash_attn(q.contiguous(), k.contiguous(), v.contiguous(),
+                             window=window)
+    assert torch.equal(got, want)
+    assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
 
 
 @pytest.mark.cuda
@@ -203,6 +274,13 @@ def test_flash_attn_wrapper_rejects_bad_operands_on_card(cuda_device):
         fa_ops.flash_attn(q.transpose(2, 3), k, k)
     with pytest.raises(ValueError):
         fa_ops.flash_attn(q, k.cpu(), k.cpu())
+    with pytest.raises(ValueError):                       # bf16 head dim 20
+        fa_ops.flash_attn(*(torch.zeros((1, n, 16, 20), device=cuda_device,
+                                        dtype=torch.bfloat16) for n in (4, 2, 2)))
+    wide = torch.zeros((1, 2, 16, 68), device=cuda_device,
+                       dtype=torch.bfloat16)[..., :64]    # rows of 136 bytes
+    with pytest.raises(ValueError):
+        fa_ops.flash_attn(q.bfloat16(), wide, wide)
 
 
 @pytest.mark.cuda
