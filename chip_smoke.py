@@ -40,11 +40,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 included); the kernel's TFLOP/s and share of the peak
                 (bf16 989, float32 67).
   6. decode_attn — the decode-attention kernel (B3) against its plain
-                version at the full-attention experts' heads (qwen, starcoder2,
-                dbrx), 4 sequences of ragged lengths over the serving cache
-                (S=192, read in its (B, S, KV, dh) layout) and starcoder2's
-                over S=4,096; bf16 2e-2, float32 2e-5.  Times as in 5, with
-                scaled_dot_product_attention under a length mask as the
+                version of each mask: under ``lengths``, the full-attention
+                experts' heads (qwen, starcoder2, dbrx), 4 sequences of
+                ragged lengths over the serving cache (S=192, read in its
+                (B, S, KV, dh) layout) and starcoder2's over S=4,096; under
+                ``kv_pos``, danube's heads on its serving ring (S=192) and
+                recurrentgemma's (10/1 x 256) on its window of 2,048, rings
+                that have wrapped; bf16 2e-2, float32 2e-5, and against the
+                kernel's algorithm in plain PyTorch
+                (``decode_attention_split_ref``: bf16 within one rounding
+                step of the output, float32 2e-5).  Times as in 5, with
+                scaled_dot_product_attention under the same mask as the
                 library call.
   7. moe_gemm — the grouped SwiGLU (B4b) and grouped GEMM (B4a) kernels
                 against their plain versions at dbrx's expert shapes (16 x
@@ -56,18 +62,26 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   8. lm_serve — the LM path, ``launch/serve.py`` at the published widths in
                 bf16 (``build_cluster(reduce=False)``): per expert, a prefill
                 and a decode step through the kernels against the same
-                through their plain versions on the same weights; a reduced
-                cluster on the card against the same on the CPU, token for
-                token; then, counted, the calibration (k1, k2) and two
-                request streams (SQF, RR; 30 requests at 20/s, L = 30 ms).
-                B2 must launch n_layers times per prefill, B3 n_layers times
-                per decode of a full-attention expert.  Then a profiled
-                window per expert.
+                through their plain versions on the same weights, and the
+                same two steps captured as a CUDA graph against them run
+                eagerly (bit-equal logits); a reduced cluster on the card
+                against the same on the CPU, token for token; then, counted,
+                the calibration (k1, k2) and two request streams (SQF, RR;
+                30 requests at 20/s, L = 30 ms), once through the servers as
+                they serve by default (each step a CUDA graph) and once
+                through eager twins on the same weights (``graphs=False``):
+                requests that reach the same expert in both runs must get
+                the same tokens, and so must a fixed request set stepped to
+                the end.  B2 must launch n_layers times per prefill, B3
+                n_layers times per decode, counted per replay.  Then a
+                profiled window per expert, graphed and eager, whose trace
+                must hold each LM kernel's expected launches.
   9. lm_moe   — the same for a mixed cluster with one MoE expert:
                 qwen1.5-0.5b, h2o-danube-3-4b and dbrx-132b at its published
                 widths cut to 4 of its 40 layers (``reduced``), after the
                 dense cluster is freed.  B4b and B4a must launch once per MoE
-                layer per prefill and per decode, B3 as in 8; the plain
+                layer per prefill and per decode, B3 as in 8, graphed and
+                eager as in 8; the plain
                 run of the kernels-vs-plain check replays the kernel run's
                 expert routing (the free-running difference is reported).
                 Then a profiled window of the dbrx expert.
@@ -89,17 +103,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 0, 1), after the earlier clusters are freed.  Per model a
                 prefill of 4 x 128 tokens through the kernels against the
                 same through their plain versions (logits within 2^-4 of
-                the largest, greedy tokens, recurrent states), 32 greedy
-                decodes, timed prefills, a profiled window and a prefill of
-                1 x 4,096 (past recurrentgemma's 2,048 window).  B5 must
-                launch n_layers times per rwkv6 prefill, B6 once per
-                recurrent layer per recurrentgemma prefill, neither at
-                decode.
+                the largest, greedy tokens, recurrent states) and one
+                decode step from its cache the same way, 32 greedy decodes
+                replayed from a CUDA graph and the same 32 run eagerly from
+                a copy of the cache (bit-equal logits), timed prefills, a
+                profiled window (one capture for every prompt; the trace
+                must hold B3, B5 and B6's expected launches) and a prefill
+                of 1 x 4,096 (past
+                recurrentgemma's 2,048 window).  B5 must launch n_layers
+                times per rwkv6 prefill, B6 once per recurrent layer per
+                recurrentgemma prefill, neither at decode; B3 once per
+                attention layer per recurrentgemma decode.
  13. kernels  — the kernel table line; each kernel's launches are those of
                 the counted main paths (3 for B1, 8, 9 and 12 for the
                 others).
 
-The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without
+A ``seconds`` line gives each phase's time and the total.  The last line
+is ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a result when CUDA is unavailable or the package is missing.
 """
 from __future__ import annotations
@@ -606,68 +626,104 @@ def flash_phase(dev):
 # Phase 6: the decode-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
-# (label, H, KV, dh, S): the full-attention experts' heads at the serving
-# cache (4 slots x 192 positions), and starcoder2's over a long cache
-DECODE_CASES = [("qwen1.5-0.5b", 16, 16, 64, 192),
-                ("starcoder2-15b", 48, 4, 128, 192),
-                ("dbrx-132b", 48, 8, 128, 192),
-                ("starcoder2-15b", 48, 4, 128, 4096)]
+# (label, H, KV, dh, S, mask): the full-attention experts' heads at the
+# serving cache (4 slots x 192 positions), starcoder2's over a long cache,
+# danube's on its serving ring and recurrentgemma's on its window
+DECODE_CASES = [("qwen1.5-0.5b", 16, 16, 64, 192, "lengths"),
+                ("starcoder2-15b", 48, 4, 128, 192, "lengths"),
+                ("dbrx-132b", 48, 8, 128, 192, "lengths"),
+                ("h2o-danube-3-4b", 32, 8, 120, 192, "kv_pos"),
+                ("recurrentgemma-2b", 10, 1, 256, 2048, "kv_pos"),
+                ("starcoder2-15b", 48, 4, 128, 4096, "lengths")]
 DECODE_LINE_CASE = ("dbrx-132b", 192, "bfloat16")   # the kernels line's row
 
 
-def sdpa_decode(q, k, v, lengths):
-    """PyTorch's fused attention with a boolean length mask on the same
-    inputs: the yardstick, never called by the port."""
+def decode_mask(b, s, h, mask, dev):
+    """The mask's arguments: ragged lengths (one full), or rings that have
+    wrapped (slot j holds the latest position p <= pos with p = j mod S),
+    as ``decode_attn`` takes them, and the (B, S) boolean of the slots that
+    count."""
+    rng = np.random.default_rng(s + h)
+    if mask == "lengths":
+        lengths = torch.as_tensor(rng.integers(1, s + 1, b), dtype=torch.int32)
+        lengths[-1] = s
+        lengths = lengths.to(dev)
+        valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+        return {"lengths": lengths}, valid
+    pos = rng.integers(s, 3 * s, b)
+    kv_pos = pos[:, None] - (pos[:, None] - np.arange(s)[None, :]) % s
+    kw = {"kv_pos": torch.as_tensor(kv_pos, dtype=torch.int32, device=dev),
+          "pos": torch.as_tensor(pos, dtype=torch.int32, device=dev)}
+    valid = (kw["kv_pos"] >= 0) & (kw["kv_pos"] <= kw["pos"][:, None])
+    return kw, valid
+
+
+def sdpa_decode(q, k, v, valid):
+    """PyTorch's fused attention with a boolean mask of the slots that
+    count, on the same inputs: the yardstick, never called by the port."""
     import torch.nn.functional as F
-    s = k.shape[2]
-    mask = (torch.arange(s, device=q.device)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+    return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                          attn_mask=valid[:, None, None, :],
                                           enable_gqa=True)[:, :, 0]
 
 
 def decode_attn_phase(dev):
     from repro_torch.kernels.decode_attn import ops
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attn.ref import (decode_attention_split_ref,
+                                                     decode_attn_plain,
+                                                     split_plan)
 
     rows = []
     b = 4
-    for label, h, kv, dh, s in DECODE_CASES:
+    for label, h, kv, dh, s, mask in DECODE_CASES:
         gen = torch.Generator(device=dev).manual_seed(s * h + dh)
-        lengths = torch.as_tensor(np.random.default_rng(s + h).integers(
-            1, s + 1, b), dtype=torch.int32)
-        lengths[-1] = s
-        lengths = lengths.to(dev)
+        kw, valid = decode_mask(b, s, h, mask, dev)
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, h, dh), generator=gen, device=dev).to(dtype)
             # the serving cache's layout (B, S, KV, dh), read as (B, KV, S, dh)
             cache = torch.randn((2, b, s, kv, dh), generator=gen,
                                 device=dev).to(dtype)
             k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
-            got = ops.decode_attn(q, k, v, lengths)
-            ref = decode_attention_ref(q, k, v, lengths)
+            got = ops.decode_attn(q, k, v, **kw)
+            ref = decode_attn_plain(q, k, v, **kw)
+            n_sm = ops.sm_count(dev.index or 0)
+            split = decode_attention_split_ref(q, k, v, n_sm=n_sm, **kw)
             torch.cuda.synchronize()
             err = float((got.float() - ref.float()).abs().max())
+            split_share = over_tiled(got, split, dtype)
             if not err <= FLASH_TOL[dtype]:
                 raise AssertionError(f"decode_attn {label} S={s} {dtype}: max "
                                      f"abs error {err}")
-            lib_err = float((sdpa_decode(q, k, v, lengths).float()
+            if not split_share <= 1.0:
+                raise AssertionError(f"decode_attn {label} S={s} {dtype}: "
+                                     f"{split_share} of the tolerance against "
+                                     f"the kernel's algorithm")
+            lib_err = float((sdpa_decode(q, k, v, valid).float()
                              - ref.float()).abs().max())
-            seen = int(lengths.sum())
+            seen = int(valid.sum())
             size = q.element_size()
-            nbytes = (2 * seen * kv * dh + 2 * b * h * dh) * size + 4 * b
+            # K and V read once: the valid prefix under lengths (the rest is
+            # never read), every slot of a ring, whose kv_pos is read too
+            read = seen if mask == "lengths" else b * s
+            nbytes = ((2 * read * kv * dh + 2 * b * h * dh) * size
+                      + (4 * b if mask == "lengths" else 4 * b * s + 4 * b))
             flops = 4 * h * dh * seen
             rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / rate * 1e3
-            fns = {"": lambda: ops.decode_attn(q, k, v, lengths),
-                   "plain_": lambda: decode_attention_ref(q, k, v, lengths),
-                   "library_": lambda: sdpa_decode(q, k, v, lengths)}
+            fns = {"": lambda: ops.decode_attn(q, k, v, **kw),
+                   "plain_": lambda: decode_attn_plain(q, k, v, **kw),
+                   "library_": lambda: sdpa_decode(q, k, v, valid)}
             row = {"phase": "decode_attn", "expert_heads": label, "B": b,
-                   "H": h, "KV": kv, "dh": dh, "S": s,
-                   "lengths": lengths.tolist(),
-                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-                   "tol": FLASH_TOL[dtype], "library_max_abs_err": lib_err}
+                   "H": h, "KV": kv, "dh": dh, "S": s, "mask": mask,
+                   "splits": split_plan(s, b * kv * -(-(h // kv) // 16),
+                                        n_sm)[0],
+                   "valid_keys": seen, "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": err, "tol": FLASH_TOL[dtype],
+                   "split_max_abs_err": float((got.float()
+                                               - split.float()).abs().max()),
+                   "split_share_of_tol": split_share,
+                   "library_max_abs_err": lib_err}
             for key, fn in fns.items():
                 row[f"{key}ms"] = device_ms(fn, 50)
                 row[f"{key}call_ms"] = cuda_ms(fn, 20)
@@ -677,7 +733,7 @@ def decode_attn_phase(dev):
                                      else "operations")})
             emit(row)
             rows.append(row)
-            del q, cache, k, v, got, ref
+            del q, cache, k, v, got, ref, split
     torch.cuda.empty_cache()
     return rows
 
@@ -777,29 +833,21 @@ STREAM = dict(n_requests=30, rate=20.0, latency_L=0.030)
 LOGIT_REL_TOL = 2.0 ** -4
 
 
+# the kernels line's names of ``repro_torch.graphs.COUNTERS``, in order
+COUNTER_NAMES = ("lockstep_advance", "flash_attn", "decode_attn",
+                 "grouped_swiglu", "grouped_gemm", "rwkv6_scan", "rglru_scan")
+
+
 def counters() -> dict:
-    """Each LM kernel's launch count so far."""
-    from repro_torch.kernels.decode_attn import ops as b3
-    from repro_torch.kernels.flash_attn import ops as b2
-    from repro_torch.kernels.moe_gemm import ops as b4
-    from repro_torch.kernels.lockstep_advance import ops as b1
-    from repro_torch.kernels.rglru_scan import ops as b6
-    from repro_torch.kernels.rwkv6_scan import ops as b5
-    return {"lockstep_advance": b1.LAUNCHES, "flash_attn": b2.LAUNCHES,
-            "decode_attn": b3.LAUNCHES, "grouped_swiglu": b4.SWIGLU_LAUNCHES,
-            "grouped_gemm": b4.GEMM_LAUNCHES, "rwkv6_scan": b5.LAUNCHES,
-            "rglru_scan": b6.LAUNCHES}
+    """Each kernel's launch count so far (a graph replay counts the
+    launches its capture recorded)."""
+    from repro_torch import graphs
+    return dict(zip(COUNTER_NAMES, graphs.launch_counts()))
 
 
 def reset_counters() -> None:
-    from repro_torch.kernels.decode_attn import ops as b3
-    from repro_torch.kernels.flash_attn import ops as b2
-    from repro_torch.kernels.lockstep_advance import ops as b1
-    from repro_torch.kernels.moe_gemm import ops as b4
-    from repro_torch.kernels.rglru_scan import ops as b6
-    from repro_torch.kernels.rwkv6_scan import ops as b5
-    b1.LAUNCHES = b2.LAUNCHES = b3.LAUNCHES = b5.LAUNCHES = b6.LAUNCHES = 0
-    b4.SWIGLU_LAUNCHES = b4.GEMM_LAUNCHES = 0
+    from repro_torch import graphs
+    graphs.add_launch_counts(tuple(-n for n in graphs.launch_counts()))
 
 
 def plain_lru(log_a, b, h0):
@@ -814,14 +862,15 @@ def plain_kernels():
     """Every kernel of the LM path swapped for its plain version, through
     the names the model modules call them by (B5's is the chunk algorithm
     with the model's rounding of D, as on the CPU)."""
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attn.ref import decode_attn_plain
     from repro_torch.kernels.flash_attn.ref import attention_ref
     from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
     from repro_torch.kernels.rwkv6_scan.ref import wkv_chunked_ref
     from repro_torch.models import moe, rglru, rwkv6, transformer
 
     swaps = [(transformer, "flash_attn", attention_ref),
-             (transformer, "decode_attn", decode_attention_ref),
+             (transformer, "decode_attn", decode_attn_plain),
+             (rglru, "decode_attn", decode_attn_plain),
              (moe, "expert_swiglu", grouped_swiglu_ref),
              (moe, "expert_gemm", grouped_gemm_ref),
              (rwkv6, "wkv", wkv_chunked_ref),
@@ -867,15 +916,14 @@ def moe_routing(replay=None):
 
 def expected_launches(servers) -> dict:
     """What the main path must have launched, from the servers' iteration
-    counts: B2 n_layers per prefill; B3 n_layers per decode of a
-    full-attention expert; B4a and B4b once per MoE layer per prefill and
-    per decode; B1, B5 and B6 none."""
+    counts: B2 n_layers per prefill; B3 n_layers per decode (both masks);
+    B4a and B4b once per MoE layer per prefill and per decode; B1, B5 and
+    B6 none."""
     out = dict.fromkeys(counters(), 0)
     for s in servers:
         cfg, it = s.cfg, s.iterations
         out["flash_attn"] += it["prefill"] * cfg.n_layers
-        if cfg.attention == "full":
-            out["decode_attn"] += it["decode"] * cfg.n_layers
+        out["decode_attn"] += it["decode"] * cfg.n_layers
         if cfg.family == "moe":
             n_moe = cfg.n_layers - cfg.n_dense_layers
             out["grouped_swiglu"] += (it["prefill"] + it["decode"]) * n_moe
@@ -981,14 +1029,13 @@ def lm_window(srv, phase, n_prefill=3, n_decode=12):
     prefills (bucket 128) and full decodes, then one window of the same
     under torch.profiler for the device's busy time and each LM kernel's
     launches and time (the idle share sets that busy time against the
-    unprofiled wall time)."""
+    unprofiled wall time).  Through the server's own steps: graph replays
+    unless it is an eager twin."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(5)
-    toks = torch.as_tensor(rng.integers(2, 250, 128), dtype=torch.int32,
-                           device=srv.device)
-    dec = torch.as_tensor(rng.integers(2, 250, srv.slots), dtype=torch.int32,
-                          device=srv.device)
+    toks = rng.integers(2, 250, 128).astype(np.int32)
+    dec = rng.integers(2, 250, srv.slots).astype(np.int32)
 
     def run():
         t0 = time.perf_counter()
@@ -1008,6 +1055,7 @@ def lm_window(srv, phase, n_prefill=3, n_decode=12):
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     row = {"phase": phase, "expert": srv.name,
+           "mode": "graphed" if srv.graphed else "eager",
            "prefill_ms": pre_s / n_prefill * 1e3,
            "decode_ms": dec_s / n_decode * 1e3,
            "iterations_profiled": n_prefill + n_decode,
@@ -1016,42 +1064,174 @@ def lm_window(srv, phase, n_prefill=3, n_decode=12):
            "device_idle_share": 1.0 - busy_ms / ((pre_s + dec_s) * 1e3),
            "kernels": len(kernels),
            "kernels_per_iteration": len(kernels) / (n_prefill + n_decode)}
-    for tag, needle in (("b2", "flash_attn"), ("b3", "decode_attn"),
-                        ("b4", "moe_gemm")):
-        us = [e.time_range.elapsed_us() for e in kernels if needle in e.name]
+    cfg = srv.cfg
+    n_moe = (cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0)
+    traced(row, kernels, {"b2": n_prefill * cfg.n_layers,
+                          "b3": n_decode * cfg.n_layers,
+                          "b4": 2 * n_moe * (n_prefill + n_decode)})
+    return row
+
+
+# each LM kernel's main kernels by name in a trace; B3's merge apart
+TRACE_KERNELS = {"b2": ("flash_attn_bf16_kernel", "flash_attn_f32_kernel"),
+                 "b3": ("decode_attn_mma", "decode_attn_simt"),
+                 "b3_merge": ("decode_attn_merge",),
+                 "b4": ("moe_gemm_mma", "moe_gemm_simt"),
+                 "b5": ("rwkv6_scan_kernel",), "b6": ("rglru_scan_kernel",)}
+
+
+def traced(row, kernels, expected):
+    """Each LM kernel's launches and time in a profiled window, into
+    ``row``, with B3's merge launches; the launches of each tag of
+    ``expected`` must equal its count there: what the counters credit a
+    graph replay with, read from the trace."""
+    for tag in (*expected, "b3_merge"):
+        us = [e.time_range.elapsed_us() for e in kernels
+              if any(n in e.name for n in TRACE_KERNELS[tag])]
         row[f"{tag}_launches"] = len(us)
         row[f"{tag}_ms_per_launch"] = float(np.mean(us)) / 1e3 if us else None
         row[f"{tag}_ms"] = sum(us) / 1e3
-    return row
+    row["traced_launches_expected"] = expected
+    got = {tag: row[f"{tag}_launches"] for tag in expected}
+    assert got == expected, (row.get("expert", row.get("arch")), got,
+                             expected)
 
 
 def serve_counted(servers, phase, n_warm=8):
     """The main path, counted: every kernel count set to 0, calibration,
     then two streams, then the counts read and held against the servers'
-    iterations."""
+    iterations.  Returns the counts and each stream's finished requests."""
     from repro_torch.launch import serve
 
+    mode = "graphed" if servers[0].graphed else "eager"
     reset_counters()
     fits = serve.profile_cluster(servers, n_warm=n_warm)
-    streams = {router: serve.run_stream(servers, router=router, **STREAM)
-               for router in ("sqf", "rr")}
+    streams, finished = {}, {}
+    for router in ("sqf", "rr"):
+        finished[router] = []
+        streams[router] = serve.run_stream(servers, router=router,
+                                           finished=finished[router], **STREAM)
     got = counters()
     expected = expected_launches(servers)
-    assert got == expected, (got, expected)
+    assert got == expected, (mode, got, expected)
     for srv, fit in zip(servers, fits):
         assert all(np.isfinite(v) for v in fit.values()), fit
-        emit({"phase": phase, "check": "calibrate", "expert": srv.name,
-              "n_layers": srv.cfg.n_layers, **fit})
+        emit({"phase": phase, "check": "calibrate", "mode": mode,
+              "expert": srv.name, "n_layers": srv.cfg.n_layers, **fit})
     for router, m in streams.items():
         assert m["completed"] == STREAM["n_requests"], m
         assert all(np.isfinite(v) for v in m.values()), m
-        emit({"phase": phase, "check": "stream", "router": router,
-              **STREAM, **m})
-    emit({"phase": phase, "check": "launches", "launches": got,
+        emit({"phase": phase, "check": "stream", "mode": mode,
+              "router": router, **STREAM, **m})
+    emit({"phase": phase, "check": "launches", "mode": mode, "launches": got,
           "expected": expected,
           "iterations": {s.name: dict(s.iterations) for s in servers},
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    return got
+    return got, finished
+
+
+def eager_twins(servers):
+    """A server per expert on the same weights that runs its steps eagerly
+    (``graphs=False``), with a cache of its own."""
+    from repro_torch.env.serve_engine import ExpertServer
+    return [ExpertServer(s.name, s.cfg, s.params, slots=s.slots,
+                         max_len=s.max_len, graphs=False) for s in servers]
+
+
+def graphed_logits_equal(srv, rng, phase):
+    """A prefill (prompt 100, bucket 128) and a decode step from its cache,
+    captured as one CUDA graph as the server captures its steps, give
+    bit-equal logits to the same two steps run eagerly."""
+    from repro_torch.graphs import StepGraph
+    from repro_torch.models import transformer
+
+    p = 100
+    toks = torch.zeros((1, 128), dtype=torch.int32, device=srv.device)
+    toks[0, :p] = torch.as_tensor(rng.integers(2, srv.cfg.vocab, p))
+    nxt = torch.as_tensor(rng.integers(2, srv.cfg.vocab, 1), dtype=torch.int32,
+                          device=srv.device)
+    lengths = torch.tensor([p], dtype=torch.int32, device=srv.device)
+
+    def run():
+        pre, cache = transformer.prefill(srv.params, srv.cfg, toks,
+                                         srv.max_len, lengths=lengths)
+        dec, _ = transformer.decode_step(srv.params, srv.cfg, cache, nxt)
+        return pre, dec
+
+    eager = run()
+    graph = StepGraph(run)
+    got = graph.replay()
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, eager)]
+    emit({"phase": phase, "check": "graphed_vs_eager_logits",
+          "expert": srv.name, "prompt": p, "bucket": 128,
+          "prefill_equal": same[0], "decode_equal": same[1],
+          "max_abs_logit_diff": max(float((a.float() - b.float()).abs().max())
+                                    for a, b in zip(got, eager))})
+    assert all(same), (srv.name, same)
+    del graph, got, eager
+    torch.cuda.empty_cache()
+
+
+def same_stream_tokens(finished, phase):
+    """The graphed and eager runs of each stream: every request that
+    reached the same expert in both gets the same tokens (round robin sends
+    every one to the same expert)."""
+    for router in finished["graphed"]:
+        graphed = {r.rid: r for r in finished["graphed"][router]}
+        eager = {r.rid: r for r in finished["eager"][router]}
+        pairs = [(graphed[i], eager[i]) for i in graphed
+                 if graphed[i].expert == eager[i].expert]
+        differ = [a.rid for a, b in pairs if a.generated != b.generated]
+        emit({"phase": phase, "check": "stream_tokens_graphed_vs_eager",
+              "router": router, "compared": len(pairs),
+              "requests": len(graphed), "differ": differ})
+        assert not differ, (router, differ)
+        assert router != "rr" or len(pairs) == len(graphed), router
+
+
+def same_tokens_to_the_end(servers, twins, phase):
+    """A fixed request set (the stream's prompt and output lengths)
+    submitted at once and stepped to the end gives the same iterations and
+    tokens through each server and its eager twin."""
+    from repro_torch.env.serve_engine import Request
+
+    rng = np.random.default_rng(8)
+    reqs = [(rng.integers(2, 250, int(rng.integers(8, 120))),
+             int(rng.integers(4, 24))) for _ in range(10)]
+    for srv, twin in zip(servers, twins):
+        runs = []
+        for server in (srv, twin):
+            server.iteration_log.clear()
+            for rid, (toks, n) in enumerate(reqs):
+                server.submit(Request(rid=rid, tokens=toks, max_new=n))
+            done = []
+            while server.has_work():
+                done.extend(server.step())
+            runs.append(([(e["kind"], e["x"]) for e in server.iteration_log],
+                         sorted((r.rid, r.generated) for r in done)))
+        assert runs[0] == runs[1], (srv.name, runs)
+        emit({"phase": phase, "check": "graphed_vs_eager_to_the_end",
+              "expert": srv.name, "iterations": len(runs[0][0]),
+              "tokens": sum(len(g) for _, g in runs[0][1]), "same": True})
+
+
+def serve_graphed_and_eager(servers, phase, rng, profiled=None):
+    """The counted main path through the servers (CUDA graphs) and through
+    their eager twins, the graphs checked against eager steps, then a
+    profiled window of each server named in ``profiled`` (all by default)
+    and of its twin.  Returns the launches of both runs."""
+    for srv in servers:
+        graphed_logits_equal(srv, rng, phase)
+    twins = eager_twins(servers)
+    got, finished = serve_counted(servers, phase)
+    eager_got, finished_eager = serve_counted(twins, phase)
+    same_stream_tokens({"graphed": finished, "eager": finished_eager}, phase)
+    same_tokens_to_the_end(servers, twins, phase)
+    for srv, twin in zip(servers, twins):
+        if profiled is None or srv.name in profiled:
+            for server in (srv, twin):
+                emit(lm_window(server, "lm_profile"))
+    return {k: got[k] + eager_got[k] for k in got}
 
 
 def build_line(servers, phase, t0, reduced):
@@ -1081,9 +1261,7 @@ def lm_serve_phase(dev):
     rng = np.random.default_rng(4)
     for srv in servers:
         plain_vs_kernel(srv, rng, "lm_serve")
-    launches = serve_counted(servers, "lm_serve")
-    for srv in servers:
-        emit(lm_window(srv, "lm_profile"))
+    launches = serve_graphed_and_eager(servers, "lm_serve", rng)
     del servers
     torch.cuda.empty_cache()
     return launches
@@ -1117,8 +1295,8 @@ def lm_moe_phase(dev):
                {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"})
     rng = np.random.default_rng(6)
     plain_vs_kernel(servers[-1], rng, "lm_moe")
-    launches = serve_counted(servers, "lm_moe")
-    emit(lm_window(servers[-1], "lm_profile"))
+    launches = serve_graphed_and_eager(servers, "lm_moe", rng,
+                                       profiled=[servers[-1].name])
     del servers
     torch.cuda.empty_cache()
     return launches
@@ -1299,6 +1477,15 @@ def scan_launches_per_pass(cfg) -> dict:
     return out
 
 
+def b3_launches_per_decode(cfg) -> int:
+    """B3 launches of one decode step: once per attention layer of
+    recurrentgemma, none for rwkv6."""
+    from repro_torch.models import rglru
+    if cfg.family == "ssm":
+        return 0
+    return sum(k == "attn" for k in rglru.layer_kinds(cfg))
+
+
 def state_leaves(cfg, cache) -> dict:
     """The recurrent state of a cache by name, each a tensor."""
     if cfg.family == "ssm":
@@ -1365,6 +1552,7 @@ def recurrent_small_matches_cpu(dev, phase):
         (card_out, card_tok, launched), (cpu_out, _, none) = runs
         want = dict.fromkeys(launched, 0)
         want.update(scan_launches_per_pass(cfg))
+        want["decode_attn"] = 6 * b3_launches_per_decode(cfg)
         assert launched == want and not any(none.values()), (launched, none)
         err = max(float((a - b).abs().max()) for a, b in zip(card_out, cpu_out))
         same = all(torch.equal(a.argmax(-1), b.argmax(-1))
@@ -1378,13 +1566,17 @@ def recurrent_small_matches_cpu(dev, phase):
 def recurrent_window(params, cfg, toks, n_decode=8):
     """Where an iteration's time goes: one prefill and ``n_decode`` decodes,
     synchronised for wall time, then the same under torch.profiler for the
-    device's busy time, kernels per iteration and B5/B6's launches and
-    time.  Runs two prefills."""
+    device's busy time, kernels per iteration and B3/B5/B6's launches and
+    time.  Each run is a new prompt through the decode step a user gets:
+    the first run captures its graph, and every later run's first decode
+    copies the new prefill's cache into the step's own (timed with the
+    decodes); the window must hold one capture.  Returns the row and the
+    passes: prefills and decode steps run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps
 
-    prefill = steps.make_prefill_step(cfg, toks.shape[1] + n_decode)
+    prefill = steps.make_prefill_step(cfg, toks.shape[1] + n_decode + 1)
     decode = steps.make_decode_step(cfg)
 
     def run():
@@ -1400,6 +1592,7 @@ def recurrent_window(params, cfg, toks, n_decode=8):
         tok.cpu()
         return t1 - t0, time.perf_counter() - t1
 
+    run()                                         # the capture
     pre_s, dec_s = run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1409,28 +1602,32 @@ def recurrent_window(params, cfg, toks, n_decode=8):
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     wall_ms = (pre_s + dec_s) * 1e3
     row = {"prefill_ms": pre_s * 1e3, "decode_ms": dec_s / n_decode * 1e3,
-           "iterations_profiled": 1 + n_decode, "device_busy_ms": busy_ms,
+           "decode": "graphed", "iterations_profiled": 1 + n_decode,
+           "device_busy_ms": busy_ms,
            "wall_ms": wall_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
            "kernels": len(kernels),
-           "kernels_per_iteration": len(kernels) / (1 + n_decode)}
-    for tag, needle in (("b5", "rwkv6_scan"), ("b6", "rglru_scan")):
-        us = [e.time_range.elapsed_us() for e in kernels if needle in e.name]
-        row[f"{tag}_launches"] = len(us)
-        row[f"{tag}_ms_per_launch"] = float(np.mean(us)) / 1e3 if us else None
-        row[f"{tag}_ms"] = sum(us) / 1e3
-    return row
+           "kernels_per_iteration": len(kernels) / (1 + n_decode),
+           "captures": len(decode.graphs)}
+    scans = scan_launches_per_pass(cfg)
+    traced(row, kernels, {"b3": n_decode * b3_launches_per_decode(cfg),
+                          "b5": scans["rwkv6_scan"],
+                          "b6": scans["rglru_scan"]})
+    assert row["captures"] == 1, row
+    return row, {"prefill": 3, "decode": 3 * n_decode}
 
 
 def recurrent_serve(params, cfg, name, rng, phase):
     """The model's main path through the step functions: a prefill of 4 x
-    128 tokens (held against the same through the plain versions), 32
-    greedy decodes (no B5/B6 launch), two timed prefills, a profiled window
-    and one long prefill (1 x 4,096).  Returns the number of prefills."""
+    128 tokens and one decode step from its cache (each held against the
+    same through the plain versions), 32 greedy decodes graphed and 32
+    eager (no B5/B6 launch), two timed prefills, a profiled window and one
+    long prefill (1 x 4,096).  Returns the prefills and decode steps it
+    ran."""
     from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
 
     max_len = REC_PROMPT + REC_DECODE
     prefill = steps.make_prefill_step(cfg, max_len)
-    decode = steps.make_decode_step(cfg)
     toks = torch.as_tensor(rng.integers(2, cfg.vocab, (REC_BATCH, REC_PROMPT)),
                            dtype=torch.int32, device=params.embed.device)
     logits, cache = prefill(params, toks)
@@ -1454,19 +1651,56 @@ def recurrent_serve(params, cfg, name, rng, phase):
     assert states[worst] <= LOGIT_REL_TOL, row
     del plain_cache, ref_states
 
+    # one decode step from that cache, through the kernels and through the
+    # plain versions (RecurrentGemma's attention in float32 against B3,
+    # which rounds P to bf16 for P V), each on a copy of the cache
+    first = logits.argmax(-1).to(torch.int32)
+    got, _ = model_lib.decode_step(params, cfg, steps.clone_cache(cache), first)
+    with plain_kernels():
+        ref, _ = model_lib.decode_step(params, cfg, steps.clone_cache(cache),
+                                       first)
+    row, ok = greedy_check(got, ref, cfg.vocab)
+    row = {"phase": phase, "check": "decode_kernels_vs_plain", "arch": name,
+           "B": REC_BATCH, "pos": REC_PROMPT, **row}
+    emit(row)
+    assert row["finite"] and ok, row
+    assert row["max_abs_logit_diff"] <= row["tol"], row
+
+    # REC_DECODE greedy steps replayed from a CUDA graph, and the same run
+    # eagerly (the model's step) from a copy of the cache: bit-equal
+    # logits; each timed past its first step, which is timed alone (for the
+    # graph: the copy of the cache into the step's own and the capture)
     before = counters()
-    tok = logits.argmax(-1).to(torch.int32)
-    tokens = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(REC_DECODE):
-        logits, cache = decode(params, cache, tok)
-        tok = logits.argmax(-1).to(torch.int32)
-        tokens.append(tok)
-    tokens = torch.stack(tokens, 1).cpu()
-    dec_ms = (time.perf_counter() - t0) / REC_DECODE * 1e3
-    assert counters() == before, (counters(), before)
+    runs, first_ms = {}, {}
+    for mode, c in (("graphed", cache), ("eager", steps.clone_cache(cache))):
+        step = (steps.make_decode_step(cfg) if mode == "graphed" else
+                lambda p, c, t: model_lib.decode_step(p, cfg, c, t))
+        tok, outs = first, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(REC_DECODE):
+            if i == 1:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                first_ms[mode] = (t1 - t0) * 1e3
+            out, c = step(params, c, tok)
+            tok = out.argmax(-1).to(torch.int32)
+            outs.append(out)
+        torch.cuda.synchronize()
+        runs[mode] = (outs, (time.perf_counter() - t1) / (REC_DECODE - 1) * 1e3,
+                      c)
+    graphed, eager = runs["graphed"][0], runs["eager"][0]
+    same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    tokens = torch.stack([o.argmax(-1) for o in graphed], 1).cpu()
+    want = dict(before)
+    want["decode_attn"] += 2 * REC_DECODE * b3_launches_per_decode(cfg)
+    assert counters() == want, (counters(), want)
+    logits, cache = graphed[-1], runs["graphed"][2]
+    assert same, (name, "graphed and eager decodes differ")
     assert bool(torch.isfinite(logits).all()) and int(cache["pos"]) == max_len
+    assert int(runs["eager"][2]["pos"]) == max_len
+    dec_ms = {mode: run[1] for mode, run in runs.items()}
+    del runs, graphed, eager
 
     pre_ms = []
     for _ in range(2):
@@ -1477,11 +1711,14 @@ def recurrent_serve(params, cfg, name, rng, phase):
         pre_ms.append((time.perf_counter() - t0) * 1e3)
     emit({"phase": phase, "check": "serve", "arch": name, "B": REC_BATCH,
           "prompt": REC_PROMPT, "decode_steps": REC_DECODE,
-          "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+          "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms["graphed"],
+          "eager_decode_ms_per_step": dec_ms["eager"],
+          "first_step_ms": first_ms,
+          "graphed_equals_eager_logits": same,
           "tokens_row0": tokens[0].tolist(),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    emit({"phase": "lm_profile", "arch": name,
-          **recurrent_window(params, cfg, toks)})
+    window, passes = recurrent_window(params, cfg, toks)
+    emit({"phase": "lm_profile", "arch": name, **window})
 
     long = torch.as_tensor(rng.integers(2, cfg.vocab, (1, REC_LONG)),
                            dtype=torch.int32, device=toks.device)
@@ -1504,7 +1741,8 @@ def recurrent_serve(params, cfg, name, rng, phase):
         row["ring"] = {"slots": w, "first": int(kept[0]), "last": REC_LONG - 1}
     emit(row)
     assert row["finite"], row
-    return 1 + 2 + 2 + 1                     # checked, timed, window, long
+    return {"prefill": 1 + 2 + passes["prefill"] + 1,  # checked, timed, window, long
+            "decode": 1 + 2 * REC_DECODE + passes["decode"]}
 
 
 def lm_recurrent_phase(dev):
@@ -1536,9 +1774,10 @@ def lm_recurrent_phase(dev):
     reset_counters()
     expected = dict.fromkeys(counters(), 0)
     for name, cfg, params in models:
-        n_prefill = recurrent_serve(params, cfg, name, rng, "lm_recurrent")
+        passes = recurrent_serve(params, cfg, name, rng, "lm_recurrent")
         for k, v in scan_launches_per_pass(cfg).items():
-            expected[k] += n_prefill * v
+            expected[k] += passes["prefill"] * v
+        expected["decode_attn"] += passes["decode"] * b3_launches_per_decode(cfg)
     got = counters()
     emit({"phase": "lm_recurrent", "check": "launches", "launches": got,
           "expected": expected,

@@ -11,6 +11,16 @@ The host keeps a mirror of each slot's position, so neither the iteration
 log's token count nor the done test reads the device; an iteration's one
 synchronisation is the copy of its argmax tokens to the host, which ends
 its timing.
+
+On CUDA each step is a CUDA graph, as the reference jits each: the decode
+of all slots once per server and the prefill once per prompt bucket, each
+captured at its first call (``profile_cluster``'s warm-up, one request per
+bucket) and replayed after that.  A step reads its inputs from static
+device buffers (the bucket's token row, the prompt's length, the slot; the
+slots' tokens) that a call fills before it replays, and writes the cache
+in place, which keeps its storage for the server's life.  On the CPU the
+same steps run eagerly; ``graphs=False`` runs them eagerly on CUDA too
+(to time the eager path beside the graphed one).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.graphs import StepGraph
 from repro_torch.models import model as model_lib
 
 
@@ -56,10 +67,12 @@ class ExpertServer:
     The cache lives on the parameters' device.  It serves the LM families
     the reference's engine serves, dense and MoE, and refuses the others as
     the reference does.  ``iterations`` counts prefills and decodes over the
-    server's life (the iteration log is cleared by calibration)."""
+    server's life (the iteration log is cleared by calibration).  On CUDA
+    its steps replay CUDA graphs unless ``graphs=False``."""
 
     def __init__(self, name: str, cfg: ModelConfig, params, *,
-                 slots: int = 4, max_len: int = 256, eos_token: int = 1):
+                 slots: int = 4, max_len: int = 256, eos_token: int = 1,
+                 graphs: bool = True):
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"{cfg.name}: the engine serves the dense and MoE "
                              f"LM families, not {cfg.family!r}")
@@ -77,23 +90,62 @@ class ExpertServer:
         self.cur_tokens = np.zeros((slots,), np.int32)
         self.iteration_log: List[dict] = []  # (kind, p or total_tokens, dt)
         self.iterations = {"prefill": 0, "decode": 0}
+        # the steps' static inputs, and their graphs (one memory pool: they
+        # never run at the same time, and each output is read at once)
+        self.graphed = graphs and self.device.type == "cuda"
+        self._graphs: Dict[object, StepGraph] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        self._prompts: Dict[int, torch.Tensor] = {}   # bucket -> (1, bucket)
+        self._length = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        self._slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        self._tokens = torch.zeros((slots,), dtype=torch.int32,
+                                   device=self.device)
 
-    def _prefill_one(self, tokens: torch.Tensor, length: int, slot: int
+    def _run(self, key, step) -> torch.Tensor:
+        """``step()`` eagerly, or the replay of its graph (captured at the
+        first call for ``key``)."""
+        if not self.graphed:
+            return step()
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(step, self._pool)
+        return graph.replay()
+
+    def _prefill_one(self, tokens: np.ndarray, length: int, slot: int
                      ) -> torch.Tensor:
-        logits, pc = model_lib.prefill(
-            self.params, self.cfg, tokens[None], self.max_len,
-            lengths=torch.tensor([length], dtype=torch.int32, device=self.device))
-        # write the request's cache into the batched cache at `slot`, in
-        # place (the reference rebuilds the batched cache with .at[].set)
-        self.cache["k"][:, slot] = pc["k"][:, 0]
-        self.cache["v"][:, slot] = pc["v"][:, 0]
-        self.cache["kv_pos"][slot] = pc["kv_pos"][0]
-        self.cache["pos"][slot] = pc["pos"][0]
+        """tokens: the prompt right-padded to its bucket.  Primes slot
+        ``slot`` of the cache; returns the first generated token (a device
+        scalar)."""
+        bucket = len(tokens)
+        prompt = self._prompts.get(bucket)
+        if prompt is None:
+            prompt = self._prompts[bucket] = torch.zeros(
+                (1, bucket), dtype=torch.int32, device=self.device)
+        prompt.copy_(torch.as_tensor(tokens, dtype=torch.int32)[None])
+        self._length.fill_(length)
+        self._slot.fill_(slot)
+        return self._run(("prefill", bucket), lambda: self._prefill_step(prompt))
+
+    def _prefill_step(self, prompt: torch.Tensor) -> torch.Tensor:
+        logits, pc = model_lib.prefill(self.params, self.cfg, prompt,
+                                       self.max_len, lengths=self._length)
+        # the request's cache into the batched cache at the slot, in place
+        # (the reference rebuilds the batched cache with .at[].set)
+        self.cache["k"].index_copy_(1, self._slot, pc["k"])
+        self.cache["v"].index_copy_(1, self._slot, pc["v"])
+        self.cache["kv_pos"].index_copy_(0, self._slot, pc["kv_pos"])
+        self.cache["pos"].index_copy_(0, self._slot, pc["pos"])
         return torch.argmax(logits[0])
 
-    def _decode_all(self, tokens: torch.Tensor) -> torch.Tensor:
-        logits, self.cache = model_lib.decode_step(self.params, self.cfg,
-                                                   self.cache, tokens)
+    def _decode_all(self, tokens: np.ndarray) -> torch.Tensor:
+        """tokens (slots,): each slot's last token.  Advances every slot;
+        returns the next tokens (slots,) on the device."""
+        self._tokens.copy_(torch.as_tensor(tokens, dtype=torch.int32))
+        return self._run("decode", self._decode_step)
+
+    def _decode_step(self) -> torch.Tensor:
+        logits, _ = model_lib.decode_step(self.params, self.cfg, self.cache,
+                                          self._tokens)
         return torch.argmax(logits, dim=-1)
 
     # ------------------------------------------------------------------
@@ -129,9 +181,7 @@ class ExpertServer:
             toks = np.zeros((_bucket(p),), np.int32)
             toks[:p] = req.tokens[:p]
             t0 = time.perf_counter()
-            first = self._prefill_one(torch.as_tensor(toks, device=self.device),
-                                      p, slot)
-            first = int(first.cpu())
+            first = int(self._prefill_one(toks, p, slot).cpu())
             dt = time.perf_counter() - t0
             self.pos[slot] = p
             req.slot = slot
@@ -144,11 +194,10 @@ class ExpertServer:
             self.iterations["prefill"] += 1
             return finished
         if self.active:
-            tokens = torch.as_tensor(self.cur_tokens, device=self.device)
             total_tokens = int(sum(int(self.pos[r.slot])
                                    for r in self.active.values()))
             t0 = time.perf_counter()
-            nxt = self._decode_all(tokens).cpu().numpy()
+            nxt = self._decode_all(self.cur_tokens).cpu().numpy()
             dt = time.perf_counter() - t0
             self.pos += 1              # decode advances every slot, empty ones too
             self.iteration_log.append(

@@ -46,7 +46,8 @@ def build_cluster(arch_names: List[str], seed: int = 0, slots: int = 4,
 
 
 def profile_cluster(servers: List[ExpertServer], n_warm: int = 8) -> List[dict]:
-    """Warm up (one request per prefill bucket) and calibrate each
+    """Warm up (one request per prefill bucket; on CUDA this captures each
+    bucket's prefill graph and the decode graph) and calibrate each
     expert's latency gradients (Eq. 13/14)."""
     rng = np.random.default_rng(0)
     fits = []
@@ -71,12 +72,13 @@ def profile_cluster(servers: List[ExpertServer], n_warm: int = 8) -> List[dict]:
 def run_stream(servers: List[ExpertServer], *, n_requests: int = 40,
                rate: float = 20.0, router: str = "sqf",
                latency_L: float = 1.0, seed: int = 0,
-               policy_fn=None) -> dict:
+               policy_fn=None, finished: Optional[list] = None) -> dict:
     """Route a Poisson stream over the engines; iteration-level scheduling
     is driven by stepping every busy engine between arrivals.  ``latency_L``
     (s/token) defaults to the reference's 1 s, meant for CPU-hosted
     engines; the paper's is 0.030.  Adds the run's wall time and generated
-    tokens per second to the reference's metrics."""
+    tokens per second to the reference's metrics.  ``finished``, when
+    given, receives the finished requests."""
     rng = np.random.default_rng(seed)
     # quality profiles only, read on the host
     pool = profiles.make_pool(len(servers), seed=seed, device="cpu")
@@ -115,6 +117,8 @@ def run_stream(servers: List[ExpertServer], *, n_requests: int = 40,
         if not stepped:
             time.sleep(0.001)
     seconds = time.perf_counter() - t0
+    if finished is not None:
+        finished.extend(done)
 
     qos, lats = [], []
     for r in done:

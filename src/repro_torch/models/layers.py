@@ -1,12 +1,15 @@
 """Shared model layers (port of ``repro/models/layers.py``): RMS norm,
-layer norm, per-head group norm, RoPE, local and decode attention, SwiGLU,
-GeGLU and the initialisers.
+layer norm, per-head group norm, RoPE, local attention, SwiGLU, GeGLU and
+the initialisers.
 
 The transformer's prefill attention is the flash-attention kernel
-(``repro_torch.kernels.flash_attn``).  Decode attention and the local
-attention of RecurrentGemma stay plain PyTorch here, as the reference
-computes both in XLA and not in Pallas (the flash kernel also takes head
-dims up to 128, and RecurrentGemma's is 256).
+(``repro_torch.kernels.flash_attn``), and every model's decode attention
+the decode-attention kernel (``repro_torch.kernels.decode_attn``, whose
+plain versions, the reference's ``decode_attention`` among them, live in
+its ``ref.py``).  ``local_attention`` stays plain PyTorch, as the
+reference computes it in XLA and not in Pallas: it is RecurrentGemma's
+over whole sequences (the flash kernel takes head dims up to 128, and
+RecurrentGemma's is 256).
 """
 from __future__ import annotations
 
@@ -73,26 +76,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)
-
-
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, kv_positions: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
-    """One query token per sequence against a slot cache, GQA, in float32.
-
-    q (B, H, dh); k_cache, v_cache (B, S, KV, dh); kv_positions (B, S)
-    absolute positions with -1 for an empty slot; pos (B,) the query's
-    position.  A slot takes part when ``0 <= kv_pos <= pos``."""
-    b, h, dh = q.shape
-    kv = k_cache.shape[2]
-    qh = q.reshape(b, kv, h // kv, dh).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache.float()) / math.sqrt(dh)
-    pos = torch.broadcast_to(torch.as_tensor(pos, device=q.device), (b,))
-    valid = (kv_positions >= 0) & (kv_positions <= pos[:, None])   # (B, S)
-    s = s.masked_fill(~valid[:, None, None], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    return o.reshape(b, h, dh).to(q.dtype)
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,17 +10,20 @@ the pattern (rec, rec, attn).
 
 Whole sequences (forward, prefill) run the recurrence through kernel B6
 (``kernels/rglru_scan/ops.py lru``), once per recurrent layer; a decode
-step computes its one step in plain PyTorch, and the local attention is
-plain PyTorch throughout, as the reference computes both in XLA.
+step computes its one step in plain PyTorch, as the reference computes it
+in XLA.  The local attention of whole sequences is plain PyTorch, as the
+reference's XLA ``blockwise_attention``; a decode step's attention over
+the ring goes through the decode-attention kernel (``kernels/decode_attn``)
+under its ``kv_pos`` mask.
 
 ``RecurrentGemma.layers`` holds one module per layer in execution order:
 superblock i's (rec1, rec2, attn) are layers 3i, 3i+1, 3i+2, the tail's
 recurrent layers follow.  The serving cache is ``{"layers": [...], "pos":
 scalar}`` with, per layer, ``{"h" (B, r) float32, "conv" (B, cw-1, r)}``
 (recurrent) or a ring ``{"k", "v" (B, W, KV, dh), "kv_pos" (B, W)}``
-(attention), W = min(window, max_len); ``decode_step`` updates it in place
-and returns the same dict.  The batch shares one ``pos``, so prefill takes
-equal-length prompts.
+(attention), W = min(window, max_len); ``decode_step`` updates it in place,
+``pos`` included, and returns the same dict.  The batch shares one
+``pos``, so prefill takes equal-length prompts.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.device import generator, resolve
+from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.rglru_scan.ops import lru
 from repro_torch.models import layers
 from repro_torch.models.transformer import MLP, unembed
@@ -220,8 +224,9 @@ def attn_layer_decode(p: AttnLayer, cfg, x, pos, st: dict):
                    pos.reshape(1, 1).expand(b, 1))
     st["k"].index_copy_(1, slot, k)
     st["v"].index_copy_(1, slot, v)
-    st["kv_pos"].index_fill_(1, slot, pos)
-    o = layers.decode_attention(q[:, 0], st["k"], st["v"], st["kv_pos"], pos)
+    st["kv_pos"].index_copy_(1, slot, pos.reshape(1, 1).expand(b, 1))
+    o = decode_attn(q[:, 0].contiguous(), st["k"].transpose(1, 2),
+                    st["v"].transpose(1, 2), kv_pos=st["kv_pos"], pos=pos)
     x = x + torch.einsum("bhe,hed->bd", o, p.wo)[:, None]
     return x + _mlp(p.mlp, layers.rms_norm(x, p.norm2, cfg.norm_eps))
 
@@ -326,6 +331,6 @@ def decode_step(params: RecurrentGemma, cfg, cache: dict, token: torch.Tensor
             x = rec_layer(p, cfg, x, st, single=True)
         else:
             x = attn_layer_decode(p, cfg, x, pos, st)
-    cache["pos"] = pos + 1
+    cache["pos"].add_(1)
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x)[:, 0], cache

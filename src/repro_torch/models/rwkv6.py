@@ -16,8 +16,8 @@ Parameters live in ``nn.Module``s with the reference's names and shapes,
 one ``Layer`` per layer where the reference stacks them.  The serving
 state is a dict with the reference's layout (``tm_prev``, ``cm_prev``
 ``(n_layers, B, d)`` in the compute dtype, ``S (n_layers, B, H, K, V)``
-float32, a scalar ``pos``); ``decode_step`` updates it in place and
-returns the same dict, where the reference builds a new one.
+float32, a scalar ``pos``); ``decode_step`` updates it in place, ``pos``
+included, and returns the same dict, where the reference builds a new one.
 """
 from __future__ import annotations
 
@@ -256,5 +256,5 @@ def decode_step(params: RWKV6, cfg, cache: dict, token: torch.Tensor
     """token (B,): one step; updates ``cache`` in place and returns
     (logits (B, Vp), cache)."""
     x = _run(params, cfg, token[:, None], cache, single=True)
-    cache["pos"] = cache["pos"] + 1
+    cache["pos"].add_(1)
     return unembed(params, cfg, x)[:, 0], cache

@@ -13,19 +13,20 @@ block's FFN is ``models/moe.py`` (the grouped expert kernels B4b, B4a).
 
 Prefill attention always goes through the flash-attention kernel
 (``kernels/flash_attn/ops.py``), the reference's ``attn_impl="pallas"``
-path.  Decode attention is chosen by the configuration, here and nowhere
-else (``Block.decode``): under full attention through the decode-attention
-kernel (``kernels/decode_attn/ops.py``) with ``lengths = min(pos+1, S)``,
-because such a cache is filled in order (see ``decode_step``); under a
-sliding window the ring cache is not a prefix of positions, so it stays
-the plain ``layers.decode_attention`` over ``kv_pos``, as in the
-reference.
+path.  Decode attention always goes through the decode-attention kernel
+(``kernels/decode_attn/ops.py``), with its mask chosen by the
+configuration, here and nowhere else (``Block.decode``): under full
+attention ``lengths = min(pos+1, S)``, because such a cache is filled in
+order (see ``decode_step``); under a sliding window the ring cache is not
+a prefix of positions, so the kernel masks it by ``kv_pos``, as the
+reference's plain ``decode_attention`` does.
 
 The KV cache is a dict with the reference's layout (``k``/``v`` of
 ``(n_layers, B, S, KV, dh)``, ``kv_pos (B, S)``, ``pos (B,)``), but
-``decode_step`` updates it in place and returns the same dict, where the
-reference builds a new one.  The other families are not ported yet
-(ROADMAP queue A).
+``decode_step`` updates it in place, ``pos`` included, and returns the same
+dict, where the reference builds a new one: every tensor keeps its storage,
+so a CUDA graph of the step replays on it.  The other families are not
+ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -110,20 +111,22 @@ class Block(nn.Module):
     def decode(self, x, pos, slot, k_cache, v_cache, kv_pos, lengths):
         """One token per sequence: x (B, 1, d).  The token's K/V go into this
         layer's cache (B, S, KV, dh) at ``slot``, in place, before attending
-        (self-attention includes the current token).  Full attention reads
-        the cache's prefix of ``lengths`` slots through the decode-attention
-        kernel; a sliding window reads ``kv_pos`` (``decode_step``)."""
+        (self-attention includes the current token).  The decode-attention
+        kernel reads the cache's prefix of ``lengths`` slots under full
+        attention, the slots ``kv_pos`` marks under a sliding window
+        (``decode_step``)."""
         cfg = self.cfg
         bidx = torch.arange(x.shape[0], device=x.device)
         hn = layers.rms_norm(x, self.attn_norm, cfg.norm_eps)
         q, k, v = _qkv(self.attn, cfg, hn, pos[:, None])
         k_cache[bidx, slot] = k[:, 0]
         v_cache[bidx, slot] = v[:, 0]
+        q = q[:, 0].contiguous()
+        k_t, v_t = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
         if cfg.attention == "full":
-            o = decode_attn(q[:, 0].contiguous(), k_cache.transpose(1, 2),
-                            v_cache.transpose(1, 2), lengths)
+            o = decode_attn(q, k_t, v_t, lengths)
         else:
-            o = layers.decode_attention(q[:, 0], k_cache, v_cache, kv_pos, pos)
+            o = decode_attn(q, k_t, v_t, kv_pos=kv_pos, pos=pos)
         x = x + torch.einsum("bhe,hed->bd", o, self.attn.wo)[:, None]
         out, _ = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps))
         return x + out
@@ -302,7 +305,7 @@ def decode_step(params: Transformer, cfg, cache: dict, token: torch.Tensor
     for i, blk in enumerate(params.layers):
         x = blk.decode(x, pos, slot, cache["k"][i], cache["v"][i],
                        cache["kv_pos"], lengths)
-    cache["pos"] = pos + 1
+    cache["pos"].add_(1)
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x)[:, 0], cache
 
@@ -357,7 +360,8 @@ def prefill(params: Transformer, cfg, tokens: torch.Tensor, max_len: int,
     lengths = lengths.to(torch.int32)
     valid = (kv_pos < lengths[:, None]) & (kv_pos >= 0)
     kv_pos = torch.where(valid, kv_pos, -1).to(torch.int32)
-    cache = {"k": k, "v": v, "kv_pos": kv_pos, "pos": lengths}
+    # the cache owns its pos (decode_step advances it in place)
+    cache = {"k": k, "v": v, "kv_pos": kv_pos, "pos": lengths.clone()}
     last = (lengths - 1).clamp(min=0).long()
     x_last = x[torch.arange(b, device=dev), last][:, None]
     return unembed(params, cfg, x_last)[:, 0], cache

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (B1 lockstep advance, B2 flash attention, B3
 decode attention, B4a/B4b grouped expert GEMM and SwiGLU, B5 chunked WKV
-scan, B6 RG-LRU scan) against their plain PyTorch versions, on the card.
+scan, B6 RG-LRU scan) against their plain PyTorch versions, and the
+serving steps' CUDA graphs against the same steps run eagerly, on the
+card.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  The file imports neither ``jax`` nor the reference package, so
@@ -15,8 +17,12 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.env import engine, engine_layout as layout, env as env_lib
 from repro_torch.env import profiles
+from repro_torch import graphs
+from repro_torch.env.serve_engine import ExpertServer, Request
 from repro_torch.kernels.decode_attn import ops as da_ops
-from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+from repro_torch.kernels.decode_attn.ref import (decode_attention_ref,
+                                                 decode_attention_split_ref,
+                                                 decode_attn_plain, split_plan)
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.flash_attn.ref import attention_ref, attention_tiled_ref
 from repro_torch.kernels.lockstep_advance import ops
@@ -26,7 +32,8 @@ from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
-from repro_torch.models import transformer
+from repro_torch.launch import steps
+from repro_torch.models import model as model_lib, transformer
 
 N, R, W = 6, 4, 4
 LAT_L = 0.030
@@ -365,6 +372,221 @@ def test_decode_attn_wrapper_rejects_bad_operands_on_card(cuda_device):
         da_ops.decode_attn(torch.zeros((2, 8, 132), device=cuda_device),
                            torch.zeros((2, 2, 16, 132), device=cuda_device),
                            torch.zeros((2, 2, 16, 132), device=cuda_device), n)
+
+
+def _ring_kv_pos(b, s, rng):
+    """(kv_pos (b, s), pos (b,)) int32 of ring caches that have wrapped:
+    slot j holds the latest position p <= pos with p = j mod s, -1 where
+    none is; the first row's pos is -1, so it has no valid slot."""
+    pos = rng.integers(s // 2, 3 * s, b)
+    pos[0] = -1
+    j = np.arange(s)[None, :]
+    kv_pos = pos[:, None] - (pos[:, None] - j) % s
+    kv_pos[kv_pos < 0] = -1
+    return (torch.as_tensor(kv_pos, dtype=torch.int32),
+            torch.as_tensor(pos, dtype=torch.int32))
+
+
+# (B, H, KV, dh, S, splits on a 132-SM H100): danube's heads on its
+# serving ring (S = 192, one split) and recurrentgemma's on its window
+# (2,048: 16 splits of 128 keys), dh 256 at 7 splits with a ragged last
+# tile, G = 12 at 3 splits, G = 48 (three row tiles) at 2, the reduced
+# configs' small heads, one key, and starcoder2's heads over 4,096 keys
+B3_CASES = [(4, 32, 8, 120, 192, 1), (4, 10, 1, 256, 2048, 16),
+            (1, 12, 1, 256, 890, 7), (2, 48, 4, 128, 394, 3),
+            (2, 48, 1, 128, 300, 2), (3, 8, 2, 24, 40, 1),
+            (2, 4, 4, 16, 1, 1), (4, 48, 4, 128, 4096, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["lengths", "kv_pos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,dh,s,splits", B3_CASES)
+def test_decode_attn_kernel_matches_plain_versions_in_both_masks_on_card(
+        cuda_device, b, h, kv, dh, s, splits, dtype, mask):
+    """Against the plain version of the mask (bf16 2e-2, float32 2e-5, as
+    B3 has been held since it was ported) and against the kernel's own
+    algorithm in plain PyTorch (``decode_attention_split_ref`` with the
+    card's SM count: one bf16 rounding step of the output, 2^-7 of its
+    magnitude; float32 2e-5); a row with no valid key gives 0."""
+    n_sm = da_ops.sm_count(cuda_device.index or 0)
+    if n_sm == 132:                                   # the H100 SXM's plan
+        assert split_plan(s, b * kv * -(-(h // kv) // 16), n_sm)[0] == splits
+    gen = torch.Generator(device=cuda_device).manual_seed(b * s + dh)
+    q = torch.randn((b, h, dh), generator=gen, device=cuda_device).to(dtype)
+    cache = torch.randn((2, b, s, kv, dh), generator=gen,
+                        device=cuda_device).to(dtype)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    rng = np.random.default_rng(s + h)
+    if mask == "lengths":
+        lengths = torch.as_tensor(rng.integers(1, s + 1, b), dtype=torch.int32)
+        lengths[0], lengths[-1] = 0, s
+        kw = {"lengths": lengths.to(cuda_device)}
+    else:
+        kv_pos, pos = _ring_kv_pos(b, s, rng)
+        kw = {"kv_pos": kv_pos.to(cuda_device), "pos": pos.to(cuda_device)}
+    before = da_ops.LAUNCHES
+    got = da_ops.decode_attn(q, k, v, **kw)
+    assert da_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = decode_attn_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    split = decode_attention_split_ref(q, k, v, n_sm=n_sm, **kw).float()
+    diff = (got.float() - split).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= FLASH_TOL[dtype]
+    else:
+        assert float((diff / split.abs().clamp(min=1.0)).max()) <= TILED_REL_TOL
+    if mask == "kv_pos" or b > 1:                     # row 0 has no valid key
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+    again = da_ops.decode_attn(q, k.contiguous(), v.contiguous(), **kw)
+    assert torch.equal(again, got)                    # deterministic merges
+
+
+@pytest.mark.cuda
+def test_decode_attn_wrapper_rejects_bad_kv_pos_on_card(cuda_device):
+    q = torch.zeros((2, 8, 64), device=cuda_device)
+    k = torch.zeros((2, 2, 16, 64), device=cuda_device)
+    kv_pos = torch.zeros((2, 16), dtype=torch.int32, device=cuda_device)
+    pos = torch.zeros((2,), dtype=torch.int32, device=cuda_device)
+    n = torch.full((2,), 16, dtype=torch.int32, device=cuda_device)
+    for bad_kv_pos, bad_pos in ((kv_pos.long(), pos), (kv_pos.cpu(), pos),
+                                (kv_pos[:, :15], pos), (kv_pos[:1], pos),
+                                (kv_pos.t().contiguous().t(), pos),
+                                (kv_pos, pos.long()), (kv_pos, pos.cpu()),
+                                (kv_pos, pos[:1]), (kv_pos, 3)):
+        with pytest.raises(ValueError):
+            da_ops.decode_attn(q, k, k, kv_pos=bad_kv_pos, pos=bad_pos)
+    with pytest.raises(ValueError):                       # two masks
+        da_ops.decode_attn(q, k, k, n, kv_pos=kv_pos, pos=pos)
+    with pytest.raises(ValueError):                       # no mask
+        da_ops.decode_attn(q, k, k)
+    with pytest.raises(ValueError):                       # kv_pos, no pos
+        da_ops.decode_attn(q, k, k, kv_pos=kv_pos)
+    with pytest.raises(ValueError):                       # head dim 264
+        z = torch.zeros((2, 2, 16, 264), device=cuda_device)
+        da_ops.decode_attn(torch.zeros((2, 8, 264), device=cuda_device), z, z, n)
+    scalar = torch.tensor(3, dtype=torch.int32, device=cuda_device)
+    da_ops.decode_attn(q, k, k, kv_pos=kv_pos, pos=scalar)  # () pos is taken
+
+
+# ---------------------------------------------------------------------------
+# The serving steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _server_launches(srv) -> tuple:
+    """Each counter's launches from a server's iterations, in the order of
+    ``graphs.COUNTERS``: B2 n_layers per prefill, B3 n_layers per decode,
+    B4b and B4a once per MoE layer per prefill and per decode."""
+    cfg, it = srv.cfg, srv.iterations
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0
+    both = (it["prefill"] + it["decode"]) * n_moe
+    return (0, it["prefill"] * cfg.n_layers, it["decode"] * cfg.n_layers,
+            both, both, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-3-4b",
+                                  "dbrx-132b"])
+def test_graphed_expert_server_matches_eager_on_card(cuda_device, arch):
+    """The same requests through a graphed server and an eager one on the
+    same weights give the same iterations and tokens, and each server's
+    launches are exactly those its iterations imply (a replay counts its
+    capture's launches; the capture itself counts none)."""
+    cfg = reduce_config(get_config(arch))
+    params = model_lib.init_params(cfg, seed=3, device=cuda_device)
+    rng = np.random.default_rng(4)
+    prompts = [(rng.integers(2, cfg.vocab, p), n)
+               for p, n in ((12, 5), (30, 7), (40, 30), (9, 3), (100, 6))]
+    runs = []
+    for graphed in (True, False):
+        srv = ExpertServer("s", cfg, params, slots=2, max_len=192,
+                           graphs=graphed)
+        assert srv.graphed == graphed
+        before = graphs.launch_counts()
+        for rid, (toks, n) in enumerate(prompts):
+            srv.submit(Request(rid=rid, tokens=toks, max_new=n))
+        done = []
+        while srv.has_work():
+            done.extend(srv.step())
+        got = tuple(a - b for a, b in zip(graphs.launch_counts(), before))
+        assert got == _server_launches(srv), (graphed, got)
+        runs.append(([(e["kind"], e["x"]) for e in srv.iteration_log],
+                     [(r.rid, r.generated) for r in done]))
+        if graphed:
+            assert set(srv._graphs) == {"decode", ("prefill", 16),
+                                        ("prefill", 32), ("prefill", 64),
+                                        ("prefill", 128)}
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_graphed_recurrent_decode_matches_eager_on_card(cuda_device, arch):
+    """Ten greedy decode steps replayed from a graph give bit-equal logits
+    to the model's step run eagerly on a copy of the cache; a step launches
+    B3 once per attention layer (none for RWKV6) and the scans never."""
+    cfg = reduce_config(get_config(arch))
+    params = model_lib.init_params(cfg, seed=5, device=cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(2, cfg.vocab,
+                                                             (2, 16)),
+                           dtype=torch.int32, device=cuda_device)
+    _, cache = steps.make_prefill_step(cfg, 32)(params, toks)
+    n_attn = sum(1 for p in params.layers if hasattr(p, "wq"))
+    eager = lambda p, c, t: model_lib.decode_step(p, cfg, c, t)
+    outs = []
+    for decode, c in ((steps.make_decode_step(cfg), cache),
+                      (eager, steps.clone_cache(cache))):
+        tok, logits_seen = toks[:, -1], []
+        before = graphs.launch_counts()
+        for _ in range(10):
+            logits, c = decode(params, c, tok)
+            logits_seen.append(logits)
+            tok = logits.argmax(-1).to(torch.int32)
+        got = tuple(a - b for a, b in zip(graphs.launch_counts(), before))
+        assert got == (0, 0, 10 * n_attn, 0, 0, 0, 0), (decode, got)
+        outs.append(logits_seen)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_graphed_recurrent_decode_serves_every_prompt_from_one_capture(
+        cuda_device, arch):
+    """Three prompts of one batch shape through one decode step: the first
+    call captures, each later prompt's cache is copied into the step's own,
+    and every prompt's five steps give the model's eager logits bit for
+    bit; the prompts' own caches are left as they were."""
+    cfg = reduce_config(get_config(arch))
+    params = model_lib.init_params(cfg, seed=7, device=cuda_device)
+    rng = np.random.default_rng(8)
+    prefill = steps.make_prefill_step(cfg, 32)
+    decode = steps.make_decode_step(cfg)
+    for _ in range(3):
+        toks = torch.as_tensor(rng.integers(2, cfg.vocab, (2, 16)),
+                               dtype=torch.int32, device=cuda_device)
+        _, cache = prefill(params, toks)
+        kept = steps.clone_cache(cache)
+        c, e = cache, steps.clone_cache(cache)
+        tok = toks[:, -1]
+        for i in range(5):
+            got, c = decode(params, c, tok)
+            ref, e = model_lib.decode_step(params, cfg, e, tok)
+            assert torch.equal(got, ref), i
+            tok = got.argmax(-1).to(torch.int32)
+        assert len(decode.graphs) == 1
+        for a, b in zip(_cache_leaves(cache), _cache_leaves(kept)):
+            assert torch.equal(a, b)
+
+
+def _cache_leaves(c):
+    if isinstance(c, (dict, list)):
+        return [y for x in (c.values() if isinstance(c, dict) else c)
+                for y in _cache_leaves(x)]
+    return [c]
 
 
 # ---------------------------------------------------------------------------

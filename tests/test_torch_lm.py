@@ -25,6 +25,7 @@ from repro.kernels.flash_attn.ref import attention_ref as jax_attention_ref
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro_torch.configs import get_config, list_archs, reduce_config
+from repro_torch.kernels.decode_attn.ref import decode_attention_kv_pos_ref
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.models import io, layers, model as model_lib, transformer
@@ -140,7 +141,8 @@ def test_decode_attention_matches_reference():
     kv_pos[:, 0] = 0                                   # every row sees a key
     pos = np.array([3, 9, 14], np.int32)
     ref = jax.jit(jlayers.decode_attention)(q, kc, vc, kv_pos, pos)
-    got = layers.decode_attention(t(q), t(kc), t(vc), t(kv_pos), t(pos))
+    got = decode_attention_kv_pos_ref(t(q), t(kc).transpose(1, 2),
+                                      t(vc).transpose(1, 2), t(kv_pos), t(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATTN_TOL,
                                rtol=0)
 
