@@ -11,22 +11,30 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 ptxas's registers, spills and static shared memory per
                 kernel function (``nvcc --resource-usage``, alongside).
   2. kernel   — the lockstep-advance kernel (B1) against its plain PyTorch
-                version: 16 envs x 1,024 experts (16,384 rows, R=W=5) over
-                100 consecutive advances per admission order, every other
-                one held against the plain loop, with arrivals
+                version: 16 envs x 1,024 experts (16,384 rows, R=W=5), then
+                4 envs x 6 experts (the N=6 serving rows), each over 100
+                consecutive advances per admission order, every fourth one
+                held against the plain loop, with arrivals
                 pushed between advances, ragged caps, about 1/8 of experts
                 down, admission floors on some rows and a t_next per env.
                 Queues, clocks and wait-valid bits must be bit-exact,
                 done/viol exact, the other accumulators within rtol 1e-6.
-                Times both.
+                Times both (the kernel with its launches queued ahead).
   3. serve    — the routing path, ``launch/route.py``'s policies through
                 ``engine_backend="cuda"``: N=6 with 4 envs (padded obs) and
                 N=1,024 with 16 envs (segments obs, ragged caps); RR, SQF, BR,
-                QLL and a seeded SAC router, greedy.  Each run must launch
+                QLL and a seeded SAC router, greedy; each run with every
+                step after the first replayed from a CUDA graph, and again
+                eagerly from the same seeds (``graphs=False``): metrics and
+                final state must be equal bit for bit, and requests routed
+                per second are printed for both.  Each run must launch
                 B1 once per env step; a shorter QLL run on the plain engine
                 must end in the same state as on the kernel.
-  4. profile  — for QLL and SAC in each setting: host time per layer of a
-                step, and the device's busy share under torch.profiler.
+  4. profile  — for QLL and SAC in each setting: the graphed step's wall
+                time, each layer's device time (observation, policy, env
+                step, each captured alone and replayed in turn), and the
+                device's busy share under torch.profiler, whose trace must
+                hold one B1 launch per step; the same for eager steps.
   5. flash    — the flash-attention kernel (B2) against its plain version:
                 each expert's full-width heads at S=16 and 128, danube's
                 heads at S=1,024 under a binding window of 256, starcoder2's
@@ -56,9 +64,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 against their plain versions at dbrx's expert shapes (16 x
                 6144 x 10752) for capacities 4 (a decode), 5, 10, 20 and 40
                 (prefill buckets 16 to 128); each element within atol + rtol * |ref|,
-                both 2e-2 in bf16 and 2e-5 in float32.  Times against the
-                weight-stream bound and torch.bmm (B4a; for B4b two bmm and
-                silu*mul, not one call).
+                both 2e-2 in bf16 and 2e-5 in float32; B4a's two calls
+                bit-equal.  Times against the weight-stream bound and
+                torch.bmm (B4a, beside its previous kernel; for B4b two bmm
+                and silu*mul, not one call).  Then B4a at ragged shapes in
+                bf16 against its plain version and its split algorithm in
+                plain PyTorch, deterministic over two calls.
   8. lm_serve — the LM path, ``launch/serve.py`` at the published widths in
                 bf16 (``build_cluster(reduce=False)``): per expert, a prefill
                 and a decode step through the kernels against the same
@@ -103,14 +114,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 0, 1), after the earlier clusters are freed.  Per model a
                 prefill of 4 x 128 tokens through the kernels against the
                 same through their plain versions (logits within 2^-4 of
-                the largest, greedy tokens, recurrent states) and one
+                the largest, greedy tokens, recurrent states), then the
+                prefill replayed from its CUDA graph against its eager first
+                call (bit-equal logits and cache), a prompt of half the
+                length through the same step (its first call, eager and a
+                capture into the shared pool, timed beside its replay and
+                the eager prefill; both shapes' replays bit-equal), one
                 decode step from its cache the same way, 32 greedy decodes
                 replayed from a CUDA graph and the same 32 run eagerly from
-                a copy of the cache (bit-equal logits), timed prefills, a
+                a copy of the cache (bit-equal logits; each step timed:
+                min/median/max), prefills timed graphed and eager, a
                 profiled window (one capture for every prompt; the trace
                 must hold B3, B5 and B6's expected launches) and a prefill
                 of 1 x 4,096 (past
-                recurrentgemma's 2,048 window).  B5 must launch n_layers
+                recurrentgemma's 2,048 window), graphed against eager.  B5 must launch n_layers
                 times per rwkv6 prefill, B6 once per recurrent layer per
                 recurrentgemma prefill, neither at decode; B3 once per
                 attention layer per recurrentgemma decode.
@@ -274,7 +291,9 @@ def bulk_arrivals(layout, q, rng, t, wait_caps, p_arrive, dev):
     return q
 
 
-def kernel_phase(dev, n_envs=16, n=1024, steps=100):
+def kernel_phase(dev, n_envs=16, n=1024, steps=100, p_arrive=0.16):
+    """B1 against its plain version on ``n_envs`` x ``n`` rows (module
+    docstring, phase 2), then timed on one mid-run advance."""
     from repro_torch.env import engine, engine_layout as layout, profiles
     from repro_torch.kernels.lockstep_advance import ops
 
@@ -298,8 +317,9 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
         clocks = torch.zeros((n_envs, n), device=dev)
         t = torch.zeros(n_envs, device=dev)
         for k in range(steps):
-            # ~0.8 arrivals/s per expert (the paper's λ=5 over 6 experts)
-            q = bulk_arrivals(layout, q, rng, t, wait_caps_t, 0.16, dev)
+            # at 0.16: ~0.8 arrivals/s per expert (the paper's λ=5 over 6
+            # experts)
+            q = bulk_arrivals(layout, q, rng, t, wait_caps_t, p_arrive, dev)
             t = t + torch.as_tensor(rng.exponential(0.2, n_envs),
                                     dtype=torch.float32, device=dev)
             args = (q["run_i"].reshape(rows, r, 5), q["run_f"].reshape(rows, r, 5),
@@ -347,8 +367,10 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
         assert final[order]["running"] > 0, order
 
     args, turns, done = timing
-    ms = cuda_ms(lambda: ops.lockstep_advance(*args, latency_L=lat_l,
-                                              admit_order="fifo"), 50)
+    kernel = lambda: ops.lockstep_advance(*args, latency_L=lat_l,
+                                          admit_order="fifo")
+    ms = device_ms(kernel, 200)
+    call_ms = cuda_ms(kernel, 50)
     plain_ms = cuda_ms(lambda: engine.advance_shard(
         *args, latency_L=lat_l, admit_order="fifo"), 5)
     out_bytes = sum(x.numel() * x.element_size() for x in args)
@@ -360,7 +382,7 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
            "R": r, "W": w, "advances_per_order": steps,
            "orders": list(engine.ADMIT_ORDERS), "bit_exact": True,
            "launches_compared": compared, "max_abs_err": max_err,
-           "ms": ms, "plain_ms": plain_ms,
+           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
            "bytes": out_bytes, "turns": turns, "finished": done,
            "ops": n_ops, "bytes_ms": bytes_ms,
            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -375,6 +397,23 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100):
 # ---------------------------------------------------------------------------
 
 
+def same_state(a, b) -> bool:
+    """Two env states equal bit for bit (every tensor but the generator)."""
+    for k, x in a.items():
+        if k == "gen" or x is None:
+            continue
+        if isinstance(x, dict):
+            if not same_state(x, b[k]):
+                return False
+        elif not torch.equal(x, b[k]):
+            return False
+    return True
+
+
+METRIC_KEYS = ("avg_qos", "avg_latency_per_token", "violation_rate",
+               "completed", "dropped", "mean_reward")
+
+
 def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
                 seed):
     from repro_torch.core import sac
@@ -386,12 +425,19 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
     model = sac.init_params(route.sac_config(env_cfg), seed=seed, device=dev)
     rows, launches = [], 0
     for pol in route.make_policies(env_cfg, model, obs_fmt=obs_fmt):
-        ops.LAUNCHES = 0
-        m, state = route.serve(env_cfg, pool, pol, n_steps=n_steps,
-                               n_envs=n_envs)
-        got = ops.LAUNCHES
-        assert got == n_steps, (pol.name, got, n_steps)
-        launches += got
+        runs = {}
+        for mode in ("graphed", "eager"):
+            ops.LAUNCHES = 0
+            m, state = route.serve(env_cfg, pool, pol, n_steps=n_steps,
+                                   n_envs=n_envs, graphs=mode == "graphed")
+            got = ops.LAUNCHES
+            assert m["mode"] == mode and got == n_steps, (pol.name, mode, got)
+            launches += got
+            runs[mode] = (m, state)
+        (m, state), (m_eager, s_eager) = runs["graphed"], runs["eager"]
+        same = (all(m[k] == m_eager[k] for k in METRIC_KEYS)
+                and same_state(state, s_eager))
+        assert same, (pol.name, {k: (m[k], m_eager[k]) for k in METRIC_KEYS})
         for k in ("avg_qos", "avg_latency_per_token", "violation_rate",
                   "mean_reward"):
             assert np.isfinite(m[k]), (pol.name, k, m[k])
@@ -402,14 +448,21 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
         assert bool((state["expert_clock"] >= state["clock"][:, None]).all())
         row = {"phase": "serve", "n_experts": n_experts, "n_envs": n_envs,
                "obs_fmt": obs_fmt, "ragged_caps": ragged, "backend": "cuda",
-               "launches": got,
-               **{k: m[k] for k in ("policy", "requests", "seconds",
-                                    "requests_per_s", "avg_qos",
+               "launches": n_steps,
+               **{k: m[k] for k in ("policy", "requests", "avg_qos",
                                     "avg_latency_per_token",
                                     "violation_rate", "completed",
-                                    "dropped")}}
+                                    "dropped")},
+               "graphed_equals_eager": same,
+               "requests_per_s": {"graphed": m["requests_per_s"],
+                                  "eager": m_eager["requests_per_s"]},
+               "speedup": m["requests_per_s"] / m_eager["requests_per_s"],
+               "first_step_s": {"graphed": m["first_step_s"],
+                                "eager": m_eager["first_step_s"]},
+               "seconds": {"graphed": m["seconds"],
+                           "eager": m_eager["seconds"]}}
         emit(row)
-        rows.append((row, state))
+        rows.append(row)
 
     # the same heuristic on the plain engine must end in the same state
     qll = lambda cfg: next(p for p in route.make_policies(cfg)
@@ -418,8 +471,9 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
     m_cuda, s_cuda = route.serve(env_cfg, pool, qll(env_cfg), n_steps=n_check,
                                  n_envs=n_envs)
     ops.LAUNCHES = 0
+    # the plain engine syncs with the host every turn: it runs eagerly
     m, state = route.serve(plain_cfg, pool, qll(plain_cfg), n_steps=n_check,
-                           n_envs=n_envs)
+                           n_envs=n_envs, graphs=False)
     assert ops.LAUNCHES == 0
     assert m["completed"] == m_cuda["completed"], (m, m_cuda)
     assert m["dropped"] == m_cuda["dropped"], (m, m_cuda)
@@ -429,8 +483,8 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
     emit({"phase": "serve", "n_experts": n_experts, "n_envs": n_envs,
           "obs_fmt": obs_fmt, "ragged_caps": ragged, "policy": "QLL",
           "requests": m["requests"], "same_final_state": True,
-          "requests_per_s": {"cuda": m_cuda["requests_per_s"],
-                             "torch": m["requests_per_s"]}})
+          "requests_per_s": {"cuda_graphed": m_cuda["requests_per_s"],
+                             "torch_eager": m["requests_per_s"]}})
 
     for pol in route.make_policies(env_cfg, model, obs_fmt=obs_fmt):
         if pol.name not in ("QLL", "SAC"):
@@ -438,20 +492,99 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
         emit({"phase": "profile", "n_experts": n_experts, "n_envs": n_envs,
               "obs_fmt": obs_fmt, "policy": pol.name,
               **profile_window(env_cfg, pool, pol, n_envs)})
-    return launches
+    return launches, rows
+
+
+def device_window(run, steps, wall_ms_per_step):
+    """One call of ``run`` (``steps`` routing steps) under torch.profiler:
+    the device's busy time, kernel launches and B1's launches and time per
+    step.  ``device_idle_share`` sets that busy time against the
+    unprofiled wall time per step (as the LM windows do: tracing some 200
+    kernels a step stretches the profiled window's own wall time); it mixes
+    two runs, and is negative where the traced busy time exceeds the
+    unprofiled wall time.  ``device_idle_share_profiled`` takes both from
+    the profiled window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    lock = [e.time_range.elapsed_us() for e in kernels
+            if "lockstep_advance" in e.name]
+    busy_ms = busy_us / steps / 1e3
+    return {"ms_per_step": wall_ms_per_step,
+            "ms_per_step_profiled": wall_s / steps * 1e3,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms_per_step,
+            "device_idle_share_profiled": 1.0 - busy_us / 1e6 / wall_s,
+            "kernels_per_step": len(kernels) / steps,
+            "lockstep_launches": len(lock),
+            "lockstep_ms_per_step": sum(lock) / steps / 1e3}
 
 
 def profile_window(env_cfg, pool, policy, n_envs, steps=30):
-    """Where a serving step's time goes: host wall time per layer (each
-    synchronised), then one unsynchronised window under ``torch.profiler``
-    for the device's busy time, its kernel launches and the lockstep
-    kernel's share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import features
+    """Where a routing step's time goes, graphed and eager.  Graphed (a
+    ``RoutingLoop`` replaying its step): the wall time per step of a run
+    synchronised at its end; each layer's device time per step
+    (observation, policy, env step, each captured alone over the same
+    static state and replayed in turn with the launches queued ahead of the
+    card); and one window under torch.profiler, whose trace must hold one
+    B1 launch per step.  Eager: host wall time per layer (each
+    synchronised), the wall time per step of a run, and a profiled
+    window."""
+    from repro_torch.core import features, training
     from repro_torch.device import generator
     from repro_torch.env import env as env_lib
+    from repro_torch.graphs import StepGraph
 
+    out = {"steps": steps}
+    loop = training.RoutingLoop(env_cfg, pool, policy, n_envs, seed=7)
+    loop.run(4)                                     # the first step, capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run(steps)
+    torch.cuda.synchronize()
+    graphed = device_window(lambda: loop.run(steps), steps,
+                            (time.perf_counter() - t0) / steps * 1e3)
+    assert graphed["lockstep_launches"] == steps, graphed
+    out["graphed"] = graphed
+
+    # each layer captured alone (a heuristic builds no observation); in
+    # turn they make one step
+    obs = None if policy.obs_fmt is None else StepGraph(loop.observe)
+    layers = [obs, StepGraph(lambda: loop.act(None if obs is None
+                                              else obs.out),
+                             generators=(loop.act_gen,))]
+    layers.append(StepGraph(lambda: loop.apply(layers[1].out),
+                            generators=(loop.env_gen,)))
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10**8)                        # queue ahead of the card
+    for e in ev:
+        e[0].record()
+        for i, g in enumerate(layers):
+            if g is not None:
+                g.replay()
+            e[i + 1].record()
+    torch.cuda.synchronize()
+    out["graphed_layer_device_ms_per_step"] = {
+        k: float(np.mean([e[i].elapsed_time(e[i + 1]) for e in ev[1:]]))
+        for i, k in enumerate(("obs", "policy", "env_step"))}
+    # a third reading, from unprofiled runs alone: the layers' device time
+    # (busy, and the gaps inside their graphs) against the wall time
+    out["graphed"]["device_idle_share_events"] = 1.0 - sum(
+        out["graphed_layer_device_ms_per_step"].values()) / graphed[
+            "ms_per_step"]
+
+    # eager, as PRs 11-16 measured it
     dev = pool.k1.device
     state = env_lib.reset(env_cfg, pool, generator(dev, 7), n_envs)
     pstate = policy.init_state(n_envs, dev)
@@ -481,28 +614,22 @@ def profile_window(env_cfg, pool, policy, n_envs, steps=30):
     layer_s = {"obs": 0.0, "policy": 0.0, "env_step": 0.0}
     for _ in range(steps):
         state, pstate = one_step(state, pstate, layer_s)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    out["eager_ms_per_step_synced"] = {k: v / steps * 1e3
+                                       for k, v in layer_s.items()}
+    carry = [state, pstate]
+
+    def eager_run():
         for _ in range(steps):
-            state, pstate = one_step(state, pstate)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    lock_us = sum(e.time_range.elapsed_us() for e in kernels
-                  if "lockstep_advance" in e.name)
-    per = lambda x: x / steps * 1e3
-    return {"steps": steps,
-            "ms_per_step_synced": {k: per(v) for k, v in layer_s.items()},
-            "ms_per_step_profiled": per(wall_s),
-            "device_busy_ms_per_step": busy_us / steps / 1e3,
-            "device_idle_share": (1.0 - busy_us / 1e6 / wall_s
-                                  if kernels else None),
-            "kernels_per_step": len(kernels) / steps,
-            "lockstep_ms_per_step": lock_us / steps / 1e3}
+            carry[:] = one_step(*carry)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_run()
+    torch.cuda.synchronize()
+    out["eager"] = device_window(eager_run, steps,
+                                 (time.perf_counter() - t0) / steps * 1e3)
+    assert out["eager"]["lockstep_launches"] == steps, out["eager"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -750,11 +877,32 @@ def decode_attn_phase(dev):
 MOE_E, MOE_D, MOE_F = 16, 6144, 10752
 MOE_CAPACITIES = (4, 5, 10, 20, 40)
 MOE_LINE_CASE = (4, "bfloat16")                      # the kernels line's rows
+# (E, C, D, F) of B4a beside dbrx's: ragged C, D and F that its split path
+# takes (C past one row tile), and F not a multiple of 8, which it does not
+MOE_RAGGED = [(5, 7, 1000, 136), (3, 70, 200, 1000), (2, 9, 64, 130)]
+
+
+def previous_gemm(x, w):
+    """B4a as PRs 13-16 ran it (a block per output tile, ``moe_gemm_mma``),
+    which the library keeps for the shapes the split path does not take:
+    timed beside the new kernel on the same inputs."""
+    from repro_torch.kernels.moe_gemm import ops
+    e, c, d = x.shape
+    out = torch.empty((e, c, w.shape[2]), dtype=x.dtype, device=x.device)
+    rc = ops._library().moe_gemm_launch(
+        x.data_ptr(), w.data_ptr(), None, out.data_ptr(), e, c, d, w.shape[2],
+        0, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return out
 
 
 def moe_gemm_phase(dev):
     from repro_torch.kernels.moe_gemm import ops
-    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
+    from repro_torch.kernels.moe_gemm.ref import (gemm_plan, gemm_tiled,
+                                                  grouped_gemm_ref,
+                                                  grouped_gemm_split_ref,
+                                                  grouped_swiglu_ref)
 
     rows = []
     e, d, f = MOE_E, MOE_D, MOE_F
@@ -771,6 +919,8 @@ def moe_gemm_phase(dev):
             x = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
             h = ops.expert_swiglu(x, wg, wu)
             y = ops.expert_gemm(h, wd)
+            # the split and its merge order are fixed: two calls, same bits
+            assert torch.equal(y, ops.expert_gemm(h, wd)), (c, dtype)
             h_ref = grouped_swiglu_ref(x, wg, wu)
             y_ref = grouped_gemm_ref(h, wd)
             torch.cuda.synchronize()
@@ -785,7 +935,8 @@ def moe_gemm_phase(dev):
                                  2 * e * c * f * d,
                                  {"": lambda: ops.expert_gemm(h, wd),
                                   "plain_": lambda: grouped_gemm_ref(h, wd),
-                                  "library_": lambda: torch.bmm(h, wd)})}
+                                  "library_": lambda: torch.bmm(h, wd),
+                                  "previous_": lambda: previous_gemm(h, wd)})}
             for name, (got, ref, n_el, flops, fns) in cases.items():
                 tol = FLASH_TOL[dtype]
                 diff = (got.float() - ref.float()).abs()
@@ -812,12 +963,42 @@ def moe_gemm_phase(dev):
                             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                             "bound_ms": max(bytes_ms, ops_ms),
                             "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                         else "operations")})
+                                         else "operations"),
+                            "share_of_bound": max(bytes_ms, ops_ms) / row["ms"]})
+                if name == "grouped_gemm":
+                    row["deterministic"] = True
+                    if gemm_tiled(dtype, f, d):
+                        plan = gemm_plan(e, c, f, d, ops.sm_count(dev))
+                        row["split"] = {"ctas": plan.ctas, "units": plan.units,
+                                        "cut_tiles": len(plan.merges())}
                 emit(row)
                 rows.append(row)
             del x, h, y, h_ref, y_ref, cases
         del wg, wu, wd
         torch.cuda.empty_cache()
+
+    # B4a at ragged shapes, bf16: the plain version, its split algorithm in
+    # plain PyTorch and two calls
+    tol = FLASH_TOL[torch.bfloat16]
+    for e, c, d, f in MOE_RAGGED:
+        gen = torch.Generator(device=dev).manual_seed(e + c + d + f)
+        x = torch.randn((e, c, d), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((e, d, f), generator=gen, device=dev)
+             / d ** 0.5).bfloat16()
+        y = ops.expert_gemm(x, w)
+        same = torch.equal(y, ops.expert_gemm(x, w))
+        over = {}
+        for key, ref in (("plain", grouped_gemm_ref(x, w)),
+                         ("split", grouped_gemm_split_ref(x, w,
+                                                          ops.sm_count(dev)))):
+            diff = (y.float() - ref.float()).abs()
+            over[key] = float((diff / (tol + tol * ref.float().abs())).max())
+        row = {"phase": "moe_gemm", "name": "grouped_gemm_ragged", "E": e,
+               "C": c, "D": d, "F": f, "dtype": "bfloat16",
+               "split_path": gemm_tiled(torch.bfloat16, d, f),
+               "deterministic": same, "err_over_limit": over}
+        emit(row)
+        assert same and max(over.values()) <= 1.0, row
     return rows
 
 
@@ -1072,20 +1253,21 @@ def lm_window(srv, phase, n_prefill=3, n_decode=12):
     return row
 
 
-# each LM kernel's main kernels by name in a trace; B3's merge apart
+# each LM kernel's main kernels by name in a trace; the merges apart
 TRACE_KERNELS = {"b2": ("flash_attn_bf16_kernel", "flash_attn_f32_kernel"),
                  "b3": ("decode_attn_mma", "decode_attn_simt"),
                  "b3_merge": ("decode_attn_merge",),
-                 "b4": ("moe_gemm_mma", "moe_gemm_simt"),
+                 "b4": ("moe_gemm_mma", "moe_gemm_simt", "moe_gemm_tma"),
+                 "b4_merge": ("moe_gemm_merge",),
                  "b5": ("rwkv6_scan_kernel",), "b6": ("rglru_scan_kernel",)}
 
 
 def traced(row, kernels, expected):
     """Each LM kernel's launches and time in a profiled window, into
-    ``row``, with B3's merge launches; the launches of each tag of
-    ``expected`` must equal its count there: what the counters credit a
+    ``row``, with B3's and B4a's merge launches; the launches of each tag
+    of ``expected`` must equal its count there: what the counters credit a
     graph replay with, read from the trace."""
-    for tag in (*expected, "b3_merge"):
+    for tag in (*expected, "b3_merge", "b4_merge"):
         us = [e.time_range.elapsed_us() for e in kernels
               if any(n in e.name for n in TRACE_KERNELS[tag])]
         row[f"{tag}_launches"] = len(us)
@@ -1567,11 +1749,11 @@ def recurrent_window(params, cfg, toks, n_decode=8):
     """Where an iteration's time goes: one prefill and ``n_decode`` decodes,
     synchronised for wall time, then the same under torch.profiler for the
     device's busy time, kernels per iteration and B3/B5/B6's launches and
-    time.  Each run is a new prompt through the decode step a user gets:
-    the first run captures its graph, and every later run's first decode
-    copies the new prefill's cache into the step's own (timed with the
-    decodes); the window must hold one capture.  Returns the row and the
-    passes: prefills and decode steps run."""
+    time.  Each run is a new prompt through the steps a user gets: the
+    first run captures both graphs, every later run replays the prefill's
+    and its first decode copies the new prefill's cache into the step's own
+    (timed with the decodes); the window must hold one capture of each.
+    Returns the row and the passes: prefills and decode steps run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps
@@ -1607,22 +1789,41 @@ def recurrent_window(params, cfg, toks, n_decode=8):
            "wall_ms": wall_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
            "kernels": len(kernels),
            "kernels_per_iteration": len(kernels) / (1 + n_decode),
-           "captures": len(decode.graphs)}
+           "captures": len(decode.graphs),
+           "prefill_captures": len(prefill.graphs)}
     scans = scan_launches_per_pass(cfg)
     traced(row, kernels, {"b3": n_decode * b3_launches_per_decode(cfg),
                           "b5": scans["rwkv6_scan"],
                           "b6": scans["rglru_scan"]})
-    assert row["captures"] == 1, row
+    assert row["captures"] == 1 and row["prefill_captures"] == 1, row
     return row, {"prefill": 3, "decode": 3 * n_decode}
+
+
+def cache_leaves(c):
+    """Every tensor of a cache, in order."""
+    if isinstance(c, (dict, list)):
+        return [y for x in (c.values() if isinstance(c, dict) else c)
+                for y in cache_leaves(x)]
+    return [c]
+
+
+def same_prefill(a, b) -> bool:
+    """Two (logits, cache) bit for bit."""
+    return torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(cache_leaves(a[1]),
+                                          cache_leaves(b[1])))
 
 
 def recurrent_serve(params, cfg, name, rng, phase):
     """The model's main path through the step functions: a prefill of 4 x
-    128 tokens and one decode step from its cache (each held against the
-    same through the plain versions), 32 greedy decodes graphed and 32
-    eager (no B5/B6 launch), two timed prefills, a profiled window and one
-    long prefill (1 x 4,096).  Returns the prefills and decode steps it
-    ran."""
+    128 tokens (the step's first call for the shape: eager, and the graph's
+    capture) held against the same through the plain versions, and a
+    replay of its graph held bit for bit against it; one decode step from
+    its cache through the kernels against the plain versions; 32 greedy
+    decodes graphed and 32 eager (no B5/B6 launch), each step timed;
+    prefills timed graphed and eager; a profiled window; one long prefill
+    (1 x 4,096) replayed against its eager first call, and timed both
+    ways.  Returns the prefills and decode steps it ran."""
     from repro_torch.launch import steps
     from repro_torch.models import model as model_lib
 
@@ -1630,9 +1831,14 @@ def recurrent_serve(params, cfg, name, rng, phase):
     prefill = steps.make_prefill_step(cfg, max_len)
     toks = torch.as_tensor(rng.integers(2, cfg.vocab, (REC_BATCH, REC_PROMPT)),
                            dtype=torch.int32, device=params.embed.device)
-    logits, cache = prefill(params, toks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, toks)             # eager, and the capture
+    logits.argmax(-1).cpu()
+    first_ms = (time.perf_counter() - t0) * 1e3
     with plain_kernels():
-        plain_logits, plain_cache = prefill(params, toks)
+        plain_logits, plain_cache = model_lib.prefill(params, cfg, toks,
+                                                      max_len)
     row, ok = greedy_check(logits, plain_logits, cfg.vocab)
     ref_states = state_leaves(cfg, plain_cache)
     states = {}
@@ -1651,6 +1857,38 @@ def recurrent_serve(params, cfg, name, rng, phase):
     assert states[worst] <= LOGIT_REL_TOL, row
     del plain_cache, ref_states
 
+    # the graph's replay against the eager first call: bit for bit
+    same = same_prefill(prefill(params, toks), (logits, cache))
+    emit({"phase": phase, "check": "prefill_graphed_vs_eager", "arch": name,
+          "B": REC_BATCH, "T": REC_PROMPT, "bit_equal": same,
+          "first_call_ms": first_ms, "captures": len(prefill.graphs)})
+    assert same and len(prefill.graphs) == 1, name
+
+    # a prompt of a new length: the step's first call for it (eager, then a
+    # capture into the pool the first shape's graph shares), its replay and
+    # the eager prefill, timed; both shapes' replays stay bit-equal
+    short = toks[:, :REC_PROMPT // 2].contiguous()
+    new_ms = {}
+    for mode in ("first_call", "replay", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (model_lib.prefill(params, cfg, short, max_len)
+               if mode == "eager" else prefill(params, short))
+        out[0].argmax(-1).cpu()
+        new_ms[mode] = (time.perf_counter() - t0) * 1e3
+        if mode == "first_call":
+            short_out = out
+        elif mode == "replay":
+            same = same_prefill(out, short_out)
+    del out, short_out
+    same_again = same_prefill(prefill(params, toks), (logits, cache))
+    emit({"phase": phase, "check": "prefill_new_shape", "arch": name,
+          "B": REC_BATCH, "T": REC_PROMPT // 2,
+          **{f"{k}_ms": v for k, v in new_ms.items()},
+          "replay_bit_equal": same, "first_shape_still_equal": same_again,
+          "captures": len(prefill.graphs)})
+    assert same and same_again and len(prefill.graphs) == 2, name
+
     # one decode step from that cache, through the kernels and through the
     # plain versions (RecurrentGemma's attention in float32 against B3,
     # which rounds P to bf16 for P V), each on a copy of the cache
@@ -1668,27 +1906,23 @@ def recurrent_serve(params, cfg, name, rng, phase):
 
     # REC_DECODE greedy steps replayed from a CUDA graph, and the same run
     # eagerly (the model's step) from a copy of the cache: bit-equal
-    # logits; each timed past its first step, which is timed alone (for the
-    # graph: the copy of the cache into the step's own and the capture)
+    # logits; each step synchronised and timed (the graph's first: the copy
+    # of the cache into the step's own and the capture)
     before = counters()
-    runs, first_ms = {}, {}
+    runs = {}
     for mode, c in (("graphed", cache), ("eager", steps.clone_cache(cache))):
         step = (steps.make_decode_step(cfg) if mode == "graphed" else
                 lambda p, c, t: model_lib.decode_step(p, cfg, c, t))
-        tok, outs = first, []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(REC_DECODE):
-            if i == 1:
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                first_ms[mode] = (t1 - t0) * 1e3
+        tok, outs, step_ms = first, [], []
+        for _ in range(REC_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             out, c = step(params, c, tok)
             tok = out.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
-        torch.cuda.synchronize()
-        runs[mode] = (outs, (time.perf_counter() - t1) / (REC_DECODE - 1) * 1e3,
-                      c)
+        runs[mode] = (outs, step_ms, c)
     graphed, eager = runs["graphed"][0], runs["eager"][0]
     same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
     tokens = torch.stack([o.argmax(-1) for o in graphed], 1).cpu()
@@ -1699,37 +1933,57 @@ def recurrent_serve(params, cfg, name, rng, phase):
     assert same, (name, "graphed and eager decodes differ")
     assert bool(torch.isfinite(logits).all()) and int(cache["pos"]) == max_len
     assert int(runs["eager"][2]["pos"]) == max_len
-    dec_ms = {mode: run[1] for mode, run in runs.items()}
+    dec = {mode: {"first": run[1][0], "mean": float(np.mean(run[1][1:])),
+                  "min": float(np.min(run[1][1:])),
+                  "median": float(np.median(run[1][1:])),
+                  "max": float(np.max(run[1][1:])),
+                  "slowest_step": int(np.argmax(run[1][1:])) + 1}
+           for mode, run in runs.items()}
     del runs, graphed, eager
 
-    pre_ms = []
-    for _ in range(2):
+    pre_ms = {"graphed": [], "eager": []}
+    for mode in ("graphed", "eager", "graphed", "eager"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, _ = prefill(params, toks)
+        out, _ = (prefill(params, toks) if mode == "graphed" else
+                  model_lib.prefill(params, cfg, toks, max_len))
         out.argmax(-1).cpu()
-        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        pre_ms[mode].append((time.perf_counter() - t0) * 1e3)
     emit({"phase": phase, "check": "serve", "arch": name, "B": REC_BATCH,
           "prompt": REC_PROMPT, "decode_steps": REC_DECODE,
-          "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms["graphed"],
-          "eager_decode_ms_per_step": dec_ms["eager"],
-          "first_step_ms": first_ms,
+          "prefill_ms": pre_ms, "decode_ms_per_step": dec["graphed"]["mean"],
+          "eager_decode_ms_per_step": dec["eager"]["mean"],
+          "decode_step_ms": dec,
           "graphed_equals_eager_logits": same,
           "tokens_row0": tokens[0].tolist(),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     window, passes = recurrent_window(params, cfg, toks)
     emit({"phase": "lm_profile", "arch": name, **window})
+    del prefill
 
     long = torch.as_tensor(rng.integers(2, cfg.vocab, (1, REC_LONG)),
                            dtype=torch.int32, device=toks.device)
+    long_step = steps.make_prefill_step(cfg, REC_LONG + REC_DECODE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = steps.make_prefill_step(cfg, REC_LONG + REC_DECODE)(
-        params, long)
-    logits.argmax(-1).cpu()
-    long_ms = (time.perf_counter() - t0) * 1e3
+    eager_out = long_step(params, long)               # eager, and the capture
+    eager_out[0].argmax(-1).cpu()
+    long_ms = {"first_call": (time.perf_counter() - t0) * 1e3}
+    for mode in ("graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (long_step(params, long) if mode == "graphed" else
+               model_lib.prefill(params, cfg, long, REC_LONG + REC_DECODE))
+        out[0].argmax(-1).cpu()
+        long_ms[mode] = (time.perf_counter() - t0) * 1e3
+        if mode == "graphed":
+            logits, cache = out
+    del out
     row = {"phase": phase, "check": "long_prefill", "arch": name, "B": 1,
-           "T": REC_LONG, "prefill_ms": long_ms,
+           "T": REC_LONG, "prefill_ms": long_ms["graphed"],
+           "eager_prefill_ms": long_ms["eager"],
+           "first_call_ms": long_ms["first_call"],
+           "graphed_equals_eager": same_prefill((logits, cache), eager_out),
            "finite": bool(torch.isfinite(logits).all()),
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     if cfg.family == "hybrid":               # the ring holds the last window
@@ -1740,8 +1994,11 @@ def recurrent_serve(params, cfg, name, rng, phase):
         assert torch.equal(ring[0] % w, torch.arange(w, device=ring.device))
         row["ring"] = {"slots": w, "first": int(kept[0]), "last": REC_LONG - 1}
     emit(row)
-    assert row["finite"], row
-    return {"prefill": 1 + 2 + passes["prefill"] + 1,  # checked, timed, window, long
+    assert row["finite"] and row["graphed_equals_eager"], row
+    del long_step, eager_out, logits, cache
+    # checked, replayed, a new length (first call, replay, eager, the first
+    # shape's replay), timed (2 graphed, 2 eager), the window's, long (3)
+    return {"prefill": 1 + 1 + 4 + 4 + passes["prefill"] + 3,
             "decode": 1 + 2 * REC_DECODE + passes["decode"]}
 
 
@@ -1833,10 +2090,12 @@ def main() -> int:
         return out
 
     kernel = timed("kernel", kernel_phase, dev)
-    launches = timed("serve", serve_phase, dev, 6, 4, 750, 75, "padded",
-                     False, 0)
-    launches += timed("serve", serve_phase, dev, 1024, 16, 200, 50,
-                      "segments", True, 0)
+    timed("kernel", kernel_phase, dev, 4, 6)            # the N=6 x 4 rows
+    launches, _ = timed("serve", serve_phase, dev, 6, 4, 750, 75, "padded",
+                        False, 0)
+    more, _ = timed("serve", serve_phase, dev, 1024, 16, 200, 50,
+                    "segments", True, 0)
+    launches += more
     flash = timed("flash", flash_phase, dev)
     decode = timed("decode_attn", decode_attn_phase, dev)
     gemm = timed("moe_gemm", moe_gemm_phase, dev)

@@ -14,10 +14,11 @@ Both observation layouts are batched over a leading env axis:
 
   * ``forward``          — padded ``run (B, N, R, F)`` / ``wait``;
   * ``forward_segments`` — the edge list ``req (B, E, F)``; node-level
-    attention is a segment softmax over each request row's expert id,
-    offset by ``b * N`` so one scatter covers every env.  On CUDA the
-    segment sums (``index_add_``) add in atomic order, so results there are
-    held to a tolerance, not bit for bit.
+    attention is a segment softmax over each request row's expert id.  The
+    segments are static (expert-major rows, each expert's run or wait
+    slots), so each segment's max and sums gather its rows through a fixed
+    (N, M) table and reduce them in row order: no atomics, so a step gives
+    the same bits run to run, eagerly or replayed from a CUDA graph.
 """
 from __future__ import annotations
 
@@ -72,30 +73,32 @@ class GAT(nn.Module):
         out = torch.einsum("...mh,...mhd->...hd", alpha, nb_h)
         return F.elu(out.reshape(*target.shape[:-1], cfg.hidden))
 
-    def forward_segments(self, target, neigh, seg, mask):
-        """Segment-softmax form: target (S, D); neigh (E, D) grouped by the
-        target ids ``seg (E,)``; mask (E,) -> (S, D)."""
+    def forward_segments(self, target, neigh, seg, rows, mask):
+        """Segment-softmax form: target (B, S, D); neigh (B, E, D) grouped
+        by the target ids ``seg (E,)``, whose members ``rows (S, M)`` lists
+        (``E`` past a segment's last member); mask (B, E) -> (B, S, D)."""
         cfg = self.cfg
         h, dh = cfg.heads, cfg.hidden // cfg.heads
-        n_seg = target.shape[0]
-        tgt_h = (target @ self.w).reshape(-1, h, dh)
-        nb_h = (neigh @ self.w).reshape(-1, h, dh)
-        s_dst = torch.einsum("nhd,hd->nh", tgt_h, self.a_dst)
-        s_src = torch.einsum("ehd,hd->eh", nb_h, self.a_src)
-        e = F.leaky_relu(s_src + s_dst[seg], cfg.leaky_slope)
-        e = torch.where(mask[:, None], e, -1e9)
-        idx = seg[:, None].expand_as(e)
-        m = torch.full((n_seg, h), -torch.inf, dtype=e.dtype,
-                       device=e.device).scatter_reduce(
-            0, idx, e, "amax", include_self=False)
-        ex = torch.exp(e - m[seg])
-        denom = torch.zeros((n_seg, h), dtype=e.dtype,
-                            device=e.device).index_add_(0, seg, ex)
-        alpha = torch.where(mask[:, None], ex / denom[seg], 0.0)
-        out = torch.zeros((n_seg, h, dh), dtype=e.dtype,
-                          device=e.device).index_add_(
-            0, seg, alpha[..., None] * nb_h)
-        return F.elu(out.reshape(-1, cfg.hidden))
+        b, n_seg = target.shape[:2]
+        tgt_h = (target @ self.w).reshape(b, n_seg, h, dh)
+        nb_h = (neigh @ self.w).reshape(b, -1, h, dh)
+        s_dst = torch.einsum("bnhd,hd->bnh", tgt_h, self.a_dst)
+        s_src = torch.einsum("behd,hd->beh", nb_h, self.a_src)
+        e = F.leaky_relu(s_src + s_dst[:, seg], cfg.leaky_slope)
+        e = torch.where(mask[..., None], e, -1e9)
+        m = _segment(e, rows, -torch.inf).amax(2)           # (B, S, h)
+        ex = torch.exp(e - m[:, seg])
+        denom = _segment(ex, rows, 0.0).sum(2)
+        alpha = torch.where(mask[..., None], ex / denom[:, seg], 0.0)
+        out = _segment(alpha[..., None] * nb_h, rows, 0.0).sum(2)
+        return F.elu(out.reshape(b, n_seg, cfg.hidden))
+
+
+def _segment(x: torch.Tensor, rows: torch.Tensor, pad: float) -> torch.Tensor:
+    """x (B, E, ...) -> (B, S, M, ...): each segment's rows in order,
+    ``pad`` past its last member."""
+    fill = torch.full_like(x[:, :1], pad)
+    return torch.cat([x, fill], dim=1)[:, rows]
 
 
 class Semantic(nn.Module):
@@ -177,33 +180,26 @@ class HAN(nn.Module):
         e_rows = obs["req"].shape[1]
         dev = obs["req"].device
         caps = lambda c: None if c is None else tuple(c)
-        seg = constant((n, n_run, e_rows, caps(run_caps), caps(wait_caps)),
-                       torch.int64, dev, make=_segment_ids)
-        offs = (torch.arange(b, device=dev) * n)[:, None]
-        seg_run = (seg[:n_run][None] + offs).reshape(-1)   # env b -> b*N + n
-        seg_wait = (seg[n_run:][None] + offs).reshape(-1)
-        seg_all = (seg[None] + offs).reshape(-1)
+        key = (n, n_run, e_rows, caps(run_caps), caps(wait_caps))
+        seg = constant(key, torch.int64, dev, make=_segment_ids)
+        rows_run = constant(key + (True,), torch.int64, dev, make=_segment_rows)
+        rows_wait = constant(key + (False,), torch.int64, dev,
+                             make=_segment_rows)
         mask = obs["req_mask"]
-        mask_run = mask[:, :n_run].reshape(-1)
-        mask_wait = mask[:, n_run:].reshape(-1)
+        mask_run, mask_wait = mask[:, :n_run], mask[:, n_run:]
 
-        d = self.cfg.hidden
         exp_h = torch.tanh(obs["expert"] @ self.proj_expert)   # (B, N, D)
         req_h = torch.tanh(obs["req"] @ self.proj_req)         # (B, E, D)
         arr_h = torch.tanh(obs["arrived"] @ self.proj_arrived)
         for lp in self.layers:
-            flat_exp = exp_h.reshape(b * n, d)
             e_run = lp.e_run.forward_segments(
-                flat_exp, req_h[:, :n_run].reshape(-1, d), seg_run, mask_run)
+                exp_h, req_h[:, :n_run], seg[:n_run], rows_run, mask_run)
             e_wait = lp.e_wait.forward_segments(
-                flat_exp, req_h[:, n_run:].reshape(-1, d), seg_wait,
-                mask_wait)
+                exp_h, req_h[:, n_run:], seg[n_run:], rows_wait, mask_wait)
             e_self = F.elu(exp_h @ lp.e_self)
-            exp_new = lp.e_sem(torch.stack(
-                [e_self, e_run.reshape(b, n, d), e_wait.reshape(b, n, d)],
-                dim=-2))
+            exp_new = lp.e_sem(torch.stack([e_self, e_run, e_wait], dim=-2))
             arr_new = lp.arrived(exp_h, arr_h)
-            pull = (flat_exp @ lp.r_exp)[seg_all].reshape(b, e_rows, d)
+            pull = (exp_h @ lp.r_exp)[:, seg]                  # (B, E, D)
             req_new = F.elu(req_h @ lp.r_self + pull)
             exp_h, arr_h, req_h = exp_new, arr_new, req_new
         return arr_h, exp_h
@@ -212,6 +208,19 @@ class HAN(nn.Module):
 def _segment_ids(n_experts, n_run, n_req, run_caps, wait_caps):
     return segment_ids(n_experts, n_run, n_req, run_caps=run_caps,
                        wait_caps=wait_caps)
+
+
+def _segment_rows(n_experts, n_run, n_req, run_caps, wait_caps, run):
+    """(N, M) rows of each expert's run (``run``) or wait edges, counted
+    from the first edge of that side, padded with one past its last."""
+    ids = segment_ids(n_experts, n_run, n_req, run_caps=run_caps,
+                      wait_caps=wait_caps).numpy()
+    ids = ids[:n_run] if run else ids[n_run:]
+    counts = np.bincount(ids, minlength=n_experts)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    j = np.arange(max(int(counts.max()), 1))
+    return np.where(j[None] < counts[:, None], starts[:, None] + j[None],
+                    len(ids))
 
 
 def segment_ids(n_experts: int, n_run: int, n_req: int, *, run_caps=None,

@@ -38,10 +38,37 @@
 //    inputs to TF32): warp w owns rows w, w+8, ... and each lane 4 adjacent
 //    columns, reading each weight row once from shared memory.
 //
+// B4a in bfloat16 (the serving path), where K and N are multiples of 8
+// (TMA's 16-byte strides), has a design of its own for Hopper
+// (`moe_gemm_tma`).  The grid above is 1.2-1.5 waves at dbrx's shapes
+// (E=16, K=10752, N=6144: 768 blocks, 4-5 resident per SM), so the weight
+// stream thins out in the last wave.  Here one CTA per SM walks a static
+// share of the work: the units (expert, row tile of up to 64, column tile
+// of 256, contraction chunk of 64) in that order, chunk fastest, split into
+// equal contiguous ranges, one per CTA.  The split is a function of the
+// shapes and the SM count alone (kernels/moe_gemm/ref.py gemm_plan, whose
+// CTA count the wrapper passes in): the most CTAs, within a tenth of the SM
+// count, that take the tiles whole and alike (dbrx: 384 tiles on 128 CTAs,
+// 3 each), so every CTA walks the contraction in step with the others and
+// their weight reads meet in DRAM, as a tile grid's do; else one CTA per
+// SM.  A tile that a range boundary cuts is summed in float32 by each CTA
+// over its chunks into a workspace slot, and `moe_gemm_merge`, a second
+// launch, adds the slots in CTA order (so in contraction order) and rounds
+// once: a call gives the same bits every time.  One producer warp issues
+// each chunk's weights (four 64 x 64 boxes) and x (64 x rows) by TMA into a
+// ring of mbarriers (5-6 stages), 128-byte swizzled; the weights, read once, are marked first to leave L2 and x,
+// read once per column tile, last.  One consumer warpgroup multiplies on
+// wgmma with the operands swapped: out^T = w^T x^T, so each 64-column
+// weight box is the M side, read from shared memory as it lies (MN-major:
+// the transpose bit), and C, padded to a multiple of 8, is the N side (x,
+// K-major).  TMA's zero fill gives the ragged edges in C, K and N.
+//
 // Floating point: products and sums in float32 (nvcc's default FMA
 // contraction on the CUDA cores; the tensor cores' f32 accumulation for
 // bf16), expf (not __expf) and IEEE division in the SiLU; the output rounds
-// to nearest even.
+// to nearest even.  B4a's split tiles add their partial sums in float32 in
+// a fixed order before the one rounding.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -383,6 +410,438 @@ static int dispatch(const void* x, const void* w, const void* wu, void* out,
   return launch_simt<8, SWIGLU>(x, w, wu, out, E, C, K, N, vec, s);
 }
 
+// ---------------------------------------------------------------------------
+// B4a in bfloat16 for Hopper: persistent grid, TMA ring, split merge
+// ---------------------------------------------------------------------------
+
+#define T_NB 4             // 64-column weight boxes per unit
+#define T_N (64 * T_NB)    // output columns per tile
+#define T_K 64             // contraction rows per unit
+#define T_C 64             // rows of C per tile at most
+#define T_SMEM 232448      // shared memory a block may take
+#define T_CONSUMERS 128    // one warpgroup
+#define T_THREADS (T_CONSUMERS + 32)
+#define T_WBOX 8192        // one 64 x 64 bf16 weight box
+
+// The static split: units (e, ct, nt, kc), kc fastest; CTA g takes units
+// [g * units / G, (g + 1) * units / G).
+struct GemmPlan {
+  bf16* out;
+  float* ws;       // 2 slots per CTA of rows x T_N float32 partial sums
+  int C, N, CT, NT, KC, G;
+  long long units;
+};
+
+__device__ __forceinline__ long long unit_start(const GemmPlan& p, int g) {
+  return (long long)g * p.units / p.G;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the barrier's phase of parity `parity` has completed; a phase
+// that never completes (a fault of the copies) traps instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done, tries = 0;
+  do {
+    if (++tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// L2 cache policies of a TMA load (the encodings CUTLASS's TMA::CacheHintSm90
+// names): data read once leaves L2 first, data read again stays longest.
+#define L2_EVICT_FIRST 0x12F0000000000000ull
+#define L2_EVICT_LAST 0x14F0000000000000ull
+
+// One box of a 3-d tensor map into shared memory, completing on `bar`, with
+// an L2 cache policy.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "l"(policy)
+      : "memory");
+}
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins register values in place between the wgmma fence, issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x N, f32) += A (64 x 16, shared memory, MN-major: the transpose
+// bit) * B (16 x N, shared memory, K-major), N a multiple of 8 up to 64.
+template <int N>
+__device__ __forceinline__ void wgmma_tn(float* d, uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_tn<8>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<16>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<24>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<32>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<40>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<48>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<56>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27"
+      "}, %28, %29, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<64>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Stages of the ring for tiles of CB rows: as many as a block's shared memory holds.
+template <int CB>
+struct Ring {
+  static constexpr int STAGE = T_NB * T_WBOX + CB * 128;  // weights, then x
+  static constexpr int DEPTH = (T_SMEM - 1024 - 256) / STAGE;
+  static constexpr int SMEM = DEPTH * STAGE + 1024 + 2 * DEPTH * 8;
+  static_assert(DEPTH >= 2 && SMEM <= T_SMEM, "the ring must fit");
+};
+
+// NT8 tiles of 8 on the N side: tiles of up to 8 * NT8 rows of C.
+template <int NT8>
+__global__ void __launch_bounds__(T_THREADS, 1)
+moe_gemm_tma(const __grid_constant__ CUtensorMap tmw,
+             const __grid_constant__ CUtensorMap tmx, const GemmPlan p) {
+  constexpr int CB = 8 * NT8;                   // rows of C per tile
+  constexpr int STAGE = Ring<CB>::STAGE;
+  constexpr int T_STAGES = Ring<CB>::DEPTH;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1,024 bytes: align the boxes to it
+  uint8_t* smem = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t bars = s0 + T_STAGES * STAGE;  // full, then empty
+  const int tid = threadIdx.x, g = blockIdx.x;
+  const long long u0 = unit_start(p, g), u1 = unit_start(p, g + 1);
+
+  if (tid == 0) {
+    for (int s = 0; s < T_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (T_STAGES + s), T_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= T_CONSUMERS) {  // producer warp: one thread issues every copy
+    if (tid == T_CONSUMERS) {
+      // the first unit's coordinates, then each next one by counting
+      const long long t0 = u0 / p.KC;
+      int kc = (int)(u0 - t0 * p.KC), nt = (int)(t0 % p.NT);
+      int ct = (int)(t0 / p.NT % p.CT), e = (int)(t0 / p.NT / p.CT);
+      int s = 0, phase = 0;
+      for (long long i = 0; i < u1 - u0; ++i) {
+        if (i >= T_STAGES) mbar_wait(bars + 8 * (T_STAGES + s), phase ^ 1);
+        const uint32_t full = bars + 8 * s, st = s0 + s * STAGE;
+        mbar_expect_tx(full, STAGE);
+#pragma unroll
+        for (int b = 0; b < T_NB; ++b)
+          tma_load3(st + b * T_WBOX, &tmw, nt * T_N + 64 * b, kc * T_K, e, full,
+                    L2_EVICT_FIRST);
+        tma_load3(st + T_NB * T_WBOX, &tmx, kc * T_K, ct * T_C, e, full, L2_EVICT_LAST);
+        if (++s == T_STAGES) { s = 0; phase ^= 1; }
+        if (++kc == p.KC) {
+          kc = 0;
+          if (++nt == p.NT) {
+            nt = 0;
+            if (++ct == p.CT) { ct = 0; ++e; }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const long long t_first = u0 / p.KC;
+
+  int s = 0, phase = 0;
+  for (long long u = u0; u < u1;) {
+    const long long t = u / p.KC;
+    const long long lo = u, hi = min(u1, (t + 1) * p.KC);
+    // acc[box]: the 64 x CB fragment of wgmma, rows = output columns
+    float acc[T_NB][CB / 2];
+#pragma unroll
+    for (int b = 0; b < T_NB; ++b)
+#pragma unroll
+      for (int i = 0; i < CB / 2; ++i) acc[b][i] = 0.f;
+    for (; u < hi; ++u) {
+      mbar_wait(bars + 8 * s, phase);
+      const uint32_t st = s0 + s * STAGE, xst = st + T_NB * T_WBOX;
+#pragma unroll
+      for (int b = 0; b < T_NB; ++b) fence_regs<CB / 2>(acc[b]);
+      wgmma_fence();
+      // k-steps of 16: the weights' 16 rows (2,048 bytes), x's 32 bytes
+#pragma unroll
+      for (int b = 0; b < T_NB; ++b)
+#pragma unroll
+        for (int kk = 0; kk < T_K / 16; ++kk)
+          wgmma_tn<CB>(acc[b], desc_sw128(st + b * T_WBOX + 2048 * kk, T_WBOX, 1024),
+                       desc_sw128(xst + 32 * kk, 16, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int b = 0; b < T_NB; ++b) fence_regs<CB / 2>(acc[b]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (T_STAGES + s));
+      if (++s == T_STAGES) { s = 0; phase ^= 1; }
+    }
+
+    // element i of box b's fragment: output column 64 b + 16 warp + lane/4
+    // + 8 ((i / 2) % 2), row of C 8 (i / 4) + 2 (lane % 4) + i % 2
+    const int nt = (int)(t % p.NT), ct = (int)(t / p.NT % p.CT);
+    const long long e = t / p.NT / p.CT;
+    const bool whole = lo == t * p.KC && hi == (t + 1) * p.KC;
+    float* slot = p.ws + (size_t)(2 * g + (t == t_first ? 0 : 1)) * CB * T_N;
+#pragma unroll
+    for (int b = 0; b < T_NB; ++b)
+#pragma unroll
+      for (int i = 0; i < CB / 2; ++i) {
+        const int nl = 64 * b + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+        const int cl = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const int c = ct * T_C + cl, n = nt * T_N + nl;
+        if (!whole)
+          slot[cl * T_N + nl] = acc[b][i];
+        else if (c < p.C && n < p.N)
+          store(p.out + ((size_t)e * p.C + c) * p.N + n, acc[b][i]);
+      }
+  }
+}
+
+// The tiles that range boundaries cut: block b takes the boundary of CTA
+// b + 1 and, if that is the first boundary inside its tile, adds the
+// tile's partial sums in CTA order and stores them.
+__global__ void __launch_bounds__(256)
+moe_gemm_merge(const GemmPlan p, int CB) {
+  const int g = blockIdx.x + 1;
+  const long long s = unit_start(p, g);
+  if (s % p.KC == 0) return;
+  const long long t = s / p.KC;
+  const long long s_prev = unit_start(p, g - 1);
+  if (s_prev > t * p.KC) return;  // an earlier boundary's tile
+  int g_last = g;
+  while (g_last + 1 < p.G && unit_start(p, g_last + 1) < (t + 1) * p.KC) ++g_last;
+  // CTA g - 1's slot of this tile is its first if it starts the tile, else
+  // its last; every later CTA starts inside the tile: its first
+  const int first = 2 * (g - 1) + (s_prev == t * p.KC ? 0 : 1);
+  const int nt = (int)(t % p.NT), ct = (int)(t / p.NT % p.CT);
+  const long long e = t / p.NT / p.CT;
+  const size_t stride = (size_t)CB * T_N;
+  for (int idx = threadIdx.x; idx < CB * T_N; idx += blockDim.x) {
+    const int c = ct * T_C + idx / T_N, n = nt * T_N + idx % T_N;
+    if (c >= p.C || n >= p.N) continue;
+    float sum = p.ws[first * stride + idx];
+    for (int gg = g; gg <= g_last; ++gg) sum += p.ws[2 * gg * stride + idx];
+    store(p.out + ((size_t)e * p.C + c) * p.N + n, sum);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// A 3-d tensor map of a contiguous bf16 (d2, d1, d0) array, boxes of 64 x
+// box1 (x 1), 128-byte swizzle, zeros past every edge.
+static int map3(CUtensorMap* map, const void* base, long long d0, long long d1,
+                long long d2, int box1) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 2), (cuuint64_t)(d0 * d1 * 2)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, (void*)base, dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int NT8>
+static int launch_tma(const void* x, const void* w, const GemmPlan& p, int E,
+                      int K, bool merge, cudaStream_t stream) {
+  constexpr int CB = 8 * NT8;
+  constexpr int smem = Ring<CB>::SMEM;
+  static bool ready = false;  // the shared-memory limit, set once
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        moe_gemm_tma<NT8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  CUtensorMap tmw, tmx;
+  int rc = map3(&tmw, w, p.N, K, E, T_K);
+  if (rc == 0) rc = map3(&tmx, x, K, p.C, E, CB);
+  if (rc != 0) return rc;
+  moe_gemm_tma<NT8><<<p.G, T_THREADS, smem, stream>>>(tmw, tmx, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !merge) return (int)err;
+  moe_gemm_merge<<<p.G - 1, 256, 0, stream>>>(p, CB);
+  return (int)cudaGetLastError();
+}
+
 // Plain C entry point, loaded with ctypes.  x (E,C,K); w (and w_up when
 // `swiglu`) (E,K,N); out (E,C,N); `bf16` selects bfloat16 (1) or float32
 // (0) for all of them.  Launches on `stream` and returns cudaGetLastError()
@@ -401,4 +860,46 @@ extern "C" int moe_gemm_launch(const void* x, const void* w, const void* w_up,
   cudaStream_t s = (cudaStream_t)stream;
   if (swiglu) return dispatch<true>(x, w, w_up, out, E, C, K, N, bf16_in, vec, s);
   return dispatch<false>(x, w, w_up, out, E, C, K, N, bf16_in, vec, s);
+}
+
+// B4a's entry point, loaded with ctypes: x (E,C,K), w (E,K,N), out (E,C,N).
+// In bfloat16 with K and N multiples of 8 (16-byte rows for TMA), x and w
+// 16-byte aligned and K > 0, it launches the persistent kernel on the
+// `ctas` CTAs of kernels/moe_gemm/ref.py gemm_plan (and the merge when
+// `merge`, the plan cutting a tile), with `ws` holding 2 * ctas * rows * 256
+// floats, rows = min(64, C rounded up to 8); otherwise it runs
+// moe_gemm_launch's kernels and ignores ws, ctas and merge.
+// Launches on `stream`, returns cudaGetLastError() (0 on success) or
+// cudaErrorInvalidValue; it never synchronises.
+extern "C" int grouped_gemm_launch(const void* x, const void* w, void* out,
+                                   void* ws, int E, int C, int K, int N,
+                                   int bf16_in, int ctas, int merge,
+                                   void* stream) {
+  if (!bf16_in || K <= 0 || K % 8 || N % 8 || ((uintptr_t)x | (uintptr_t)w) % 16)
+    return moe_gemm_launch(x, w, nullptr, out, E, C, K, N, 0, bf16_in, stream);
+  if (E < 0 || C < 0 || N < 0 || ctas < 1 || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (E == 0 || C == 0 || N == 0) return 0;
+  GemmPlan p;
+  p.out = (bf16*)out;
+  p.ws = (float*)ws;
+  p.C = C; p.N = N;
+  p.CT = (C + T_C - 1) / T_C;
+  p.NT = (N + T_N - 1) / T_N;
+  p.KC = (K + T_K - 1) / T_K;
+  p.units = (long long)E * p.CT * p.NT * p.KC;
+  if (ctas > p.units) return (int)cudaErrorInvalidValue;
+  p.G = ctas;
+  const int nt8 = (C < T_C ? (C + 7) / 8 : T_C / 8);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nt8) {
+    case 1: return launch_tma<1>(x, w, p, E, K, merge, s);
+    case 2: return launch_tma<2>(x, w, p, E, K, merge, s);
+    case 3: return launch_tma<3>(x, w, p, E, K, merge, s);
+    case 4: return launch_tma<4>(x, w, p, E, K, merge, s);
+    case 5: return launch_tma<5>(x, w, p, E, K, merge, s);
+    case 6: return launch_tma<6>(x, w, p, E, K, merge, s);
+    case 7: return launch_tma<7>(x, w, p, E, K, merge, s);
+    default: return launch_tma<8>(x, w, p, E, K, merge, s);
+  }
 }

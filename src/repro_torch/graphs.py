@@ -1,6 +1,7 @@
 """CUDA graphs of the serving steps: the port's counterpart of the
 reference's ``jax.jit`` around its steps (``env/serve_engine.py``'s
-``prefill_one`` and ``decode_all``, ``launch/steps.py``'s decode step).
+``prefill_one`` and ``decode_all``, ``launch/steps.py``'s prefill and
+decode steps, ``core/training.py``'s routing step).
 
 A ``StepGraph`` captures one call of a step on the current device with
 ``torch.cuda.CUDAGraph``.  The step reads only tensors that keep their
@@ -8,6 +9,11 @@ storage (static input buffers, the cache, the weights), so ``replay()``
 runs the same launches on whatever those hold now and returns the step's
 static output, which the next replay overwrites.  A host synchronisation
 inside the step makes the capture raise; nothing falls back to eager.
+
+A step that draws random numbers from ``torch.Generator``s names them at
+capture: each is registered with the graph, so every replay draws from the
+generator's state at that moment and advances it by what the captured draws
+took, exactly as the same step run eagerly would.
 
 The kernels' launch counters (``LAUNCHES`` and the like in
 ``kernels/*/ops.py``) count Python calls, which happen at capture and not
@@ -18,7 +24,7 @@ ran on the card.
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Tuple
+from typing import Callable, Iterable, Tuple
 
 import torch
 
@@ -48,10 +54,15 @@ class StepGraph:
     """``fn()`` captured once as a CUDA graph, in the memory pool ``pool``
     (``torch.cuda.graph_pool_handle()``; graphs that never run at the same
     time and whose outputs are read before the next replay may share
-    one).  ``launches`` is each counter's increase per replay."""
+    one), with the ``generators`` it draws from registered.  Its output
+    may be any tree of tensors (or None).  ``launches`` is each counter's
+    increase per replay."""
 
-    def __init__(self, fn: Callable[[], torch.Tensor], pool=None):
+    def __init__(self, fn: Callable[[], object], pool=None,
+                 generators: Iterable[torch.Generator] = ()):
         self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
         before = launch_counts()
         try:
             with torch.cuda.graph(self.graph, pool=pool):
@@ -61,7 +72,7 @@ class StepGraph:
             add_launch_counts(tuple(b - a for a, b in zip(after, before)))
         self.launches = tuple(a - b for a, b in zip(after, before))
 
-    def replay(self) -> torch.Tensor:
+    def replay(self):
         self.graph.replay()
         add_launch_counts(self.launches)
         return self.out

@@ -8,36 +8,61 @@ at the first CUDA call, never at import.
 
 The reference's ``block_c``/``block_f``/``block_d`` are the TPU kernel's
 VMEM tiling and its ``use_pallas`` picks the plain version; neither changes
-the function, so the port takes neither.  The CUDA kernel takes any C, F
-and D (the serving capacities are 4, 5, 10, 20 and 40).
+the function, so the port takes neither.  The CUDA kernels take any C, F
+and D (the serving capacities are 4, 5, 10, 20 and 40).  In bfloat16 with
+D and F multiples of 8, B4a runs its persistent kernel over the split
+``ref.gemm_plan`` gives for the card's SM count (the wrapper passes the
+plan's CTA count and whether it cuts a tile; the kernel derives nothing of
+it), with a float32 workspace for the tiles the split cuts (merged by a
+second launch, in a fixed order).
 
 ``GEMM_LAUNCHES`` and ``SWIGLU_LAUNCHES`` count each wrapper's kernel
-launches (plain-version calls do not count), so a run can show that its
-main path went through them.
+launches (plain-version calls do not count; B4a's merge launch is part of
+its call), so a run can show that its main path went through them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
+from repro_torch.kernels.moe_gemm.ref import (TILE_N, gemm_plan, gemm_tiled,
+                                              grouped_gemm_ref,
+                                              grouped_swiglu_ref)
 
 NAME = "moe_gemm"
 GEMM_LAUNCHES = 0
 SWIGLU_LAUNCHES = 0
 
+# moe_gemm_launch: four pointers, six ints, the stream; grouped_gemm_launch
+# takes seven ints
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_GEMM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(NAME)
-    fn = lib.moe_gemm_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    for fn, types in ((lib.moe_gemm_launch, _ARGTYPES),
+                      (lib.grouped_gemm_launch, _GEMM_ARGTYPES)):
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _split(e: int, c: int, k: int, n: int, n_sm: int):
+    """What the kernel takes of ``gemm_plan``: (CTAs, workspace slot rows,
+    whether a tile is cut and merged)."""
+    plan = gemm_plan(e, c, k, n, n_sm)
+    return plan.ctas, plan.rows, bool(plan.merges())
 
 
 def _check(x, *ws):
@@ -60,7 +85,7 @@ def _check(x, *ws):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(x, w, w_up):
+def _launch_swiglu(x, w, w_up):
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
@@ -68,10 +93,8 @@ def _launch(x, w, w_up):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.moe_gemm_launch(
-            x.data_ptr(), w.data_ptr(),
-            None if w_up is None else w_up.data_ptr(), out.data_ptr(),
-            e, c, d, f, int(w_up is not None), int(x.dtype == torch.bfloat16),
-            stream)
+            x.data_ptr(), w.data_ptr(), w_up.data_ptr(), out.data_ptr(),
+            e, c, d, f, 1, int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed with CUDA error {rc}")
     return out
@@ -86,7 +109,23 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(x, w)
-    out = _launch(x, w, None)
+    e, c, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    ws, ctas, merge = None, 0, False
+    if gemm_tiled(x.dtype, d, f):
+        ctas, rows, merge = _split(e, c, d, f, sm_count(x.device))
+        ws = torch.empty(2 * ctas * rows * TILE_N, dtype=torch.float32,
+                         device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.grouped_gemm_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), e, c, d, f,
+            int(x.dtype == torch.bfloat16), ctas, int(merge), stream)
+    if rc != 0:
+        raise RuntimeError(f"{NAME} launch failed with CUDA error {rc}")
     GEMM_LAUNCHES += 1
     return out
 
@@ -102,6 +141,6 @@ def expert_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(x, w_gate, w_up)
-    out = _launch(x, w_gate, w_up)
+    out = _launch_swiglu(x, w_gate, w_up)
     SWIGLU_LAUNCHES += 1
     return out

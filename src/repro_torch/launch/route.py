@@ -2,20 +2,21 @@
 evaluation table of ``examples/edge_routing_demo.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.route --device cuda \
-        [--steps 2000] [--n-experts 6] [--n-envs 4] [--ckpt qos.npz]
+        [--steps 2000] [--n-experts 6] [--n-envs 4] [--ckpt qos.npz] \
+        [--eager]
 
 Runs RR, SQF, BR and QLL, and the SAC router given ``--ckpt`` (an npz
 written by ``repro.core.io.save_pytree``).  Each policy routes
-``steps * n_envs`` requests; requests routed per second is the wall time
-of that whole run, synchronised with the device.
+``steps * n_envs`` requests.  On CUDA every routing step but the first
+replays a CUDA graph (``training.RoutingLoop``); ``--eager`` runs every
+step eagerly instead.  Requests routed per second is taken over the steps
+after the first (the first, which captures the graph, is reported apart),
+synchronised with the device.
 """
 from __future__ import annotations
 
 import argparse
-import time
 from typing import List, Optional
-
-import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import features, io, routers, sac as sac_lib, training
@@ -57,21 +58,23 @@ def make_policies(env_cfg: env_lib.EnvConfig, sac: Optional[sac_lib.SAC] = None,
 
 
 def serve(env_cfg, pool, policy, *, n_steps: int, n_envs: int,
-          seed: int = 1234):
+          seed: int = 1234, graphs: bool = True):
     """One policy's evaluation and its throughput.  Returns (metrics, final
-    env state): the metrics of ``training.evaluate`` plus ``requests_per_s``
-    (routing decisions per second of wall time, device synchronised)."""
-    sync = (torch.cuda.synchronize if pool.k1.is_cuda else (lambda: None))
-    sync()
-    t0 = time.perf_counter()
+    env state): the metrics of ``training.evaluate`` plus ``seconds`` (the
+    whole run), ``first_step_s`` (the first step, with the graph's capture
+    when graphed) and ``requests_per_s`` (routing decisions per second of
+    wall time over the steps after the first, device synchronised)."""
+    timing = {}
     m, state = training.evaluate(env_cfg, pool, policy, n_steps=n_steps,
-                                 seed=seed, n_envs=n_envs, return_state=True)
-    sync()
-    secs = time.perf_counter() - t0
+                                 seed=seed, n_envs=n_envs, return_state=True,
+                                 graphs=graphs, timing=timing)
     m["policy"] = policy.name
+    m["mode"] = "graphed" if graphs and pool.k1.is_cuda else "eager"
     m["requests"] = n_steps * n_envs
-    m["seconds"] = secs
-    m["requests_per_s"] = n_steps * n_envs / secs
+    m["seconds"] = timing["first_s"] + timing["rest_s"]
+    m["first_step_s"] = timing["first_s"]
+    m["requests_per_s"] = ((n_steps - 1) * n_envs / timing["rest_s"]
+                           if n_steps > 1 else n_envs / timing["first_s"])
     return m, state
 
 
@@ -89,6 +92,8 @@ def main(argv=None) -> List[dict]:
     p.add_argument("--ckpt", default="",
                    help="SAC router checkpoint (npz from repro.core.io)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--eager", action="store_true",
+                   help="run every routing step eagerly (no CUDA graph)")
     args = p.parse_args(argv)
 
     dev = device_lib.resolve(args.device)
@@ -105,7 +110,7 @@ def main(argv=None) -> List[dict]:
           f"{'done':>7s} {'drop':>7s} {'req/s':>9s}")
     for pol in make_policies(env_cfg, sac, obs_fmt=args.obs_fmt):
         m, _ = serve(env_cfg, pool, pol, n_steps=args.steps,
-                     n_envs=args.n_envs)
+                     n_envs=args.n_envs, graphs=not args.eager)
         rows.append(m)
         print(f"{pol.name:>8s} {m['avg_qos']:8.4f} "
               f"{m['avg_latency_per_token'] * 1e3:7.2f}ms "

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.core import training
 from repro_torch.env import engine, engine_layout as layout, env as env_lib
 from repro_torch.env import profiles
 from repro_torch import graphs
@@ -27,7 +28,9 @@ from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.flash_attn.ref import attention_ref, attention_tiled_ref
 from repro_torch.kernels.lockstep_advance import ops
 from repro_torch.kernels.moe_gemm import ops as moe_ops
-from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
+from repro_torch.kernels.moe_gemm.ref import (grouped_gemm_ref,
+                                              grouped_gemm_split_ref,
+                                              grouped_swiglu_ref)
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
@@ -809,3 +812,198 @@ def test_lru_wrapper_rejects_bad_operands_on_card(cuda_device):
         lru_ops.lru(z, z.transpose(1, 2).contiguous().transpose(1, 2), h0)
     with pytest.raises(ValueError):
         lru_ops.lru(z, z, h0.cpu())
+
+
+# ---------------------------------------------------------------------------
+# Redesigned B1 at every group width, B4a's split kernel, and the routing
+# loop and recurrent prefill replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 5, 8, 32])
+def test_kernel_bit_exact_at_every_width_on_card(cuda_device, width):
+    """The kernel against the plain loop with R = W = ``width`` (one lane
+    group of 8 per row up to 8 slots, a warp past it) and with R and W
+    apart, under all four admission orders: a crowded drive with a down
+    expert and admission floors, so the wide queues fill."""
+    dev = cuda_device
+    pool = profiles.make_pool(N, device=dev)
+    st = _streams(120, (3, 4, 5), 60.0, dev)
+    for r, w in ((width, width), (width, max(1, 9 - width))):
+        for order in engine.ADMIT_ORDERS:
+            kw = dict(admit_order=order, up=torch.as_tensor(UP),
+                      admit_min=torch.as_tensor(ADMIT_MIN))
+            q = layout.empty_queues(N, r, w, batch=3, device=dev)
+            clocks = torch.zeros((3, N), device=dev)
+            for k in range(120):
+                q, _ = layout.push_wait(q, st["expert"][k], t=st["t"][k],
+                                        **{f: st[f][k] for f in FIELDS})
+                ref = engine.advance_all(pool, LAT_L, q, clocks,
+                                         st["t_next"][k], backend="torch", **kw)
+                got = engine.advance_all(pool, LAT_L, q, clocks,
+                                         st["t_next"][k], backend="cuda", **kw)
+                for key in layout.QUEUE_KEYS:
+                    assert torch.equal(ref[0][key], got[0][key]), (r, w, k, key)
+                assert torch.equal(ref[1], got[1]), (r, w, k)
+                for key in engine.ACC_KEYS:
+                    if key in ("done", "viol"):
+                        assert torch.equal(got[2][key], ref[2][key])
+                    else:
+                        torch.testing.assert_close(got[2][key], ref[2][key],
+                                                   rtol=1e-6, atol=0)
+                q, clocks = got[0], got[1]
+            assert int(q["wait_i"][..., 0].sum()) > 0, (r, w, order)
+
+
+# (E, C, D, F): dbrx's down projection at every serving capacity, and
+# ragged shapes the split path takes (C, D, F not multiples of the tiles;
+# C past one row tile) and one it does not (F not a multiple of 8)
+B4A_SHAPES = [(16, c, 10752, 6144) for c in (4, 5, 10, 20, 40)] + [
+    (3, 70, 200, 1000), (5, 7, 1000, 136), (2, 9, 64, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", B4A_SHAPES)
+def test_grouped_gemm_split_kernel_on_card(cuda_device, e, c, d, f):
+    """B4a in bf16 within 2e-2 + 2e-2 |ref| of its plain version, as close
+    to the split algorithm in plain PyTorch, and bit-equal over two calls
+    (the split and the merge order are fixed)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(e + c + d + f)
+    x = torch.randn((e, c, d), generator=gen, device=cuda_device).bfloat16()
+    w = (torch.randn((e, d, f), generator=gen, device=cuda_device)
+         / d ** 0.5).bfloat16()
+    got = moe_ops.expert_gemm(x, w)
+    again = moe_ops.expert_gemm(x, w)
+    assert torch.equal(got, again)
+    tol = FLASH_TOL[torch.bfloat16]
+    for ref in (grouped_gemm_ref(x, w),
+                grouped_gemm_split_ref(x, w, moe_ops.sm_count(cuda_device))):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obs_fmt,n,n_envs", [("padded", 6, 4),
+                                              ("segments", 64, 3)])
+def test_graphed_evaluate_matches_eager_on_card(cuda_device, obs_fmt, n,
+                                                n_envs):
+    """Every policy routed with each step replayed from a CUDA graph and
+    with eager steps, from the same seeds: the same metrics and final env
+    state bit for bit, B1 once per step in both; the segments setting has
+    ragged caps."""
+    from repro_torch.core import sac
+    from repro_torch.launch import route
+
+    env_cfg, pool = route.make_env(n, ragged_caps=obs_fmt == "segments",
+                                   device=cuda_device)
+    model = sac.init_params(route.sac_config(env_cfg), seed=2,
+                            device=cuda_device)
+    for pol in route.make_policies(env_cfg, model, obs_fmt=obs_fmt):
+        runs = []
+        for graphed in (True, False):
+            before = ops.LAUNCHES
+            m, state = training.evaluate(env_cfg, pool, pol, n_steps=40,
+                                         n_envs=n_envs, return_state=True,
+                                         graphs=graphed)
+            assert ops.LAUNCHES - before == 40, (pol.name, graphed)
+            runs.append((m, state))
+        (mg, sg), (me, se) = runs
+        assert mg == me, pol.name
+        _assert_same_state(sg, se, pol.name)
+
+
+def _assert_same_state(a, b, what):
+    for k, x in a.items():
+        if k == "gen":
+            continue
+        if isinstance(x, dict):
+            _assert_same_state(x, b[k], (what, k))
+        elif x is not None:
+            assert torch.equal(x, b[k]), (what, k)
+
+
+@pytest.mark.cuda
+def test_graphed_evaluate_on_injected_draws_on_card(cuda_device):
+    """With every draw injected, the graphed loop copies each step's draws
+    into its buffers before the replay: the same final state as the eager
+    loop on the same draws, and the draws themselves untouched."""
+    from repro_torch.launch import route
+
+    env_cfg, pool = route.make_env(6, device=cuda_device)
+    steps_n, b = 30, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    state = env_lib.reset(env_cfg, pool, gen, b)
+    draws = {"pending0": {k: v.clone() for k, v in state["pending"].items()},
+             "clock": torch.cumsum(torch.rand((steps_n, b), generator=gen,
+                                              device=cuda_device) * 0.4, 0),
+             "pending": {}}
+    rows = [env_lib._new_request(env_cfg, pool, gen, b) for _ in range(steps_n)]
+    draws["pending"] = {k: torch.stack([r[k] for r in rows])
+                        for k in rows[0]}
+    kept = {k: v.clone() for k, v in draws["pending0"].items()}
+    pol = route.make_policies(env_cfg)[3]                      # QLL
+    (mg, sg), (me, se) = (training.evaluate(
+        env_cfg, pool, pol, n_steps=steps_n, n_envs=b, draws=draws,
+        return_state=True, graphs=g) for g in (True, False))
+    assert mg == me
+    _assert_same_state(sg, se, "draws")
+    for k, v in kept.items():
+        assert torch.equal(draws["pending0"][k], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_graphed_recurrent_prefill_matches_eager_on_card(cuda_device, arch):
+    """Prompts of two shapes through one prefill step: the first call of a
+    shape runs eagerly and captures, later calls replay; every replay's
+    logits and cache equal the model's eager prefill bit for bit, a
+    returned cache survives the next replay, and each call counts its scan
+    launches once."""
+    overrides = {"window": 16} if arch == "recurrentgemma-2b" else {}
+    cfg = reduce_config(get_config(arch), **overrides)
+    params = model_lib.init_params(cfg, seed=10, device=cuda_device)
+    rng = np.random.default_rng(11)
+    prefill = steps.make_prefill_step(cfg, 64)
+    per_call = (cfg.n_layers if cfg.family == "ssm" else
+                sum(1 for p in params.layers if not hasattr(p, "wq")))
+    slot = graphs.COUNTERS.index(("rwkv6_scan" if cfg.family == "ssm"
+                                  else "rglru_scan", "LAUNCHES"))
+    held = []
+    for shape in ((2, 32), (1, 64), (2, 32), (2, 32), (1, 64)):
+        toks = torch.as_tensor(rng.integers(2, cfg.vocab, shape),
+                               dtype=torch.int32, device=cuda_device)
+        before = graphs.launch_counts()
+        logits, cache = prefill(params, toks)
+        assert graphs.launch_counts()[slot] - before[slot] == per_call
+        ref_logits, ref_cache = model_lib.prefill(params, cfg, toks, 64)
+        assert torch.equal(logits, ref_logits), shape
+        for a, b in zip(_cache_leaves(cache), _cache_leaves(ref_cache)):
+            assert torch.equal(a, b), shape
+        held.append((cache, steps.clone_cache(cache)))
+    assert len(prefill.graphs) == 2
+    for cache, copy in held:
+        for a, b in zip(_cache_leaves(cache), _cache_leaves(copy)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graphed_recurrent_prefill_drops_the_least_recent_shape(
+        cuda_device, monkeypatch):
+    """A prefill step that holds one capture: each change of prompt shape
+    runs eagerly and captures anew (dropping the other shape's graph in
+    their shared pool), a repeat replays, and every call equals the
+    model's eager prefill bit for bit."""
+    cfg = reduce_config(get_config("rwkv6-7b"))
+    params = model_lib.init_params(cfg, seed=14, device=cuda_device)
+    rng = np.random.default_rng(15)
+    monkeypatch.setattr(steps, "MAX_PREFILL_GRAPHS", 1)
+    prefill = steps.make_prefill_step(cfg, 64)
+    for shape in ((2, 32), (1, 64), (1, 64), (2, 32), (2, 32), (1, 64)):
+        toks = torch.as_tensor(rng.integers(2, cfg.vocab, shape),
+                               dtype=torch.int32, device=cuda_device)
+        logits, cache = prefill(params, toks)
+        assert [k[0] for k in prefill.graphs] == [shape]
+        ref_logits, ref_cache = model_lib.prefill(params, cfg, toks, 64)
+        assert torch.equal(logits, ref_logits), shape
+        for a, b in zip(_cache_leaves(cache), _cache_leaves(ref_cache)):
+            assert torch.equal(a, b), shape

@@ -60,8 +60,9 @@ FIELDS = ("p", "d_true", "score", "pred_s", "pred_d")
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_runner(backend, admit_order, ragged, fleet_conds):
-    """A jitted scan of (push -> advance) over one env's stream."""
+def _jax_runner(backend, admit_order, ragged, fleet_conds, r=R, w=W):
+    """A jitted scan of (push -> advance) over one env's stream, with ``r``
+    run and ``w`` wait slots per expert."""
     pool = jprofiles.make_pool(N)
     wc = jnp.asarray(WAIT_CAPS, jnp.int32) if ragged else None
     kw = dict(backend=backend, admit_order=admit_order)
@@ -81,7 +82,7 @@ def _jax_runner(backend, admit_order, ragged, fleet_conds):
 
     @jax.jit
     def run(stream):
-        init = (jengine.empty_queues(N, R, W), jnp.zeros((N,), jnp.float32))
+        init = (jengine.empty_queues(N, r, w), jnp.zeros((N,), jnp.float32))
         (q, clocks), (trace, acc) = jax.lax.scan(step, init, stream)
         return q, trace, acc
 
@@ -93,9 +94,9 @@ ADMIT_MIN = np.array([-1e30, 0.5, -1e30, 0.7, -1e30, -1e30], F32)
 
 
 def _jax_drive(streams, backend, admit_order="fifo", ragged=False,
-               fleet_conds=False):
+               fleet_conds=False, r=R, w=W):
     """One JAX call per env; stacked to (B, ...)."""
-    run = _jax_runner(backend, admit_order, ragged, fleet_conds)
+    run = _jax_runner(backend, admit_order, ragged, fleet_conds, r, w)
     outs = [jax.tree.map(np.asarray, run(s)) for s in streams]
     q = {k: np.stack([o[0][k] for o in outs]) for k in layout.QUEUE_KEYS}
     trace = np.stack([o[1] for o in outs], axis=1)            # (T, B, N)
@@ -104,7 +105,7 @@ def _jax_drive(streams, backend, admit_order="fifo", ragged=False,
 
 
 def _torch_drive(streams, admit_order="fifo", ragged=False,
-                 fleet_conds=False, backend="torch"):
+                 fleet_conds=False, backend="torch", r=R, w=W):
     """All envs in one engine call per step, each with its own t_next."""
     pool = profiles.make_pool(N, device="cpu")
     b = len(streams)
@@ -116,7 +117,7 @@ def _torch_drive(streams, admit_order="fifo", ragged=False,
         kw.update(run_caps=RUN_CAPS, wait_caps=WAIT_CAPS)
     if fleet_conds:
         kw.update(up=torch.as_tensor(UP), admit_min=torch.as_tensor(ADMIT_MIN))
-    q = layout.empty_queues(N, R, W, batch=b, device="cpu")
+    q = layout.empty_queues(N, r, w, batch=b, device="cpu")
     clocks = torch.zeros((b, N))
     trace, accs = [], []
     for k in range(st["t"].shape[0]):
@@ -194,6 +195,31 @@ def test_fleet_conditions_drive_matches_reference(torch_runs, backend):
         assert not q["wait_i"][:, n, WAIT_CAPS[n]:, 0].any()
     assert not q["run_i"][:, 2, :, 0].any()    # the down expert admits none
     assert got[2]["done"].sum() > 50
+
+
+# Where the kernel's lane groups change: one slot; 8 (one group of 8
+# lanes per row); 32 (a warp per row); R and W apart.  Against the Pallas
+# kernel B1 replaces at every width; the reference's xla backend disagrees
+# with its own Pallas kernel by one ulp on a few clocks when W = 1 (another
+# FMA contraction of the one-slot waiter pick; ROADMAP queue C), so it is
+# held at the widths above one.
+GROUP_WIDTHS = [("pallas", r, w) for r, w in ((1, 1), (8, 8), (32, 32),
+                                               (5, 32), (32, 3), (5, 1))]
+GROUP_WIDTHS += [("xla", r, w) for r, w in ((8, 8), (32, 32), (5, 32),
+                                            (32, 3), (1, 5))]
+
+
+@pytest.mark.parametrize("backend,r,w", GROUP_WIDTHS)
+def test_plain_version_at_the_kernels_group_widths_matches_reference(
+        backend, r, w):
+    """The plain loop, which the CUDA kernel is held to bit for bit, at
+    ``GROUP_WIDTHS`` against the reference's jitted engine on a crowded
+    stream with a down expert and admission floors, so the wide queues
+    fill."""
+    ref = _jax_drive(CROWDED, backend, fleet_conds=True, r=r, w=w)
+    got = _torch_drive(CROWDED, fleet_conds=True, r=r, w=w)
+    _assert_same(ref, got)
+    assert int(got[0]["wait_i"][..., 0].sum()) > 0
 
 
 def test_ragged_caps_reject_full_queue():

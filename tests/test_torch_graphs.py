@@ -166,3 +166,149 @@ def test_launch_counts_add_and_restore():
     finally:
         graphs.add_launch_counts(tuple(-d for d in delta))
     assert graphs.launch_counts() == start
+
+
+# ---------------------------------------------------------------------------
+# The routing loop and the recurrent prefill as the graphs run them
+# ---------------------------------------------------------------------------
+
+
+def _routing_setup(fmt):
+    from repro_torch.core import sac
+    from repro_torch.launch import route
+
+    env_cfg, pool = route.make_env(6, ragged_caps=fmt == "segments",
+                                   device="cpu")
+    model = sac.init_params(route.sac_config(env_cfg), seed=4, device="cpu")
+    pols = {p.name: p for p in route.make_policies(env_cfg, model,
+                                                   obs_fmt=fmt)}
+    return env_cfg, pool, pols
+
+
+def _own_draws(env_cfg, pool, n_steps, b, seed):
+    """Arrival times and pending requests drawn once, to inject."""
+    from repro_torch.env import env as env_lib
+
+    gen = torch.Generator().manual_seed(seed)
+    rows = [env_lib._new_request(env_cfg, pool, gen, b)
+            for _ in range(n_steps + 1)]
+    return {"pending0": rows[0],
+            "clock": torch.cumsum(torch.rand((n_steps, b), generator=gen)
+                                  * 0.4, 0),
+            "pending": {k: torch.stack([r[k] for r in rows[1:]])
+                        for k in rows[0]}}
+
+
+def _same_state(a, b):
+    for k, x in a.items():
+        if k == "gen" or x is None:
+            continue
+        if isinstance(x, dict):
+            _same_state(x, b[k])
+        else:
+            assert torch.equal(x, b[k]), k
+
+
+def _functional_loop(env_cfg, pool, policy, n_steps, b, draws, seed=1234):
+    """The routing loop of functional steps (each ``env.step`` returns a new
+    state), as the reference's scan runs it, on injected draws."""
+    from repro_torch.core import features
+    from repro_torch.env import env as env_lib
+
+    state = env_lib.reset(env_cfg, pool, torch.Generator().manual_seed(seed),
+                          b, pending=draws["pending0"])
+    pstate = policy.init_state(b, "cpu")
+    act_gen = torch.Generator().manual_seed(seed + 1)
+    rew_sum = torch.zeros(b)
+    for i in range(n_steps):
+        obs = (None if policy.obs_fmt is None else
+               features.build_obs(env_cfg, pool, state, fmt=policy.obs_fmt))
+        a, pstate = policy.act(pstate, state, obs, act_gen)
+        state, r, _ = env_lib.step(env_cfg, pool, state, a, draws={
+            "clock": draws["clock"][i],
+            "pending": {k: v[i] for k, v in draws["pending"].items()}})
+        rew_sum += r
+    out = {k: float(v.mean())
+           for k, v in env_lib.episode_metrics(state).items()}
+    out["mean_reward"] = float((rew_sum / n_steps).mean())
+    return out, state
+
+
+@pytest.mark.parametrize("fmt", ["padded", "segments"])
+@pytest.mark.parametrize("policy", ["QLL", "RR", "SAC"])
+def test_routing_step_on_static_tensors_equals_functional_loop(fmt, policy):
+    """The routing step as the CUDA graph runs it (``RoutingLoop``: the env
+    state, the policy state and the reward sum in static tensors updated
+    in place, each step's draws copied into buffers) equals a loop of
+    functional steps on the same injected draws: the same metrics and
+    final state, bit for bit.  Every static tensor keeps its storage, the
+    draws are left as they were, on the CPU nothing is captured, and
+    ``evaluate`` is that loop."""
+    from repro_torch.core import training
+
+    env_cfg, pool, pols = _routing_setup(fmt)
+    pol = pols[policy]
+    n_steps, b = 24, 3
+    draws = _own_draws(env_cfg, pool, n_steps, b, seed=5)
+    kept = {k: x.clone() for k, x in _leaves(draws).items()}
+    want, want_state = _functional_loop(env_cfg, pool, pol, n_steps, b,
+                                        draws)
+    loop = training.RoutingLoop(env_cfg, pool, pol, b, draws=draws)
+    owned = lambda: {k: x.data_ptr() for k, x in _leaves(
+        {"state": {k: v for k, v in loop.state.items()
+                   if k not in ("gen", "wait_caps")},
+         "pstate": loop.pstate, "rew": loop.rew_sum}).items()}
+    static = owned()
+    for _ in range(n_steps):
+        loop.run(1)
+        assert owned() == static
+    assert loop.graph is None and loop.steps == n_steps
+    assert loop.metrics() == want
+    _same_state(loop.state, want_state)
+    got, got_state = training.evaluate(env_cfg, pool, pol, n_steps=n_steps,
+                                       n_envs=b, draws=draws,
+                                       return_state=True)
+    assert got == want
+    _same_state(got_state, want_state)
+    for k, x in _leaves(draws).items():
+        assert torch.equal(x, kept[k]), k
+    assert want["completed"] > 0
+
+
+@pytest.mark.parametrize("policy", ["SQF", "BR", "SAC"])
+def test_evaluate_on_cpu_runs_the_eager_loop_either_way(policy):
+    """On the CPU ``evaluate`` runs eagerly with or without ``graphs``, from
+    its own seeded draws: both calls agree, and ``timing`` splits the
+    first step from the rest."""
+    from repro_torch.core import training
+
+    env_cfg, pool, pols = _routing_setup("padded")
+    runs = []
+    for g in (True, False):
+        timing = {}
+        runs.append(training.evaluate(env_cfg, pool, pols[policy],
+                                      n_steps=25, n_envs=2, graphs=g,
+                                      timing=timing, return_state=True))
+        assert set(timing) == {"first_s", "rest_s"}
+        assert timing["first_s"] > 0 and timing["rest_s"] > 0
+    assert runs[0][0] == runs[1][0]
+    _same_state(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_prefill_step_on_cpu_is_the_models_prefill(arch):
+    """``make_prefill_step`` on CPU tensors is the model's prefill, call
+    after call, and captures nothing."""
+    cfg = reduce_config(get_config(arch))
+    params = model_lib.init_params(cfg, seed=12, device="cpu")
+    rng = np.random.default_rng(13)
+    prefill = steps.make_prefill_step(cfg, 24)
+    for shape in ((2, 8), (1, 16), (2, 8)):
+        toks = torch.as_tensor(rng.integers(2, cfg.vocab, shape),
+                               dtype=torch.int32)
+        logits, cache = prefill(params, toks)
+        ref, ref_cache = model_lib.prefill(params, cfg, toks, 24)
+        assert torch.equal(logits, ref)
+        for k, x in _leaves(ref_cache).items():
+            assert torch.equal(_leaves(cache)[k], x), k
+    assert prefill.graphs == {}

@@ -84,6 +84,127 @@ def test_grouped_gemm_wrappers_on_cpu_use_plain_versions_and_keep_dtype():
     assert (moe_ops.GEMM_LAUNCHES, moe_ops.SWIGLU_LAUNCHES) == before
 
 
+# B4a's split on the card: (E, C, D, F, SM count).  dbrx's down projection
+# at a decode and the largest bucket on 132 SMs; C past one row tile;
+# ragged C, D and F; more SMs than units; one SM
+PLAN_CASES = [(16, 4, 10752, 6144, 132), (16, 40, 10752, 6144, 132),
+              (3, 70, 200, 300, 7), (4, 5, 1000, 1000, 3), (2, 9, 64, 128, 5),
+              (1, 1, 8, 8, 132), (5, 7, 1000, 136, 1), (2, 130, 640, 256, 11)]
+
+
+@pytest.mark.parametrize("e,c,d,f,n_sm", PLAN_CASES)
+def test_gemm_plan_covers_every_element_once(e, c, d, f, n_sm):
+    """Each (expert, row tile, column tile, contraction chunk) lies in
+    exactly one CTA's range, so every (expert, output column, contraction
+    row) is summed once; CTAs differ by at most one unit; a tile is
+    written whole by one CTA or merged from the slots of the CTAs that cut
+    it, each slot written once and merged once.  The CTAs are one per SM
+    (at most one per unit) or, within a tenth of that, as many as take the
+    tiles whole and alike, and then nothing is merged."""
+    from repro_torch.kernels.moe_gemm.ref import TILE_K, TILE_N, gemm_plan
+
+    plan = gemm_plan(e, c, d, f, n_sm)
+    tiles = e * plan.ct * plan.nt
+    if plan.ctas != min(n_sm, plan.units):
+        assert tiles % plan.ctas == 0 and 9 * n_sm <= 10 * plan.ctas < 10 * n_sm
+        assert not plan.merges()
+    sizes = np.diff(plan.starts)
+    assert sizes.max() - sizes.min() <= 1 and sizes.min() >= 1
+    units = np.zeros((e, plan.ct, plan.nt, plan.kc), np.int64)
+    whole, slots = set(), {}
+    for g, tile, lo, hi, slot in plan.segments():
+        ei, ci, ni = plan.tile(tile)
+        units[ei, ci, ni, lo:hi] += 1
+        if slot is None:
+            assert (lo, hi) == (0, plan.kc) and tile not in whole
+            whole.add(tile)
+        else:
+            assert slot // 2 == g and slot not in slots
+            slots[slot] = tile
+    assert (units == 1).all()
+    merged = {}
+    for tile, tile_slots in plan.merges():
+        assert tile not in whole and tile not in merged
+        assert all(slots[s] == tile for s in tile_slots)
+        merged[tile] = tile_slots
+    assert len(whole) + len(merged) == e * plan.ct * plan.nt
+    assert sorted(s for v in merged.values() for s in v) == sorted(slots)
+    # every element: (E, C, D, F) at the element level for a small case
+    if e * c * d * f <= 2e6:
+        cover = np.zeros((e, d, f), np.int64)
+        for g, tile, lo, hi, slot in plan.segments():
+            ei, _, ni = plan.tile(tile)
+            cols = slice(ni * TILE_N, min(f, (ni + 1) * TILE_N))
+            cover[ei, lo * TILE_K:min(d, hi * TILE_K), cols] += 1
+        assert (cover == plan.ct).all()
+
+
+def test_gemm_plan_gives_dbrx_whole_tiles():
+    """dbrx's down projection on 132 SMs: 384 tiles of 256 columns on 128
+    CTAs, 3 each, none cut; at one fewer tile the split is per unit."""
+    from repro_torch.kernels.moe_gemm.ref import gemm_plan
+
+    plan = gemm_plan(16, 40, 10752, 6144, 132)
+    assert (plan.ctas, plan.ct * plan.nt * plan.e, plan.kc) == (128, 384, 168)
+    assert not plan.merges() and all(s is None for *_, s in plan.segments())
+    odd = gemm_plan(16, 40, 10752, 6144 - 256, 132)          # 368 tiles
+    assert odd.ctas == 132 and odd.merges()
+
+
+def test_gemm_tiled_takes_bf16_with_16_byte_rows():
+    from repro_torch.kernels.moe_gemm.ref import gemm_tiled
+
+    assert gemm_tiled(torch.bfloat16, 10752, 6144)
+    assert gemm_tiled(torch.bfloat16, 8, 8)
+    assert not gemm_tiled(torch.float32, 10752, 6144)
+    assert not gemm_tiled(torch.bfloat16, 10752, 6143)
+    assert not gemm_tiled(torch.bfloat16, 100, 64)
+    assert not gemm_tiled(torch.bfloat16, 0, 64)
+
+
+# (E, C, D, F, SM count): shapes the reference's Pallas kernel takes
+# (C <= 128, F <= 128 or a multiple, D <= 512 or a multiple), each cut into
+# ranges that split tiles (and one that does not)
+SPLIT_CASES = [(2, 8, 256, 128, 3), (3, 70, 200, 100, 5), (2, 5, 1024, 256, 7),
+               (1, 4, 512, 128, 1)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f,n_sm", SPLIT_CASES)
+def test_split_algorithm_matches_reference(e, c, d, f, n_sm, dtype):
+    """B4a's algorithm on the card in plain PyTorch (per-CTA float32 sums
+    over its chunks, cut tiles merged in CTA order) against the
+    reference's Pallas ``grouped_gemm`` in interpret mode and its plain
+    ``grouped_gemm_ref``.  float32: 2e-5 of the largest output (summation
+    order only).  bfloat16 inputs and outputs: one bf16 rounding step,
+    2^-7 of each output plus 2^-7 of the largest (the two round float32
+    sums taken in other orders)."""
+    from repro_torch.kernels.moe_gemm.ref import (gemm_plan,
+                                                  grouped_gemm_split_ref)
+
+    rng = np.random.default_rng(e + c + d + f)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    w = (rng.standard_normal((e, d, f)) / np.sqrt(d)).astype(np.float32)
+    if dtype == "bfloat16":
+        xt, wt = t(x).bfloat16(), t(w).bfloat16()
+        xj, wj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    else:
+        xt, wt, xj, wj = t(x), t(w), x, w
+    got = grouped_gemm_split_ref(xt, wt, n_sm).float().numpy()
+    refs = (jax.jit(jax_gemm_ref)(xj, wj),
+            jax.jit(lambda *a: grouped_gemm(*a, interpret=True))(xj, wj))
+    for ref in refs:
+        ref = np.asarray(ref, np.float32)
+        top = float(np.abs(ref).max())
+        if dtype == "bfloat16":
+            tol = 2.0 ** -7 * (np.abs(ref) + top)
+            assert (np.abs(got - ref) <= tol).all()
+        else:
+            np.testing.assert_allclose(got, ref, atol=LAYER_TOL * top, rtol=0)
+    if n_sm > 1:
+        assert gemm_plan(e, c, d, f, n_sm).merges()
+
+
 # ---------------------------------------------------------------------------
 # Routing, slots, capacity
 # ---------------------------------------------------------------------------
