@@ -100,13 +100,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 (y and the final state) at rwkv6-7b's heads (H=64, K=V=64,
                 chunk 32): (B, T) = (4, 128), (4, 100) (a tail chunk) and
                 (1, 4,096), bf16 and float32; each element within atol +
-                rtol * |ref| (2e-2 bf16, 2e-4 float32; the state 2e-4).
-                Times the kernel and the plain chunk algorithm, beside the
-                bound: bytes, or exponentials and float32 operations.
+                rtol * |ref| (2e-2 bf16, 2e-4 float32; the state 2e-4),
+                finite.  Both sides of the wrapper's switch, each checked
+                and timed: its plan (one walk up to 256 tokens, else three
+                passes in groups of 256) and the other side (the wrapper's
+                ``GROUP`` set to 32 tokens for three passes, or to T for
+                one walk).  Each side's kernels traced by name (sums,
+                carry, walk: each one's device time per call beside the
+                whole call's); the trace must hold calls times the kernels
+                per call the wrapper reports, in one of three profiler
+                sessions.  The plain chunk algorithm's time, and
+                the bound: the bytes any implementation moves (the chunk
+                algorithm's exponentials and operations kept beside it).
  11. rglru_scan — the RG-LRU scan (B6) against its plain version at
                 recurrentgemma-2b's width (W=2,560), (B, T) = (4, 128) and
                 (1, 4,096), float32 and bf16, a non-zero h0 and some log_a
-                > 0 (clamped); 1e-5 float32, 2e-2 bf16.
+                > 0 (clamped); 1e-5 float32, 2e-2 bf16.  Both sides of the
+                wrapper's switch as in 10 (the single walk up to 128 steps,
+                else two passes in chunks of T/16 within 64..256; the other
+                side, its ``plan`` set to chunks of 32 for two passes, or
+                of T for one walk), each pass's traced time beside the
+                call's (held as in 10), the bound in bytes.
  12. lm_recurrent — the recurrent families through the model API
                 (``launch/steps.py``): the reduced configs on the card
                 against the same weights on the CPU; then rwkv6-7b and
@@ -125,17 +139,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 a copy of the cache (bit-equal logits; each step timed:
                 min/median/max), prefills timed graphed and eager, a
                 profiled window (one capture for every prompt; the trace
-                must hold B3, B5 and B6's expected launches) and a prefill
-                of 1 x 4,096 (past
-                recurrentgemma's 2,048 window), graphed against eager.  B5 must launch n_layers
-                times per rwkv6 prefill, B6 once per recurrent layer per
+                must hold B3's expected launches and B5's and B6's kernels:
+                calls times the kernels per call their wrappers report) and
+                a prefill of 1 x 4,096 (past recurrentgemma's 2,048 window),
+                graphed against eager, timed both ways, and one replay of it
+                traced (B5's three kernels per layer and their time per
+                prefill, B6's two; the trace must hold every one of them in
+                one of three replays).  B5 must be called n_layers times per
+                rwkv6 prefill, B6 once per recurrent layer per
                 recurrentgemma prefill, neither at decode; B3 once per
                 attention layer per recurrentgemma decode.
  13. kernels  — the kernel table line; each kernel's launches are those of
                 the counted main paths (3 for B1, 8, 9 and 12 for the
-                others).
+                others), calls of its wrapper; B5's and B6's entries name
+                the kernels a call launches (``functions``) and count them
+                (``kernels_launched``: calls times kernels per call).
 
-A ``seconds`` line gives each phase's time and the total.  The last line
+The phases run in the order 1, 10 and 11's per-pass traces (one profiler
+session), 2-9, 12, 10, 11.  Every kernel library is built and loaded
+before the first profiler session: on this card a library loaded after
+the tracer first started makes later sessions miss kernel records.  A ``seconds`` line gives each phase's time
+and the total.  The last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a result when CUDA is unavailable or the package is missing.
 """
@@ -1259,7 +1283,8 @@ TRACE_KERNELS = {"b2": ("flash_attn_bf16_kernel", "flash_attn_f32_kernel"),
                  "b3_merge": ("decode_attn_merge",),
                  "b4": ("moe_gemm_mma", "moe_gemm_simt", "moe_gemm_tma"),
                  "b4_merge": ("moe_gemm_merge",),
-                 "b5": ("rwkv6_scan_kernel",), "b6": ("rglru_scan_kernel",)}
+                 "b5": ("rwkv6_wkv_sums", "rwkv6_wkv_carry", "rwkv6_wkv_out"),
+                 "b6": ("rglru_chunk_sums", "rglru_chunk_walk")}
 
 
 def traced(row, kernels, expected):
@@ -1501,19 +1526,57 @@ WKV_CASES = [(4, 128), (4, 100), (1, 4096)]
 # outputs of up to ~100); bf16: one rounding of y; the state is float32
 WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 WKV_LINE_CASE = (4, 128, "bfloat16")       # the kernels line's row
+WKV_OTHER_GROUP = 32      # tokens per group on the far side of B5's switch
 # recurrentgemma-2b's width; (B, T)
 LRU_W = 2560
 LRU_CASES = [(4, 128), (1, 4096)]
 LRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 LRU_LINE_CASE = (4, 128, "float32")        # the model's gates are float32
+LRU_OTHER_CHUNK = 32      # steps per chunk on the far side of B6's switch
 
 
-def wkv_work(b, h, n, kd, vd, chunk):
-    """Exponentials and float32 operations of the chunk algorithm on these
-    shapes (each chunk counted at its own rows, so a tail chunk counts
-    less): the decay matrix (one exponential and three operations per
-    (i, s<i, k)), r e^p and k e^(p_end - q), e^p_end, the products with S
-    and within the chunk, the bonus and the state update."""
+@contextlib.contextmanager
+def switched(module, name, value):
+    """``module.name`` set to ``value`` inside the block: a wrapper's
+    constant moved so that a call reaches the far side of its shape switch
+    at the same shape."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def wkv_sides(n):
+    """B5's two sides at T = ``n``: (side, the patch of its wrapper's
+    ``GROUP``, group) for the plan and the other side (three passes in
+    groups of 32 tokens where the plan walks once, one walk where it takes
+    three passes)."""
+    from repro_torch.kernels.rwkv6_scan import ops
+    other = WKV_OTHER_GROUP if n <= ops.GROUP else n
+    return [(side, ("GROUP", group), group)
+            for side, group in (("plan", ops.GROUP), ("other", other))]
+
+
+def lru_sides(n):
+    """B6's two sides at T = ``n``: (side, the patch of its wrapper's
+    ``plan``, chunk) for the plan and the other side (two passes in chunks
+    of 32 where the plan walks once, one walk where it takes two)."""
+    from repro_torch.kernels.rglru_scan import ops
+    other = LRU_OTHER_CHUNK if n <= ops.SINGLE_T else n
+    return [(side, ("plan", lambda n_t, c=chunk: c), chunk)
+            for side, chunk in (("plan", ops.plan(n)), ("other", other))]
+
+
+def chunk_algorithm_work(b, h, n, kd, vd, chunk):
+    """Exponentials and float32 operations of the reference's chunk
+    algorithm on these shapes (each chunk counted at its own rows, so a
+    tail chunk counts less): the decay matrix (one exponential and three
+    operations per (i, s<i, k)), r e^p and k e^(p_end - q), e^p_end, the
+    products with S and within the chunk, the bonus and the state update.
+    Kept beside B5's rows as what that algorithm does; the kernel factors
+    the decay and does less, so its bound is the bytes alone."""
     exps = flops = 0
     for t0 in range(0, n, chunk):
         rows = min(chunk, n - t0)
@@ -1534,50 +1597,186 @@ def bound_row(nbytes, flops, exps):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def wkv_inputs(b, n, dtype, dev, seed):
+    """rwkv6-7b's heads at (b, n): r, k, v, dlog, u from ``seed``.  The
+    decays are the model's, -exp(clip(w0 + lora, -8, 2)), w0 ~ 0.3 N - 0.6,
+    widened to reach both ends of the clip."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, kd = WKV_H, WKV_K
+    r, k, v = (torch.randn((b, h, n, kd), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    expo = torch.randn((b, h, n, kd), generator=gen, device=dev) - 0.6
+    dlog = -torch.exp(expo.clamp(-8.0, 2.0))
+    u = (torch.randn((h, kd), generator=gen, device=dev) * 0.3).to(dtype)
+    return r, k, v, dlog, u
+
+
+def lru_inputs(b, n, dtype, dev, seed):
+    """recurrentgemma-2b's width at (b, n): log_a, x, h0 from ``seed``;
+    decays as the model's (-8 softplus(lam) r, lam in [0.4, 0.9)) plus a
+    few above 0, which the wrapper clamps."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log_a = (-8 * torch.rand((b, n, LRU_W), generator=gen, device=dev)
+             + 0.05).to(dtype)
+    x = torch.randn((b, n, LRU_W), generator=gen, device=dev).to(dtype)
+    h0 = torch.randn((b, LRU_W), generator=gen, device=dev)
+    return log_a, x, h0
+
+
+def scan_sides():
+    """Phases 10 and 11's calls: (key, tag, kernels per call, make), with
+    ``make(dev)`` returning the call.  Each case and dtype on both sides of
+    its wrapper's switch (``wkv_sides``, ``lru_sides``)."""
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+
+    def side_call(ops, patch, fn):
+        def call():
+            with switched(ops, *patch):
+                return fn()
+        return call
+
+    out = []
+    for b, n in WKV_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for side, patch, _ in wkv_sides(n):
+                def make(dev, b=b, n=n, dtype=dtype, patch=patch):
+                    x = wkv_inputs(b, n, dtype, dev, b * n)
+                    return side_call(wkv_ops, patch,
+                                     lambda: wkv_ops.wkv(*x, chunk=WKV_CHUNK))
+                with switched(wkv_ops, *patch):
+                    per_call = wkv_ops.kernels_per_call(n)
+                out.append((("b5", b, n, str(dtype), side), "b5", per_call,
+                            make))
+    for b, n in LRU_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for side, patch, _ in lru_sides(n):
+                def make(dev, b=b, n=n, dtype=dtype, patch=patch):
+                    x = lru_inputs(b, n, dtype, dev, b * n + 1)
+                    return side_call(lru_ops, patch, lambda: lru_ops.lru(*x))
+                with switched(lru_ops, *patch):
+                    per_call = lru_ops.kernels_per_call(n)
+                out.append((("b6", b, n, str(dtype), side), "b6", per_call,
+                            make))
+    return out
+
+
+def scan_pass_times(dev, calls=5, sessions=3):
+    """B5's and B6's device time per call of each of their kernels, on
+    every side of ``scan_sides``, from a torch.profiler session (CPU and
+    CUDA) at the start of the run.  Each case's
+    calls run inside a ``record_function`` range and end synchronised, so
+    a kernel record belongs to the case whose range holds its start; each
+    kernel's time is the mean of its records (each kernel runs once a
+    call).  A case's records must be its calls times the kernels per call
+    that the wrapper reports; a case whose session lacks some is traced
+    again in the next, and one still short after ``sessions`` fails the
+    run, so no time is a sum of part of a call.  Returns {key: row}."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sides = [(key, tag, per_call, make(dev))
+             for key, tag, per_call, make in scan_sides()]
+    for *_, fn in sides:                       # build, warm, workspaces
+        fn()
+    torch.cuda.synchronize()
+    out, short = {}, {}
+    for session in range(sessions):
+        labels = {f"scan_pass_times/{i}": i for i, side in enumerate(sides)
+                  if side[0] not in out}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for label, i in labels.items():
+                with record_function(label):
+                    for _ in range(calls):
+                        sides[i][3]()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        spans = {labels[e.name]: (e.time_range.start, e.time_range.end)
+                 for e in events if e.name in labels}
+        kernels = [e for e in events
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        for i in labels.values():
+            key, tag, per_call, _ = sides[i]
+            t0, t1 = spans[i]
+            us = {n: [] for n in TRACE_KERNELS[tag]}
+            for e in kernels:
+                name = next((n for n in TRACE_KERNELS[tag] if n in e.name),
+                            None)
+                if name is not None and t0 <= e.time_range.start <= t1:
+                    us[name].append(e.time_range.elapsed_us())
+            held = sum(map(len, us.values()))
+            if held != per_call * calls:
+                short[key] = (held, per_call * calls)
+                continue
+            row = {f"{n}_ms": float(np.mean(t)) / 1e3 if t else None
+                   for n, t in us.items()}
+            row["traced_ms"] = sum(t for t in row.values() if t is not None)
+            row["kernels_per_call"] = per_call
+            row["trace_session"] = session
+            out[key] = row
+        if len(out) == len(sides):
+            break
+    missing = {key: short[key] for key, *_ in sides if key not in out}
+    assert not missing, ("scan_pass_times: kernel records (held, expected) "
+                         f"short in every session: {missing}")
+    del sides
+    torch.cuda.empty_cache()
+    return out
+
+
 def over_limit(got, ref, tol):
     """The largest error as a share of atol + rtol * |ref| (atol = rtol)."""
     got, ref = got.float(), ref.float()
     return float(((got - ref).abs() / (tol + tol * ref.abs())).max())
 
 
-def rwkv6_scan_phase(dev):
+def rwkv6_scan_phase(dev, passes):
+    """Phase 10; ``passes`` is ``scan_pass_times``'s result."""
     from repro_torch.kernels.rwkv6_scan import ops
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref, wkv_chunked_ref
 
     rows = []
     h, kd = WKV_H, WKV_K
     for b, n in WKV_CASES:
-        gen = torch.Generator(device=dev).manual_seed(b * n)
         for dtype in (torch.bfloat16, torch.float32):
-            r, k, v = (torch.randn((b, h, n, kd), generator=gen,
-                                   device=dev).to(dtype) for _ in range(3))
-            # the model's decays: -exp(clip(w0 + lora, -8, 2)), w0 ~ 0.3 N - 0.6,
-            # widened to reach both ends of the clip
-            expo = torch.randn((b, h, n, kd), generator=gen, device=dev) - 0.6
-            dlog = -torch.exp(expo.clamp(-8.0, 2.0))
-            u = (torch.randn((h, kd), generator=gen, device=dev) * 0.3).to(dtype)
-            y, state = ops.wkv(r, k, v, dlog, u, chunk=WKV_CHUNK)
+            r, k, v, dlog, u = wkv_inputs(b, n, dtype, dev, b * n)
             y_ref, s_ref = rwkv6_scan_ref(r, k, v, dlog, u)
-            torch.cuda.synchronize()
+            sides = {}
+            for side, patch, group in wkv_sides(n):
+                with switched(ops, *patch):
+                    y, state = ops.wkv(r, k, v, dlog, u, chunk=WKV_CHUNK)
+                torch.cuda.synchronize()
+                sides[side] = {
+                    "group": group,
+                    "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+                    "state_max_abs_err": float((state - s_ref).abs().max()),
+                    "err_over_limit": over_limit(y, y_ref, WKV_TOL[dtype]),
+                    "state_err_over_limit": over_limit(
+                        state, s_ref, WKV_TOL[torch.float32]),
+                    "finite": bool(torch.isfinite(y.float()).all()
+                                   and torch.isfinite(state).all())}
+                fn = lambda: ops.wkv(r, k, v, dlog, u, chunk=WKV_CHUNK)
+                with switched(ops, *patch):
+                    sides[side]["ms"] = device_ms(fn, 5 if n > 1024 else 20)
+                sides[side].update(passes[("b5", b, n, str(dtype), side)])
+                del y, state
+            plan = sides["plan"]
             row = {"phase": "rwkv6_scan", "B": b, "H": h, "T": n, "K": kd,
                    "V": kd, "chunk": WKV_CHUNK,
                    "dtype": str(dtype).split(".")[-1],
-                   "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
-                   "state_max_abs_err": float((state - s_ref).abs().max()),
+                   **{key: plan[key] for key in plan},
                    "max_abs_out": float(y_ref.float().abs().max()),
                    "atol": WKV_TOL[dtype], "rtol": WKV_TOL[dtype],
-                   "err_over_limit": over_limit(y, y_ref, WKV_TOL[dtype]),
-                   "state_err_over_limit": over_limit(
-                       state, s_ref, WKV_TOL[torch.float32])}
-            if not (row["err_over_limit"] <= 1.0
-                    and row["state_err_over_limit"] <= 1.0):
-                raise AssertionError(f"rwkv6_scan disagrees with the token "
-                                     f"recurrence: {row}")
+                   "other_side": sides["other"]}
+            for side in sides.values():
+                if not (side["err_over_limit"] <= 1.0
+                        and side["state_err_over_limit"] <= 1.0 and side["finite"]):
+                    raise AssertionError(f"rwkv6_scan disagrees with the token "
+                                         f"recurrence: {row}")
             fn = lambda: ops.wkv(r, k, v, dlog, u, chunk=WKV_CHUNK)
             plain = lambda: wkv_chunked_ref(r, k, v, dlog, u, WKV_CHUNK)
             if n % WKV_CHUNK:          # the plain chunks need whole ones
                 plain = lambda: rwkv6_scan_ref(r, k, v, dlog, u)
-            row["ms"] = device_ms(fn, 5 if n > 1024 else 20)
             row["call_ms"] = cuda_ms(fn, 5)
             row["plain"] = ("wkv_chunked_ref" if n % WKV_CHUNK == 0
                             else "rwkv6_scan_ref")
@@ -1586,44 +1785,54 @@ def rwkv6_scan_phase(dev):
             size = r.element_size()
             nbytes = (4 * b * h * n * kd * size + 4 * b * h * n * kd
                       + h * kd * size + 4 * b * h * kd * kd)
-            exps, flops = wkv_work(b, h, n, kd, kd, WKV_CHUNK)
-            row.update(bound_row(nbytes, flops, exps))
+            exps, flops = chunk_algorithm_work(b, h, n, kd, kd, WKV_CHUNK)
+            row.update(bound_row(nbytes, 0, 0))
+            row["chunk_algorithm_exps"] = exps
+            row["chunk_algorithm_flops"] = flops
             emit(row)
             rows.append(row)
-            del r, k, v, dlog, u, y, state, y_ref, s_ref
+            del r, k, v, dlog, u, y_ref, s_ref
     torch.cuda.empty_cache()
     return rows
 
 
-def rglru_scan_phase(dev):
+def rglru_scan_phase(dev, passes):
+    """Phase 11; ``passes`` is ``scan_pass_times``'s result."""
     from repro_torch.kernels.rglru_scan import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
     rows = []
     w = LRU_W
     for b, n in LRU_CASES:
-        gen = torch.Generator(device=dev).manual_seed(b * n + 1)
         for dtype in (torch.float32, torch.bfloat16):
-            # decays as the model's (-8 softplus(lam) r, lam in [0.4, 0.9))
-            # plus a few above 0, which the wrapper clamps
-            log_a = (-8 * torch.rand((b, n, w), generator=gen, device=dev)
-                     + 0.05).to(dtype)
-            x = torch.randn((b, n, w), generator=gen, device=dev).to(dtype)
-            h0 = torch.randn((b, w), generator=gen, device=dev)
-            got = ops.lru(log_a, x, h0)
+            log_a, x, h0 = lru_inputs(b, n, dtype, dev, b * n + 1)
             ref = rglru_scan_ref(log_a.clamp(max=0.0), x, h0)
-            torch.cuda.synchronize()
+            sides = {}
+            for side, patch, chunk in lru_sides(n):
+                with switched(ops, *patch):
+                    got = ops.lru(log_a, x, h0)
+                torch.cuda.synchronize()
+                sides[side] = {
+                    "chunk": chunk,
+                    "max_abs_err": float((got.float() - ref.float()).abs().max()),
+                    "err_over_limit": over_limit(got, ref, LRU_TOL[dtype])}
+                fn = lambda: ops.lru(log_a, x, h0)
+                with switched(ops, *patch):
+                    sides[side]["ms"] = device_ms(fn, 20)
+                sides[side].update(passes[("b6", b, n, str(dtype), side)])
+                del got
+            plan = sides["plan"]
             row = {"phase": "rglru_scan", "B": b, "T": n, "W": w,
                    "dtype": str(dtype).split(".")[-1],
                    "clamped": int((log_a > 0).sum()),
-                   "max_abs_err": float((got.float() - ref.float()).abs().max()),
+                   **{key: plan[key] for key in plan},
                    "atol": LRU_TOL[dtype], "rtol": LRU_TOL[dtype],
-                   "err_over_limit": over_limit(got, ref, LRU_TOL[dtype])}
-            if not row["err_over_limit"] <= 1.0 or row["clamped"] == 0:
+                   "other_side": sides["other"]}
+            if (not all(sd["err_over_limit"] <= 1.0 for sd in sides.values())
+                    or row["clamped"] == 0):
                 raise AssertionError(f"rglru_scan disagrees with its plain "
                                      f"version: {row}")
             fn = lambda: ops.lru(log_a, x, h0)
-            row["ms"] = device_ms(fn, 20)
             row["call_ms"] = cuda_ms(fn, 5)
             row["plain_ms"] = cuda_ms(lambda: plain_lru(log_a, x, h0),
                                       2 if n > 1024 else 5)
@@ -1633,7 +1842,7 @@ def rglru_scan_phase(dev):
                                  2 * b * n * w, b * n * w))
             emit(row)
             rows.append(row)
-            del log_a, x, h0, got, ref
+            del log_a, x, h0, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -1657,6 +1866,16 @@ def scan_launches_per_pass(cfg) -> dict:
     else:
         out["rglru_scan"] = sum(k == "rec" for k in rglru.layer_kinds(cfg))
     return out
+
+
+def scan_kernels_per_pass(cfg, n_t) -> dict:
+    """B5's and B6's kernels in a trace of one prefill of T = ``n_t``:
+    calls times the kernels per call that each wrapper reports."""
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    calls = scan_launches_per_pass(cfg)
+    return {"b5": calls["rwkv6_scan"] * wkv_ops.kernels_per_call(n_t),
+            "b6": calls["rglru_scan"] * lru_ops.kernels_per_call(n_t)}
 
 
 def b3_launches_per_decode(cfg) -> int:
@@ -1791,10 +2010,8 @@ def recurrent_window(params, cfg, toks, n_decode=8):
            "kernels_per_iteration": len(kernels) / (1 + n_decode),
            "captures": len(decode.graphs),
            "prefill_captures": len(prefill.graphs)}
-    scans = scan_launches_per_pass(cfg)
     traced(row, kernels, {"b3": n_decode * b3_launches_per_decode(cfg),
-                          "b5": scans["rwkv6_scan"],
-                          "b6": scans["rglru_scan"]})
+                          **scan_kernels_per_pass(cfg, toks.shape[1])})
     assert row["captures"] == 1 and row["prefill_captures"] == 1, row
     return row, {"prefill": 3, "decode": 3 * n_decode}
 
@@ -1979,11 +2196,31 @@ def recurrent_serve(params, cfg, name, rng, phase):
         if mode == "graphed":
             logits, cache = out
     del out
+    from torch.profiler import ProfilerActivity, profile
+    want = scan_kernels_per_pass(cfg, REC_LONG)
+    for attempt in range(3):        # a trace now and then lacks a record
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            long_step(params, long)[0].argmax(-1).cpu()
+        traced_long = {}
+        try:
+            traced(traced_long, [e for e in prof.events() if str(
+                getattr(e, "device_type", "")).endswith("CUDA")], want)
+            break
+        except AssertionError as err:
+            fault = err
+    else:
+        raise AssertionError(f"{name}: no traced 1 x {REC_LONG} replay of "
+                             f"three held every B5/B6 kernel: {fault}")
     row = {"phase": phase, "check": "long_prefill", "arch": name, "B": 1,
            "T": REC_LONG, "prefill_ms": long_ms["graphed"],
            "eager_prefill_ms": long_ms["eager"],
            "first_call_ms": long_ms["first_call"],
            "graphed_equals_eager": same_prefill((logits, cache), eager_out),
+           "traced_replay": {key: traced_long[key] for key in (
+               "b5_launches", "b5_ms", "b6_launches", "b6_ms",
+               "traced_launches_expected")},
+           "traced_replays": attempt + 1,
            "finite": bool(torch.isfinite(logits).all()),
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     if cfg.family == "hybrid":               # the ring holds the last window
@@ -1996,9 +2233,11 @@ def recurrent_serve(params, cfg, name, rng, phase):
     emit(row)
     assert row["finite"] and row["graphed_equals_eager"], row
     del long_step, eager_out, logits, cache
-    # checked, replayed, a new length (first call, replay, eager, the first
-    # shape's replay), timed (2 graphed, 2 eager), the window's, long (3)
-    return {"prefill": 1 + 1 + 4 + 4 + passes["prefill"] + 3,
+    # by T: checked, replayed, the first shape's replay after the new
+    # length's, timed (2 graphed, 2 eager), the window's; the new length
+    # (first call, replay, eager); long (3 and the traced replays)
+    return {"prefill": {REC_PROMPT: 1 + 1 + 1 + 4 + passes["prefill"],
+                        REC_PROMPT // 2: 3, REC_LONG: 3 + attempt + 1},
             "decode": 1 + 2 * REC_DECODE + passes["decode"]}
 
 
@@ -2030,19 +2269,24 @@ def lm_recurrent_phase(dev):
     rng = np.random.default_rng(12)
     reset_counters()
     expected = dict.fromkeys(counters(), 0)
+    kernels = {"rwkv6_scan": 0, "rglru_scan": 0}   # calls x kernels per call
     for name, cfg, params in models:
         passes = recurrent_serve(params, cfg, name, rng, "lm_recurrent")
-        for k, v in scan_launches_per_pass(cfg).items():
-            expected[k] += passes["prefill"] * v
+        for n_t, n_pass in passes["prefill"].items():
+            for k, v in scan_launches_per_pass(cfg).items():
+                expected[k] += n_pass * v
+            per_pass = scan_kernels_per_pass(cfg, n_t)
+            kernels["rwkv6_scan"] += n_pass * per_pass["b5"]
+            kernels["rglru_scan"] += n_pass * per_pass["b6"]
         expected["decode_attn"] += passes["decode"] * b3_launches_per_decode(cfg)
     got = counters()
     emit({"phase": "lm_recurrent", "check": "launches", "launches": got,
-          "expected": expected,
+          "expected": expected, "scan_kernels_launched": kernels,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     assert got == expected, (got, expected)
     del models
     torch.cuda.empty_cache()
-    return got
+    return got, kernels
 
 
 def kernel_line(name, source, replaces, launches, row, library_ms):
@@ -2073,6 +2317,11 @@ def main() -> int:
         build.build_all()
         build_s = time.perf_counter() - t0
         ptxas = dict(zip(build.KERNEL_FLAGS, ptxas))
+    # every library loaded before the first profiler session: with one
+    # loaded after the tracer first started, later sessions miss kernel
+    # records
+    for name in build.KERNEL_FLAGS:
+        build.load(name)
     nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     emit({"phase": "env", "gpu": card, "torch": torch.__version__,
@@ -2089,6 +2338,8 @@ def main() -> int:
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
         return out
 
+    # phases 10 and 11's per-pass traces, first (see scan_pass_times)
+    passes = timed("rwkv6_scan", scan_pass_times, dev)
     kernel = timed("kernel", kernel_phase, dev)
     timed("kernel", kernel_phase, dev, 4, 6)            # the N=6 x 4 rows
     launches, _ = timed("serve", serve_phase, dev, 6, 4, 750, 75, "padded",
@@ -2099,11 +2350,11 @@ def main() -> int:
     flash = timed("flash", flash_phase, dev)
     decode = timed("decode_attn", decode_attn_phase, dev)
     gemm = timed("moe_gemm", moe_gemm_phase, dev)
-    wkv = timed("rwkv6_scan", rwkv6_scan_phase, dev)
-    lru = timed("rglru_scan", rglru_scan_phase, dev)
     dense = timed("lm_serve", lm_serve_phase, dev)
     mixed = timed("lm_moe", lm_moe_phase, dev)
-    recurrent = timed("lm_recurrent", lm_recurrent_phase, dev)
+    recurrent, scan_kernels = timed("lm_recurrent", lm_recurrent_phase, dev)
+    wkv = timed("rwkv6_scan", rwkv6_scan_phase, dev, passes)
+    lru = timed("rglru_scan", rglru_scan_phase, dev, passes)
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t0})
     lm = {k: dense[k] + mixed[k] + recurrent[k] for k in dense}
@@ -2136,12 +2387,16 @@ def main() -> int:
                     gemm_rows["grouped_gemm"]["library_ms"]),
         kernel_line("grouped_swiglu", "moe_gemm.cu", f"{moe_src}:88",
                     lm["grouped_swiglu"], gemm_rows["grouped_swiglu"], None),
-        kernel_line("rwkv6_scan", "rwkv6_scan.cu",
-                    "src/repro/kernels/rwkv6_scan/kernel.py:66",
-                    lm["rwkv6_scan"], wkv_row, None),
-        kernel_line("rglru_scan", "rglru_scan.cu",
-                    "src/repro/kernels/rglru_scan/kernel.py:45",
-                    lm["rglru_scan"], lru_row, None)]})
+        {**kernel_line("rwkv6_scan", "rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan/kernel.py:66",
+                       lm["rwkv6_scan"], wkv_row, None),
+         "functions": list(TRACE_KERNELS["b5"]),
+         "kernels_launched": scan_kernels["rwkv6_scan"]},
+        {**kernel_line("rglru_scan", "rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan/kernel.py:45",
+                       lm["rglru_scan"], lru_row, None),
+         "functions": list(TRACE_KERNELS["b6"]),
+         "kernels_launched": scan_kernels["rglru_scan"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -32,9 +32,9 @@ from repro_torch.kernels.moe_gemm.ref import (grouped_gemm_ref,
                                               grouped_gemm_split_ref,
                                               grouped_swiglu_ref)
 from repro_torch.kernels.rglru_scan import ops as lru_ops
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_chunked_ref, rglru_scan_ref
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref, wkv_groups_ref
 from repro_torch.launch import steps
 from repro_torch.models import model as model_lib, transformer
 
@@ -775,6 +775,108 @@ def test_wkv_wrapper_rejects_bad_operands_on_card(cuda_device):
         wkv_ops.wkv(r, k, v, dlog, u.cpu())
 
 
+# both sides of the wrapper's switch at each shape: the default plan, and a
+# group of 32 tokens (the three passes wherever T > 32) or of 4,096 (one
+# walk); (B, H, T, K, V, group), with K = 50 where rows are not 16-byte
+# multiples (element loads instead of cp.async)
+WKV_SWITCH = [(4, 64, 128, 64, 64, 32), (1, 64, 100, 64, 64, 32),
+              (1, 64, 1000, 64, 64, 4096), (2, 3, 70, 64, 32, 32),
+              (2, 3, 70, 50, 36, 32), (1, 2, 300, 48, 64, 4096),
+              (2, 4, 33, 16, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,kd,vd,group", WKV_SWITCH)
+def test_wkv_kernel_matches_plain_versions_across_the_switch_on_card(
+        cuda_device, b, h, n, kd, vd, group, dtype, monkeypatch):
+    """The kernel with ``GROUP`` set to ``group``, against the token
+    recurrence and against its own algorithm in plain PyTorch
+    (``wkv_groups_ref`` with the same group), and against the default
+    plan's call: one launch counted, whatever the kernels per call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * h + n + kd + 7)
+    r, k, v, dlog, u = _wkv_inputs(b, h, n, kd, vd, gen, cuda_device, dtype)
+    y_def, s_def = wkv_ops.wkv(r, k, v, dlog, u.to(dtype))
+    monkeypatch.setattr(wkv_ops, "GROUP", group)
+    before = wkv_ops.LAUNCHES
+    y, state = wkv_ops.wkv(r, k, v, dlog, u.to(dtype))
+    assert wkv_ops.LAUNCHES == before + 1
+    y_ref, s_ref = rwkv6_scan_ref(r, k, v, dlog, u.to(dtype))
+    _within(y, y_ref, WKV_TOL[dtype])
+    _within(state, s_ref, WKV_TOL[torch.float32])
+    y_alg, s_alg = wkv_groups_ref(r, k, v, dlog, u.to(dtype), group=group)
+    _within(y, y_alg, WKV_TOL[dtype])
+    _within(state, s_alg, WKV_TOL[torch.float32])
+    _within(y, y_def, WKV_TOL[dtype])
+    _within(state, s_def, WKV_TOL[torch.float32])
+    assert wkv_ops.kernels_per_call(n) == (1 if n <= group else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [wkv_ops.GROUP, 32])
+def test_wkv_kernel_reads_the_models_layout_in_groups_on_card(cuda_device,
+                                                              group,
+                                                              monkeypatch):
+    """(B, T, H, K) tensors handed over transposed, one walk and three
+    passes alike: bit-equal to the same call on contiguous copies."""
+    b, n, h, kd = 2, 200, 8, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    r, k, v, dlog, u = _wkv_inputs(b, h, n, kd, kd, gen, cuda_device,
+                                   torch.bfloat16)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (r, k, v, dlog)]
+    monkeypatch.setattr(wkv_ops, "GROUP", group)
+    y, state = wkv_ops.wkv(*views, u)
+    y_ref, s_ref = wkv_ops.wkv(r, k, v, dlog, u)
+    assert torch.equal(y, y_ref) and torch.equal(state, s_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", ["clip", "deep"])
+@pytest.mark.parametrize("group", [wkv_ops.GROUP, 32])
+def test_wkv_kernel_extreme_decays_on_card(cuda_device, decay, group, dtype,
+                                           monkeypatch):
+    """dlog = -e^2 everywhere (the model's clip), or -40 on every 5th row
+    (far below it): finite, and within the tolerances of the token
+    recurrence."""
+    b, h, n, kd = 2, 4, 160, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    r, k, v, dlog, u = _wkv_inputs(b, h, n, kd, kd, gen, cuda_device, dtype)
+    if decay == "clip":
+        dlog = torch.full_like(dlog, -float(np.exp(2.0)))
+    else:
+        dlog[:, :, ::5] = -40.0
+    monkeypatch.setattr(wkv_ops, "GROUP", group)
+    y, state = wkv_ops.wkv(r, k, v, dlog, u.to(dtype))
+    assert bool(torch.isfinite(y.float()).all() & torch.isfinite(state).all())
+    y_ref, s_ref = rwkv6_scan_ref(r, k, v, dlog, u.to(dtype))
+    _within(y, y_ref, WKV_TOL[dtype])
+    _within(state, s_ref, WKV_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 700])
+def test_wkv_kernel_graphed_equals_eager_on_card(cuda_device, n):
+    """One call captured in a CUDA graph (one walk at T=128, three passes
+    at T=700) and replayed on new inputs copied into its buffers: bit-equal
+    to the same call run eagerly."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    bufs = _wkv_inputs(2, 8, n, 64, 64, gen, cuda_device, torch.bfloat16)
+    u = bufs[-1]
+    wkv_ops.wkv(*bufs[:4], u)                      # build and set up eagerly
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wkv_ops.wkv(*bufs[:4], u)
+    new = _wkv_inputs(2, 8, n, 64, 64, gen, cuda_device, torch.bfloat16)
+    for dst, src in zip(bufs, new):
+        dst.copy_(src)
+    graph.replay()
+    y, state = wkv_ops.wkv(*bufs[:4], u)
+    assert torch.equal(out[0], y) and torch.equal(out[1], state)
+
+
 # (B, T, W): recurrentgemma-2b's width at B=4, ragged T and W, one step
 LRU_SHAPES = [(4, 128, 2560), (1, 37, 100), (2, 1, 64), (3, 300, 33)]
 LRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -796,6 +898,75 @@ def test_lru_kernel_matches_plain_version_on_card(cuda_device, b, n, w, dtype):
     assert lru_ops.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     _within(got, rglru_scan_ref(log_a.clamp(max=0.0), x, h0), LRU_TOL[dtype])
+
+
+# (B, T, W, chunk): both sides of the wrapper's switch, forced (None: the
+# wrapper's own plan)
+LRU_SWITCH = [(4, 128, 2560, 32), (1, 4096, 2560, None), (1, 4096, 256, 4096),
+              (2, 300, 33, 64), (3, 65, 100, 64), (2, 7, 64, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,w,chunk", LRU_SWITCH)
+def test_lru_kernel_matches_plain_versions_across_the_switch_on_card(
+        cuda_device, b, n, w, chunk, dtype, monkeypatch):
+    """The kernel with its ``plan`` forced to ``chunk`` (a chunk of T or
+    more is the single walk) against the serial plain version and the
+    two-pass one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * n + w + 3)
+    log_a = (-torch.rand((b, n, w), generator=gen, device=cuda_device) * 8
+             + 0.05).to(dtype)
+    x = torch.randn((b, n, w), generator=gen, device=cuda_device).to(dtype)
+    h0 = torch.randn((b, w), generator=gen, device=cuda_device)
+    if chunk is not None:
+        monkeypatch.setattr(lru_ops, "plan", lambda n_t: chunk)
+    before = lru_ops.LAUNCHES
+    got = lru_ops.lru(log_a, x, h0)
+    assert lru_ops.LAUNCHES == before + 1
+    _within(got, rglru_scan_ref(log_a.clamp(max=0.0), x, h0), LRU_TOL[dtype])
+    _within(got, rglru_chunked_ref(log_a, x, h0, lru_ops.plan(n)),
+            LRU_TOL[dtype])
+    assert lru_ops.kernels_per_call(n) == (1 if n <= lru_ops.plan(n) else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_lru_kernel_extreme_decays_on_card(cuda_device, chunk, monkeypatch):
+    """log_a = -80 on every 7th step (a decay that underflows to 0):
+    finite, and equal to the plain version within 1e-5."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    log_a = -torch.rand((2, 200, 96), generator=gen, device=cuda_device) * 2
+    log_a[:, ::7] = -80.0
+    x = torch.randn((2, 200, 96), generator=gen, device=cuda_device)
+    h0 = torch.randn((2, 96), generator=gen, device=cuda_device)
+    if chunk is not None:
+        monkeypatch.setattr(lru_ops, "plan", lambda n_t: chunk)
+    got = lru_ops.lru(log_a, x, h0)
+    assert bool(torch.isfinite(got).all())
+    _within(got, rglru_scan_ref(log_a, x, h0), LRU_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 1000])
+def test_lru_kernel_graphed_equals_eager_on_card(cuda_device, n):
+    """One call captured in a CUDA graph (the single walk at T=128, two
+    passes at T=1,000) and replayed on new inputs: bit-equal to eager."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    mk = lambda: (-torch.rand((2, n, 512), generator=gen, device=cuda_device),
+                  torch.randn((2, n, 512), generator=gen, device=cuda_device),
+                  torch.randn((2, 512), generator=gen, device=cuda_device))
+    bufs = mk()
+    lru_ops.lru(*bufs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lru_ops.lru(*bufs)
+    for dst, src in zip(bufs, mk()):
+        dst.copy_(src)
+    graph.replay()
+    assert torch.equal(out, lru_ops.lru(*bufs))
+    assert lru_ops.kernels_per_call(n) == (1 if n <= lru_ops.SINGLE_T else 2)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ from repro.models import layers as jlayers
 from repro.models import rglru as jrg
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.kernels.rglru_scan import ops as lru_ops
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_chunked_ref, rglru_scan_ref
 from repro_torch.launch import steps
 from repro_torch.models import io, layers, model as model_lib, rglru
 
@@ -69,6 +69,33 @@ def test_lru_plain_version_matches_reference(b, n, w):
     _close(got, ref)
     assert lru_ops.lru(t(log_a).bfloat16(), t(x).bfloat16(),
                        t(h0)).dtype == torch.bfloat16
+
+
+# (B, T, W, chunk) for the card's two-pass algorithm: chunk boundaries, a
+# tail, T = 1, a chunk longer than T
+LRU_CHUNK_CASES = [(2, 40, 24, 16), (1, 130, 8, 64), (3, 1, 16, 16),
+                   (2, 64, 8, 64), (1, 300, 8, 256)]
+
+
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("b,n,w,chunk", LRU_CHUNK_CASES)
+def test_lru_two_pass_algorithm_matches_reference(b, n, w, chunk, deep):
+    """``rglru_chunked_ref`` (the chunks' decays as direct products, the
+    carries, the walks) against the reference's oracle on the clamped
+    log_a and its Pallas kernel in interpret mode; with ``deep``, log_a =
+    -80 on every 7th step (a decay that underflows to 0): finite."""
+    rng = np.random.default_rng(b * 100 + n + chunk)
+    log_a = rng.uniform(-2.0, 0.2, (b, n, w)).astype(np.float32)
+    if deep:
+        log_a[:, ::7] = -80.0
+    x = rng.standard_normal((b, n, w)).astype(np.float32)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    ref = jax.jit(jax_rglru_scan_ref)(np.minimum(log_a, 0.0), x, h0)
+    pallas = jlru_ops.lru(log_a, x, h0, block_t=32)
+    got = rglru_chunked_ref(t(log_a), t(x), t(h0), chunk)
+    assert got.shape == (b, n, w) and bool(torch.isfinite(got).all())
+    _close(got, ref)
+    _close(got, pallas)
 
 
 def test_lru_wrapper_cpu_uses_plain_version():

@@ -28,7 +28,8 @@ from repro.models import layers as jlayers
 from repro.models import rwkv6 as jrwkv
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref, wkv_chunked_ref
+from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_ref, wkv_chunked_ref,
+                                               wkv_groups_ref)
 from repro_torch.launch import steps
 from repro_torch.models import io, layers, model as model_lib, rwkv6
 
@@ -96,6 +97,59 @@ def test_wkv_plain_versions_match_reference(b, h, n, kd, vd, chunk):
         y2, s2 = wkv_chunked_ref(t(r), t(k), t(v), t(dlog), t(u), chunk)
         _close_scaled(y2, tr(np.asarray(ry)))
         _close_scaled(s2, rs)
+
+
+# (B, H, T, K, V, group) for the card's algorithm (chunks of 16, sub-blocks
+# of 8): T on group boundaries, a tail inside a chunk and a sub-block, T = 1,
+# a group longer than T, V != K; decays as the model's, -e^2 everywhere (its
+# clip), or -40 on every 5th row (far below it)
+GROUP_CASES = [(2, 3, 64, 16, 16, 32), (1, 2, 70, 8, 12, 32),
+               (2, 2, 1, 16, 16, 32), (1, 2, 40, 16, 8, 128),
+               (1, 3, 133, 16, 16, 64)]
+
+
+def _decays(dlog, decay):
+    if decay == "clip":
+        return np.full_like(dlog, -np.exp(2.0))
+    if decay == "deep":
+        dlog = dlog.copy()
+        dlog[:, :, ::5] = -40.0
+    return dlog
+
+
+@pytest.mark.parametrize("decay", ["model", "clip", "deep"])
+@pytest.mark.parametrize("b,h,n,kd,vd,group", GROUP_CASES)
+def test_wkv_group_algorithm_matches_reference(b, h, n, kd, vd, group, decay):
+    """The card's algorithm (``wkv_groups_ref``: the decay factored in
+    sub-blocks, the group passes) against the reference's oracle and its
+    Pallas kernel in interpret mode; finite, and its state equal to the
+    token recurrence's."""
+    rng = np.random.default_rng(b * 1000 + n + group)
+    r, k, v, dlog, u = _wkv_inputs(rng, b, h, n, kd, vd)
+    dlog = _decays(dlog, decay)
+    oracle = jax.jit(jax_rwkv6_scan_ref)(r, k, v, dlog, u)
+    pallas = jwkv_ops.wkv(r, k, v, dlog, u, chunk=16)
+    y, state = wkv_groups_ref(t(r), t(k), t(v), t(dlog), t(u), group=group)
+    assert y.shape == (b, h, n, vd) and state.shape == (b, h, kd, vd)
+    assert bool(torch.isfinite(y).all() & torch.isfinite(state).all())
+    _close_scaled(y, oracle)
+    _close_scaled(y, pallas)
+    _, s_tok = rwkv6_scan_ref(t(r), t(k), t(v), t(dlog), t(u))
+    _close_scaled(state, s_tok.numpy())
+
+
+@pytest.mark.parametrize("chunk,sub,group", [(32, 8, 64), (32, 16, 64),
+                                             (16, 16, 32)])
+def test_wkv_group_algorithm_other_blockings(chunk, sub, group):
+    """The factoring at other chunk and sub-block sizes (block-rows of a
+    32-row chunk each factored at their first row) against the oracle."""
+    rng = np.random.default_rng(chunk + sub)
+    r, k, v, dlog, u = _wkv_inputs(rng, 2, 2, 100, 16, 16)
+    dlog = _decays(dlog, "deep")
+    oracle = jax.jit(jax_rwkv6_scan_ref)(r, k, v, dlog, u)
+    y, _ = wkv_groups_ref(t(r), t(k), t(v), t(dlog), t(u), chunk=chunk,
+                          sub=sub, group=group)
+    _close_scaled(y, oracle)
 
 
 def test_wkv_chunked_rounds_d_as_the_reference():
