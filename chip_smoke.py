@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch/CUDA port's serving and router-training paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -149,14 +149,62 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 rwkv6 prefill, B6 once per recurrent layer per
                 recurrentgemma prefill, neither at decode; B3 once per
                 attention layer per recurrentgemma decode.
- 13. kernels  — the kernel table line; each kernel's launches are those of
-                the counted main paths (3 for B1, 8, 9 and 12 for the
-                others), calls of its wrapper; B5's and B6's entries name
-                the kernels a call launches (``functions``) and count them
-                (``kernels_launched``: calls times kernels per call).
+ 13. train    — router training (``core/training.py``) in the paper's
+                setting at full width: ``EnvConfig()`` (N=6), ``SACConfig()``
+                (HAN 2 x 4 heads x 64, MLP 64), ``TrainConfig()`` (16 envs,
+                8 collect steps and 8 updates of 256 per iteration, buffer
+                100,000, warmup 2,000, 400 iterations, padded obs).  (a) 24
+                iterations with every collect step and update replayed from
+                CUDA graphs against the same 24 run eagerly from the same
+                seeds (15 collect only, then 9 updating), and against the
+                same 24 run eagerly on B1's plain version (96 rows):
+                parameters, AdamW moments and step, replay buffer, env
+                state and observation bit-equal; each iteration's time,
+                graphed and eager.  (c) Where a
+                graphed iteration's time goes: a collect step's and an
+                update's device time (replays queued ahead), the update in
+                parts (sample + losses, + backward, + AdamW and polyak: each
+                captured alone), kernels per step and a profiled iteration
+                (its trace must hold one B1 launch per collect step; idle
+                share against the unprofiled wall time).  (b) Seeds 0, 1, 2
+                of the full 400 iterations (``make_iteration``), graphed:
+                every iteration's losses and reward finite, the buffer's ``size``/``ptr`` and the AdamW
+                step exact, each router evaluated greedily as the serve
+                phase evaluates (N=6 x 4 envs x 750 steps, seed 1234)
+                beside QLL and the untrained router of its seed; the seeds'
+                mean and standard deviation of ``mean_reward``.  Seed 0's
+                router is saved in the reference's tree layout and served
+                back through ``launch/route.py --ckpt``: the same greedy
+                metrics.  B1 once per collect and evaluation step.
+ 14. train_scale — the reference's fleet-scale training shapes
+                (``benchmarks/bench_scaling.py train_sweep``): N=64 padded
+                and segments, N=256 segments; 2 envs, 2 x 2 collect, 2
+                updates of 16, buffer 1,024; 21 iterations graphed, eager
+                and eager on B1's plain version (128 and 512 rows), all
+                bit-equal; iterations/s and peak memory, graphed and eager.
+ 15. scenario — routing under ``stress`` and under ``rolling_outage`` with
+                failover (retry budget 2, shed watermark 0.9) at 8
+                arrivals/s, N=6 x 4 envs x 750 steps: QLL, SQF and the
+                trained router, graphed and eager (bit-equal metrics and
+                final state, retry buffer included), the trained router also
+                eagerly on B1's plain version (bit-equal); the failover run
+                must drain and shed.  B1 once per step, under live ``up``,
+                ``k_scale`` and ``admit_min`` channels.
+ 16. train_cli — ``launch/train.py --router --iters 20 --scenario
+                rolling_outage --failover --shed-watermark 0.9
+                --straggler-z 4.0``: finite rewards, ``straggler_flags`` in
+                the history, B1 once per collect step; then the CLI's
+                configs' 20 iterations graphed (the CLI's router bit for
+                bit) against eagerly on B1's plain version (96 rows, past
+                the first outage), bit-equal.
+ 17. kernels  — the kernel table line; each kernel's launches are those of
+                the counted main paths (3 and 13-16 for B1, 8, 9 and 12 for
+                the others), calls of its wrapper; B5's and B6's entries
+                name the kernels a call launches (``functions``) and count
+                them (``kernels_launched``: calls times kernels per call).
 
 The phases run in the order 1, 10 and 11's per-pass traces (one profiler
-session), 2-9, 12, 10, 11.  Every kernel library is built and loaded
+session), 2-9, 12, 10, 11, 13-16.  Every kernel library is built and loaded
 before the first profiler session: on this card a library loaded after
 the tracer first started makes later sessions miss kernel records.  A ``seconds`` line gives each phase's time
 and the total.  The last line
@@ -434,6 +482,7 @@ def same_state(a, b) -> bool:
     return True
 
 
+QLL_N6_AVG_QOS = 0.7336170673370361
 METRIC_KEYS = ("avg_qos", "avg_latency_per_token", "violation_rate",
                "completed", "dropped", "mean_reward")
 
@@ -468,6 +517,11 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
         assert 0.0 <= m["avg_qos"] <= 1.0, m
         # a SAC router with random weights may drop everything
         assert m["completed"] > 0 or pol.name == "SAC", m
+        if (n_experts, n_envs, n_steps, pol.name) == (6, 4, 750, "QLL"):
+            # the value every earlier run on this card gave: the
+            # heuristics' metrics are a fingerprint of the engine's
+            # semantics
+            assert m["avg_qos"] == QLL_N6_AVG_QOS, m["avg_qos"]
         assert tuple(state["expert_clock"].shape) == (n_envs, n_experts)
         assert bool((state["expert_clock"] >= state["clock"][:, None]).all())
         row = {"phase": "serve", "n_experts": n_experts, "n_envs": n_envs,
@@ -519,29 +573,55 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
     return launches, rows
 
 
-def device_window(run, steps, wall_ms_per_step):
-    """One call of ``run`` (``steps`` routing steps) under torch.profiler:
-    the device's busy time, kernel launches and B1's launches and time per
-    step.  ``device_idle_share`` sets that busy time against the
-    unprofiled wall time per step (as the LM windows do: tracing some 200
-    kernels a step stretches the profiled window's own wall time); it mixes
-    two runs, and is negative where the traced busy time exceeds the
-    unprofiled wall time.  ``device_idle_share_profiled`` takes both from
-    the profiled window."""
+def profiled(run, expected, label):
+    """``run()`` under torch.profiler (CPU and CUDA, synchronised at its
+    end): its result, the window's kernel records and the takes it needed.
+    The profiler on the card now and then loses some of a window's kernel
+    records (whole graph replays, or a few eager launches) though the
+    kernels ran, so a window in which a tag of ``expected`` ({tag of
+    ``TRACE_KERNELS``: launches}) has fewer records than launches is taken
+    again, up to ``TRACE_TAKES`` times.  More records than launches, or
+    too few in every take, fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for take in range(1, TRACE_TAKES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        got = {tag: sum(any(n in e.name for n in TRACE_KERNELS[tag])
+                        for e in kernels) for tag in expected}
+        assert all(got[t] <= expected[t] for t in expected), (
+            label, got, expected)
+        if got == expected:
+            return result, kernels, take
+    raise AssertionError(f"{label}: kernel records short in all "
+                         f"{TRACE_TAKES} takes: {got} against {expected}")
+
+
+def device_window(run, steps, wall_ms_per_step, b1, label):
+    """One call of ``run`` (``steps`` routing steps) under torch.profiler,
+    whose trace must hold ``b1`` B1 launches (``profiled``): the device's
+    busy time, kernel launches and B1's launches and time per step.
+    ``device_idle_share`` sets that busy time against the unprofiled wall
+    time per step (as the LM windows do: tracing some 200 kernels a step
+    stretches the profiled window's own wall time); it mixes two runs, and
+    is negative where the traced busy time exceeds the unprofiled wall
+    time.  ``device_idle_share_profiled`` takes both from the profiled
+    window."""
+    def timed_run():
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        return time.perf_counter() - t0
+
+    wall_s, kernels, takes = profiled(timed_run, {"b1": b1}, label)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     lock = [e.time_range.elapsed_us() for e in kernels
-            if "lockstep_advance" in e.name]
+            if any(n in e.name for n in TRACE_KERNELS["b1"])]
     busy_ms = busy_us / steps / 1e3
     return {"ms_per_step": wall_ms_per_step,
             "ms_per_step_profiled": wall_s / steps * 1e3,
@@ -550,7 +630,8 @@ def device_window(run, steps, wall_ms_per_step):
             "device_idle_share_profiled": 1.0 - busy_us / 1e6 / wall_s,
             "kernels_per_step": len(kernels) / steps,
             "lockstep_launches": len(lock),
-            "lockstep_ms_per_step": sum(lock) / steps / 1e3}
+            "lockstep_ms_per_step": sum(lock) / steps / 1e3,
+            "trace_takes": takes}
 
 
 def profile_window(env_cfg, pool, policy, n_envs, steps=30):
@@ -576,8 +657,8 @@ def profile_window(env_cfg, pool, policy, n_envs, steps=30):
     loop.run(steps)
     torch.cuda.synchronize()
     graphed = device_window(lambda: loop.run(steps), steps,
-                            (time.perf_counter() - t0) / steps * 1e3)
-    assert graphed["lockstep_launches"] == steps, graphed
+                            (time.perf_counter() - t0) / steps * 1e3, steps,
+                            f"{policy.name} graphed")
     out["graphed"] = graphed
 
     # each layer captured alone (a heuristic builds no observation); in
@@ -651,9 +732,439 @@ def profile_window(env_cfg, pool, policy, n_envs, steps=30):
     eager_run()
     torch.cuda.synchronize()
     out["eager"] = device_window(eager_run, steps,
-                                 (time.perf_counter() - t0) / steps * 1e3)
-    assert out["eager"]["lockstep_launches"] == steps, out["eager"]
+                                 (time.perf_counter() - t0) / steps * 1e3,
+                                 steps, f"{policy.name} eager")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-16: router training, its fleet-scale shapes, scenarios, the CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_SEEDS = (0, 1, 2)
+TRAIN_CHECK_ITERS = 24       # graphed against eager: 15 collect, then 9 updating
+# steps of the scenario runs held against B1's plain version, which waits
+# for the card once per turn: past the cap claim at 40 s of ``stress`` and
+# into the first outage (20-50 s) of ``rolling_outage``
+SCENARIO_PLAIN_STEPS = 500
+EVAL = dict(n_steps=750, n_envs=4)     # the serve phase's protocol, seed 1234
+EVAL_KEYS = ("mean_reward", "avg_qos", "completed", "dropped",
+             "violation_rate")
+# the failover scenario run's arrival rate: 1.6x the paper's 5/s, so that
+# overload shedding and drains both happen in 750 steps x 4 envs
+SCENARIO_RATE = 8.0
+SCALE_ITERS = 20
+
+
+def differing(a: dict, b: dict) -> list:
+    """The names of the tensors in which two ``TrainState.tensors()``
+    differ (empty: bit-equal): parameters, moments and AdamW step, replay
+    buffer, env state and the current observation."""
+    return [k for k, x in a.items() if not torch.equal(x, b[k])]
+
+
+def plain_loop(env_cfg):
+    """``env_cfg`` with the env's advance on B1's plain version (the
+    PyTorch loop of ``env/engine.py``) instead of the kernel."""
+    return dataclasses.replace(env_cfg, engine_backend="torch")
+
+
+def train_rates(tc, per_iter_s) -> dict:
+    """bench_scaling.py's training rates for one iteration's seconds."""
+    return {"iterations_per_s": 1.0 / per_iter_s,
+            "updates_per_s": tc.updates_per_iter / per_iter_s,
+            "transitions_per_s": tc.n_envs * tc.collect_steps / per_iter_s}
+
+
+def timed_iterations(it_fn, first, n):
+    """Seconds of each of iterations ``first .. first+n-1``, each
+    synchronised."""
+    out = []
+    for it in range(first, first + n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        it_fn(it)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def update_split(it_fn, reps=50) -> dict:
+    """The update's device time in parts: the sample and the losses (actor
+    and critic forward), then with the gradients (backward), against the
+    whole update (AdamW and polyak the rest).  Each part captured alone
+    over the same static state and replayed ``reps`` times with the
+    launches queued ahead."""
+    from repro_torch.core import replay, sac as sac_lib, training
+
+    st, tc = it_fn.st, it_fn.tc
+
+    def forward():
+        batch = replay.sample(st.buf, st.sample_gen, tc.batch_size)
+        with torch.enable_grad():
+            return sac_lib.losses(st.sac, batch)[0]
+
+    def backward():
+        with torch.enable_grad():
+            return sac_lib.grads(forward(), it_fn.params)
+
+    out = {}
+    for name, fn in (("forward", forward), ("forward_backward", backward)):
+        g = training.capture(fn, (st.sample_gen,))
+        out[name] = device_ms(g.replay, reps)
+    out["update"] = device_ms(it_fn.update_graph.replay, reps)
+    return {"forward_ms": out["forward"],
+            "backward_ms": out["forward_backward"] - out["forward"],
+            "adamw_polyak_ms": out["update"] - out["forward_backward"],
+            "update_ms": out["update"]}
+
+
+def train_profile(it_fn, rates) -> dict:
+    """Where a graphed iteration's time goes: each step's device time
+    (replays queued ahead), the update's split, and torch.profiler windows
+    of collect replays, update replays and one whole iteration (its trace
+    must hold one B1 launch per collect step).  Idle shares are taken
+    against the unprofiled wall times of ``rates`` (traced busy time
+    against unprofiled wall time)."""
+    tc = it_fn.tc
+    s, u = tc.collect_steps, tc.updates_per_iter
+    collect_ms = device_ms(it_fn.collect_graph.replay, 50)
+    update = update_split(it_fn)
+    wall_collect = rates["collect_iteration_ms"] / s
+    wall_update = (rates["iteration_ms"] - rates["collect_iteration_ms"]) / u
+    replays = lambda g, n: (lambda: [g.replay() for _ in range(n)])
+    coll = device_window(replays(it_fn.collect_graph, s), s, wall_collect,
+                         s, "train collect")
+    upd = device_window(replays(it_fn.update_graph, u), u, wall_update, 0,
+                        "train update")
+    it_no = it_fn.calls
+    whole = device_window(lambda: it_fn(it_no), 1, rates["iteration_ms"], s,
+                          "train iteration")
+    return {"collect_device_ms": collect_ms, "update": update,
+            "collect_window": coll, "update_window": upd,
+            "iteration": whole}
+
+
+def train_phase(dev):
+    """The paper's training setting at full width (module docstring): (a)
+    graphed against eager and against eager on B1's plain version, (b)
+    three seeds of 400 iterations evaluated
+    greedily, (c) a profiled iteration, and a saved router served through
+    ``launch/route.py --ckpt``.  Returns (B1 launches, a trained router)."""
+    from repro_torch.core import io, routers, sac as sac_lib, training
+    from repro_torch.kernels.lockstep_advance import ops
+    from repro_torch.launch import route
+
+    env_cfg, pool = route.make_env(6, device=dev)
+    sac_cfg = sac_lib.SACConfig()
+    tc = training.TrainConfig()
+    s, u = tc.collect_steps, tc.updates_per_iter
+    first_update = -(-tc.warmup_transitions // (tc.n_envs * s)) - 1
+    launches = 0
+
+    # (a) graphed and eager from the same seeds; eager on B1's plain
+    # version (slow: it waits for the card once per turn) through the first
+    # updating iteration, held against the graphed state then (the plain
+    # run launches no B1 and is not counted)
+    n_plain = first_update + 1
+    states, fns, secs = {}, {}, {}
+    for mode in ("graphed", "eager", "plain"):
+        cfg = plain_loop(env_cfg) if mode == "plain" else env_cfg
+        st = training.init_train_state(cfg, sac_cfg, tc, pool)
+        fns[mode] = training.make_iteration(cfg, tc, pool, st,
+                                            graphs=mode == "graphed")
+        n = n_plain if mode == "plain" else TRAIN_CHECK_ITERS
+        ops.LAUNCHES = 0
+        secs[mode] = timed_iterations(fns[mode], 0, n_plain)
+        if mode == "graphed":
+            snap = {k: x.clone() for k, x in st.tensors().items()}
+        secs[mode] += timed_iterations(fns[mode], n_plain, n - n_plain)
+        want = 0 if mode == "plain" else n * s
+        assert ops.LAUNCHES == want, (mode, ops.LAUNCHES)
+        launches += ops.LAUNCHES
+        states[mode] = st
+    diff = differing(states["graphed"].tensors(), states["eager"].tensors())
+    assert not diff, diff[:10]
+    diff = differing(snap, states["plain"].tensors())
+    assert not diff, ("plain", diff[:10])
+    del snap
+    assert int(states["graphed"].opt.step) == (TRAIN_CHECK_ITERS - 1) * u
+    rates = {}
+    for mode in ("graphed", "eager"):
+        t = secs[mode]
+        collect_it = float(np.median(t[1:first_update]))
+        full_it = float(np.median(t[first_update + 1:]))
+        rates[mode] = {"collect_iteration_ms": collect_it * 1e3,
+                       "iteration_ms": full_it * 1e3,
+                       "first_iteration_s": t[0],
+                       "first_update_iteration_s": t[first_update],
+                       **train_rates(tc, full_it)}
+    emit({"phase": "train", "check": "graphed_equals_eager",
+          "iterations": TRAIN_CHECK_ITERS, "updating_from": first_update,
+          "bit_equal": True, "launches_per_run": TRAIN_CHECK_ITERS * s,
+          "b1_rows": tc.n_envs * env_cfg.n_experts,
+          "plain_loop_iterations": n_plain, "plain_loop_equal": True,
+          "plain_loop_s": sum(secs["plain"]),
+          "rates": rates})
+
+    # (c) where a graphed iteration's time goes
+    prof = train_profile(fns["graphed"], rates["graphed"])
+    emit({"phase": "train_profile", **prof})
+    del states, fns
+
+    # (b) three seeds of the full run, evaluated greedily
+    qll = next(p for p in route.make_policies(env_cfg) if p.name == "QLL")
+    ops.LAUNCHES = 0
+    m_qll = training.evaluate(env_cfg, pool, qll, **EVAL)
+    assert ops.LAUNCHES == EVAL["n_steps"]
+    launches += ops.LAUNCHES
+    runs, trained = [], None
+    for seed in TRAIN_SEEDS:
+        tcs = dataclasses.replace(tc, seed=seed)
+        st = training.init_train_state(env_cfg, sac_cfg, tcs, pool)
+        it_fn = training.make_iteration(env_cfg, tcs, pool, st)
+        untrained = sac_lib.init_params(sac_cfg, seed=seed, device=dev)
+        ops.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        auxs = [it_fn(it) for it in range(tcs.iterations)]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        model = st.sac
+        assert ops.LAUNCHES == tcs.iterations * s, ops.LAUNCHES
+        launches += ops.LAUNCHES
+        n_tr = tcs.iterations * tcs.n_envs * s
+        size = min(n_tr, tcs.buffer_capacity)
+        assert int(st.buf["size"]) == size, int(st.buf["size"])
+        assert int(st.buf["ptr"]) == n_tr % tcs.buffer_capacity
+        assert int(st.opt.step) == (tcs.iterations - 1) * u
+        for k in auxs[0]:
+            per_it = torch.stack([a[k] for a in auxs])
+            assert bool(torch.isfinite(per_it).all()), (seed, k)
+        final = {k: float(v) for k, v in auxs[-1].items()}
+        assert bool(torch.isfinite(st.buf["reward"][:size]).all())
+        for k, p in model.state_dict().items():
+            assert bool(torch.isfinite(p).all()), (seed, k)
+        evals = {}
+        for name, m in (("SAC", model), ("SAC_untrained", untrained)):
+            ops.LAUNCHES = 0
+            ev = training.evaluate(env_cfg, pool, routers.sac_policy(name, m),
+                                   **EVAL)
+            assert ops.LAUNCHES == EVAL["n_steps"]
+            launches += ops.LAUNCHES
+            evals[name] = {k: ev[k] for k in EVAL_KEYS}
+        evals["QLL"] = {k: m_qll[k] for k in EVAL_KEYS}
+        row = {"phase": "train", "seed": seed, "iterations": tcs.iterations,
+               "seconds": run_s, **train_rates(tcs, run_s / tcs.iterations),
+               "size": size, "ptr": int(st.buf["ptr"]),
+               "final_collect_reward": final["collect_reward"],
+               "final_losses": {k: final[k] for k in
+                                ("critic_loss", "actor_loss", "alpha",
+                                 "entropy", "q_mean")},
+               "eval": evals}
+        emit(row)
+        runs.append(row)
+        if trained is None:
+            trained = model
+        del st, it_fn, auxs
+    rew = [r["eval"]["SAC"]["mean_reward"] for r in runs]
+    emit({"phase": "train", "summary": True, "seeds": list(TRAIN_SEEDS),
+          "mean_reward_mean": float(np.mean(rew)),
+          "mean_reward_std": float(np.std(rew, ddof=1)),
+          "qll_mean_reward": m_qll["mean_reward"]})
+
+    # a trained router saved in the reference's layout, served back
+    path = os.path.join(ROOT, "build", "router_seed0.npz")
+    io.save_pytree(path, io.sac_params_to_numpy(trained))
+    ops.LAUNCHES = 0
+    rows = route.main(["--ckpt", path, "--steps", str(EVAL["n_steps"]),
+                       "--n-envs", str(EVAL["n_envs"])])
+    assert ops.LAUNCHES == len(rows) * EVAL["n_steps"]
+    launches += ops.LAUNCHES
+    got = next(r for r in rows if r["policy"] == "SAC")
+    want = runs[0]["eval"]["SAC"]
+    assert all(got[k] == want[k] for k in EVAL_KEYS), (got, want)
+    emit({"phase": "train", "check": "route_ckpt", "path": "build/"
+          "router_seed0.npz", "same_greedy_metrics": True})
+    return launches, trained
+
+
+def train_scale_phase(dev):
+    """The reference's fleet-scale training shapes
+    (``benchmarks/bench_scaling.py train_sweep``): N = 64 padded and
+    segments, N = 256 segments; 2 envs, 2 x 2 collect, 2 updates of 16,
+    buffer 1,024.  Graphed against eager and against eager on B1's plain
+    version (bit-equal), iterations/s of the first two, peak memory."""
+    from repro_torch.core import features, sac as sac_lib, training
+    from repro_torch.kernels.lockstep_advance import ops
+    from repro_torch.launch import route
+
+    launches = 0
+    for n, fmt in ((64, "padded"), (64, "segments"), (256, "segments")):
+        env_cfg, pool = route.make_env(n, device=dev)
+        sac_cfg = sac_lib.SACConfig(
+            n_actions=n + 1, flat_dim=n * 3,
+            n_run_edges=(features.seg_run_rows(env_cfg)
+                         if fmt == "segments" else None))
+        tc = training.TrainConfig(
+            n_envs=2, collect_steps=2, updates_per_iter=2, batch_size=16,
+            buffer_capacity=1024, warmup_transitions=1,
+            iterations=SCALE_ITERS + 1, obs_fmt=fmt)
+        row, states = {"phase": "train_scale", "n_experts": n,
+                       "obs_fmt": fmt}, {}
+        for mode in ("graphed", "eager", "plain"):
+            cfg = plain_loop(env_cfg) if mode == "plain" else env_cfg
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st = training.init_train_state(cfg, sac_cfg, tc, pool)
+            it_fn = training.make_iteration(cfg, tc, pool, st,
+                                            graphs=mode == "graphed")
+            ops.LAUNCHES = 0
+            first = timed_iterations(it_fn, 0, 1)[0]
+            t = timed_iterations(it_fn, 1, SCALE_ITERS)
+            states[mode] = st
+            if mode == "plain":
+                assert ops.LAUNCHES == 0, ops.LAUNCHES
+                row["plain_loop_s"] = first + sum(t)
+                continue
+            assert ops.LAUNCHES == (SCALE_ITERS + 1) * tc.collect_steps
+            launches += ops.LAUNCHES
+            per_iter = float(np.median(t))
+            row[mode] = {"first_iteration_s": first,
+                         "iteration_ms": per_iter * 1e3,
+                         **train_rates(tc, per_iter),
+                         "peak_memory_bytes":
+                             torch.cuda.max_memory_allocated()}
+        for mode in ("eager", "plain"):
+            diff = differing(states["graphed"].tensors(),
+                             states[mode].tensors())
+            assert not diff, (n, fmt, mode, diff[:10])
+        row.update(graphed_equals_eager=True, plain_loop_equal=True,
+                   b1_rows=tc.n_envs * n)
+        emit(row)
+        del states
+    return launches
+
+
+def scenario_phase(dev, trained):
+    """Routing under the registry's scenarios at N = 6 x 4 envs: ``stress``,
+    and ``rolling_outage`` with failover and overload shedding at
+    ``SCENARIO_RATE`` arrivals/s; QLL, SQF and the trained router, graphed
+    and eager (bit-equal metrics and final state, retry buffer included);
+    the trained router also eager on B1's plain version, bit-equal.  The
+    failover run must drain and shed."""
+    from repro_torch.core import routers
+    from repro_torch.env.failover import FailoverConfig
+    from repro_torch.env.workload import WorkloadConfig
+    from repro_torch.kernels.lockstep_advance import ops
+    from repro_torch.launch import route
+
+    launches = 0
+    keys = METRIC_KEYS + ("evicted",)
+    for name, fo, rate in (
+            ("stress", None, 5.0),
+            ("rolling_outage", FailoverConfig(retry_budget=2,
+                                              shed_watermark=0.9),
+             SCENARIO_RATE)):
+        env_cfg, pool = route.make_env(6, device=dev, scenario=name,
+                                       failover=fo)
+        env_cfg = dataclasses.replace(env_cfg,
+                                      workload=WorkloadConfig(rate=rate))
+        pols = [p for p in route.make_policies(env_cfg)
+                if p.name in ("QLL", "SQF")]
+        pols.append(routers.sac_policy("SAC", trained))
+        run_keys = keys + (("shed", "retried", "redispatched") if fo
+                           else ())
+        for pol in pols:
+            runs = {}
+            for mode in ("graphed", "eager"):
+                ops.LAUNCHES = 0
+                m, state = route.serve(env_cfg, pool, pol,
+                                       n_steps=EVAL["n_steps"],
+                                       n_envs=EVAL["n_envs"],
+                                       graphs=mode == "graphed")
+                assert ops.LAUNCHES == EVAL["n_steps"], (name, pol.name)
+                launches += ops.LAUNCHES
+                runs[mode] = (m, state)
+            (m, state), (m_e, s_e) = runs["graphed"], runs["eager"]
+            assert all(m[k] == m_e[k] for k in run_keys), (name, pol.name)
+            assert same_state(state, s_e), (name, pol.name)
+            plain = {}
+            if pol.name == "SAC":
+                # the trained router's first SCENARIO_PLAIN_STEPS graphed
+                # against eager on B1's plain version (comparison launches,
+                # not counted)
+                short = dict(n_steps=SCENARIO_PLAIN_STEPS,
+                             n_envs=EVAL["n_envs"])
+                m_g, s_g = route.serve(env_cfg, pool, pol, **short)
+                ops.LAUNCHES = 0
+                t = time.perf_counter()
+                m_p, s_p = route.serve(plain_loop(env_cfg), pool, pol,
+                                       graphs=False, **short)
+                assert ops.LAUNCHES == 0, (name, ops.LAUNCHES)
+                assert all(m_g[k] == m_p[k] for k in run_keys), name
+                assert same_state(s_g, s_p), name
+                assert float(s_g["clock"].min()) > 40.0, name
+                plain = {"plain_loop_steps": SCENARIO_PLAIN_STEPS,
+                         "plain_loop_equal": True,
+                         "plain_loop_s": time.perf_counter() - t}
+            assert m["completed"] > 0, (name, pol.name, m)
+            if fo is not None:
+                assert m["retried"] > 0 and m["shed"] > 0, (pol.name, m)
+            emit({"phase": "scenario", "scenario": name,
+                  "failover": None if fo is None else dataclasses.asdict(fo),
+                  "arrival_rate": rate, "policy": pol.name,
+                  "graphed_equals_eager": True, "launches": EVAL["n_steps"],
+                  **plain,
+                  **{k: m[k] for k in run_keys},
+                  "requests_per_s": {"graphed": m["requests_per_s"],
+                                     "eager": m_e["requests_per_s"]}})
+    return launches
+
+
+def train_cli_phase(dev):
+    """``launch/train.py --router`` as the reference's docstring runs it,
+    at 20 iterations; then its configs' iterations graphed (the CLI's
+    router again, bit for bit) against eager on B1's plain version,
+    bit-equal, past the first outage."""
+    from repro_torch.core import training
+    from repro_torch.kernels.lockstep_advance import ops
+    from repro_torch.launch import train
+
+    argv = ["--router", "--iters", "20", "--scenario", "rolling_outage",
+            "--failover", "--shed-watermark", "0.9", "--straggler-z", "4.0"]
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    model, hist = train.main(argv)
+    secs = time.perf_counter() - t0
+    launches = ops.LAUNCHES
+    assert launches == 20 * 8, launches
+    for h in hist:
+        assert np.isfinite(h["collect_reward"]), h
+        assert "straggler_flags" in h, h
+
+    env_cfg, pool, sac_cfg, tc = train.router_configs(
+        train.parser().parse_args(argv), dev)
+    states = {}
+    for mode in ("graphed", "plain"):
+        cfg = plain_loop(env_cfg) if mode == "plain" else env_cfg
+        st = training.init_train_state(cfg, sac_cfg, tc, pool)
+        it_fn = training.make_iteration(cfg, tc, pool, st,
+                                        graphs=mode == "graphed")
+        for it in range(tc.iterations):
+            it_fn(it)
+        states[mode] = st
+    got = states["graphed"].sac.state_dict()
+    for k, x in model.state_dict().items():
+        assert torch.equal(x, got[k]), k
+    diff = differing(states["graphed"].tensors(), states["plain"].tensors())
+    assert not diff, diff[:10]
+    first_down = 20.0                     # rolling_outage: expert 0 at 20 s
+    assert float(states["graphed"].env["clock"].min()) > first_down
+    emit({"phase": "train_cli", "argv": argv, "seconds": secs,
+          "b1_rows": tc.n_envs * env_cfg.n_experts, "plain_loop_equal": True,
+          "history": hist})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1236,8 +1747,6 @@ def lm_window(srv, phase, n_prefill=3, n_decode=12):
     launches and time (the idle share sets that busy time against the
     unprofiled wall time).  Through the server's own steps: graph replays
     unless it is an eager twin."""
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.default_rng(5)
     toks = rng.integers(2, 250, 128).astype(np.int32)
     dec = rng.integers(2, 250, srv.slots).astype(np.int32)
@@ -1253,11 +1762,11 @@ def lm_window(srv, phase, n_prefill=3, n_decode=12):
 
     run()                                                   # warm up
     pre_s, dec_s = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    cfg = srv.cfg
+    n_moe = (cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0)
+    expected = {"b2": n_prefill * cfg.n_layers, "b3": n_decode * cfg.n_layers,
+                "b4": 2 * n_moe * (n_prefill + n_decode)}
+    _, kernels, takes = profiled(run, expected, srv.name)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     row = {"phase": phase, "expert": srv.name,
            "mode": "graphed" if srv.graphed else "eager",
@@ -1268,17 +1777,17 @@ def lm_window(srv, phase, n_prefill=3, n_decode=12):
            "wall_ms": (pre_s + dec_s) * 1e3,
            "device_idle_share": 1.0 - busy_ms / ((pre_s + dec_s) * 1e3),
            "kernels": len(kernels),
-           "kernels_per_iteration": len(kernels) / (n_prefill + n_decode)}
-    cfg = srv.cfg
-    n_moe = (cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0)
-    traced(row, kernels, {"b2": n_prefill * cfg.n_layers,
-                          "b3": n_decode * cfg.n_layers,
-                          "b4": 2 * n_moe * (n_prefill + n_decode)})
+           "kernels_per_iteration": len(kernels) / (n_prefill + n_decode),
+           "trace_takes": takes}
+    traced(row, kernels, expected)
     return row
 
 
-# each LM kernel's main kernels by name in a trace; the merges apart
-TRACE_KERNELS = {"b2": ("flash_attn_bf16_kernel", "flash_attn_f32_kernel"),
+# takes of a profiled window whose trace lacks some kernel records
+TRACE_TAKES = 3
+# each kernel's main kernels by name in a trace; the merges apart
+TRACE_KERNELS = {"b1": ("lockstep_advance",),
+                 "b2": ("flash_attn_bf16_kernel", "flash_attn_f32_kernel"),
                  "b3": ("decode_attn_mma", "decode_attn_simt"),
                  "b3_merge": ("decode_attn_merge",),
                  "b4": ("moe_gemm_mma", "moe_gemm_simt", "moe_gemm_tma"),
@@ -1291,7 +1800,7 @@ def traced(row, kernels, expected):
     """Each LM kernel's launches and time in a profiled window, into
     ``row``, with B3's and B4a's merge launches; the launches of each tag
     of ``expected`` must equal its count there: what the counters credit a
-    graph replay with, read from the trace."""
+    graph replay with, read from the trace (a window from ``profiled``)."""
     for tag in (*expected, "b3_merge", "b4_merge"):
         us = [e.time_range.elapsed_us() for e in kernels
               if any(n in e.name for n in TRACE_KERNELS[tag])]
@@ -1972,9 +2481,8 @@ def recurrent_window(params, cfg, toks, n_decode=8):
     first run captures both graphs, every later run replays the prefill's
     and its first decode copies the new prefill's cache into the step's own
     (timed with the decodes); the window must hold one capture of each.
-    Returns the row and the passes: prefills and decode steps run."""
-    from torch.profiler import ProfilerActivity, profile
-
+    Returns the row and the passes: prefills and decode steps run (the
+    window's takes included)."""
     from repro_torch.launch import steps
 
     prefill = steps.make_prefill_step(cfg, toks.shape[1] + n_decode + 1)
@@ -1995,11 +2503,9 @@ def recurrent_window(params, cfg, toks, n_decode=8):
 
     run()                                         # the capture
     pre_s, dec_s = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    expected = {"b3": n_decode * b3_launches_per_decode(cfg),
+                **scan_kernels_per_pass(cfg, toks.shape[1])}
+    _, kernels, takes = profiled(run, expected, cfg.name)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     wall_ms = (pre_s + dec_s) * 1e3
     row = {"prefill_ms": pre_s * 1e3, "decode_ms": dec_s / n_decode * 1e3,
@@ -2009,11 +2515,10 @@ def recurrent_window(params, cfg, toks, n_decode=8):
            "kernels": len(kernels),
            "kernels_per_iteration": len(kernels) / (1 + n_decode),
            "captures": len(decode.graphs),
-           "prefill_captures": len(prefill.graphs)}
-    traced(row, kernels, {"b3": n_decode * b3_launches_per_decode(cfg),
-                          **scan_kernels_per_pass(cfg, toks.shape[1])})
+           "prefill_captures": len(prefill.graphs), "trace_takes": takes}
+    traced(row, kernels, expected)
     assert row["captures"] == 1 and row["prefill_captures"] == 1, row
-    return row, {"prefill": 3, "decode": 3 * n_decode}
+    return row, {"prefill": 2 + takes, "decode": (2 + takes) * n_decode}
 
 
 def cache_leaves(c):
@@ -2196,22 +2701,12 @@ def recurrent_serve(params, cfg, name, rng, phase):
         if mode == "graphed":
             logits, cache = out
     del out
-    from torch.profiler import ProfilerActivity, profile
     want = scan_kernels_per_pass(cfg, REC_LONG)
-    for attempt in range(3):        # a trace now and then lacks a record
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            long_step(params, long)[0].argmax(-1).cpu()
-        traced_long = {}
-        try:
-            traced(traced_long, [e for e in prof.events() if str(
-                getattr(e, "device_type", "")).endswith("CUDA")], want)
-            break
-        except AssertionError as err:
-            fault = err
-    else:
-        raise AssertionError(f"{name}: no traced 1 x {REC_LONG} replay of "
-                             f"three held every B5/B6 kernel: {fault}")
+    _, kernels, takes = profiled(
+        lambda: long_step(params, long)[0].argmax(-1).cpu(), want,
+        f"{name} 1 x {REC_LONG} prefill")
+    traced_long = {}
+    traced(traced_long, kernels, want)
     row = {"phase": phase, "check": "long_prefill", "arch": name, "B": 1,
            "T": REC_LONG, "prefill_ms": long_ms["graphed"],
            "eager_prefill_ms": long_ms["eager"],
@@ -2220,7 +2715,7 @@ def recurrent_serve(params, cfg, name, rng, phase):
            "traced_replay": {key: traced_long[key] for key in (
                "b5_launches", "b5_ms", "b6_launches", "b6_ms",
                "traced_launches_expected")},
-           "traced_replays": attempt + 1,
+           "traced_replays": takes,
            "finite": bool(torch.isfinite(logits).all()),
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     if cfg.family == "hybrid":               # the ring holds the last window
@@ -2237,7 +2732,7 @@ def recurrent_serve(params, cfg, name, rng, phase):
     # length's, timed (2 graphed, 2 eager), the window's; the new length
     # (first call, replay, eager); long (3 and the traced replays)
     return {"prefill": {REC_PROMPT: 1 + 1 + 1 + 4 + passes["prefill"],
-                        REC_PROMPT // 2: 3, REC_LONG: 3 + attempt + 1},
+                        REC_PROMPT // 2: 3, REC_LONG: 3 + takes},
             "decode": 1 + 2 * REC_DECODE + passes["decode"]}
 
 
@@ -2355,6 +2850,14 @@ def main() -> int:
     recurrent, scan_kernels = timed("lm_recurrent", lm_recurrent_phase, dev)
     wkv = timed("rwkv6_scan", rwkv6_scan_phase, dev, passes)
     lru = timed("rglru_scan", rglru_scan_phase, dev, passes)
+    # the training phases last: their graphs, backward passes and profiled
+    # windows come after every LM trace is held
+    more, trained = timed("train", train_phase, dev)
+    launches += more
+    launches += timed("train_scale", train_scale_phase, dev)
+    launches += timed("scenario", scenario_phase, dev, trained)
+    launches += timed("train_cli", train_cli_phase, dev)
+    del trained
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t0})
     lm = {k: dense[k] + mixed[k] + recurrent[k] for k in dense}

@@ -1,10 +1,13 @@
 """Request-level features (Eq. 6) and the raw-graph observation (port of
 ``repro/core/features.py``), batched over a leading env axis ``B``.
 
-Request nodes carry (p, s_hat, d_hat, mem, d_cur, l_cur, retry); expert
-nodes carry (e_n, |run| occupancy, |wait| occupancy, the pending request's
-per-expert (s_hat, d_hat), k1, k2, up, cap fraction).  With scenarios not
-ported, ``up`` and the cap fraction are 1.
+Request nodes carry (p, s_hat, d_hat, mem, d_cur, l_cur, retry); the
+retry count is normalised by the failover retry budget (1 without
+failover, where every count is 0).  Expert nodes carry (e_n, |run|
+occupancy, |wait| occupancy, the pending request's per-expert (s_hat,
+d_hat), k1, k2, up, cap fraction): ``up`` is the expert's availability at
+the env's clock and the cap fraction its current live slots over its
+baseline caps, from the config's scenario (both 1 without one).
 
 Layouts (``fmt=``):
 
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import scenarios
 from repro_torch.device import constant
 from repro_torch.env import engine_layout as layout
 
@@ -45,6 +49,8 @@ def build_obs(cfg, pool, state: dict, *, fmt: str = "padded") -> dict:
     wait_pred_d = layout.wait_pred_d(q)
     # tokens -> memory fraction as ONE ratio, as the reference computes it
     mem_frac = pool.mem_per_token / pool.mem_capacity     # (N,)
+    fo = getattr(cfg, "failover", None)
+    retry_norm = float(max(fo.retry_budget, 1)) if fo is not None else 1.0
 
     d_cur = run_d_cur.to(torch.float32)
     run_mem = (run_p + run_d_cur).to(torch.float32) * mem_frac[:, None]
@@ -56,7 +62,7 @@ def build_obs(cfg, pool, state: dict, *, fmt: str = "padded") -> dict:
         run_mem,
         d_cur / mo,
         l_cur / L,
-        layout.run_retry(q).to(torch.float32),   # retry budget norm is 1
+        layout.run_retry(q).to(torch.float32) / retry_norm,
     ], dim=-1)
     run_f = torch.where(run_valid[..., None], run_f, 0.0)
 
@@ -69,7 +75,7 @@ def build_obs(cfg, pool, state: dict, *, fmt: str = "padded") -> dict:
         zeros,                                   # not yet resident
         zeros,                                   # d_cur = 0
         w_wait / L,                              # projected per-token wait
-        layout.wait_retry(q).to(torch.float32),
+        layout.wait_retry(q).to(torch.float32) / retry_norm,
     ], dim=-1)
     wait_f = torch.where(wait_valid[..., None], wait_f, 0.0)
 
@@ -79,25 +85,32 @@ def build_obs(cfg, pool, state: dict, *, fmt: str = "padded") -> dict:
     wait_caps = getattr(cfg, "wait_caps", None)
     n_exp = run_valid.shape[-2]
     dev = run_f.device
+    # per-expert baseline caps (the packed widths on a uniform fleet)
+    base = lambda caps, width: constant(
+        caps if caps is not None else (width,) * n_exp, torch.float32, dev)
+    base_rc = base(run_caps, run_valid.shape[-1])
+    base_wc = base(wait_caps, wait_valid.shape[-1])
     if run_caps is None and wait_caps is None:
         occ_run = run_valid.to(torch.float32).mean(-1)
         occ_wait = wait_valid.to(torch.float32).mean(-1)
     else:
         # ragged fleet: occupancy relative to each expert's OWN cap
-        base = lambda caps, width: constant(
-            caps if caps is not None else (width,) * n_exp, torch.float32,
-            dev)
-        occ_run = run_valid.to(torch.float32).sum(-1) / base(
-            run_caps, run_valid.shape[-1])
-        occ_wait = wait_valid.to(torch.float32).sum(-1) / base(
-            wait_caps, wait_valid.shape[-1])
+        occ_run = run_valid.to(torch.float32).sum(-1) / base_rc
+        occ_wait = wait_valid.to(torch.float32).sum(-1) / base_wc
 
-    ones = torch.ones_like(e_n)
+    st = scenarios.for_cfg(cfg, dev)
+    if st is None:
+        up_f = cap_frac = torch.ones_like(e_n)
+    else:
+        cur = scenarios.at_time(st, state["clock"])
+        up_f = cur["up"].to(torch.float32)
+        cap_frac = ((cur["run_cap"] + cur["wait_cap"]).to(torch.float32)
+                    / (base_rc + base_wc))
     exp_f = torch.stack([
         e_n, occ_run, occ_wait,
         r["pred_s"], r["pred_d"] / mo,
         (pool.k1 * 1e3).expand_as(e_n), (pool.k2 * 1e4).expand_as(e_n),
-        ones, ones,                              # up, cap fraction
+        up_f, cap_frac,
     ], dim=-1)
 
     zero = torch.zeros_like(r["pred_s"][:, 0])

@@ -18,7 +18,11 @@ Both observation layouts are batched over a leading env axis:
     segments are static (expert-major rows, each expert's run or wait
     slots), so each segment's max and sums gather its rows through a fixed
     (N, M) table and reduce them in row order: no atomics, so a step gives
-    the same bits run to run, eagerly or replayed from a CUDA graph.
+    the same bits run to run, eagerly or replayed from a CUDA graph.  The
+    backward keeps that property: the gathers of per-expert values onto
+    request rows (``x[:, seg]``) sum their gradients through the same
+    tables (``_SegmentGather``), and the segment max is held constant (the
+    softmax does not depend on it), so training needs no scatter-add.
 """
 from __future__ import annotations
 
@@ -84,12 +88,16 @@ class GAT(nn.Module):
         nb_h = (neigh @ self.w).reshape(b, -1, h, dh)
         s_dst = torch.einsum("bnhd,hd->bnh", tgt_h, self.a_dst)
         s_src = torch.einsum("behd,hd->beh", nb_h, self.a_src)
-        e = F.leaky_relu(s_src + s_dst[:, seg], cfg.leaky_slope)
+        e = F.leaky_relu(s_src + seg_gather(s_dst, seg, rows),
+                         cfg.leaky_slope)
         e = torch.where(mask[..., None], e, -1e9)
-        m = _segment(e, rows, -torch.inf).amax(2)           # (B, S, h)
+        # the max only shifts the softmax: held constant, as its gradient
+        # is zero
+        m = _segment(e.detach(), rows, -torch.inf).amax(2)  # (B, S, h)
         ex = torch.exp(e - m[:, seg])
         denom = _segment(ex, rows, 0.0).sum(2)
-        alpha = torch.where(mask[..., None], ex / denom[:, seg], 0.0)
+        alpha = torch.where(mask[..., None],
+                            ex / seg_gather(denom, seg, rows), 0.0)
         out = _segment(alpha[..., None] * nb_h, rows, 0.0).sum(2)
         return F.elu(out.reshape(b, n_seg, cfg.hidden))
 
@@ -99,6 +107,29 @@ def _segment(x: torch.Tensor, rows: torch.Tensor, pad: float) -> torch.Tensor:
     ``pad`` past its last member."""
     fill = torch.full_like(x[:, :1], pad)
     return torch.cat([x, fill], dim=1)[:, rows]
+
+
+class _SegmentGather(torch.autograd.Function):
+    """``x[:, seg]`` for x (B, S, ...) whose backward sums each segment's
+    rows through ``rows`` in row order, where the gather's own backward
+    would scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, seg, rows):
+        ctx.save_for_backward(rows)
+        return x[:, seg]
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, = ctx.saved_tensors
+        return _segment(grad, rows, 0.0).sum(2), None, None
+
+
+def seg_gather(x: torch.Tensor, seg: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """x (B, S, ...) -> (B, E, ...) by segment id ``seg (E,)``; ``rows (S,
+    M)`` lists each segment's members (``E`` past its last)."""
+    return _SegmentGather.apply(x, seg, rows)
 
 
 class Semantic(nn.Module):
@@ -199,7 +230,9 @@ class HAN(nn.Module):
             e_self = F.elu(exp_h @ lp.e_self)
             exp_new = lp.e_sem(torch.stack([e_self, e_run, e_wait], dim=-2))
             arr_new = lp.arrived(exp_h, arr_h)
-            pull = (exp_h @ lp.r_exp)[:, seg]                  # (B, E, D)
+            pull = exp_h @ lp.r_exp                            # (B, N, D)
+            pull = torch.cat([seg_gather(pull, seg[:n_run], rows_run),
+                              seg_gather(pull, seg[n_run:], rows_wait)], 1)
             req_new = F.elu(req_h @ lp.r_self + pull)
             exp_h, arr_h, req_h = exp_new, arr_new, req_new
         return arr_h, exp_h

@@ -5,7 +5,11 @@ the reference's SAC parameter tree into the port's modules (port of
 The npz format is the reference's: nested dict keys joined by ``/``, list
 items as ``#<i>``.  A router checkpoint written by ``repro.core.io.
 save_pytree`` therefore loads here with ``load_pytree`` and becomes a
-``core.sac.SAC`` through ``sac_params_from_numpy``.
+``core.sac.SAC`` through ``sac_params_from_numpy``; ``sac_params_to_numpy``
+turns a ``SAC`` back into the reference's tree, so a router the port
+trains loads in the reference.  ``adamw_from_numpy``/``adamw_to_numpy``
+carry the AdamW moments (``{"m": tree, "v": tree}`` over the trainable
+parameters, the reference's optimizer state) across the same way.
 """
 from __future__ import annotations
 
@@ -127,3 +131,56 @@ def sac_params_from_numpy(tree: dict, cfg: SACConfig, device=None) -> SAC:
     sd = _state_dict_of(tree)
     sac.load_state_dict(sd, strict=True)
     return sac.to(device)
+
+
+def _tree_of_state_dict(sd: dict) -> dict:
+    """``state_dict`` names -> the reference's nested tree (numeric parts
+    become list indices; an MLP's ``layers`` level is dropped)."""
+    root: dict = {}
+    for name, val in sd.items():
+        parts = name.split(".")
+        if parts[0] in _MLP_KEYS:
+            parts = [parts[0]] + parts[2:]
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val.detach().cpu().numpy()
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [fix(node[str(i)]) for i in range(len(node))]
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(root)
+
+
+def sac_params_to_numpy(sac: SAC) -> dict:
+    """A ``SAC`` -> the reference's parameter tree of numpy arrays (the
+    inverse of ``sac_params_from_numpy``): ``repro.core.io.save_pytree``
+    of it, or this module's, is a checkpoint the reference loads."""
+    return _tree_of_state_dict(sac.state_dict())
+
+
+def adamw_to_numpy(opt) -> dict:
+    """An ``AdamW``'s moments as the reference's ``{"m", "v"}`` trees over
+    the trainable parameters."""
+    return {"m": _tree_of_state_dict(opt.m), "v": _tree_of_state_dict(opt.v)}
+
+
+def adamw_from_numpy(opt, tree: dict) -> None:
+    """Load the reference's AdamW state ``{"m": tree, "v": tree}`` into
+    ``opt``'s moments, in place (names checked both ways)."""
+    for side in ("m", "v"):
+        t = dict(tree[side])
+        for k in _MLP_KEYS:
+            if k in t:
+                t[k] = {"layers": t[k]}
+        sd = _state_dict_of(t)
+        dst = getattr(opt, side)
+        if set(sd) != set(dst):
+            raise ValueError(f"AdamW {side}: names differ: "
+                             f"{sorted(set(sd) ^ set(dst))}")
+        for k, v in sd.items():
+            dst[k].copy_(v.reshape(dst[k].shape))

@@ -12,8 +12,11 @@ A policy is ``act(pstate, env_state, obs, gen) -> (actions (B,), pstate)``.
 Its ``obs_fmt`` names the observation layout it reads; the heuristics
 read the env state alone (``obs_fmt=None``), so no observation is built
 for them and ``obs`` is None.
-The reference's scenario- and failover-aware branches are not ported yet:
-passing an ``env_cfg`` that scripts either raises ``NotImplementedError``.
+
+Given an ``env_cfg`` that scripts a scenario, SQF and QLL route around
+down experts (and QLL around experts whose current wait caps are full);
+given one whose failover arms a shed watermark, both drop a request that
+the env would shed anyway (``_overload_drop``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import scenarios
 from repro_torch.core import sac as sac_lib
 from repro_torch.device import constant
 from repro_torch.env import engine_layout as layout
@@ -33,15 +37,6 @@ class Policy:
     init_state: Callable   # (batch, device) -> policy state
     act: Callable          # (pstate, env_state, obs, gen) -> (actions, pstate)
     obs_fmt: Optional[str] = None   # None: the policy reads no observation
-
-
-def _check_env_cfg(env_cfg) -> None:
-    if env_cfg is None:
-        return
-    if getattr(env_cfg, "scenario", None) is not None:
-        raise NotImplementedError("scenario-aware routing is not ported yet")
-    if getattr(env_cfg, "failover", None) is not None:
-        raise NotImplementedError("failover-aware routing is not ported yet")
 
 
 def _no_state(batch, device):
@@ -75,14 +70,51 @@ def _queue_load(env_state, total):
     return qlen.to(torch.float32) / constant(total, torch.float32, qlen.device)
 
 
+def _scenario_cur(env_cfg, env_state):
+    """The scenario's current conditions (``scenarios.at_time``), or None
+    when ``env_cfg`` scripts no scenario."""
+    st = (None if env_cfg is None
+          else scenarios.for_cfg(env_cfg, env_state["clock"].device))
+    if st is None:
+        return None
+    return scenarios.at_time(st, env_state["clock"])
+
+
+def _overload_drop(env_cfg, env_state, action):
+    """Drop (action 0) where the fleet sits at or above the failover shed
+    watermark and the request's best predicted score is below the shed
+    floor: the env would shed it at admission anyway.  The identity
+    without a failover config or watermark."""
+    fo = getattr(env_cfg, "failover", None) if env_cfg is not None else None
+    if fo is None or fo.shed_watermark is None:
+        return action
+    from repro_torch.env import failover as failover_lib
+    occ = failover_lib.fleet_occupancy(env_cfg, env_state)
+    dev = occ.device
+    mark = constant((fo.shed_watermark,), torch.float32, dev)
+    floor = constant((fo.shed_pred_s,), torch.float32, dev)
+    best_s = env_state["pending"]["pred_s"].max(-1).values
+    doomed = (occ >= mark) & (best_s < floor)
+    return torch.where(doomed, 0, action)
+
+
 def shortest_queue(n_experts: int, caps=None, env_cfg=None) -> Policy:
     """Least-loaded routing; ``caps=(run_caps, wait_caps)`` switches the
-    load signal to per-expert occupancy on ragged fleets."""
-    _check_env_cfg(env_cfg)
+    load signal to per-expert occupancy on ragged fleets.  Under a
+    scenario a down expert reads as infinitely loaded, and with the whole
+    fleet down the policy drops."""
     total = _total_caps(caps)
 
     def act(pstate, env_state, obs, gen):
-        return torch.argmin(_queue_load(env_state, total), dim=-1) + 1, pstate
+        load = _queue_load(env_state, total)
+        cur = _scenario_cur(env_cfg, env_state)
+        if cur is None:
+            a = torch.argmin(load, dim=-1) + 1
+        else:
+            up = cur["up"]
+            load = torch.where(up, load.to(torch.float32), torch.inf)
+            a = torch.where(up.any(-1), torch.argmin(load, dim=-1) + 1, 0)
+        return _overload_drop(env_cfg, env_state, a), pstate
 
     return Policy("SQF", _no_state, act)
 
@@ -100,24 +132,31 @@ def quality_least_loaded(slack: int = 2, caps=None, env_cfg=None) -> Policy:
     the best predicted score.  With ``caps`` the load is occupancy, the
     slack is ``slack`` slots of each expert's own capacity, and an expert
     whose in-cap wait queue is full is never eligible; with no eligible
-    expert the policy drops (action 0)."""
-    _check_env_cfg(env_cfg)
+    expert the policy drops (action 0).  Under a scenario a down expert is
+    never eligible, the load floor is taken over up experts, and the full
+    wait queue test uses the current wait caps."""
     total = _total_caps(caps)
     wait_caps = None if caps is None else tuple(int(w) for w in caps[1])
 
     def act(pstate, env_state, obs, gen):
         load = _queue_load(env_state, total)
+        cur = _scenario_cur(env_cfg, env_state)
+        if cur is not None:
+            load = torch.where(cur["up"], load.to(torch.float32), torch.inf)
         lo = load.min(-1, keepdim=True).values
+        wlen = layout.wait_valid(env_state["queues"]).sum(-1)
         if caps is None:
             ok = load <= lo + slack
         else:
             dev = load.device
-            wlen = layout.wait_valid(env_state["queues"]).sum(-1)
             ok = ((load <= lo + slack / constant(total, torch.float32, dev))
                   & (wlen < constant(wait_caps, torch.int64, dev)))
+        if cur is not None:
+            ok = ok & cur["up"] & (wlen < cur["wait_cap"])
         pred = env_state["pending"]["pred_s"]
         a = torch.argmax(torch.where(ok, pred, -1.0), dim=-1) + 1
-        return torch.where(ok.any(-1), a, 0), pstate
+        a = torch.where(ok.any(-1), a, 0)
+        return _overload_drop(env_cfg, env_state, a), pstate
 
     return Policy("QLL", _no_state, act)
 

@@ -65,9 +65,10 @@ def empty_queues(n: int, r: int, w: int, *, batch: int = None,
 
 
 def slot_valid(caps: torch.Tensor, width: int) -> torch.Tensor:
-    """(N, width) bool mask of live slots for capacities ``caps (N,)``."""
+    """(..., N, width) bool mask of live slots for capacities ``caps
+    (..., N)`` (a scenario's current caps carry the env axis)."""
     caps = torch.as_tensor(caps, dtype=torch.int32)
-    return torch.arange(width, device=caps.device)[None, :] < caps[:, None]
+    return torch.arange(width, device=caps.device) < caps[..., None]
 
 
 def queues_from_numpy(q: dict, device=None) -> dict:
@@ -164,9 +165,9 @@ def push_wait(q: dict, n: torch.Tensor, *, p, d_true, score, pred_s, pred_d,
               t, gate=True, wait_cap=None, retry=0) -> Tuple[dict, torch.Tensor]:
     """Batched masked push: env b's request goes into expert ``n[b]``'s first
     free waiting slot.  Queues are (B, N, W, CH); ``n`` and every field are
-    (B,) (or scalars, broadcast over B).  With ``wait_cap (N,)`` only slots
-    below the expert's cap count as free, so a full in-cap queue rejects the
-    push.  No-op where the queue is full or ``gate`` is False.  Returns
+    (B,) (or scalars, broadcast over B).  With ``wait_cap`` ((N,), or (B,
+    N) per env) only slots below the expert's cap count as free, so a full
+    in-cap queue rejects the push.  No-op where the queue is full or ``gate`` is False.  Returns
     (new queues, pushed (B,) bool); the input tensors are not modified."""
     wi, wf = q["wait_i"], q["wait_f"]
     b_n, _, w, _ = wi.shape
@@ -176,7 +177,8 @@ def push_wait(q: dict, n: torch.Tensor, *, p, d_true, score, pred_s, pred_d,
          else torch.full((b_n,), n, device=dev)).long().expand(b_n)
     free = wi[bidx, n, :, WI_VALID] == 0                     # (B, W)
     if wait_cap is not None:
-        free = free & slot_valid(wait_cap.to(dev), w)[n]
+        ok = slot_valid(wait_cap.to(dev), w)
+        free = free & (ok[bidx, n] if ok.dim() == 3 else ok[n])
     pushed = free.any(-1)
     if isinstance(gate, torch.Tensor):
         pushed = pushed & gate.to(dev)

@@ -19,8 +19,15 @@ the ``torch.Generator`` in ``state["gen"]``; ``step(..., draws=...)``
 injects the next clock and pending request instead, which is how the
 tests hold the port against the reference on identical draws.
 
-The reference's scenarios (``cfg.scenario``) and failover (``cfg.failover``)
-are not ported yet and raise ``NotImplementedError``.
+With ``cfg.scenario`` (a name in ``repro_torch.scenarios``) each env's
+conditions are looked up at its clock at the start of the step and hold
+for the step: beyond-cap occupants are evicted, admission and the advance
+run against the current caps and availability, stragglers' k1/k2 are
+scaled and the next arrival comes at the scenario's rate.  With
+``cfg.failover`` (``env.failover``) the step is lookup -> drain-failed ->
+evict -> readmit -> gated admit -> advance, as in the reference.  Both
+build the engine's parameter pack afresh each step; without them the pack
+from ``reset`` serves.
 """
 from __future__ import annotations
 
@@ -29,12 +36,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import scenarios
 from repro_torch.device import constant, resolve
-from repro_torch.env import engine, engine_layout as layout, profiles, workload
+from repro_torch.env import engine, engine_layout as layout, failover
+from repro_torch.env import profiles, workload
+from repro_torch.env.failover import FailoverConfig
 from repro_torch.env.profiles import ExpertPool
 
 STAT_KEYS = ("phi", "lat", "score", "wait", "done", "viol",
              "dropped", "routed", "evicted")
+# failover accounting: shed (removed by budget, deadline, overflow or
+# overload), retried (entered the retry buffer), redispatched (re-admitted)
+FAILOVER_STAT_KEYS = ("shed", "retried", "redispatched")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +71,12 @@ class EnvConfig:
     admit_order: str = "fifo"
     run_caps: Optional[Tuple[int, ...]] = None
     wait_caps: Optional[Tuple[int, ...]] = None
+    # a named scenario of ``repro_torch.scenarios`` (None: stationary
+    # workload, always-up fleet; "always_up" is byte-identical to None)
     scenario: Optional[str] = None
-    failover: Optional[object] = None
-
-
-def _check_supported(cfg: EnvConfig) -> None:
-    if cfg.scenario is not None:
-        raise NotImplementedError("scenarios are not ported yet")
-    if cfg.failover is not None:
-        raise NotImplementedError("failover is not ported yet")
+    # the failure-aware request lifecycle (None: requests on a down expert
+    # freeze in place)
+    failover: Optional[FailoverConfig] = None
 
 
 def make_env_pool(cfg: EnvConfig, device=None) -> ExpertPool:
@@ -150,12 +160,13 @@ def reset(cfg: EnvConfig, pool: ExpertPool, gen: torch.Generator,
           batch: int, *, pending: Optional[dict] = None) -> dict:
     """A batch of ``batch`` fresh envs on the pool's device.  ``pending``
     injects the first pending request (fields (B,) / (B, N)) instead of
-    drawing it."""
-    _check_supported(cfg)
+    drawing it.  An unknown scenario name raises ``KeyError`` here."""
     dev = pool.k1.device
+    scenarios.for_cfg(cfg, dev)
     zeros = lambda: torch.zeros((batch,), dtype=torch.float32, device=dev)
     run_caps, wait_caps = queue_caps(cfg, device=dev)
-    return {
+    stat_keys = STAT_KEYS + (FAILOVER_STAT_KEYS if cfg.failover else ())
+    state = {
         "gen": gen,
         "par": engine.pool_params(pool, run_caps, wait_caps).repeat(batch, 1),
         "wait_caps": wait_caps,
@@ -167,8 +178,12 @@ def reset(cfg: EnvConfig, pool: ExpertPool, gen: torch.Generator,
         "wl": workload.init_state(batch, device=dev),
         "pending": (dict(pending) if pending is not None
                     else _new_request(cfg, pool, gen, batch)),
-        "stats": {k: zeros() for k in STAT_KEYS},
+        "stats": {k: zeros() for k in stat_keys},
     }
+    if cfg.failover is not None:
+        state["retry_buf"] = failover.empty_buffer(
+            batch, cfg.failover.buffer_cap, dev)
+    return state
 
 
 def _pick(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -177,9 +192,15 @@ def _pick(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 
 def impact_penalty(cfg: EnvConfig, pool: ExpertPool, state: dict,
-                   action: torch.Tensor) -> torch.Tensor:
+                   action: torch.Tensor, up=None) -> torch.Tensor:
     """Eq. 15/16 second term per env: the estimated QoS loss among the
-    chosen expert's running requests, from the predictors' view."""
+    chosen expert's running requests, from the predictors' view.
+
+    Routing to a down expert (``up (B, N)``, by default the scenario's
+    availability at each env's clock) is charged as a violation of every
+    running request there plus the routed request itself."""
+    if up is None:
+        up = scenarios.availability(cfg, state["clock"])
     q = state["queues"]
     n = torch.clamp(action - 1, 0, cfg.n_experts - 1).long()
     t = state["clock"][:, None]
@@ -208,58 +229,128 @@ def impact_penalty(cfg: EnvConfig, pool: ExpertPool, state: dict,
         l_est = (elapsed + est_remaining + extra) / torch.clamp(d_hat,
                                                                 min=1.0)
     would_violate = valid & (l_est >= cfg.latency_L)
-    penalty = torch.where(would_violate, _pick(layout.run_pred_s(q), n),
-                          0.0).sum(-1)
+    run_s = _pick(layout.run_pred_s(q), n)
+    penalty = torch.where(would_violate, run_s, 0.0).sum(-1)
+    if up is not None:
+        doomed = (torch.where(valid, run_s, 0.0).sum(-1)
+                  + _pick(state["pending"]["pred_s"], n))
+        penalty = torch.where(_pick(up, n), penalty, doomed)
     return torch.where(action > 0, penalty, 0.0)
 
 
-def _admit(cfg: EnvConfig, state: dict, action: torch.Tensor):
+def _admit(cfg: EnvConfig, state: dict, action: torch.Tensor, up=None,
+           wait_caps=None, admit_min=None):
     """Push each env's pending request into expert (action-1)'s waiting
-    queue.  Returns (queues, dropped (B,) float32)."""
+    queue, against the current ``up``/``wait_caps`` (a down expert admits
+    nothing: the push becomes a drop) and the overload floor ``admit_min``
+    (a routed request predicted below it is shed).  Returns (queues,
+    dropped, shed), each count (B,) float32."""
     r = state["pending"]
     n = torch.clamp(action - 1, 0, cfg.n_experts - 1).long()
+    if wait_caps is None:
+        wait_caps = state["wait_caps"]
+    pred_s = _pick(r["pred_s"], n)
+    gate = action > 0
+    if up is not None:
+        gate = gate & _pick(up, n)
+    shed = torch.zeros_like(gate)
+    if admit_min is not None:
+        shed = (action > 0) & (pred_s < _pick(admit_min, n))
+        gate = gate & ~shed
     queues, pushed = layout.push_wait(
         state["queues"], n, p=r["p_len"], d_true=_pick(r["out_len"], n),
-        score=_pick(r["score"], n), pred_s=_pick(r["pred_s"], n),
-        pred_d=_pick(r["pred_d"], n), t=state["clock"], gate=action > 0,
-        wait_cap=state["wait_caps"])
-    dropped = (action == 0) | ((action > 0) & ~pushed)
-    return queues, dropped.to(torch.float32)
+        score=_pick(r["score"], n), pred_s=pred_s,
+        pred_d=_pick(r["pred_d"], n), t=state["clock"], gate=gate,
+        wait_cap=wait_caps)
+    dropped = (action == 0) | ((action > 0) & ~shed & ~pushed)
+    return queues, dropped.to(torch.float32), shed.to(torch.float32)
 
 
 def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
          action: torch.Tensor, *, draws: Optional[dict] = None):
     """One routing decision per env; ``action`` is (B,) int.  Returns
-    (state, reward (B,), info).
+    (state, reward (B,), info).  Under a scenario or failover the step
+    follows the reference's order (module docstring).
 
     ``draws`` injects what the step would otherwise draw: ``{"clock": (B,)
     next arrival time, "pending": next pending request}``."""
-    _check_supported(cfg)
     action = action.to(torch.int64)
-    penalty = impact_penalty(cfg, pool, state, action)
-    queues, dropped = _admit(cfg, state, action)
+    dev = state["clock"].device
+    st = scenarios.for_cfg(cfg, dev)
+    fo = cfg.failover
+    run_caps, wait_caps = queue_caps(cfg, device=dev)
+    up = k_scale = rate_mult = None
+    queues = state["queues"]
+    zeros = torch.zeros_like(state["clock"])
+    evicted = shed = retried = redispatched = zeros
+    if st is not None:
+        cur = scenarios.at_time(st, state["clock"])
+        run_caps, wait_caps = cur["run_cap"], cur["wait_cap"]
+        up, k_scale, rate_mult = cur["up"], cur["k_scale"], cur["rate_mult"]
+
+    full = lambda width: torch.full((cfg.n_experts,), width,
+                                    dtype=torch.int32, device=dev)
+    admit_min, retry_buf = None, state.get("retry_buf")
+    if fo is not None:
+        up_now = up if up is not None else torch.ones_like(
+            state["expert_clock"], dtype=torch.bool)
+        # drain before evict: stranded work on an expert that is down and
+        # cap-shrunk is retried, not evicted
+        queues, retry_buf, retried, shed = failover.drain_failed(
+            queues, retry_buf, up_now, state["clock"], cfg.latency_L, fo)
+    if st is not None:
+        queues, evicted = scenarios.evict_beyond_cap(queues, run_caps,
+                                                     wait_caps)
+    if fo is not None:
+        wc_now = wait_caps if wait_caps is not None else full(cfg.wait_cap)
+        queues, retry_buf, redispatched, n_shed = failover.readmit(
+            queues, retry_buf, up_now, state["clock"], wc_now,
+            cfg.latency_L, fo, admit_order=cfg.admit_order)
+        shed = shed + n_shed
+        if fo.shed_watermark is not None:
+            rc_now = run_caps if run_caps is not None else full(cfg.run_cap)
+            occ = failover.occupancy(queues, rc_now, wc_now)
+            admit_min = failover.admit_min_of(occ, fo, cfg.n_experts)
+
+    state = {**state, "queues": queues}
+    penalty = impact_penalty(cfg, pool, state, action, up=up)
+    queues, dropped, arr_shed = _admit(cfg, state, action, up=up,
+                                       wait_caps=wait_caps,
+                                       admit_min=admit_min)
+    shed = shed + arr_shed
 
     gen = state["gen"]
     wl_state = state["wl"]
     if draws is None:
         dt, wl_state = workload.next_arrival(cfg.workload, wl_state,
-                                             state["clock"], gen)
+                                             state["clock"], gen, rate_mult)
         t_next = state["clock"] + dt
     else:
         t_next = draws["clock"]
 
+    if st is None and admit_min is None:
+        par = state["par"]                  # the fleet's static pack
+    else:
+        par = engine.pool_params(pool, run_caps, wait_caps, up, k_scale,
+                                 admit_min)
     queues, clocks, acc = engine.advance_all(
         pool, cfg.latency_L, queues, state["expert_clock"], t_next,
-        backend=cfg.engine_backend, admit_order=cfg.admit_order,
-        par=state["par"])
+        backend=cfg.engine_backend, admit_order=cfg.admit_order, par=par)
     acc = {k: v.sum(-1) for k, v in acc.items()}           # over experts
 
     reward = acc["phi"] - penalty - cfg.drop_penalty * dropped
+    if fo is not None:
+        reward = reward - fo.shed_penalty * shed
     stats = dict(state["stats"])
     for k in ("phi", "lat", "score", "wait", "done", "viol"):
         stats[k] = stats[k] + acc[k]
     stats["dropped"] = stats["dropped"] + dropped
     stats["routed"] = stats["routed"] + (action > 0).to(torch.float32)
+    stats["evicted"] = stats["evicted"] + evicted
+    if fo is not None:
+        stats["shed"] = stats["shed"] + shed
+        stats["retried"] = stats["retried"] + retried
+        stats["redispatched"] = stats["redispatched"] + redispatched
 
     pending = (dict(draws["pending"]) if draws is not None
                else _new_request(cfg, pool, gen, action.shape[0]))
@@ -268,6 +359,8 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
                  "clock": t_next, "expert_clock": clocks,
                  "queues": queues, "wl": wl_state, "pending": pending,
                  "stats": stats}
+    if fo is not None:
+        new_state["retry_buf"] = retry_buf
     info = {"reward": reward, "penalty": penalty, "completions": acc["done"],
             "phi": acc["phi"]}
     return new_state, reward, info
@@ -288,4 +381,5 @@ def episode_metrics(state: dict) -> dict:
         "dropped": s["dropped"],
         "routed": s["routed"],
         "evicted": s["evicted"],
+        **{k: s[k] for k in FAILOVER_STAT_KEYS if k in s},
     }

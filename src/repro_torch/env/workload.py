@@ -5,7 +5,9 @@ over envs and drawn from a ``torch.Generator``.
 * ``realworld`` — BurstGPT-like: diurnal modulation times a two-state
   (calm/burst) Markov intensity, normalized so the long-run rate is ~λ.
 
-The reference's scenario ``rate_mult`` is not ported yet.
+Both take an optional ``rate_mult (B,)``: a scenario's workload
+multiplier at each env's clock (``scenarios.at_time``), applied on top
+of the process's own rate.  ``None`` skips the multiply.
 """
 from __future__ import annotations
 
@@ -36,11 +38,12 @@ def init_state(batch: int, device=None) -> dict:
                                  device=resolve(device))}
 
 
-def current_rate(cfg: WorkloadConfig, state: dict,
-                 t: torch.Tensor) -> torch.Tensor:
+def current_rate(cfg: WorkloadConfig, state: dict, t: torch.Tensor,
+                 rate_mult=None) -> torch.Tensor:
     """(B,) instantaneous arrival rate at clocks ``t (B,)``."""
     if cfg.kind == "poisson":
-        return torch.full_like(t, cfg.rate, dtype=torch.float32)
+        rate = torch.full_like(t, cfg.rate, dtype=torch.float32)
+        return rate if rate_mult is None else rate * rate_mult
     diurnal = 1.0 + cfg.diurnal_amp * torch.sin(
         2.0 * math.pi * t / cfg.diurnal_period)
     burst = torch.where(state["burst"], cfg.burst_rate_mult, 1.0)
@@ -50,13 +53,15 @@ def current_rate(cfg: WorkloadConfig, state: dict,
     t_burst = p_on / cfg.burst_rate_mult
     time_frac = t_burst / (t_burst + (1.0 - p_on))
     norm = 1.0 + time_frac * (cfg.burst_rate_mult - 1.0)
-    return cfg.rate * diurnal * burst / norm
+    rate = cfg.rate * diurnal * burst / norm
+    return rate if rate_mult is None else rate * rate_mult
 
 
 def next_arrival(cfg: WorkloadConfig, state: dict, t: torch.Tensor,
-                 gen: torch.Generator) -> Tuple[torch.Tensor, dict]:
+                 gen: torch.Generator, rate_mult=None
+                 ) -> Tuple[torch.Tensor, dict]:
     """Returns (dt (B,) to the next arrival, new workload state)."""
-    rate = torch.clamp(current_rate(cfg, state, t), min=1e-3)
+    rate = torch.clamp(current_rate(cfg, state, t, rate_mult), min=1e-3)
     dt = torch.empty_like(rate).exponential_(generator=gen) / rate
     if cfg.kind == "poisson":
         return dt, state

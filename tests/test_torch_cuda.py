@@ -1178,3 +1178,135 @@ def test_graphed_recurrent_prefill_drops_the_least_recent_shape(
         assert torch.equal(logits, ref_logits), shape
         for a, b in zip(_cache_leaves(cache), _cache_leaves(ref_cache)):
             assert torch.equal(a, b), shape
+
+
+# ---------------------------------------------------------------------------
+# Router training, scenarios and failover on the card
+# ---------------------------------------------------------------------------
+
+
+def _same_train_state(a, b):
+    got = b.tensors()
+    for k, x in a.tensors().items():
+        assert torch.equal(x, got[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obs_fmt,scenario", [("padded", None),
+                                              ("segments", "rolling_outage")])
+def test_graphed_training_equals_eager_on_card(cuda_device, obs_fmt,
+                                               scenario):
+    """Every collect step and update replayed from CUDA graphs against the
+    same iterations run eagerly, from the same seeds: parameters, moments,
+    buffer, env state and observation bit-equal; B1 once per collect
+    step."""
+    from repro_torch.core import features, sac
+    from repro_torch.env.failover import FailoverConfig
+    from repro_torch.launch import route
+
+    env_cfg, pool = route.make_env(6, device=cuda_device, scenario=scenario,
+                                   failover=(FailoverConfig(shed_watermark=0.9)
+                                             if scenario else None))
+    sac_cfg = sac.SACConfig(n_run_edges=features.seg_run_rows(env_cfg)
+                            if obs_fmt == "segments" else None)
+    tc = training.TrainConfig(n_envs=4, collect_steps=3, updates_per_iter=3,
+                              batch_size=32, buffer_capacity=100,
+                              warmup_transitions=30, iterations=8,
+                              obs_fmt=obs_fmt, seed=3)
+    states = []
+    for graphed in (True, False):
+        st = training.init_train_state(env_cfg, sac_cfg, tc, pool)
+        it_fn = training.make_iteration(env_cfg, tc, pool, st,
+                                        graphs=graphed)
+        before = ops.LAUNCHES
+        auxs = [it_fn(i) for i in range(tc.iterations)]
+        assert ops.LAUNCHES - before == tc.iterations * tc.collect_steps
+        assert (it_fn.update_graph is not None) == graphed
+        states.append((st, [{k: float(v) for k, v in a.items()}
+                            for a in auxs]))
+    (sg, ag), (se, ae) = states
+    assert ag == ae
+    assert ag[-1]["critic_loss"] != 0.0
+    _same_train_state(sg, se)
+    assert int(sg.buf["size"]) == 96 and int(sg.buf["ptr"]) == 96
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["QLL", "SQF", "SAC"])
+def test_graphed_scenario_failover_routing_equals_eager_on_card(cuda_device,
+                                                                policy):
+    """A rolling outage with failover and shedding: the routing loop
+    replayed from a CUDA graph against eager steps, bit-equal metrics and
+    final state (retry buffer included)."""
+    import dataclasses
+
+    from repro_torch.core import sac
+    from repro_torch.env.failover import FailoverConfig
+    from repro_torch.env.workload import WorkloadConfig
+    from repro_torch.launch import route
+
+    env_cfg, pool = route.make_env(
+        6, device=cuda_device, scenario="rolling_outage",
+        failover=FailoverConfig(retry_budget=2, shed_watermark=0.9))
+    env_cfg = dataclasses.replace(env_cfg, workload=WorkloadConfig(rate=8.0))
+    model = sac.init_params(route.sac_config(env_cfg), seed=1,
+                            device=cuda_device)
+    pol = next(p for p in route.make_policies(env_cfg, model)
+               if p.name == policy)
+    runs = []
+    for graphed in (True, False):
+        before = ops.LAUNCHES
+        runs.append(training.evaluate(env_cfg, pool, pol, n_steps=300,
+                                      n_envs=4, return_state=True,
+                                      graphs=graphed))
+        assert ops.LAUNCHES - before == 300
+    (mg, sg), (me, se) = runs
+    assert mg == me
+    _assert_same_state(sg, se, policy)
+    if policy != "SAC":             # untrained, the router may drop all
+        assert mg["retried"] > 0
+
+
+@pytest.mark.cuda
+def test_kernel_under_live_scenario_channels_matches_plain_on_card(
+        cuda_device):
+    """The env under a scripted outage, straggler, flash crowd and cap
+    claim, with failover and a shed watermark, stepped through B1 and
+    through the plain loop from the same seeds: the live ``up``,
+    ``k_scale`` (folded into k1/k2) and ``admit_min`` channels and current
+    caps give the same state bit for bit."""
+    import dataclasses
+
+    from repro_torch import scenarios
+    from repro_torch.env.failover import FailoverConfig
+    from repro_torch.env.workload import WorkloadConfig
+
+    name = "_card_test_live_channels"
+    if name not in scenarios.names():
+        scenarios.register(scenarios.ScenarioSpec(
+            name=name, horizon=40.0, events=(
+                scenarios.FlashCrowd(t0=2.0, t1=10.0, mult=3.0),
+                scenarios.ExpertDown(expert=1, t0=4.0, t1=12.0),
+                scenarios.CapClaim(expert=0, t0=6.0, t1=30.0, run_cap=1,
+                                   wait_cap=1),
+                scenarios.Slowdown(expert=4, t0=2.0, t1=25.0, factor=2.5))))
+    base = env_lib.EnvConfig(scenario=name,
+                             failover=FailoverConfig(shed_watermark=0.6),
+                             workload=WorkloadConfig(rate=8.0))
+    pool = env_lib.make_env_pool(base, device=cuda_device)
+    states = []
+    for backend in ("cuda", "torch"):
+        cfg = dataclasses.replace(base, engine_backend=backend)
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        st = env_lib.reset(cfg, pool, gen, 4)
+        acts = torch.Generator(device=cuda_device).manual_seed(5)
+        before = ops.LAUNCHES
+        for _ in range(400):
+            a = torch.randint(0, 7, (4,), generator=acts, device=cuda_device)
+            st, _, _ = env_lib.step(cfg, pool, st, a)
+        assert ops.LAUNCHES - before == (400 if backend == "cuda" else 0)
+        states.append(st)
+    _assert_same_state(states[0], states[1], "stress")
+    s = states[0]["stats"]
+    assert float(s["shed"].sum()) > 0 and float(s["evicted"].sum()) > 0
+    assert float(states[0]["clock"].min()) > 12.0      # past the outage

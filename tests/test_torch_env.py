@@ -169,10 +169,20 @@ def test_request_conservation_with_own_draws():
 
 
 def test_scenario_and_failover_not_ported_yet():
-    cfg = env_lib.EnvConfig(scenario="flash_crowd")
-    with pytest.raises(NotImplementedError):
-        env_lib.reset(cfg, env_lib.make_env_pool(cfg, device="cpu"),
-                      generator("cpu", 0), 1)
+    """Scenarios and failover are ported: the env takes both configs and
+    steps under them, and an unknown scenario name fails at ``reset``, as
+    the reference's does."""
+    from repro_torch.env.failover import FailoverConfig
+    cfg = env_lib.EnvConfig(scenario="flash_crowd",
+                            failover=FailoverConfig(shed_watermark=0.9))
+    pool = env_lib.make_env_pool(cfg, device="cpu")
+    st = env_lib.reset(cfg, pool, generator("cpu", 0), 2)
+    st, r, _ = env_lib.step(cfg, pool, st, torch.ones(2, dtype=torch.int64))
+    assert bool(torch.isfinite(r).all())
+    assert set(env_lib.FAILOVER_STAT_KEYS) <= set(st["stats"])
+    bad = env_lib.EnvConfig(scenario="not_registered")
+    with pytest.raises(KeyError, match="not_registered"):
+        env_lib.reset(bad, pool, generator("cpu", 0), 1)
 
 
 @pytest.mark.parametrize("make", [
