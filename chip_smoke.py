@@ -197,14 +197,34 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 configs' 20 iterations graphed (the CLI's router bit for
                 bit) against eagerly on B1's plain version (96 rows, past
                 the first outage), bit-equal.
- 17. kernels  — the kernel table line; each kernel's launches are those of
-                the counted main paths (3 and 13-16 for B1, 8, 9 and 12 for
+ 17. sharded  — sharded router training and the sharded engine advance in
+                a world of one NCCL rank (one card; ``launch/mesh.py
+                init_world``), every collective launched and captured in
+                the CUDA graphs: (a) 24 graphed iterations of seed 0 in the
+                paper's setting on ``make_train_mesh()`` (capacity-sharded
+                replay) and on ``make_train_mesh(data=1)`` (the envs'
+                gather path too), every tensor bit-equal to phase 13's
+                unsharded graphed run of the same 24; iterations/s beside
+                the unsharded run's.  (b) QLL through
+                ``engine_backend="shard"`` (B1 on each rank's block of
+                experts, then one all-gather), graphed: N=6 x 4 envs x 750
+                steps and N=1,024 x 16 x 200 (segments, ragged caps), final
+                state and metrics bit-equal to ``engine_backend="cuda"``
+                (avg QoS at N=6 still 0.7336170673370361), the state after
+                100 steps bit-equal to the plain loop as each rank's body
+                (``shard_body="torch"``, eager); requests/s of both
+                backends.  (c) ``launch/train.py --router --router-mesh
+                --iters 20`` in a process of its own: its saved router bit
+                for bit that of ``--router --iters 20``.  B1 once per
+                collect step and per routing step on every path.
+ 18. kernels  — the kernel table line; each kernel's launches are those of
+                the counted main paths (3 and 13-17 for B1, 8, 9 and 12 for
                 the others), calls of its wrapper; B5's and B6's entries
                 name the kernels a call launches (``functions``) and count
                 them (``kernels_launched``: calls times kernels per call).
 
 The phases run in the order 1, 10 and 11's per-pass traces (one profiler
-session), 2-9, 12, 10, 11, 13-16.  Every kernel library is built and loaded
+session), 2-9, 12, 10, 11, 13-17.  Every kernel library is built and loaded
 before the first profiler session: on this card a library loaded after
 the tracer first started makes later sessions miss kernel records.  A ``seconds`` line gives each phase's time
 and the total.  The last line
@@ -850,7 +870,9 @@ def train_phase(dev):
     graphed against eager and against eager on B1's plain version, (b)
     three seeds of 400 iterations evaluated
     greedily, (c) a profiled iteration, and a saved router served through
-    ``launch/route.py --ckpt``.  Returns (B1 launches, a trained router)."""
+    ``launch/route.py --ckpt``.  Returns (B1 launches, a trained router,
+    the graphed 24-iteration run: its tensors and rates, which the sharded
+    phase holds its runs to)."""
     from repro_torch.core import io, routers, sac as sac_lib, training
     from repro_torch.kernels.lockstep_advance import ops
     from repro_torch.launch import route
@@ -899,6 +921,9 @@ def train_phase(dev):
                        "first_iteration_s": t[0],
                        "first_update_iteration_s": t[first_update],
                        **train_rates(tc, full_it)}
+    unsharded = {"tensors": {k: x.clone() for k, x in
+                             states["graphed"].tensors().items()},
+                 "rates": rates["graphed"]}
     emit({"phase": "train", "check": "graphed_equals_eager",
           "iterations": TRAIN_CHECK_ITERS, "updating_from": first_update,
           "bit_equal": True, "launches_per_run": TRAIN_CHECK_ITERS * s,
@@ -986,7 +1011,7 @@ def train_phase(dev):
     assert all(got[k] == want[k] for k in EVAL_KEYS), (got, want)
     emit({"phase": "train", "check": "route_ckpt", "path": "build/"
           "router_seed0.npz", "same_greedy_metrics": True})
-    return launches, trained
+    return launches, trained, unsharded
 
 
 def train_scale_phase(dev):
@@ -1165,6 +1190,184 @@ def train_cli_phase(dev):
           "b1_rows": tc.n_envs * env_cfg.n_experts, "plain_loop_equal": True,
           "history": hist})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: sharded router training and the sharded engine advance
+# ---------------------------------------------------------------------------
+
+# the plain loop waits for the card once per turn: the "shard" engine is
+# held against it over its first steps only
+SHARD_PLAIN_STEPS = 100
+SHARD_ENGINE_CASES = ((6, 4, 750, "padded", False),
+                      (1024, 16, 200, "segments", True))
+
+
+def clone_tree(tree):
+    """A copy of every tensor of a state tree (the generator kept)."""
+    return {k: (clone_tree(x) if isinstance(x, dict) else
+                x.clone() if isinstance(x, torch.Tensor) else x)
+            for k, x in tree.items()}
+
+
+def routed(env_cfg, pool, n_envs, steps, graphs, check_at=None):
+    """QLL over ``RoutingLoop`` for ``steps`` steps from the serve phase's
+    seed: (the loop, synchronised seconds after the first step, a copy of
+    the env state after ``check_at`` steps)."""
+    from repro_torch.core import training
+    from repro_torch.launch import route
+
+    qll = next(p for p in route.make_policies(env_cfg) if p.name == "QLL")
+    loop = training.RoutingLoop(env_cfg, pool, qll, n_envs)
+    loop.run(1, graphs)
+    snap = None
+    t0 = time.perf_counter()
+    for n in ((check_at - 1, steps - check_at) if check_at
+              else (steps - 1,)):
+        loop.run(n, graphs)
+        if snap is None and check_at:
+            snap = clone_tree(loop.state)
+    torch.cuda.synchronize()
+    return loop, time.perf_counter() - t0, snap
+
+
+def sharded_phase(dev, unsharded):
+    """Sharded router training and the ``"shard"`` engine in a world of one
+    NCCL rank, every collective launched and captured in the CUDA graphs
+    (module docstring).  Returns B1 launches."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sac as sac_lib, training
+    from repro_torch.env import env as env_lib
+    from repro_torch.kernels.lockstep_advance import ops
+    from repro_torch.launch import mesh as mesh_lib, route, train
+
+    dev = mesh_lib.init_world(dev)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    launches = 0
+    try:
+        # (a) 24 graphed iterations of seed 0 on both meshes against the
+        # train phase's unsharded graphed run
+        env_cfg, pool = route.make_env(6, device=dev)
+        sac_cfg, tc = sac_lib.SACConfig(), training.TrainConfig()
+        s = tc.collect_steps
+        first_update = -(-tc.warmup_transitions // (tc.n_envs * s)) - 1
+        for name, data in (("expert", None), ("data1_expert", 1)):
+            mesh = mesh_lib.make_train_mesh(data=data)
+            st = training.init_train_state(env_cfg, sac_cfg, tc, pool,
+                                           mesh=mesh)
+            it_fn = training.make_iteration(env_cfg, tc, pool, st, mesh=mesh)
+            ops.LAUNCHES = 0
+            t = timed_iterations(it_fn, 0, TRAIN_CHECK_ITERS)
+            assert ops.LAUNCHES == TRAIN_CHECK_ITERS * s, ops.LAUNCHES
+            launches += ops.LAUNCHES
+            assert it_fn.collect_graph is not None
+            assert it_fn.update_graph is not None
+            diff = differing(unsharded["tensors"], st.tensors())
+            assert not diff, (name, diff[:10])
+            full_it = float(np.median(t[first_update + 1:]))
+            emit({"phase": "sharded", "check": "iterations", "mesh": name,
+                  "mesh_shape": list(mesh.mesh.shape),
+                  "iterations": TRAIN_CHECK_ITERS, "bit_equal": True,
+                  "launches": TRAIN_CHECK_ITERS * s,
+                  "rates": {"collect_iteration_ms": float(np.median(
+                                t[1:first_update])) * 1e3,
+                            "iteration_ms": full_it * 1e3,
+                            "first_iteration_s": t[0],
+                            "first_update_iteration_s": t[first_update],
+                            **train_rates(tc, full_it)},
+                  "unsharded_rates": unsharded["rates"]})
+            del st, it_fn
+
+        # (b) QLL through the "shard" engine against "cuda", graphed, and
+        # its first steps against the plain loop as each rank's body
+        for n, n_envs, steps, fmt, ragged in SHARD_ENGINE_CASES:
+            env_cfg, pool = route.make_env(n, ragged_caps=ragged,
+                                           backend="cuda", device=dev)
+            shard_cfg = dataclasses.replace(env_cfg, engine_backend="shard")
+            plain_cfg = dataclasses.replace(shard_cfg, shard_body="torch")
+            runs = {}
+            for name, cfg in (("cuda", env_cfg), ("shard", shard_cfg)):
+                ops.LAUNCHES = 0
+                runs[name] = routed(cfg, pool, n_envs, steps, True,
+                                    check_at=SHARD_PLAIN_STEPS)
+                assert ops.LAUNCHES == steps, (name, ops.LAUNCHES)
+                launches += ops.LAUNCHES
+            ops.LAUNCHES = 0
+            t = time.perf_counter()
+            plain, _, _ = routed(plain_cfg, pool, n_envs, SHARD_PLAIN_STEPS,
+                                 False)
+            plain_s = time.perf_counter() - t
+            assert ops.LAUNCHES == 0, ops.LAUNCHES
+            (cuda, cuda_s, cuda_snap), (shard, shard_s, shard_snap) = (
+                runs["cuda"], runs["shard"])
+            assert same_state(cuda.state, shard.state), n
+            assert same_state(cuda_snap, shard_snap), n
+            assert same_state(shard_snap, plain.state), n
+            m, m_cuda = shard.metrics(), cuda.metrics()
+            assert m == m_cuda, (m, m_cuda)
+            if n == 6:
+                assert m["avg_qos"] == QLL_N6_AVG_QOS, m["avg_qos"]
+            assert m["completed"] > 0, m
+            per_s = lambda secs: (steps - 1) * n_envs / secs
+            emit({"phase": "sharded", "check": "engine", "policy": "QLL",
+                  "n_experts": n, "n_envs": n_envs, "steps": steps,
+                  "obs_fmt": fmt, "ragged_caps": ragged,
+                  "equals_cuda_backend": True,
+                  "plain_body_steps": SHARD_PLAIN_STEPS,
+                  "plain_body_equal": True, "plain_body_s": plain_s,
+                  "launches": steps, "avg_qos": m["avg_qos"],
+                  "completed": m["completed"],
+                  "requests_per_s": {"shard": per_s(shard_s),
+                                     "cuda": per_s(cuda_s)},
+                  "gathered_bytes_per_step": gathered_bytes(env_cfg,
+                                                            n_envs)})
+
+        # (c) the CLI sharded, in a process of its own, against unsharded
+        paths = {k: os.path.join(ROOT, "build", f"router_cli_{k}.npz")
+                 for k in ("mesh", "plain")}
+        argv = ["--router", "--iters", "20", "--out"]
+        ops.LAUNCHES = 0
+        t = time.perf_counter()
+        train.main(argv + [paths["plain"]])
+        plain_s = time.perf_counter() - t
+        assert ops.LAUNCHES == 20 * s, ops.LAUNCHES
+        launches += ops.LAUNCHES
+        code = ("import json, sys\n"
+                "from repro_torch.kernels.lockstep_advance import ops\n"
+                "from repro_torch.launch import train\n"
+                "train.main(sys.argv[1:])\n"
+                "print(json.dumps({'b1_launches': ops.LAUNCHES}))")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", code, "--router-mesh"] + argv
+            + [paths["mesh"]], capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        mesh_s = time.perf_counter() - t
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert sub["b1_launches"] == 20 * s, sub
+        launches += sub["b1_launches"]
+        got, want = np.load(paths["mesh"]), np.load(paths["plain"])
+        assert sorted(got.files) == sorted(want.files) and want.files
+        for k in want.files:
+            assert np.array_equal(got[k], want[k]), k
+        emit({"phase": "sharded", "check": "cli",
+              "argv": ["--router-mesh"] + argv, "router_bit_equal": True,
+              "launches": 2 * 20 * s, "seconds": {"router_mesh": mesh_s,
+                                                  "unsharded": plain_s},
+              "stdout_tail": proc.stdout.strip().splitlines()[-6:-1]})
+    finally:
+        mesh_lib.close_world()
+    return launches
+
+
+def gathered_bytes(env_cfg, n_envs) -> int:
+    """Bytes the ``"shard"`` engine's all-gather brings each rank per
+    step: every expert row's run slots (two tensors of 5 channels), wait
+    valid bits, clock and six accumulators, in 4-byte words."""
+    words = 2 * env_cfg.run_cap * 5 + env_cfg.wait_cap + 1 + 6
+    return 4 * words * env_cfg.n_experts * n_envs
 
 
 # ---------------------------------------------------------------------------
@@ -2852,12 +3055,14 @@ def main() -> int:
     lru = timed("rglru_scan", rglru_scan_phase, dev, passes)
     # the training phases last: their graphs, backward passes and profiled
     # windows come after every LM trace is held
-    more, trained = timed("train", train_phase, dev)
+    more, trained, unsharded = timed("train", train_phase, dev)
     launches += more
     launches += timed("train_scale", train_scale_phase, dev)
     launches += timed("scenario", scenario_phase, dev, trained)
     launches += timed("train_cli", train_cli_phase, dev)
     del trained
+    launches += timed("sharded", sharded_phase, dev, unsharded)
+    del unsharded
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t0})
     lm = {k: dense[k] + mixed[k] + recurrent[k] for k in dense}

@@ -30,6 +30,24 @@ The reference's quirks are kept: every update of an iteration uses the
 same AdamW step, ``it * updates_per_iter``; the observation rides the
 collect loop, so ``build_obs`` runs once per env step; the discount is 1;
 an iteration that skips its updates reports the reference's dummy ``aux``.
+
+Sharded training (``init_train_state``/``make_iteration``/``train_router``
+with ``mesh=``, a mesh of ``launch.mesh.make_train_mesh``): every rank
+runs the same iteration on the same parameters, AdamW state and
+generators (all seeded alike from ``tc.seed``), and the replay buffer's
+capacity splits over the mesh's ``expert`` axis.  A collect step inserts
+with ``replay.shard_add_batch``; an update samples with
+``replay.shard_sample_local`` and one ``all_reduce`` over ``expert``
+(``distributed.collectives.sum_disjoint``), so every rank updates on the
+unsharded batch.  On a 2-D ``("data", "expert")`` mesh each rank also
+steps only its ``n_envs / k`` envs: actions come from the whole
+observation (the same on every rank) and each rank keeps its envs';
+its envs draw their arrivals and requests for the whole batch and keep
+their rows (``env.step(rows=)``), so each env sees the numbers it sees
+unsharded; rewards and next observations are gathered over ``data``
+(``collectives.gather_rows``) before the insert.  The result is the
+unsharded run's, bit for bit.  On CUDA the collectives are captured in
+the collect and update graphs like any other launch.
 """
 from __future__ import annotations
 
@@ -41,6 +59,7 @@ import torch
 
 from repro_torch.core import features, replay, sac as sac_lib
 from repro_torch.device import generator
+from repro_torch.distributed import collectives, sharding
 from repro_torch.env import env as env_lib
 from repro_torch.graphs import StepGraph
 from repro_torch.train import optimizer as opt_lib
@@ -274,6 +293,7 @@ class TrainState:
     env_gen: torch.Generator
     act_gen: torch.Generator
     sample_gen: torch.Generator
+    mesh: Optional[object] = None
 
     def tensors(self) -> dict:
         """Every tensor of the state by name, the generators aside:
@@ -311,27 +331,82 @@ def _obs_of(env_cfg, pool, tc: TrainConfig, env_state) -> dict:
                                                     fmt=tc.obs_fmt))
 
 
+class _Placement:
+    """Where an iteration's work lives on ``mesh`` (module docstring):
+    the replay shard this rank holds, and on a ``data`` axis the envs it
+    steps (``rows``, ``envs``) and the group that gathers them.  Without a
+    mesh, everything is here."""
+
+    def __init__(self, mesh, tc: TrainConfig):
+        self.rows, self.envs, self.n_envs = None, slice(None), tc.n_envs
+        self.shard, self.n_shards = 0, 1
+        self.data_group = self.expert_group = None
+        if mesh is None:
+            return
+        names = mesh.mesh_dim_names or ()
+        if sharding.EXPERT not in names:
+            raise ValueError(
+                f"training mesh has no '{sharding.EXPERT}' axis: {mesh}")
+        self.n_shards = sharding.replay_shards(mesh, tc.buffer_capacity)
+        self.shard = sharding.axis_index(mesh, sharding.EXPERT)
+        self.expert_group = mesh.get_group(sharding.EXPERT)
+        if sharding.DATA in names:
+            per = tc.n_envs // sharding.data_shards(mesh, tc.n_envs)
+            lo = sharding.axis_index(mesh, sharding.DATA) * per
+            self.rows, self.envs, self.n_envs = ((lo, tc.n_envs),
+                                                 slice(lo, lo + per), per)
+            self.data_group = mesh.get_group(sharding.DATA)
+
+    def gather(self, tree):
+        """This rank's env rows of ``tree`` -> the whole batch's."""
+        if self.data_group is None:
+            return tree
+        return collectives.gather_rows(tree, self.data_group)
+
+    def insert(self, buf, *transitions) -> None:
+        if self.expert_group is None:
+            replay.add_batch(buf, *transitions)
+        else:
+            replay.shard_add_batch(buf, *transitions, shard_idx=self.shard,
+                                   n_shards=self.n_shards)
+
+    def sample(self, buf, gen, batch_size, idx=None) -> dict:
+        if self.expert_group is None:
+            return replay.sample(buf, gen, batch_size, idx=idx)
+        part = replay.shard_sample_local(buf, gen, batch_size,
+                                         shard_idx=self.shard,
+                                         n_shards=self.n_shards, idx=idx)
+        return collectives.sum_disjoint(part, self.expert_group)
+
+
 def init_train_state(env_cfg: env_lib.EnvConfig, sac_cfg: sac_lib.SACConfig,
                      tc: TrainConfig, pool, *,
                      sac: Optional[sac_lib.SAC] = None,
-                     pending: Optional[dict] = None) -> TrainState:
+                     pending: Optional[dict] = None,
+                     mesh=None) -> TrainState:
     """A fresh ``TrainState`` on the pool's device: the router from
     ``sac_lib.init_params(seed=tc.seed)`` (or ``sac``), zero moments,
     ``tc.n_envs`` envs reset (with ``pending`` injected as their first
     requests, if given), an empty buffer of ``tc.buffer_capacity``, and
-    generators seeded from ``tc.seed``."""
+    generators seeded from ``tc.seed``.  With ``mesh`` the buffer holds
+    this rank's shard of the capacity and, on a ``data`` axis, the env
+    state this rank's envs (the observation stays whole)."""
     dev = pool.k1.device
+    place = _Placement(mesh, tc)
     if sac is None:
         sac = sac_lib.init_params(sac_cfg, seed=tc.seed, device=dev)
     opt = make_adamw(tc, sac)
     seeds = [tc.seed * 4 + i for i in range(1, 4)]
     env_gen, act_gen, sample_gen = (generator(dev, x) for x in seeds)
-    env = _own(env_lib.reset(env_cfg, pool, env_gen, tc.n_envs,
-                             pending=pending))
-    obs = _own(_obs_of(env_cfg, pool, tc, env))
+    env = _own(env_lib.reset(env_cfg, pool, env_gen, place.n_envs,
+                             pending=pending, rows=place.rows))
+    obs = _own(place.gather(_obs_of(env_cfg, pool, tc, env)))
     buf = replay.init(tc.buffer_capacity, {k: v[0] for k, v in obs.items()},
                       device=dev)
-    return TrainState(sac, opt, env, obs, buf, env_gen, act_gen, sample_gen)
+    if mesh is not None:
+        buf = sharding.shard_replay_buffer(buf, mesh)
+    return TrainState(sac, opt, env, obs, buf, env_gen, act_gen, sample_gen,
+                      mesh)
 
 
 class Iteration:
@@ -346,10 +421,25 @@ class Iteration:
     replays its graph.  ``draws`` injects every random draw, for each call
     in turn: ``{"action": (I, S, B), "clock": (I, S, B), "pending": each
     field (I, S, B, ...), "sample_idx": (I, U, batch)}``, copied into
-    static buffers before each step."""
+    static buffers before each step.  ``mesh`` runs the sharded iteration
+    (module docstring) on a state ``init_train_state`` placed on it."""
 
     def __init__(self, env_cfg, tc: TrainConfig, pool, state: TrainState,
-                 *, graphs: bool = True, draws: Optional[dict] = None):
+                 *, graphs: bool = True, draws: Optional[dict] = None,
+                 mesh=None):
+        if mesh is not None:
+            if env_cfg.engine_backend == "shard":
+                raise ValueError(
+                    "engine_backend='shard' cannot nest inside the sharded "
+                    "training iteration; use 'torch' or 'cuda' for the env "
+                    "engine")
+            if draws is not None:
+                raise ValueError("draws= injects the unsharded iteration's "
+                                 "draws; a sharded iteration draws its own")
+        self.place = _Placement(mesh, tc)
+        if mesh is not state.mesh:
+            raise ValueError("make_iteration needs the mesh init_train_state "
+                             f"placed the state on ({state.mesh})")
         self.cfg, self.tc, self.pool, self.st = env_cfg, tc, pool, state
         dev = pool.k1.device
         self.capture = graphs and dev.type == "cuda"
@@ -374,7 +464,7 @@ class Iteration:
 
     @torch.no_grad()
     def collect_step(self) -> None:
-        st, tc = self.st, self.tc
+        st, tc, place = self.st, self.tc, self.place
         if self.draw_buf is None:
             a = sac_lib.act(st.sac, st.obs, st.act_gen)
             env_draws = None
@@ -382,12 +472,13 @@ class Iteration:
             a = self.draw_buf["action"].long()
             env_draws = {"clock": self.draw_buf["clock"],
                          "pending": self.draw_buf["pending"]}
-        env2, _, info = env_lib.step(self.cfg, self.pool, st.env, a,
-                                     draws=env_draws)
-        rew = self.reward_fn(st.env, a, info)
-        next_obs = _obs_of(self.cfg, self.pool, tc, env2)
-        replay.add_batch(st.buf, st.obs, a, rew, torch.ones_like(rew),
-                         next_obs)
+        a_own = a[place.envs]
+        env2, _, info = env_lib.step(self.cfg, self.pool, st.env, a_own,
+                                     draws=env_draws, rows=place.rows)
+        got = place.gather({"rew": self.reward_fn(st.env, a_own, info),
+                            "obs": _obs_of(self.cfg, self.pool, tc, env2)})
+        rew, next_obs = got["rew"], got["obs"]
+        place.insert(st.buf, st.obs, a, rew, torch.ones_like(rew), next_obs)
         _copy_(st.env, env2)
         _copy_(st.obs, next_obs)
         self.rew_sum.add_(rew.mean())
@@ -395,7 +486,8 @@ class Iteration:
     def update_step(self) -> None:
         st, tc = self.st, self.tc
         idx = None if self.draw_buf is None else self.draw_buf["sample_idx"]
-        batch = replay.sample(st.buf, st.sample_gen, tc.batch_size, idx=idx)
+        batch = self.place.sample(st.buf, st.sample_gen, tc.batch_size,
+                                  idx=idx)
         with torch.enable_grad():
             loss, aux = sac_lib.losses(st.sac, batch)
             grads = sac_lib.grads(loss, self.params)
@@ -460,27 +552,31 @@ class Iteration:
 
 def make_iteration(env_cfg: env_lib.EnvConfig, tc: TrainConfig, pool,
                    state: TrainState, *, graphs: bool = True,
-                   draws: Optional[dict] = None) -> Iteration:
-    """The collect/update iteration over ``state`` (``Iteration``)."""
-    return Iteration(env_cfg, tc, pool, state, graphs=graphs, draws=draws)
+                   draws: Optional[dict] = None, mesh=None) -> Iteration:
+    """The collect/update iteration over ``state`` (``Iteration``), sharded
+    over ``mesh`` when given (module docstring)."""
+    return Iteration(env_cfg, tc, pool, state, graphs=graphs, draws=draws,
+                     mesh=mesh)
 
 
 def train_router(env_cfg: env_lib.EnvConfig, sac_cfg: sac_lib.SACConfig,
                  tc: TrainConfig, *, pool=None,
-                 log_fn: Optional[Callable] = None, graphs: bool = True
-                 ) -> Tuple[sac_lib.SAC, list]:
+                 log_fn: Optional[Callable] = None, graphs: bool = True,
+                 mesh=None) -> Tuple[sac_lib.SAC, list]:
     """Train a router for ``tc.iterations`` iterations; returns (the trained
     ``SAC``, history).  The history holds a dict of floats every
     ``tc.log_every`` iterations and at the last: the ``aux`` keys,
     ``iteration``, ``transitions``, ``elapsed_s`` and, with
     ``tc.straggler_z``, ``straggler_flags``.  Only those iterations (and,
     with straggler detection, every iteration's end) wait for the
-    device."""
+    device.  ``mesh`` shards the training (module docstring): every rank
+    returns the same router."""
     if pool is None:
         pool = env_lib.make_env_pool(env_cfg)
     dev = pool.k1.device
-    state = init_train_state(env_cfg, sac_cfg, tc, pool)
-    iteration = make_iteration(env_cfg, tc, pool, state, graphs=graphs)
+    state = init_train_state(env_cfg, sac_cfg, tc, pool, mesh=mesh)
+    iteration = make_iteration(env_cfg, tc, pool, state, graphs=graphs,
+                               mesh=mesh)
     detector = None
     if tc.straggler_z is not None:
         from repro_torch.distributed.fault_tolerance import StragglerDetector

@@ -1,0 +1,187 @@
+"""Collectives over a mesh axis (port of ``repro/distributed/collectives.py``,
+and the gathers and sums that sharded training and the sharded engine
+advance make).
+
+A collective runs over the process group of one axis of a ``DeviceMesh``
+(``mesh.get_group(axis)``), in that group's rank order, which is the
+mesh's order along the axis.
+
+* ``gather_cat`` / ``gather_rows``: every rank's tensor, or tree of
+  tensors, concatenated along one dimension in rank order (the
+  reference's tiled ``lax.all_gather``).
+* ``sum_disjoint``: the sum over the ranks of trees in which each element
+  is nonzero on at most one rank (the reference's ``lax.psum`` of the
+  sharded replay sample).  The ranks add the bits, as int32 words, so
+  each element comes back exactly as its owner holds it, ``-0.0``
+  included.
+
+Both pack every leaf into int32 words (float32 bits as they are, bool
+widened), so a tree costs one collective.
+
+* ``compressed_allreduce``: the mean over the ranks, sent as int8 with a
+  scale per block of 256 taken from the global maximum (``all_reduce``
+  MAX), the codes summed in int32, and error feedback: the quantisation
+  error of each rank's input comes back as a residual for its next call.
+* ``ring_allreduce``: the sum over the ranks by a ring, reduce-scatter
+  then all-gather in ``2(n - 1)`` rounds of ``batch_isend_irecv``, in the
+  reference's schedule.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+_WORD = torch.int32
+_TO_WORDS = (torch.float32, torch.int32, torch.bool)
+
+
+def _leaves(tree, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    return [leaf for k, x in tree.items() for leaf in _leaves(x, prefix + (k,))]
+
+
+def _build(pairs) -> object:
+    if len(pairs) == 1 and pairs[0][0] == ():
+        return pairs[0][1]
+    out: Dict = {}
+    for path, x in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return out
+
+
+def to_words(xs, lead: int) -> torch.Tensor:
+    """``xs`` side by side as int32 words: each tensor's first ``lead``
+    dimensions kept (alike in all), the rest flattened into words."""
+    cols = []
+    for x in xs:
+        if x.dtype not in _TO_WORDS:
+            raise TypeError(f"no 32-bit word form for {x.dtype}")
+        w = x.view(_WORD) if x.dtype == torch.float32 else x.to(_WORD)
+        cols.append(w.reshape(tuple(x.shape[:lead]) + (-1,)))
+    return torch.cat(cols, dim=-1)
+
+
+def from_words(words: torch.Tensor, like) -> list:
+    """Split ``to_words``'s words back into tensors shaped like ``like``
+    past their leading dimensions (which come from ``words``), in their
+    dtypes."""
+    lead = tuple(words.shape[:-1])
+    out, col = [], 0
+    for x in like:
+        tail = tuple(x.shape[len(lead):])
+        n = 1
+        for d in tail:
+            n *= d
+        w = words[..., col:col + n].reshape(lead + tail)
+        col += n
+        out.append(w.view(torch.float32) if x.dtype == torch.float32
+                   else w.to(x.dtype))
+    return out
+
+
+def gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (alike in shape) concatenated along ``dim`` in the
+    group's rank order: one ``all_gather_into_tensor``."""
+    k = dist.get_world_size(group)
+    out = torch.empty((k * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    out = out.reshape((k,) + tuple(x.shape)).movedim(0, dim)
+    shape = list(x.shape)
+    shape[dim] *= k
+    return out.reshape(shape)
+
+
+def gather_rows(tree, group):
+    """A tree of tensors with a leading batch axis (each rank's rows)
+    gathered into the whole batch, rank-order rows: one collective."""
+    pairs = _leaves(tree)
+    xs = [x for _, x in pairs]
+    words = gather_cat(to_words(xs, 1), group)
+    full = [x.new_empty((words.shape[0],) + tuple(x.shape[1:])) for x in xs]
+    return _build([(p, y) for (p, _), y in
+                   zip(pairs, from_words(words, full))])
+
+
+def sum_disjoint(tree, group):
+    """The sum over the group of trees in which every element is nonzero
+    on one rank at most, bit-exact: one ``all_reduce`` of the int32 words
+    (a zero word elsewhere adds nothing)."""
+    pairs = _leaves(tree)
+    xs = [x for _, x in pairs]
+    words = to_words(xs, 0)
+    dist.all_reduce(words, op=dist.ReduceOp.SUM, group=group)
+    return _build([(p, y) for (p, _), y in zip(pairs, from_words(words, xs))])
+
+
+def compressed_allreduce(tree, mesh, axis: str = "data", *,
+                         residual: Optional[torch.Tensor] = None,
+                         block: int = 256):
+    """Mean-all-reduce ``tree`` over ``axis`` of ``mesh`` with int8
+    compression and error feedback.  Returns (the averaged tree, the new
+    residual: this rank's flat float32 quantisation error)."""
+    group = mesh.get_group(axis)
+    pairs = _leaves(tree)
+    flat = torch.cat([x.to(torch.float32).reshape(-1) for _, x in pairs])
+    v = flat + (torch.zeros_like(flat) if residual is None else residual)
+    n = v.shape[0]
+    vp = torch.nn.functional.pad(v, (0, (-n) % block)).reshape(-1, block)
+    # quantise against the global-max scale of each block (one extra
+    # small all_reduce), so the int32 sum of the codes decodes exactly
+    # under a shared scale
+    scale = torch.amax(torch.abs(vp), dim=1, keepdim=True)
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(scale / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(vp / scale), -127, 127).to(torch.int8)
+    deq = (q.to(torch.float32) * scale).reshape(-1)[:n]
+    new_res = v - deq
+    q_sum = q.to(torch.int32)
+    dist.all_reduce(q_sum, op=dist.ReduceOp.SUM, group=group)
+    n_dev = float(dist.get_world_size(group))
+    avg = (q_sum.to(torch.float32) * scale).reshape(-1)[:n] / n_dev
+    out, off = [], 0
+    for path, x in pairs:
+        out.append((path, avg[off:off + x.numel()].reshape(x.shape)
+                    .to(x.dtype)))
+        off += x.numel()
+    return _build(out), new_res
+
+
+def ring_allreduce(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
+    """The elementwise sum of every rank's ``x`` (m,) over ``axis`` of
+    ``mesh``, by a ring: ``n - 1`` rounds of reduce-scatter, each rank
+    sending one chunk to the next rank and adding the one it receives,
+    then ``n - 1`` rounds of all-gather, in the reference's schedule."""
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    m = x.shape[0]
+    if n == 1:
+        return x.clone()
+    chunk = -(-m // n)
+    acc = torch.nn.functional.pad(x, (0, chunk * n - m)).reshape(n, chunk)
+    idx = dist.get_group_rank(group, dist.get_rank())
+    nxt = dist.get_global_rank(group, (idx + 1) % n)
+    prv = dist.get_global_rank(group, (idx - 1) % n)
+
+    def shift(block: torch.Tensor) -> torch.Tensor:
+        recv = torch.empty_like(block)
+        ops = [dist.P2POp(dist.isend, block.contiguous(), nxt, group),
+               dist.P2POp(dist.irecv, recv, prv, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv
+
+    for step in range(n - 1):
+        recv = shift(acc[(idx - step) % n])
+        tgt = (idx - step - 1) % n
+        acc[tgt] = acc[tgt] + recv
+    for step in range(n - 1):
+        recv = shift(acc[(idx + 1 - step) % n])
+        acc[(idx - step) % n] = recv
+    return acc.reshape(-1)[:m]

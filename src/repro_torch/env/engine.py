@@ -23,6 +23,15 @@ Backends of ``advance_all``:
     CUDA kernel (``kernels/lockstep_advance/ref.py``).
   * ``"cuda"``  — the hand-written kernel, one launch for every row of
     every env (``kernels/lockstep_advance/ops.py``).
+  * ``"shard"`` — the experts split over the ``expert`` axis of a mesh
+    (``launch.mesh.make_expert_mesh()`` by default; the reference's
+    ``"shard_map"``): each rank advances its block of ``N / k`` experts
+    of every env with ``shard_body`` (``"cuda"``, the kernel, or
+    ``"torch"``, the plain loop; by default the one the device runs), and
+    one all-gather over the axis brings every rank the advanced queue
+    rows, clocks and accumulators of all N.  The reference returns global
+    arrays too, and XLA keeps the queues where they were advanced; here
+    every rank gets them whole after every advance.
 
 ``backend=None`` picks ``"cuda"`` for CUDA tensors and ``"torch"`` for CPU
 tensors.
@@ -69,7 +78,8 @@ from repro_torch.env.engine_layout import (
 from repro_torch.env.profiles import ExpertPool
 
 INF = 1e30
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "cuda", "shard")
+SHARD_BODIES = ("cuda", "torch")
 ADMIT_ORDERS = ("fifo", "qos", "qos_aged", "edf")
 ACC_KEYS = ("phi", "lat", "score", "wait", "done", "viol")
 QOS_AGE_BETA = 0.5
@@ -247,11 +257,57 @@ def advance_shard(run_i: torch.Tensor, run_f: torch.Tensor,
     return run_i, run_f, wvalid.to(torch.int32), clocks, acc
 
 
+def _advance_rows(backend: str, args, *, latency_L: float, admit_order: str):
+    """``advance_shard``'s contract on the row-flattened ``args``, by the
+    kernel (``"cuda"``) or the plain loop (``"torch"``)."""
+    if backend == "cuda":
+        from repro_torch.kernels.lockstep_advance.ops import lockstep_advance
+        return lockstep_advance(*args, latency_L=latency_L,
+                                admit_order=admit_order)
+    return advance_shard(*args, latency_L=latency_L, admit_order=admit_order)
+
+
+def _advance_sharded(args, n: int, *, mesh, shard_body: str,
+                     latency_L: float, admit_order: str):
+    """The ``"shard"`` backend on the row-flattened ``args`` of envs of
+    ``n`` experts each (env-major): this rank's block of experts of every
+    env through ``shard_body``, then one all-gather of the results over
+    the ``expert`` axis, put back in env-major order."""
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    if shard_body not in SHARD_BODIES:
+        raise ValueError(f"unknown shard_body {shard_body!r}")
+    if mesh is None:
+        mesh_lib.init_world(args[0].device)
+        mesh = mesh_lib.make_expert_mesh()
+    k = sharding.axis_size(mesh, sharding.EXPERT)
+    if n % k != 0:
+        raise ValueError(
+            f"n_experts={n} not divisible by mesh axis "
+            f"'{sharding.EXPERT}'={k}")
+    b = args[0].shape[0] // n
+    mine = sharding.expert_rows(mesh, n)
+    # (B, N, ...) -> this rank's (B, N/k, ...) -> rows
+    local = [x.reshape((b, n) + tuple(x.shape[1:]))[:, mine]
+             .reshape((-1,) + tuple(x.shape[1:])).contiguous() for x in args]
+    out = _advance_rows(shard_body, local, latency_L=latency_L,
+                        admit_order=admit_order)
+    n_loc = mine.stop - mine.start
+    words = collectives.to_words(
+        [x.reshape((b, n_loc) + tuple(x.shape[1:])) for x in out], 2)
+    words = collectives.gather_cat(words, mesh.get_group(sharding.EXPERT),
+                                   dim=1)
+    full = [x.new_empty((b * n,) + tuple(x.shape[1:])) for x in out]
+    return collectives.from_words(words.reshape(b * n, -1), full)
+
+
 def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
                 clocks: torch.Tensor, t_next, *, backend: Optional[str] = None,
                 admit_order: str = "fifo", run_caps=None, wait_caps=None,
                 up=None, k_scale=None, admit_min=None,
-                par: Optional[torch.Tensor] = None
+                par: Optional[torch.Tensor] = None, mesh=None,
+                shard_body: Optional[str] = None
                 ) -> Tuple[dict, torch.Tensor, dict]:
     """Advance every expert of every env to ``t_next`` (module docstring).
 
@@ -263,7 +319,9 @@ def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
     scales k1/k2, ``admit_min`` defers waiters whose pred_s is below it.
     ``par`` is those channels already packed by ``pool_params``, (N,
     PAR_CH) or one row per queue row: a fleet whose channels do not change
-    builds it once instead of on every call.
+    builds it once instead of on every call.  ``mesh`` and ``shard_body``
+    serve the ``"shard"`` backend, which splits the last axis of
+    ``clocks`` (N; one env when ``clocks`` is (N,)).
 
     Returns (queues, clocks, acc) in the input's shapes, acc a dict of
     ``ACC_KEYS`` each shaped like ``clocks``."""
@@ -293,19 +351,21 @@ def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
     par = par.reshape(-1, PAR_CH)
     if par.shape[0] != m:                                  # tile over envs
         par = par.repeat(m // par.shape[0], 1)
-    args = (queues["run_i"].reshape(m, r_cap, RUN_I_CH).contiguous(),
+    args = [queues["run_i"].reshape(m, r_cap, RUN_I_CH).contiguous(),
             queues["run_f"].reshape(m, r_cap, RUN_F_CH).contiguous(),
             queues["wait_i"].reshape(m, w_cap, WAIT_I_CH).contiguous(),
             queues["wait_f"].reshape(m, w_cap, WAIT_F_CH).contiguous(),
             par,
             clocks.reshape(m).contiguous(),
-            t_next.expand(lead).reshape(m).contiguous())
-    if backend == "cuda":
-        from repro_torch.kernels.lockstep_advance.ops import lockstep_advance
-        out = lockstep_advance(*args, latency_L=latency_L,
+            t_next.expand(lead).reshape(m).contiguous()]
+    if backend == "shard":
+        if shard_body is None:
+            shard_body = "cuda" if on_cuda else "torch"
+        out = _advance_sharded(args, lead[-1], mesh=mesh,
+                               shard_body=shard_body, latency_L=latency_L,
                                admit_order=admit_order)
     else:
-        out = advance_shard(*args, latency_L=latency_L,
+        out = _advance_rows(backend, args, latency_L=latency_L,
                             admit_order=admit_order)
     run_i, run_f, wvalid, new_clocks, acc = out
     wait_i = queues["wait_i"].clone()

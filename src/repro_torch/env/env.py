@@ -19,6 +19,12 @@ the ``torch.Generator`` in ``state["gen"]``; ``step(..., draws=...)``
 injects the next clock and pending request instead, which is how the
 tests hold the port against the reference on identical draws.
 
+``rows=(lo, n)`` says that the state holds envs ``lo .. lo + B`` of a batch
+of ``n`` (a rank's share of the envs in training on a ``data`` mesh axis):
+every draw is made for all ``n`` envs from the shared generator and the
+state keeps its own rows, so each env sees the numbers it would see in
+the whole batch, and the generator advances alike on every rank.
+
 With ``cfg.scenario`` (a name in ``repro_torch.scenarios``) each env's
 conditions are looked up at its clock at the start of the step and hold
 for the step: beyond-cap occupants are evicted, admission and the advance
@@ -67,7 +73,9 @@ class EnvConfig:
     drop_penalty: float = 0.8
     use_oracle_predictions: bool = False
     impact_mode: str = "paper"        # "paper" (Eq. 15) | "projected"
-    engine_backend: Optional[str] = None  # None | "torch" | "cuda"
+    engine_backend: Optional[str] = None  # None | "torch" | "cuda" | "shard"
+    # the "shard" backend's per-rank body: None (by device) | "cuda" | "torch"
+    shard_body: Optional[str] = None
     admit_order: str = "fifo"
     run_caps: Optional[Tuple[int, ...]] = None
     wait_caps: Optional[Tuple[int, ...]] = None
@@ -149,18 +157,26 @@ def predict(cfg: EnvConfig, gen: torch.Generator, score: torch.Tensor,
 
 
 def _new_request(cfg: EnvConfig, pool: ExpertPool, gen: torch.Generator,
-                 batch: int) -> dict:
-    r = profiles.sample_request(pool, gen, batch)
+                 batch: int, rows: Optional[Tuple[int, int]] = None) -> dict:
+    """The next request of ``batch`` envs (drawn for ``rows[1]`` envs and
+    cut to ``rows[0] .. rows[0] + batch`` with ``rows``)."""
+    n = batch if rows is None else rows[1]
+    r = profiles.sample_request(pool, gen, n)
     r["pred_s"], r["pred_d"] = predict(cfg, gen, r["score"],
                                        r["out_len"].to(torch.float32))
-    return r
+    if rows is None:
+        return r
+    return {k: v[rows[0]:rows[0] + batch] for k, v in r.items()}
 
 
 def reset(cfg: EnvConfig, pool: ExpertPool, gen: torch.Generator,
-          batch: int, *, pending: Optional[dict] = None) -> dict:
+          batch: int, *, pending: Optional[dict] = None,
+          rows: Optional[Tuple[int, int]] = None) -> dict:
     """A batch of ``batch`` fresh envs on the pool's device.  ``pending``
     injects the first pending request (fields (B,) / (B, N)) instead of
-    drawing it.  An unknown scenario name raises ``KeyError`` here."""
+    drawing it; ``rows`` makes them envs ``rows[0] ..`` of ``rows[1]``
+    (module docstring).  An unknown scenario name raises ``KeyError``
+    here."""
     dev = pool.k1.device
     scenarios.for_cfg(cfg, dev)
     zeros = lambda: torch.zeros((batch,), dtype=torch.float32, device=dev)
@@ -177,7 +193,7 @@ def reset(cfg: EnvConfig, pool: ExpertPool, gen: torch.Generator,
                                       cfg.wait_cap, batch=batch, device=dev),
         "wl": workload.init_state(batch, device=dev),
         "pending": (dict(pending) if pending is not None
-                    else _new_request(cfg, pool, gen, batch)),
+                    else _new_request(cfg, pool, gen, batch, rows)),
         "stats": {k: zeros() for k in stat_keys},
     }
     if cfg.failover is not None:
@@ -267,13 +283,16 @@ def _admit(cfg: EnvConfig, state: dict, action: torch.Tensor, up=None,
 
 
 def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
-         action: torch.Tensor, *, draws: Optional[dict] = None):
+         action: torch.Tensor, *, draws: Optional[dict] = None,
+         rows: Optional[Tuple[int, int]] = None):
     """One routing decision per env; ``action`` is (B,) int.  Returns
     (state, reward (B,), info).  Under a scenario or failover the step
     follows the reference's order (module docstring).
 
     ``draws`` injects what the step would otherwise draw: ``{"clock": (B,)
-    next arrival time, "pending": next pending request}``."""
+    next arrival time, "pending": next pending request}``.  With ``rows``
+    the state's envs are ``rows[0] ..`` of a batch of ``rows[1]``, and the
+    step draws for the whole batch (module docstring)."""
     action = action.to(torch.int64)
     dev = state["clock"].device
     st = scenarios.for_cfg(cfg, dev)
@@ -323,7 +342,8 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
     wl_state = state["wl"]
     if draws is None:
         dt, wl_state = workload.next_arrival(cfg.workload, wl_state,
-                                             state["clock"], gen, rate_mult)
+                                             state["clock"], gen, rate_mult,
+                                             rows=rows)
         t_next = state["clock"] + dt
     else:
         t_next = draws["clock"]
@@ -335,7 +355,8 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
                                  admit_min)
     queues, clocks, acc = engine.advance_all(
         pool, cfg.latency_L, queues, state["expert_clock"], t_next,
-        backend=cfg.engine_backend, admit_order=cfg.admit_order, par=par)
+        backend=cfg.engine_backend, admit_order=cfg.admit_order, par=par,
+        shard_body=cfg.shard_body)
     acc = {k: v.sum(-1) for k, v in acc.items()}           # over experts
 
     reward = acc["phi"] - penalty - cfg.drop_penalty * dropped
@@ -353,7 +374,7 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
         stats["redispatched"] = stats["redispatched"] + redispatched
 
     pending = (dict(draws["pending"]) if draws is not None
-               else _new_request(cfg, pool, gen, action.shape[0]))
+               else _new_request(cfg, pool, gen, action.shape[0], rows))
     new_state = {"gen": gen, "par": state["par"],
                  "wait_caps": state["wait_caps"],
                  "clock": t_next, "expert_clock": clocks,

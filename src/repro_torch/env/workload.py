@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,14 +58,20 @@ def current_rate(cfg: WorkloadConfig, state: dict, t: torch.Tensor,
 
 
 def next_arrival(cfg: WorkloadConfig, state: dict, t: torch.Tensor,
-                 gen: torch.Generator, rate_mult=None
+                 gen: torch.Generator, rate_mult=None,
+                 rows: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, dict]:
-    """Returns (dt (B,) to the next arrival, new workload state)."""
+    """Returns (dt (B,) to the next arrival, new workload state).  With
+    ``rows=(lo, n)`` the B envs are ``lo .. lo + B`` of ``n``: each draw is
+    made for all ``n`` and cut to them."""
     rate = torch.clamp(current_rate(cfg, state, t, rate_mult), min=1e-3)
-    dt = torch.empty_like(rate).exponential_(generator=gen) / rate
+    b = rate.shape[0]
+    n, lo = (b, 0) if rows is None else (rows[1], rows[0])
+    draw = torch.empty((n,), dtype=rate.dtype, device=rate.device)
+    dt = draw.exponential_(generator=gen)[lo:lo + b] / rate
     if cfg.kind == "poisson":
         return dt, state
-    u = torch.rand(rate.shape, generator=gen, device=rate.device)
+    u = torch.rand((n,), generator=gen, device=rate.device)[lo:lo + b]
     burst = state["burst"]
     flip_on = ~burst & (u < cfg.burst_on_prob)
     flip_off = burst & (u < cfg.burst_off_prob)

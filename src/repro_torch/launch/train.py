@@ -4,7 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --router --iters 400 \\
         [--obs-fmt padded|segments] [--ragged-caps] [--scenario NAME] \\
         [--failover [--retry-budget 2] [--shed-watermark 0.9]] \\
-        [--straggler-z 4.0] [--device cuda] [--eager] [--out router.npz]
+        [--straggler-z 4.0] [--router-mesh] [--device cuda] [--eager] \\
+        [--out router.npz]
 
 Trains with ``core.training.train_router`` on the CUDA device, every
 collect step and update replayed from a CUDA graph (``--eager`` runs them
@@ -14,8 +15,18 @@ lifecycle; ``--straggler-z`` flags slow iterations.  ``--out`` saves the
 trained router in the reference's tree layout (``core.io.save_pytree``),
 which ``launch/route.py --ckpt`` and the reference both load.
 
-The capacity-sharded replay of ``--router-mesh`` (ROADMAP queue A item 3)
-and the LM trainer (queue A item 5) are not ported: they raise.
+``--router-mesh`` shards the replay buffer's capacity over the 1-D
+``launch.mesh.make_train_mesh()`` of every rank (``training.train_router(
+mesh=...)``), bit-identical to the unsharded run.  In one process it is a
+world of one (NCCL on the card, gloo with ``--device cpu``); under
+torchrun, one rank per process:
+
+    PYTHONPATH=src torchrun --nproc_per_node=4 -m repro_torch.launch.train \\
+        --router --router-mesh --device cpu --iters 2
+
+On CUDA torchrun takes one GPU per rank.  Only rank 0 logs and writes
+``--out``.  The LM trainer (ROADMAP queue A item 5) is not ported: it
+raises.
 """
 from __future__ import annotations
 
@@ -23,31 +34,34 @@ import argparse
 import dataclasses
 from typing import Optional
 
+import torch.distributed as dist
+
 from repro_torch import device as device_lib, scenarios
 from repro_torch.core import features, io, sac as sac_lib, training
 from repro_torch.env import env as env_lib
-from repro_torch.launch import route
+from repro_torch.launch import mesh as mesh_lib, route
 
 
-def router_configs(args, dev):
-    """(EnvConfig, pool, SACConfig, TrainConfig) from the flags."""
+def router_configs(args, dev, say=print):
+    """(EnvConfig, pool, SACConfig, TrainConfig) from the flags; ``say``
+    prints what they chose."""
     env_cfg = env_lib.EnvConfig()
     pool = env_lib.make_env_pool(env_cfg, device=dev)
     if args.ragged_caps:
         env_cfg = env_lib.with_ragged_caps(env_cfg, pool)
-        print(f"[train] ragged fleet: run_caps={env_cfg.run_caps} "
-              f"wait_caps={env_cfg.wait_caps}")
+        say(f"[train] ragged fleet: run_caps={env_cfg.run_caps} "
+            f"wait_caps={env_cfg.wait_caps}")
     if args.scenario:
         spec = scenarios.get(args.scenario)     # fails on an unknown name
         env_cfg = dataclasses.replace(env_cfg, scenario=args.scenario)
-        print(f"[train] scenario {spec.name!r}: horizon={spec.horizon:g}s, "
-              f"{len(spec.events)} events")
+        say(f"[train] scenario {spec.name!r}: horizon={spec.horizon:g}s, "
+            f"{len(spec.events)} events")
     fo = route.failover_config(args)
     if fo is not None:
         env_cfg = dataclasses.replace(env_cfg, failover=fo)
-        print(f"[train] failover: retry_budget={fo.retry_budget} "
-              f"backoff={fo.backoff_base:g}s buffer={fo.buffer_cap} "
-              f"watermark={fo.shed_watermark}")
+        say(f"[train] failover: retry_budget={fo.retry_budget} "
+            f"backoff={fo.backoff_base:g}s buffer={fo.buffer_cap} "
+            f"watermark={fo.shed_watermark}")
     seg = args.obs_fmt == "segments"
     sac_cfg = sac_lib.SACConfig(
         n_actions=env_cfg.n_experts + 1, flat_dim=env_cfg.n_experts * 3,
@@ -60,13 +74,29 @@ def router_configs(args, dev):
 
 
 def train_router_main(args):
-    """Train the router from parsed flags; returns (SAC, history)."""
+    """Train the router from parsed flags; returns (SAC, history).  With
+    ``--router-mesh`` it joins (or starts, and then ends) the process
+    group."""
+    mesh, opened = None, False
     if args.router_mesh:
-        raise NotImplementedError(
-            "--router-mesh (the capacity-sharded replay buffer over a "
-            "device mesh) is not ported yet; ROADMAP.md queue A item 3")
-    dev = device_lib.resolve(args.device)
-    env_cfg, pool, sac_cfg, tc = router_configs(args, dev)
+        opened = not dist.is_initialized()
+        dev = mesh_lib.init_world(args.device)
+        mesh = mesh_lib.make_train_mesh()
+    else:
+        dev = device_lib.resolve(args.device)
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        if opened:
+            mesh_lib.close_world()
+
+
+def _train(args, dev, mesh):
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    env_cfg, pool, sac_cfg, tc = router_configs(args, dev, say)
+    if mesh is not None:
+        say(f"[train] replay capacity sharded over {mesh}")
 
     def log_fn(m):
         if m.get("straggler"):
@@ -78,13 +108,13 @@ def train_router_main(args):
         print(f"  it={m['iteration']} rew={m['collect_reward']:.3f}{flags}")
 
     sac, history = training.train_router(env_cfg, sac_cfg, tc, pool=pool,
-                                         log_fn=log_fn,
-                                         graphs=not args.eager)
-    print(f"[train] router done: final reward "
-          f"{history[-1]['collect_reward']:.3f}")
-    if args.out:
+                                         log_fn=log_fn if lead else None,
+                                         graphs=not args.eager, mesh=mesh)
+    say(f"[train] router done: final reward "
+        f"{history[-1]['collect_reward']:.3f}")
+    if args.out and lead:
         io.save_pytree(args.out, io.sac_params_to_numpy(sac))
-        print(f"[train] saved {args.out}")
+        say(f"[train] saved {args.out}")
     return sac, history
 
 
@@ -94,8 +124,8 @@ def parser() -> argparse.ArgumentParser:
                    help="train the QoS router (the LM trainer is not "
                         "ported)")
     p.add_argument("--router-mesh", action="store_true",
-                   help="shard the replay buffer over a device mesh (not "
-                        "ported)")
+                   help="shard the replay buffer over the expert mesh of "
+                        "every rank (a world of one, or torchrun's)")
     p.add_argument("--obs-fmt", default="padded",
                    choices=["padded", "segments"])
     p.add_argument("--ragged-caps", action="store_true",

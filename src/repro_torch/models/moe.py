@@ -10,9 +10,9 @@ plain versions.  B4b keeps ``x@wg`` and ``x@wu`` in float32 up to one
 rounding, where the reference's einsum chain rounds them to the activation
 dtype first; at float32 the two agree to rounding.
 
-The reference's expert-parallel ``_moe_sharded`` (shard_map over a mesh)
-waits for the port's mesh (ROADMAP queue A); ``moe_block`` is the local
-path.  Nothing here synchronises with the host: dispatch and combine are
+The reference's expert-parallel ``_moe_sharded`` (shard_map over a
+``model`` axis) belongs to the LM model mesh, ROADMAP queue A item 5;
+``moe_block`` is the local path.  Nothing here synchronises with the host: dispatch and combine are
 index arithmetic on the device.
 """
 from __future__ import annotations

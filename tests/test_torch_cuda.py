@@ -1310,3 +1310,83 @@ def test_kernel_under_live_scenario_channels_matches_plain_on_card(
     s = states[0]["stats"]
     assert float(s["shed"].sum()) > 0 and float(s["evicted"].sum()) > 0
     assert float(states[0]["clock"].min()) > 12.0      # past the outage
+
+
+# ---------------------------------------------------------------------------
+# Sharded training and the sharded engine in a world of one NCCL rank
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A world of one NCCL rank on the card (``launch/mesh.py``), ended
+    after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs on GPUs only")
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev = mesh_lib.init_world("cuda")
+    yield dev
+    mesh_lib.close_world()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [None, 1], ids=["expert", "data1_expert"])
+def test_sharded_training_in_a_world_of_one_equals_unsharded_on_card(
+        nccl_world, data):
+    """Graphed iterations on ``make_train_mesh(data=...)`` (the insert and
+    sample through the shard bodies and their collectives, on ``data=1``
+    the envs' gather too, captured in the graphs) against graphed
+    unsharded iterations from the same seeds: every tensor and ``aux``
+    bit-equal, B1 once per collect step."""
+    from repro_torch.core import sac
+    from repro_torch.launch import mesh as mesh_lib, route
+
+    env_cfg, pool = route.make_env(6, device=nccl_world)
+    tc = training.TrainConfig(n_envs=4, collect_steps=3, updates_per_iter=3,
+                              batch_size=32, buffer_capacity=100,
+                              warmup_transitions=30, iterations=8, seed=3)
+    runs = []
+    for mesh in (None, mesh_lib.make_train_mesh(data=data)):
+        st = training.init_train_state(env_cfg, sac.SACConfig(), tc, pool,
+                                       mesh=mesh)
+        it_fn = training.make_iteration(env_cfg, tc, pool, st, mesh=mesh)
+        before = ops.LAUNCHES
+        auxs = [{k: float(v) for k, v in it_fn(i).items()}
+                for i in range(tc.iterations)]
+        assert ops.LAUNCHES - before == tc.iterations * tc.collect_steps
+        assert it_fn.update_graph is not None
+        runs.append((st, auxs))
+    (plain, a_plain), (sharded, a_sharded) = runs
+    assert a_plain == a_sharded and a_plain[-1]["critic_loss"] != 0.0
+    _same_train_state(plain, sharded)
+
+
+@pytest.mark.cuda
+def test_shard_engine_in_a_world_of_one_equals_cuda_on_card(nccl_world):
+    """QLL routed through ``engine_backend="shard"`` (B1 on the rank's
+    experts, then the all-gather), graphed, against ``"cuda"``: bit-equal
+    state and metrics; its first 40 steps against the plain loop as the
+    rank's body, eager."""
+    import dataclasses
+
+    from repro_torch.launch import route
+
+    env_cfg, pool = route.make_env(6, backend="cuda", device=nccl_world)
+    shard = dataclasses.replace(env_cfg, engine_backend="shard")
+    loops = {}
+    for name, cfg, steps, graphed in (
+            ("cuda", env_cfg, 200, True), ("shard", shard, 200, True),
+            ("shard40", shard, 40, True),
+            ("plain40", dataclasses.replace(shard, shard_body="torch"), 40,
+             False)):
+        qll = next(p for p in route.make_policies(cfg) if p.name == "QLL")
+        loop = training.RoutingLoop(cfg, pool, qll, 4)
+        before = ops.LAUNCHES
+        loop.run(steps, graphed)
+        assert ops.LAUNCHES - before == (0 if name == "plain40" else steps)
+        loops[name] = loop
+    _assert_same_state(loops["cuda"].state, loops["shard"].state, "shard")
+    assert loops["cuda"].metrics() == loops["shard"].metrics()
+    _assert_same_state(loops["shard40"].state, loops["plain40"].state,
+                       "plain")

@@ -1,5 +1,6 @@
 """The port stands alone: every ``repro_torch`` module imports with ``jax``
-and the reference package ``repro`` blocked, and importing builds nothing."""
+and the reference package ``repro`` blocked, and importing builds nothing
+and starts no process group."""
 import os
 import subprocess
 import sys
@@ -24,6 +25,8 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     from repro_torch.kernels import build
     assert build._LOADED == {}, build._LOADED
+    import torch.distributed as dist
+    assert not dist.is_initialized()          # no process group started
     print(len(names))
 """)
 

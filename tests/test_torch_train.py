@@ -473,9 +473,14 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "rolling_outage" in out and "watermark=0.9" in out
     assert io.router_ckpt_compatible(io.load_pytree(path))
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        train_cli.main(["--router", "--router-mesh", "--iters", "1",
-                        "--device", "cpu"])
+    # --router-mesh in one process: a world of one gloo rank, which the
+    # CLI starts and ends
+    mesh_path = str(tmp_path / "mesh.npz")
+    train_cli.main(["--router", "--router-mesh", "--iters", "1",
+                    "--device", "cpu", "--out", mesh_path])
+    assert "sharded over DeviceMesh((expert=1)" in capsys.readouterr().out
+    assert io.router_ckpt_compatible(io.load_pytree(mesh_path))
+    assert not torch.distributed.is_initialized()
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         train_cli.main(["--iters", "1", "--device", "cpu"])
     with pytest.raises(KeyError):
