@@ -2,6 +2,11 @@
 NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py predictor lm_train shard_engine   # those alone
+
+With phase names it runs those phases alone, checks no kernel, prints no
+kernels line, and its last line is ``{"ok": null, "partial": [...]}``:
+only a run with no argument ends with ``{"ok": true, ...}``.
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
@@ -206,25 +211,47 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 gather path too), every tensor bit-equal to phase 13's
                 unsharded graphed run of the same 24; iterations/s beside
                 the unsharded run's.  (b) QLL through
-                ``engine_backend="shard"`` (B1 on each rank's block of
-                experts, then one all-gather), graphed: N=6 x 4 envs x 750
-                steps and N=1,024 x 16 x 200 (segments, ragged caps), final
-                state and metrics bit-equal to ``engine_backend="cuda"``
-                (avg QoS at N=6 still 0.7336170673370361), the state after
-                100 steps bit-equal to the plain loop as each rank's body
-                (``shard_body="torch"``, eager); requests/s of both
-                backends.  (c) ``launch/train.py --router --router-mesh
+                ``engine_backend="shard"`` (each rank's env state holds its
+                block of experts; B1 advances it and one all-gather brings
+                the accumulators), and a seeded SAC router likewise (its
+                observation gathers the channels it reads), graphed: N=6 x
+                4 envs x 750 steps and N=1,024 x 16 x 200 (segments, ragged
+                caps), final state and metrics bit-equal to
+                ``engine_backend="cuda"`` and to the whole-state design
+                (``whole_state``, its B1 launches not counted; QLL's avg
+                QoS at N=6 still 0.7336170673370361), QLL's state after 100
+                steps bit-equal to the plain loop as each rank's body
+                (``shard_body="torch"``, eager); requests/s of the three;
+                the bytes each reader's collectives bring a rank in one
+                step of both designs (``bytes_per_step``), the advance's
+                the six accumulators alone.  (c) ``launch/train.py --router --router-mesh
                 --iters 20`` in a process of its own: its saved router bit
                 for bit that of ``--router --iters 20``.  B1 once per
                 collect step and per routing step on every path.
- 18. kernels  — the kernel table line; each kernel's launches are those of
+ 18. predictor — the request predictor (``core/predictors.py``): its first
+                20 steps graphed against eager (parameters, moments, losses
+                bit-equal), then the reference's run through ``train``
+                (1,500 steps of 256, graphed; the reference's accuracy
+                floors); ``bench_predictors.py``'s rows; Table II: the
+                parameter counts and one greedy SAC decision on one N=6
+                observation, graphed and eager.
+ 19. lm_train — LM training: qwen1.5-0.5b at published width in bf16
+                through ``launch/train.py`` (20 steps; 10, a restart from the
+                checkpoint under ``build/``, 10 more, bit-equal to the 20; 3
+                graphed against 3 eager; forward, backward and AdamW each
+                captured alone; tokens/s, peak memory, save and restore
+                seconds); dbrx-132b at published widths cut to 1 of 40
+                layers, Adafactor, 4 microbatches: the peak reckoned first,
+                2 eager steps against the first 2 of 5 graphed (every
+                parameter and state tensor bit-equal).
+ 20. kernels  — the kernel table line; each kernel's launches are those of
                 the counted main paths (3 and 13-17 for B1, 8, 9 and 12 for
                 the others), calls of its wrapper; B5's and B6's entries
                 name the kernels a call launches (``functions``) and count
                 them (``kernels_launched``: calls times kernels per call).
 
 The phases run in the order 1, 10 and 11's per-pass traces (one profiler
-session), 2-9, 12, 10, 11, 13-17.  Every kernel library is built and loaded
+session), 2-9, 12, 10, 11, 13-19.  Every kernel library is built and loaded
 before the first profiler session: on this card a library loaded after
 the tracer first started makes later sessions miss kernel records.  A ``seconds`` line gives each phase's time
 and the total.  The last line
@@ -492,7 +519,7 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100, p_arrive=0.16):
 def same_state(a, b) -> bool:
     """Two env states equal bit for bit (every tensor but the generator)."""
     for k, x in a.items():
-        if k == "gen" or x is None:
+        if k == "gen" or x is None or not isinstance(x, (dict, torch.Tensor)):
             continue
         if isinstance(x, dict):
             if not same_state(x, b[k]):
@@ -815,7 +842,8 @@ def update_split(it_fn, reps=50) -> dict:
     whole update (AdamW and polyak the rest).  Each part captured alone
     over the same static state and replayed ``reps`` times with the
     launches queued ahead."""
-    from repro_torch.core import replay, sac as sac_lib, training
+    from repro_torch.core import replay, sac as sac_lib
+    from repro_torch.graphs import capture
 
     st, tc = it_fn.st, it_fn.tc
 
@@ -830,7 +858,7 @@ def update_split(it_fn, reps=50) -> dict:
 
     out = {}
     for name, fn in (("forward", forward), ("forward_backward", backward)):
-        g = training.capture(fn, (st.sample_gen,))
+        g, _ = capture(fn, (st.sample_gen,))
         out[name] = device_ms(g.replay, reps)
     out["update"] = device_ms(it_fn.update_graph.replay, reps)
     return {"forward_ms": out["forward"],
@@ -1210,15 +1238,18 @@ def clone_tree(tree):
             for k, x in tree.items()}
 
 
-def routed(env_cfg, pool, n_envs, steps, graphs, check_at=None):
-    """QLL over ``RoutingLoop`` for ``steps`` steps from the serve phase's
-    seed: (the loop, synchronised seconds after the first step, a copy of
-    the env state after ``check_at`` steps)."""
+def routed(env_cfg, pool, n_envs, steps, graphs, check_at=None,
+           policy=None):
+    """``policy`` (QLL by default) over ``RoutingLoop`` for ``steps`` steps
+    from the serve phase's seed: (the loop, synchronised seconds after the
+    first step, a copy of the env state after ``check_at`` steps)."""
     from repro_torch.core import training
     from repro_torch.launch import route
 
-    qll = next(p for p in route.make_policies(env_cfg) if p.name == "QLL")
-    loop = training.RoutingLoop(env_cfg, pool, qll, n_envs)
+    if policy is None:
+        policy = next(p for p in route.make_policies(env_cfg)
+                      if p.name == "QLL")
+    loop = training.RoutingLoop(env_cfg, pool, policy, n_envs)
     loop.run(1, graphs)
     snap = None
     t0 = time.perf_counter()
@@ -1279,49 +1310,7 @@ def sharded_phase(dev, unsharded):
                   "unsharded_rates": unsharded["rates"]})
             del st, it_fn
 
-        # (b) QLL through the "shard" engine against "cuda", graphed, and
-        # its first steps against the plain loop as each rank's body
-        for n, n_envs, steps, fmt, ragged in SHARD_ENGINE_CASES:
-            env_cfg, pool = route.make_env(n, ragged_caps=ragged,
-                                           backend="cuda", device=dev)
-            shard_cfg = dataclasses.replace(env_cfg, engine_backend="shard")
-            plain_cfg = dataclasses.replace(shard_cfg, shard_body="torch")
-            runs = {}
-            for name, cfg in (("cuda", env_cfg), ("shard", shard_cfg)):
-                ops.LAUNCHES = 0
-                runs[name] = routed(cfg, pool, n_envs, steps, True,
-                                    check_at=SHARD_PLAIN_STEPS)
-                assert ops.LAUNCHES == steps, (name, ops.LAUNCHES)
-                launches += ops.LAUNCHES
-            ops.LAUNCHES = 0
-            t = time.perf_counter()
-            plain, _, _ = routed(plain_cfg, pool, n_envs, SHARD_PLAIN_STEPS,
-                                 False)
-            plain_s = time.perf_counter() - t
-            assert ops.LAUNCHES == 0, ops.LAUNCHES
-            (cuda, cuda_s, cuda_snap), (shard, shard_s, shard_snap) = (
-                runs["cuda"], runs["shard"])
-            assert same_state(cuda.state, shard.state), n
-            assert same_state(cuda_snap, shard_snap), n
-            assert same_state(shard_snap, plain.state), n
-            m, m_cuda = shard.metrics(), cuda.metrics()
-            assert m == m_cuda, (m, m_cuda)
-            if n == 6:
-                assert m["avg_qos"] == QLL_N6_AVG_QOS, m["avg_qos"]
-            assert m["completed"] > 0, m
-            per_s = lambda secs: (steps - 1) * n_envs / secs
-            emit({"phase": "sharded", "check": "engine", "policy": "QLL",
-                  "n_experts": n, "n_envs": n_envs, "steps": steps,
-                  "obs_fmt": fmt, "ragged_caps": ragged,
-                  "equals_cuda_backend": True,
-                  "plain_body_steps": SHARD_PLAIN_STEPS,
-                  "plain_body_equal": True, "plain_body_s": plain_s,
-                  "launches": steps, "avg_qos": m["avg_qos"],
-                  "completed": m["completed"],
-                  "requests_per_s": {"shard": per_s(shard_s),
-                                     "cuda": per_s(cuda_s)},
-                  "gathered_bytes_per_step": gathered_bytes(env_cfg,
-                                                            n_envs)})
+        launches += shard_engine_runs(dev)
 
         # (c) the CLI sharded, in a process of its own, against unsharded
         paths = {k: os.path.join(ROOT, "build", f"router_cli_{k}.npz")
@@ -1362,12 +1351,432 @@ def sharded_phase(dev, unsharded):
     return launches
 
 
+def shard_engine_runs(dev) -> int:
+    """Phase 17 (b): QLL and a seeded SAC router through the ``"shard"``
+    engine (this rank's state kept, accumulators gathered), and through the
+    whole-state design, against ``"cuda"``, graphed, and QLL's first steps
+    against the plain loop as each rank's body; bytes gathered per step by
+    reader.  Returns B1 launches of the ``"cuda"`` and ``"shard"`` runs
+    (the whole-state design's are checked, not counted)."""
+    from repro_torch.core import sac
+    from repro_torch.kernels.lockstep_advance import ops
+    from repro_torch.launch import route
+
+    launches = 0
+    for n, n_envs, steps, fmt, ragged in SHARD_ENGINE_CASES:
+        env_cfg, pool = route.make_env(n, ragged_caps=ragged,
+                                       backend="cuda", device=dev)
+        shard_cfg = dataclasses.replace(env_cfg, engine_backend="shard")
+        plain_cfg = dataclasses.replace(shard_cfg, shard_body="torch")
+        model = sac.init_params(route.sac_config(env_cfg), seed=0,
+                                device=dev)
+        policies = {p.name: p for p in route.make_policies(
+            env_cfg, model, obs_fmt=fmt) if p.name in ("QLL", "SAC")}
+        for pname, policy in policies.items():
+            runs = {}
+            # "before": the whole-state design, every rank's state whole
+            # and the advance gathering every queue row and clock back (the
+            # env's state is whole when it has no shard view)
+            for name, cfg in (("cuda", env_cfg), ("shard", shard_cfg),
+                              ("before", shard_cfg)):
+                ops.LAUNCHES = 0
+                with whole_state(name == "before"):
+                    runs[name] = routed(cfg, pool, n_envs, steps, True,
+                                        check_at=SHARD_PLAIN_STEPS,
+                                        policy=policy)
+                assert ops.LAUNCHES == steps, (name, ops.LAUNCHES)
+                if name != "before":
+                    launches += ops.LAUNCHES
+            (cuda, cuda_s, cuda_snap), (shard, shard_s, shard_snap) = (
+                runs["cuda"], runs["shard"])
+            before, before_s, _ = runs["before"]
+            assert same_state(cuda.state, shard.state), (n, pname)
+            assert same_state(cuda.state, before.state), (n, pname)
+            assert "shard" in shard.state and "shard" not in before.state
+            assert same_state(cuda_snap, shard_snap), (n, pname)
+            row = {"phase": "sharded", "check": "engine", "policy": pname,
+                   "n_experts": n, "n_envs": n_envs, "steps": steps,
+                   "obs_fmt": fmt, "ragged_caps": ragged,
+                   "equals_cuda_backend": True, "launches": steps}
+            if pname == "QLL":
+                ops.LAUNCHES = 0
+                t = time.perf_counter()
+                plain, _, _ = routed(plain_cfg, pool, n_envs,
+                                     SHARD_PLAIN_STEPS, False)
+                row["plain_body_s"] = time.perf_counter() - t
+                assert ops.LAUNCHES == 0, ops.LAUNCHES
+                assert same_state(shard_snap, plain.state), n
+                row.update(plain_body_steps=SHARD_PLAIN_STEPS,
+                           plain_body_equal=True)
+            gathered = {}
+            for name in ("shard", "before"):
+                with whole_state(name == "before"):
+                    gathered[name] = bytes_per_step(shard_cfg, pool, n_envs,
+                                                    policy)
+            assert sum(gathered["before"].values()) == gathered_bytes(
+                env_cfg, n_envs), gathered["before"]
+            acc_bytes = 4 * 6 * n * n_envs
+            assert gathered["shard"]["accumulators"] == acc_bytes
+            assert "caller" not in gathered["shard"], gathered
+            if pname == "SAC":
+                q = cuda.state["queues"]
+                r, w = q["run_i"].shape[2], q["wait_i"].shape[2]
+                want = 4 * n_envs * n * (6 * r + 5 * w)
+                assert gathered["shard"]["observation"] == want, gathered
+            m, m_cuda = shard.metrics(), cuda.metrics()
+            assert m == m_cuda, (m, m_cuda)
+            if (n, pname) == (6, "QLL"):
+                assert m["avg_qos"] == QLL_N6_AVG_QOS, m["avg_qos"]
+            if pname == "QLL":
+                assert m["completed"] > 0, m
+            per_s = lambda secs: (steps - 1) * n_envs / secs
+            emit({**row, "avg_qos": m["avg_qos"],
+                  "completed": m["completed"],
+                  "requests_per_s": {"shard": per_s(shard_s),
+                                     "shard_before": per_s(before_s),
+                                     "cuda": per_s(cuda_s)},
+                  "gathered_bytes_per_step": {
+                      "shard": gathered["shard"],
+                      "shard_total": sum(gathered["shard"].values()),
+                      "shard_before": gathered["before"],
+                      "advance": {"shard": acc_bytes,
+                                  "shard_before": gathered_bytes(
+                                      env_cfg, n_envs)}}})
+    return launches
+
+
+@contextlib.contextmanager
+def whole_state(on: bool):
+    """With ``on``, envs under the ``"shard"`` backend keep every expert's
+    state on every rank and the advance gathers it all back (the design
+    before each rank kept its block): the env gets no ``ShardView``."""
+    from repro_torch.env import env as env_lib
+
+    view = env_lib.shard_view
+    if on:
+        env_lib.shard_view = lambda cfg, device: None
+    try:
+        yield
+    finally:
+        env_lib.shard_view = view
+
+
+def bytes_per_step(env_cfg, pool, n_envs, policy) -> dict:
+    """The bytes each reader's collectives bring this rank in one eager
+    step of ``policy`` (``collectives.BYTES``), after two steps to fill the
+    queues."""
+    from repro_torch.distributed import collectives
+
+    loop, _, _ = routed(env_cfg, pool, n_envs, 2, False, policy=policy)
+    collectives.BYTES.clear()
+    loop.run(1, graphs=False)
+    torch.cuda.synchronize()
+    return dict(collectives.BYTES)
+
+
 def gathered_bytes(env_cfg, n_envs) -> int:
-    """Bytes the ``"shard"`` engine's all-gather brings each rank per
-    step: every expert row's run slots (two tensors of 5 channels), wait
+    """Bytes the whole-state ``"shard"`` engine's all-gather brings each
+    rank per step: every expert row's run slots (two tensors of 5 channels), wait
     valid bits, clock and six accumulators, in 4-byte words."""
     words = 2 * env_cfg.run_cap * 5 + env_cfg.wait_cap + 1 + 6
     return 4 * words * env_cfg.n_experts * n_envs
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the request predictor and Table II
+# ---------------------------------------------------------------------------
+
+PRED_STEPS, PRED_BATCH, PRED_LR = 1500, 256, 1e-3   # the reference's train
+PRED_PREFIX = 20              # graphed against eager over these steps
+PRED_THRESHOLDS = {"score_top1": 0.25, "score_top3": 0.6, "len_top1": 0.2}
+ACT_REPS = 200
+
+
+def synced() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def predictor_phase(dev):
+    """The request predictor (module docstring): the reference's training
+    run, graphed; graphed against eager on a prefix; Table II."""
+    from repro_torch.core import features, predictors, sac as sac_lib
+    from repro_torch.device import generator
+    from repro_torch.env import env as env_lib
+    from repro_torch.graphs import StepGraph
+
+    env_cfg = env_lib.EnvConfig()
+    pool = env_lib.make_env_pool(env_cfg, device=dev)
+    cfg = predictors.PredictorConfig()
+    table = predictors.make_type_token_table(cfg, pool.n_types, 0, device=dev)
+    # the first PRED_PREFIX steps graphed and eager from the same seeds
+    prefix = {}
+    for name, graphs in (("graphed", True), ("eager", False)):
+        params = predictors.init_params(cfg, pool.n_experts, 0, device=dev)
+        opt = predictors.make_optimizer(params, PRED_STEPS, PRED_LR)
+        step = predictors.Step(cfg, pool, table, params, opt,
+                               generator(dev, 0), PRED_BATCH, graphs)
+        times, losses = [], []
+        for _ in range(PRED_PREFIX):
+            t = synced()
+            losses.append(step.run())
+            times.append(synced() - t)
+        prefix[name] = (params, opt, times, torch.stack(losses))
+    (gp, gopt, gt, gl), (ep, eopt, et, el) = prefix["graphed"], prefix["eager"]
+    assert torch.equal(gl, el)
+    for (k, a), b in zip(gp.state_dict().items(), ep.state_dict().values()):
+        assert torch.equal(a, b), k
+    for side in ("m", "v"):
+        for k, x in getattr(gopt, side).items():
+            assert torch.equal(x, getattr(eopt, side)[k]), (side, k)
+    del prefix, gp, ep, gopt, eopt
+    # the reference's training run through ``train``, graphed
+    t = synced()
+    params, m = predictors.train(cfg, pool, steps=PRED_STEPS,
+                                 batch=PRED_BATCH, lr=PRED_LR, log_fn=None)
+    train_s = synced() - t
+    for k, floor in PRED_THRESHOLDS.items():
+        assert m[k] > floor, (k, m)
+    step_us = lambda ts: float(np.median(ts[1:])) * 1e6
+    rows = [{"row": "predictors/score", "us_per_step": train_s / PRED_STEPS
+             * 1e6, "top1": m["score_top1"], "top3": m["score_top3"]},
+            {"row": "predictors/length", "us_per_step": train_s / PRED_STEPS
+             * 1e6, "top1": m["len_top1"], "top3": m["len_top3"]},
+            {"row": "predictors/params", "value": m["n_params"]}]
+
+    # Table II: parameter counts and one greedy routing decision
+    sac = sac_lib.SAC(sac_lib.SACConfig(), torch.Generator().manual_seed(0)
+                      ).to(dev)
+    count = lambda mod: sum(p.numel() for p in mod.parameters())
+    state = env_lib.reset(env_cfg, pool, generator(dev, 0), 1)
+    obs = features.build_obs(env_cfg, pool, state)
+    act = lambda: sac_lib.act(sac, obs, greedy=True)
+    want = act()
+    graph = StepGraph(act)
+    assert torch.equal(graph.replay(), want)
+    latency = {}
+    for name, fn in (("graphed", graph.replay), ("eager", act)):
+        t = synced()
+        for _ in range(ACT_REPS):
+            fn()
+        queued = (synced() - t) / ACT_REPS
+        one = []
+        for _ in range(ACT_REPS):
+            t = synced()
+            fn()
+            one.append(synced() - t)
+        latency[name] = {"queued_ms": queued * 1e3,
+                         "synchronised_ms": float(np.median(one)) * 1e3}
+    emit({"phase": "predictor", "steps": PRED_STEPS, "batch": PRED_BATCH,
+          "train_s": train_s, "steps_per_s": PRED_STEPS / train_s,
+          "eager_steps_per_s": 1e6 / step_us(et),
+          "prefix_graphed_us_per_step": step_us(gt),
+          "prefix_eager_us_per_step": step_us(et),
+          "graphed_equals_eager_steps": PRED_PREFIX,
+          "accuracy": {k: m[k] for k in ("score_top1", "score_top3",
+                                         "len_top1", "len_top3")},
+          "thresholds": PRED_THRESHOLDS, "bench_predictors": rows,
+          "table2": {"score_predictor_params": m["n_params"],
+                     "length_predictor_params": m["n_params"],
+                     "han_params": count(sac.han),
+                     "actor_critic_params": sum(count(getattr(sac, k)) for k
+                                                in ("actor", "q1", "q2")),
+                     "routing_latency": latency, "reps": ACT_REPS}})
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: LM training
+# ---------------------------------------------------------------------------
+
+LM_TRAIN = ["--arch", "qwen1.5-0.5b", "--global-batch", "8", "--seq-len",
+            "128"]
+QWEN_PARAMS = 465_691_648
+DBRX_LAYERS, DBRX_GRAPHED, DBRX_EAGER = 1, 5, 2
+
+
+def train_leaves(state) -> dict:
+    """A train state's tensors by checkpoint path (stacks as lists)."""
+    from repro_torch.train import checkpoint, trainer as trainer_lib
+
+    return checkpoint._flatten(trainer_lib.tree(state))
+
+
+def same_train_state(a, b) -> bool:
+    x, y = train_leaves(a), train_leaves(b)
+    assert set(x) == set(y)
+    members = lambda v: v if isinstance(v, list) else [v]
+    return all(torch.equal(p, q) for k in x
+               for p, q in zip(members(x[k]), members(y[k])))
+
+
+def free_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def step_rates(step_s, tokens, n_params) -> dict:
+    """ms a step (median after the first), tokens/s and 6 N tokens over
+    the step time against the bf16 dense peak."""
+    s = float(np.median(step_s[1:]))
+    return {"ms_per_step": s * 1e3, "first_step_s": step_s[0],
+            "tokens_per_s": tokens / s,
+            "model_flops_share": 6 * n_params * tokens / s / BF16_OPS_PER_S}
+
+
+def train_step_layers(state, cfg, dev) -> dict:
+    """A training step's parts, each captured alone and replayed (device
+    ms by CUDA events, median of 10): the forward and loss; forward, loss
+    and backward; the optimizer's update on those gradients (it moves the
+    state: call last)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.graphs import capture
+    from repro_torch.models import model as model_lib
+
+    params, opt = state["params"], state["opt"]
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                  global_batch=8), device=dev)
+    batch = data.batch(0)
+
+    def forward():
+        with torch.no_grad():
+            return model_lib.lm_loss(params, cfg, batch)[0]
+
+    def backward():
+        with torch.enable_grad():
+            loss = model_lib.lm_loss(params, cfg, batch)[0]
+            return torch.autograd.grad(loss, opt.tensors())
+
+    out = {}
+    for name, fn in (("forward", forward), ("forward_backward", backward)):
+        graph, grads = capture(fn)
+        out[name] = cuda_ms(graph.replay, 10)
+        del graph
+    graph, _ = capture(lambda: opt.update(list(grads)))
+    out["optimizer"] = cuda_ms(graph.replay, 10)
+    out["backward"] = out["forward_backward"] - out["forward"]
+    return out
+
+
+def lm_train_phase(dev):
+    """LM training (module docstring): qwen1.5-0.5b through ``launch/
+    train.py``'s LM path, dbrx-132b cut to one layer through its step."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import optimizer as opt_lib
+
+    ckpt = os.path.join(ROOT, "build", "lm_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tokens = 8 * 128
+    quiet = lambda *a, **k: None
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    runs["straight"] = train.main(LM_TRAIN + ["--steps", "20"])
+    peak = torch.cuda.max_memory_allocated()
+    runs["first"] = train.main(LM_TRAIN + ["--steps", "10", "--ckpt-dir",
+                                           ckpt])
+    runs["restarted"] = train.main(LM_TRAIN + ["--steps", "20", "--ckpt-dir",
+                                               ckpt])
+    assert same_train_state(runs["straight"][0], runs["restarted"][0])
+    assert int(runs["restarted"][0]["step"]) == 20
+    save_s = runs["first"][1].save_s + runs["restarted"][1].save_s
+    restore_s = runs["restarted"][1].restore_s
+    assert restore_s is not None and len(save_s) == 2
+    straight = runs["straight"][1].step_s
+    del runs
+    free_cuda()
+    graphed, g_tr = train.main(LM_TRAIN + ["--steps", "3"])
+    eager, e_tr = train.main(LM_TRAIN + ["--steps", "3", "--eager"])
+    assert same_train_state(graphed, eager)
+    layers_ms = train_step_layers(graphed, get_config("qwen1.5-0.5b"), dev)
+    emit({"phase": "lm_train", "model": "qwen1.5-0.5b", "dtype": "bfloat16",
+          "optimizer": "adamw", "global_batch": 8, "seq_len": 128,
+          "argv": LM_TRAIN, "restart_bit_equal": {"steps": [10, 10],
+                                                  "straight": 20},
+          "graphed_equals_eager_steps": 3,
+          "graphed": step_rates(straight, tokens, QWEN_PARAMS),
+          "eager": step_rates(e_tr.step_s, tokens, QWEN_PARAMS),
+          "layers_ms": layers_ms,
+          "max_memory_allocated": peak, "save_s": save_s,
+          "restore_s": restore_s, "checkpoint_bytes": sum(
+              os.path.getsize(os.path.join(d, f))
+              for d, _, fs in os.walk(ckpt) for f in fs)})
+    del graphed, eager, g_tr, e_tr
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free_cuda()
+
+    # dbrx-132b at its published widths, one of 40 layers: Adafactor and 4
+    # microbatches, 2 eager steps against the first 2 of 5 graphed
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=DBRX_LAYERS)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                  global_batch=8,
+                                  microbatches=cfg.microbatches), device=dev)
+    shapes = Transformer(cfg, torch.device("meta")).parameters()
+    n = sum(p.numel() for p in shapes)
+    largest = cfg.n_experts * cfg.d_model * cfg.d_ff
+    reckoned = {"params_bf16": 2 * n, "grads_bf16": 2 * n,
+                "accumulator_f32": 4 * n, "clipped_f32": 4 * n,
+                "largest_leaf_update_f32": 4 * 4 * largest}
+    emit({"phase": "lm_train", "model": "dbrx-132b", "layers": DBRX_LAYERS,
+          "params": n, "reckoned_peak_bytes": sum(reckoned.values()),
+          "reckoning": reckoned})
+    opt = opt_lib.make_optimizer(cfg.optimizer, peak_lr=3e-4,
+                                 warmup_steps=20, total_steps=DBRX_GRAPHED)
+    twins = {}
+    for name, graphs, n_steps in (("eager", False, DBRX_EAGER),
+                                  ("graphed", True, DBRX_GRAPHED)):
+        torch.cuda.reset_peak_memory_stats()
+        params = model_lib.init_params(cfg, seed=0, device=dev)
+        assert sum(p.numel() for p in params.parameters()) == n
+        st = steps.train_state(cfg, params, opt)
+        step = steps.make_train_step(cfg, graphs=graphs)
+        times, losses = [], []
+        for i in range(n_steps):
+            t = synced()
+            st, m = step(st, data.batch(i))
+            losses.append(float(m["loss"]))
+            times.append(synced() - t)
+            emit({"phase": "lm_train", "model": "dbrx-132b", "twin": name,
+                  "step": i, "s": times[-1], "loss": losses[-1],
+                  "memory_allocated": torch.cuda.memory_allocated(),
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "memory_reserved": torch.cuda.memory_reserved()})
+            if i == DBRX_EAGER - 1:
+                leaves = train_leaves(st)
+                if name == "eager":
+                    host = {k: [x.cpu() for x in (v if isinstance(v, list)
+                                                  else [v])]
+                            for k, v in leaves.items()}
+                else:
+                    for k, v in leaves.items():
+                        for x, y in zip(v if isinstance(v, list) else [v],
+                                        host[k]):
+                            assert torch.equal(x.cpu(), y), k
+        twins[name] = {"step_s": times, "losses": losses,
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()}
+        del params, st, step, leaves
+        free_cuda()
+    assert twins["graphed"]["losses"][:DBRX_EAGER] == twins["eager"]["losses"]
+    assert all(np.isfinite(twins["graphed"]["losses"]))
+    emit({"phase": "lm_train", "model": "dbrx-132b", "layers": DBRX_LAYERS,
+          "optimizer": cfg.optimizer, "microbatches": cfg.microbatches,
+          "global_batch": 8, "seq_len": 128,
+          "graphed_equals_eager_steps": DBRX_EAGER,
+          "graphed": {**step_rates(twins["graphed"]["step_s"], tokens, n),
+                      "losses": twins["graphed"]["losses"],
+                      "max_memory_allocated":
+                          twins["graphed"]["max_memory_allocated"]},
+          "eager": {"step_s": twins["eager"]["step_s"],
+                    "max_memory_allocated":
+                        twins["eager"]["max_memory_allocated"]}})
 
 
 # ---------------------------------------------------------------------------
@@ -2996,6 +3405,25 @@ def kernel_line(name, source, replaces, launches, row, library_ms):
             "bound_by": row["bound_by"], "library_ms": library_ms}
 
 
+def only_phases(names, dev, timed) -> None:
+    """Some phases alone (module docstring): no kernel line."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    known = {"predictor": predictor_phase, "lm_train": lm_train_phase,
+             "shard_engine": shard_engine_runs}
+    for name in names:
+        if name not in known:
+            raise SystemExit(f"unknown phase {name!r}; known: {sorted(known)}")
+        if name == "shard_engine":
+            world = mesh_lib.init_world(dev)
+            try:
+                timed(name, known[name], world)
+            finally:
+                mesh_lib.close_world()
+        else:
+            timed(name, known[name], dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3036,6 +3464,14 @@ def main() -> int:
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
         return out
 
+    if len(sys.argv) > 1:
+        only_phases(sys.argv[1:], dev, timed)
+        emit({"phase": "seconds", **seconds,
+              "total": time.perf_counter() - t0})
+        print(card, flush=True)
+        emit({"ok": None, "partial": sys.argv[1:]})
+        return 0
+
     # phases 10 and 11's per-pass traces, first (see scan_pass_times)
     passes = timed("rwkv6_scan", scan_pass_times, dev)
     kernel = timed("kernel", kernel_phase, dev)
@@ -3063,6 +3499,8 @@ def main() -> int:
     del trained
     launches += timed("sharded", sharded_phase, dev, unsharded)
     del unsharded
+    timed("predictor", predictor_phase, dev)
+    timed("lm_train", lm_train_phase, dev)
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t0})
     lm = {k: dense[k] + mixed[k] + recurrent[k] for k in dense}

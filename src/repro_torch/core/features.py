@@ -23,7 +23,6 @@ import torch
 
 from repro_torch import scenarios
 from repro_torch.device import constant
-from repro_torch.env import engine_layout as layout
 
 REQ_FEATS = 7
 EXP_FEATS = 9
@@ -36,17 +35,19 @@ def build_obs(cfg, pool, state: dict, *, fmt: str = "padded") -> dict:
     """The heterogeneous-graph observation of every env, in ``fmt``."""
     if fmt not in ("padded", "segments"):
         raise ValueError(f"unknown obs fmt {fmt!r}")
-    q = state["queues"]
+    from repro_torch.env import env as env_lib
+
+    q = env_lib.observed_queues(state)
     t = state["clock"][:, None, None]                     # (B, 1, 1)
     L = cfg.latency_L
     mo = float(cfg.max_output)
     mp = float(cfg.max_prompt)
     r = state["pending"]
-    run_valid = layout.run_valid(q)
-    wait_valid = layout.wait_valid(q)
-    run_p = layout.run_p(q)
-    run_d_cur = layout.run_d_cur(q)
-    wait_pred_d = layout.wait_pred_d(q)
+    run_valid = q["run_valid"]
+    wait_valid = q["wait_valid"]
+    run_p = q["run_p"]
+    run_d_cur = q["run_d_cur"]
+    wait_pred_d = q["wait_pred_d"]
     # tokens -> memory fraction as ONE ratio, as the reference computes it
     mem_frac = pool.mem_per_token / pool.mem_capacity     # (N,)
     fo = getattr(cfg, "failover", None)
@@ -54,28 +55,28 @@ def build_obs(cfg, pool, state: dict, *, fmt: str = "padded") -> dict:
 
     d_cur = run_d_cur.to(torch.float32)
     run_mem = (run_p + run_d_cur).to(torch.float32) * mem_frac[:, None]
-    l_cur = (t - layout.run_t_arrive(q)) / torch.clamp(d_cur, min=1.0)
+    l_cur = (t - q["run_t_arrive"]) / torch.clamp(d_cur, min=1.0)
     run_f = torch.stack([
         run_p.to(torch.float32) / mp,
-        layout.run_pred_s(q),
-        layout.run_pred_d(q) / mo,
+        q["run_pred_s"],
+        q["run_pred_d"] / mo,
         run_mem,
         d_cur / mo,
         l_cur / L,
-        layout.run_retry(q).to(torch.float32) / retry_norm,
+        q["run_retry"].to(torch.float32) / retry_norm,
     ], dim=-1)
     run_f = torch.where(run_valid[..., None], run_f, 0.0)
 
-    w_wait = (t - layout.wait_t_arrive(q)) / torch.clamp(wait_pred_d, min=1.0)
+    w_wait = (t - q["wait_t_arrive"]) / torch.clamp(wait_pred_d, min=1.0)
     zeros = torch.zeros_like(w_wait)
     wait_f = torch.stack([
-        layout.wait_p(q).to(torch.float32) / mp,
-        layout.wait_pred_s(q),
+        q["wait_p"].to(torch.float32) / mp,
+        q["wait_pred_s"],
         wait_pred_d / mo,
         zeros,                                   # not yet resident
         zeros,                                   # d_cur = 0
         w_wait / L,                              # projected per-token wait
-        layout.wait_retry(q).to(torch.float32) / retry_norm,
+        q["wait_retry"].to(torch.float32) / retry_norm,
     ], dim=-1)
     wait_f = torch.where(wait_valid[..., None], wait_f, 0.0)
 

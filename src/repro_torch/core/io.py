@@ -9,7 +9,8 @@ save_pytree`` therefore loads here with ``load_pytree`` and becomes a
 turns a ``SAC`` back into the reference's tree, so a router the port
 trains loads in the reference.  ``adamw_from_numpy``/``adamw_to_numpy``
 carry the AdamW moments (``{"m": tree, "v": tree}`` over the trainable
-parameters, the reference's optimizer state) across the same way.
+parameters, the reference's optimizer state) across the same way, and
+``predictor_params_from_numpy`` the request predictor's weights.
 """
 from __future__ import annotations
 
@@ -131,6 +132,19 @@ def sac_params_from_numpy(tree: dict, cfg: SACConfig, device=None) -> SAC:
     sd = _state_dict_of(tree)
     sac.load_state_dict(sd, strict=True)
     return sac.to(device)
+
+
+def predictor_params_from_numpy(tree: dict, cfg, n_experts: int,
+                                device=None):
+    """The reference's predictor parameter tree (``core/predictors.py
+    init_params``, leaves numpy arrays) -> the port's ``Predictor`` on
+    ``device`` (the CUDA device by default)."""
+    from repro_torch.core.predictors import Predictor
+
+    model = Predictor(cfg, n_experts, resolve(device))
+    with torch.no_grad():
+        model.load_state_dict(_state_dict_of(tree), strict=True)
+    return model
 
 
 def _tree_of_state_dict(sd: dict) -> dict:

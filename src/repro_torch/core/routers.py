@@ -28,7 +28,7 @@ import torch
 from repro_torch import scenarios
 from repro_torch.core import sac as sac_lib
 from repro_torch.device import constant
-from repro_torch.env import engine_layout as layout
+from repro_torch.env import env as env_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +63,11 @@ def _total_caps(caps):
 def _queue_load(env_state, total):
     """(B, N) load: queue length (uniform fleet) or occupancy |Q|/cap
     (ragged fleet, so a full 1-slot expert reads as loaded)."""
-    q = env_state["queues"]
-    qlen = layout.run_valid(q).sum(-1) + layout.wait_valid(q).sum(-1)
+    run, wait = env_lib.queue_counts(env_state, "router load")
+    return _load(run + wait, total)
+
+
+def _load(qlen, total):
     if total is None:
         return qlen
     return qlen.to(torch.float32) / constant(total, torch.float32, qlen.device)
@@ -139,12 +142,12 @@ def quality_least_loaded(slack: int = 2, caps=None, env_cfg=None) -> Policy:
     wait_caps = None if caps is None else tuple(int(w) for w in caps[1])
 
     def act(pstate, env_state, obs, gen):
-        load = _queue_load(env_state, total)
+        run, wlen = env_lib.queue_counts(env_state, "router load")
+        load = _load(run + wlen, total)
         cur = _scenario_cur(env_cfg, env_state)
         if cur is not None:
             load = torch.where(cur["up"], load.to(torch.float32), torch.inf)
         lo = load.min(-1, keepdim=True).values
-        wlen = layout.wait_valid(env_state["queues"]).sum(-1)
         if caps is None:
             ok = load <= lo + slack
         else:

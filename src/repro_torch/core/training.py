@@ -60,12 +60,13 @@ import torch
 from repro_torch.core import features, replay, sac as sac_lib
 from repro_torch.device import generator
 from repro_torch.distributed import collectives, sharding
+from repro_torch import graphs
 from repro_torch.env import env as env_lib
 from repro_torch.graphs import StepGraph
 from repro_torch.train import optimizer as opt_lib
 
 # entries of an env state that a step never replaces
-_FIXED = ("gen", "par", "wait_caps")
+_FIXED = ("gen", "par", "wait_caps", "shard")
 
 
 def _own(tree):
@@ -315,17 +316,6 @@ class TrainState:
         return out
 
 
-def capture(fn: Callable, generators) -> StepGraph:
-    """``fn`` run once eagerly on a side stream, then captured: the warm-up
-    PyTorch asks before capturing a backward ("whole-network capture")."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    return StepGraph(fn, generators=generators)
-
-
 def _obs_of(env_cfg, pool, tc: TrainConfig, env_state) -> dict:
     return _maybe_zero_preds(tc, features.build_obs(env_cfg, pool, env_state,
                                                     fmt=tc.obs_fmt))
@@ -503,8 +493,8 @@ class Iteration:
             return
         if which == "update":
             if self.capture:
-                self.update_graph = capture(self.update_step,
-                                            (st.sample_gen,))
+                self.update_graph, _ = graphs.capture(self.update_step,
+                                                      (st.sample_gen,))
             else:
                 self.update_step()
             return

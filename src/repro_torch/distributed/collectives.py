@@ -16,7 +16,11 @@ mesh's order along the axis.
   included.
 
 Both pack every leaf into int32 words (float32 bits as they are, bool
-widened), so a tree costs one collective.
+widened), so a tree costs one collective.  ``gather_blocks`` gathers a
+list of tensors split along one dimension (the sharded engine's experts)
+the same way.  With ``reader=`` these count the bytes each rank receives
+(the collective's output) in ``BYTES[reader]``, per call: a CUDA graph's
+replay adds nothing there, so a caller counts an eager step.
 
 * ``compressed_allreduce``: the mean over the ranks, sent as int8 with a
   scale per block of 256 taken from the global maximum (``all_reduce``
@@ -35,6 +39,15 @@ import torch.distributed as dist
 
 _WORD = torch.int32
 _TO_WORDS = (torch.float32, torch.int32, torch.bool)
+
+# reader -> bytes received by this rank for it (gather_cat, gather_blocks
+# and sum_disjoint with ``reader=``)
+BYTES: Dict[str, int] = {}
+
+
+def _count(reader: Optional[str], x: torch.Tensor) -> None:
+    if reader is not None:
+        BYTES[reader] = BYTES.get(reader, 0) + x.numel() * x.element_size()
 
 
 def _leaves(tree, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
@@ -85,13 +98,15 @@ def from_words(words: torch.Tensor, like) -> list:
     return out
 
 
-def gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def gather_cat(x: torch.Tensor, group, dim: int = 0,
+               reader: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``x`` (alike in shape) concatenated along ``dim`` in the
     group's rank order: one ``all_gather_into_tensor``."""
     k = dist.get_world_size(group)
     out = torch.empty((k * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    _count(reader, out)
     out = out.reshape((k,) + tuple(x.shape)).movedim(0, dim)
     shape = list(x.shape)
     shape[dim] *= k
@@ -109,7 +124,19 @@ def gather_rows(tree, group):
                    zip(pairs, from_words(words, full))])
 
 
-def sum_disjoint(tree, group):
+def gather_blocks(xs, group, dim: int = 1, reader: Optional[str] = None
+                  ) -> list:
+    """Tensors split along ``dim`` over the group (each rank's block, alike
+    in shape) -> the whole tensors, blocks in rank order: one collective
+    of their int32 words."""
+    lead = dim + 1
+    words = gather_cat(to_words(xs, lead), group, dim=dim, reader=reader)
+    full = [x.new_empty(tuple(words.shape[:lead]) + tuple(x.shape[lead:]))
+            for x in xs]
+    return from_words(words, full)
+
+
+def sum_disjoint(tree, group, reader: Optional[str] = None):
     """The sum over the group of trees in which every element is nonzero
     on one rank at most, bit-exact: one ``all_reduce`` of the int32 words
     (a zero word elsewhere adds nothing)."""
@@ -117,6 +144,7 @@ def sum_disjoint(tree, group):
     xs = [x for _, x in pairs]
     words = to_words(xs, 0)
     dist.all_reduce(words, op=dist.ReduceOp.SUM, group=group)
+    _count(reader, words)
     return _build([(p, y) for (p, _), y in zip(pairs, from_words(words, xs))])
 
 

@@ -28,10 +28,13 @@ Backends of ``advance_all``:
     ``"shard_map"``): each rank advances its block of ``N / k`` experts
     of every env with ``shard_body`` (``"cuda"``, the kernel, or
     ``"torch"``, the plain loop; by default the one the device runs), and
-    one all-gather over the axis brings every rank the advanced queue
-    rows, clocks and accumulators of all N.  The reference returns global
-    arrays too, and XLA keeps the queues where they were advanced; here
-    every rank gets them whole after every advance.
+    one all-gather over the axis brings every rank the accumulators of
+    all N (six float32 channels per expert row).  Queue rows and clocks
+    stay on the rank that advanced them, as the reference's ``out_specs``
+    keep them: with ``local=True`` the caller passes and gets back its
+    block alone (the env's state under this backend); a caller that
+    passes every row gets every row back, through a second gather
+    counted as its reader's (``"caller"``).
 
 ``backend=None`` picks ``"cuda"`` for CUDA tensors and ``"torch"`` for CPU
 tensors.
@@ -268,11 +271,14 @@ def _advance_rows(backend: str, args, *, latency_L: float, admit_order: str):
 
 
 def _advance_sharded(args, n: int, *, mesh, shard_body: str,
-                     latency_L: float, admit_order: str):
+                     latency_L: float, admit_order: str, local: bool):
     """The ``"shard"`` backend on the row-flattened ``args`` of envs of
-    ``n`` experts each (env-major): this rank's block of experts of every
-    env through ``shard_body``, then one all-gather of the results over
-    the ``expert`` axis, put back in env-major order."""
+    ``n`` experts each (env-major; this rank's ``n / k`` of each with
+    ``local``): this rank's block of experts of every env through
+    ``shard_body``, then one all-gather of the accumulators over the
+    ``expert`` axis.  Returns ``advance_shard``'s contract with the queue
+    rows and clocks of this rank's block (every block, gathered, without
+    ``local``) and the accumulators of all N, env-major."""
     from repro_torch.distributed import collectives, sharding
     from repro_torch.launch import mesh as mesh_lib
 
@@ -282,24 +288,27 @@ def _advance_sharded(args, n: int, *, mesh, shard_body: str,
         mesh_lib.init_world(args[0].device)
         mesh = mesh_lib.make_expert_mesh()
     k = sharding.axis_size(mesh, sharding.EXPERT)
-    if n % k != 0:
+    n_all = n * k if local else n
+    if n_all % k != 0:
         raise ValueError(
-            f"n_experts={n} not divisible by mesh axis "
+            f"n_experts={n_all} not divisible by mesh axis "
             f"'{sharding.EXPERT}'={k}")
     b = args[0].shape[0] // n
-    mine = sharding.expert_rows(mesh, n)
-    # (B, N, ...) -> this rank's (B, N/k, ...) -> rows
-    local = [x.reshape((b, n) + tuple(x.shape[1:]))[:, mine]
-             .reshape((-1,) + tuple(x.shape[1:])).contiguous() for x in args]
-    out = _advance_rows(shard_body, local, latency_L=latency_L,
-                        admit_order=admit_order)
-    n_loc = mine.stop - mine.start
-    words = collectives.to_words(
-        [x.reshape((b, n_loc) + tuple(x.shape[1:])) for x in out], 2)
-    words = collectives.gather_cat(words, mesh.get_group(sharding.EXPERT),
-                                   dim=1)
-    full = [x.new_empty((b * n,) + tuple(x.shape[1:])) for x in out]
-    return collectives.from_words(words.reshape(b * n, -1), full)
+    group = mesh.get_group(sharding.EXPERT)
+    blocks = lambda xs: [x.reshape((b, -1) + tuple(x.shape[1:])) for x in xs]
+    rows = lambda xs: [x.reshape((-1,) + tuple(x.shape[2:])) for x in xs]
+    if not local:
+        mine = sharding.expert_rows(mesh, n_all)
+        # (B, N, ...) -> this rank's (B, N/k, ...) -> rows
+        args = rows([x[:, mine].contiguous() for x in blocks(args)])
+    *out, acc = _advance_rows(shard_body, args, latency_L=latency_L,
+                              admit_order=admit_order)
+    acc = collectives.gather_blocks(blocks([acc]), group,
+                                    reader="accumulators")[0]
+    if not local:
+        out = rows(collectives.gather_blocks(blocks(out), group,
+                                             reader="caller"))
+    return (*out, acc.reshape(-1, len(ACC_KEYS)))
 
 
 def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
@@ -307,7 +316,7 @@ def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
                 admit_order: str = "fifo", run_caps=None, wait_caps=None,
                 up=None, k_scale=None, admit_min=None,
                 par: Optional[torch.Tensor] = None, mesh=None,
-                shard_body: Optional[str] = None
+                shard_body: Optional[str] = None, local: bool = False
                 ) -> Tuple[dict, torch.Tensor, dict]:
     """Advance every expert of every env to ``t_next`` (module docstring).
 
@@ -321,10 +330,13 @@ def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
     PAR_CH) or one row per queue row: a fleet whose channels do not change
     builds it once instead of on every call.  ``mesh`` and ``shard_body``
     serve the ``"shard"`` backend, which splits the last axis of
-    ``clocks`` (N; one env when ``clocks`` is (N,)).
+    ``clocks`` (N; one env when ``clocks`` is (N,)); with ``local`` the
+    queues, clocks and ``par`` are already this rank's block of that axis
+    (``sharding.expert_rows``) and stay so.
 
     Returns (queues, clocks, acc) in the input's shapes, acc a dict of
-    ``ACC_KEYS`` each shaped like ``clocks``."""
+    ``ACC_KEYS`` each shaped like ``clocks`` (with ``local``, like the
+    clocks of every expert: the block's axis times the mesh axis)."""
     if admit_order not in ADMIT_ORDERS:
         raise ValueError(f"unknown admit_order {admit_order!r}; "
                          f"expected one of {ADMIT_ORDERS}")
@@ -363,7 +375,9 @@ def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
             shard_body = "cuda" if on_cuda else "torch"
         out = _advance_sharded(args, lead[-1], mesh=mesh,
                                shard_body=shard_body, latency_L=latency_L,
-                               admit_order=admit_order)
+                               admit_order=admit_order, local=local)
+    elif local:
+        raise ValueError("local=True is the 'shard' backend's")
     else:
         out = _advance_rows(backend, args, latency_L=latency_L,
                             admit_order=admit_order)
@@ -373,5 +387,6 @@ def advance_all(pool: ExpertPool, latency_L: float, queues: dict,
     queues = {"run_i": run_i.reshape(queues["run_i"].shape),
               "run_f": run_f.reshape(queues["run_f"].shape),
               "wait_i": wait_i, "wait_f": queues["wait_f"]}
-    acc = {k: acc[:, i].reshape(lead) for i, k in enumerate(ACC_KEYS)}
+    acc_shape = lead[:-1] + (acc.shape[0] // max(m // lead[-1], 1),)
+    acc = {k: acc[:, i].reshape(acc_shape) for i, k in enumerate(ACC_KEYS)}
     return queues, new_clocks.reshape(lead), acc

@@ -12,9 +12,26 @@ One env step = one routing decision per env:
   5. reward = sum(completed phi) - penalty - drop_penalty * dropped.
 
 ``reset`` packs the fleet's static engine parameters once (``state["par"]``,
-with ``state["wait_caps"]``) and ``step`` reuses them.  ``step`` makes no
-host sync of its own (the ``"torch"`` engine backend syncs inside its
-loop; the ``"cuda"`` backend does not).  Draws come from
+with ``state["wait_caps"]``) and ``step`` reuses them.
+
+Under ``engine_backend="shard"`` the state holds this rank's block of
+experts of every env (``state["shard"]``, a ``ShardView``): its queue rows,
+clocks and packed parameters stay here between steps, as the reference's
+``shard_map`` keeps them, and the advance gathers only the accumulators.
+Whatever reads queue rows gathers what it reads where it reads it, each
+gather counted under its reader in ``distributed.collectives.BYTES``: the
+chosen expert's impact penalty (``"impact"``, one float per env, summed
+from its owner) and push (``"admit"``, one word per env), per-expert
+occupancy counts for the heuristic routers (``"router load"``, two words
+per expert, ``queue_counts``) and the shed watermark (``"occupancy"``,
+one word per expert), the channels the observation reads
+(``"observation"``, ``observed_queues``), and every row for a scenario's
+or failover's step (``"scenario"``, ``"failover"``, ``queues_of``:
+eviction, draining and re-admission read and write every expert's queues;
+the step then keeps its block).
+
+``step`` makes no host sync of its own (the ``"torch"`` engine backend
+syncs inside its loop; the ``"cuda"`` backend does not).  Draws come from
 the ``torch.Generator`` in ``state["gen"]``; ``step(..., draws=...)``
 injects the next clock and pending request instead, which is how the
 tests hold the port against the reference on identical draws.
@@ -85,6 +102,115 @@ class EnvConfig:
     # the failure-aware request lifecycle (None: requests on a down expert
     # freeze in place)
     failover: Optional[FailoverConfig] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardView:
+    """This rank's block ``lo .. hi`` of the experts under the ``"shard"``
+    engine backend, and the process group of the mesh's ``expert`` axis
+    (``launch.mesh.make_expert_mesh()``)."""
+    lo: int
+    hi: int
+    group: object
+
+
+def shard_view(cfg: EnvConfig, device) -> Optional[ShardView]:
+    """The ``ShardView`` of ``cfg`` (None unless its engine backend is
+    ``"shard"``), starting the process group when none is."""
+    if cfg.engine_backend != "shard":
+        return None
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_world(device)
+    mesh = mesh_lib.make_expert_mesh()
+    k = sharding.axis_size(mesh, sharding.EXPERT)
+    if cfg.n_experts % k != 0:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} not divisible by mesh axis "
+            f"'{sharding.EXPERT}'={k}")
+    rows = sharding.expert_rows(mesh, cfg.n_experts)
+    return ShardView(rows.start, rows.stop, mesh.get_group(sharding.EXPERT))
+
+
+def queues_of(state: dict, reader: str) -> dict:
+    """The queues of every expert: the state's own, or under the
+    ``"shard"`` backend every rank's block, gathered for ``reader``."""
+    view = state.get("shard")
+    if view is None:
+        return state["queues"]
+    from repro_torch.distributed import collectives
+
+    keys = ("run_i", "run_f", "wait_i", "wait_f")
+    full = collectives.gather_blocks([state["queues"][k] for k in keys],
+                                     view.group, reader=reader)
+    return dict(zip(keys, full))
+
+
+# what the observation reads of a queue, by ``engine_layout`` accessor
+OBSERVED = ("run_valid", "run_p", "run_d_cur", "run_retry", "run_pred_s",
+            "run_pred_d", "run_t_arrive", "wait_valid", "wait_p",
+            "wait_retry", "wait_pred_s", "wait_pred_d", "wait_t_arrive")
+
+
+def observed_queues(state: dict) -> dict:
+    """The ``OBSERVED`` fields of every expert's queues, by name.  Under the
+    ``"shard"`` backend they alone are gathered (reader ``"observation"``):
+    six words a running slot and five a waiting one, a slot's validity
+    carried by its prompt length (-1 when empty; prompts are 16 tokens or
+    more, and the observation masks whatever it reads of an empty slot)."""
+    q = state["queues"]
+    f = {name: getattr(layout, name)(q) for name in OBSERVED}
+    view = state.get("shard")
+    if view is None:
+        return f
+    from repro_torch.distributed import collectives
+
+    p_or_empty = lambda side: torch.where(f[side + "_valid"], f[side + "_p"],
+                                          -1)
+    parts = [torch.stack([p_or_empty("run"), f["run_d_cur"],
+                          f["run_retry"]], -1),
+             torch.stack([f["run_pred_s"], f["run_pred_d"],
+                          f["run_t_arrive"]], -1),
+             torch.stack([p_or_empty("wait"), f["wait_retry"]], -1),
+             torch.stack([f["wait_pred_s"], f["wait_pred_d"],
+                          f["wait_t_arrive"]], -1)]
+    run_i, run_f, wait_i, wait_f = collectives.gather_blocks(
+        parts, view.group, reader="observation")
+    return {"run_valid": run_i[..., 0] >= 0, "run_p": run_i[..., 0],
+            "run_d_cur": run_i[..., 1], "run_retry": run_i[..., 2],
+            "run_pred_s": run_f[..., 0], "run_pred_d": run_f[..., 1],
+            "run_t_arrive": run_f[..., 2],
+            "wait_valid": wait_i[..., 0] >= 0, "wait_p": wait_i[..., 0],
+            "wait_retry": wait_i[..., 1], "wait_pred_s": wait_f[..., 0],
+            "wait_pred_d": wait_f[..., 1], "wait_t_arrive": wait_f[..., 2]}
+
+
+def queue_counts(state: dict, reader: str):
+    """(run, wait) valid-slot counts per expert, each (B, N) int64,
+    gathered for ``reader`` under the ``"shard"`` backend."""
+    q = state["queues"]
+    counts = torch.stack([layout.run_valid(q).sum(-1),
+                          layout.wait_valid(q).sum(-1)], -1)
+    view = state.get("shard")
+    if view is not None:
+        from repro_torch.distributed import collectives
+
+        counts = collectives.gather_blocks([counts.to(torch.int32)],
+                                           view.group, reader=reader)[0]
+    return counts[..., 0].long(), counts[..., 1].long()
+
+
+def _block(view: Optional[ShardView], x):
+    """``x``'s slice of this rank's experts along its last axis (all of
+    it without a view)."""
+    return x if view is None or x is None else x[..., view.lo:view.hi]
+
+
+def _owned(view: ShardView, n: torch.Tensor):
+    """(is expert ``n`` this rank's (B,), its index in the block (B,))."""
+    mine = (n >= view.lo) & (n < view.hi)
+    return mine, torch.clamp(n - view.lo, 0, view.hi - view.lo - 1)
 
 
 def make_env_pool(cfg: EnvConfig, device=None) -> ExpertPool:
@@ -179,17 +305,21 @@ def reset(cfg: EnvConfig, pool: ExpertPool, gen: torch.Generator,
     here."""
     dev = pool.k1.device
     scenarios.for_cfg(cfg, dev)
+    view = shard_view(cfg, dev)
+    n_here = cfg.n_experts if view is None else view.hi - view.lo
     zeros = lambda: torch.zeros((batch,), dtype=torch.float32, device=dev)
     run_caps, wait_caps = queue_caps(cfg, device=dev)
     stat_keys = STAT_KEYS + (FAILOVER_STAT_KEYS if cfg.failover else ())
+    par = engine.pool_params(pool, run_caps, wait_caps)
     state = {
         "gen": gen,
-        "par": engine.pool_params(pool, run_caps, wait_caps).repeat(batch, 1),
+        "par": (par if view is None else par[view.lo:view.hi]).repeat(
+            batch, 1),
         "wait_caps": wait_caps,
         "clock": zeros(),
-        "expert_clock": torch.zeros((batch, cfg.n_experts),
+        "expert_clock": torch.zeros((batch, n_here),
                                     dtype=torch.float32, device=dev),
-        "queues": layout.empty_queues(cfg.n_experts, cfg.run_cap,
+        "queues": layout.empty_queues(n_here, cfg.run_cap,
                                       cfg.wait_cap, batch=batch, device=dev),
         "wl": workload.init_state(batch, device=dev),
         "pending": (dict(pending) if pending is not None
@@ -199,6 +329,8 @@ def reset(cfg: EnvConfig, pool: ExpertPool, gen: torch.Generator,
     if cfg.failover is not None:
         state["retry_buf"] = failover.empty_buffer(
             batch, cfg.failover.buffer_cap, dev)
+    if view is not None:
+        state["shard"] = view
     return state
 
 
@@ -219,16 +351,19 @@ def impact_penalty(cfg: EnvConfig, pool: ExpertPool, state: dict,
         up = scenarios.availability(cfg, state["clock"])
     q = state["queues"]
     n = torch.clamp(action - 1, 0, cfg.n_experts - 1).long()
+    view = state.get("shard")
+    # the chosen expert's running queue: here, or on the rank that owns it
+    nq = n if view is None else _owned(view, n)[1]
     t = state["clock"][:, None]
     k1 = pool.k1[n][:, None]
     k2 = pool.k2[n][:, None]
     p_j = state["pending"]["p_len"].to(torch.float32)[:, None]
     d_j = _pick(state["pending"]["pred_d"], n)[:, None]
 
-    valid = _pick(layout.run_valid(q), n)                  # (B, R)
-    d_cur = _pick(layout.run_d_cur(q), n).to(torch.float32)
-    t_arrive = _pick(layout.run_t_arrive(q), n)
-    d_hat = torch.maximum(_pick(layout.run_pred_d(q), n), d_cur + 1.0)
+    valid = _pick(layout.run_valid(q), nq)                  # (B, R)
+    d_cur = _pick(layout.run_d_cur(q), nq).to(torch.float32)
+    t_arrive = _pick(layout.run_t_arrive(q), nq)
+    d_hat = torch.maximum(_pick(layout.run_pred_d(q), nq), d_cur + 1.0)
     rem = torch.clamp(d_hat - d_cur, min=0.0)
     K = torch.minimum(rem, d_j)
     extra = k1 * p_j + k2 * (K * p_j + 0.5 * K * (K + 1.0))
@@ -238,19 +373,25 @@ def impact_penalty(cfg: EnvConfig, pool: ExpertPool, state: dict,
         l_est = l_cur + l_plus
     else:  # "projected": estimate the FINAL per-token latency instead
         elapsed = t - t_arrive
-        run_tok = _pick(layout.run_p(q), n).to(torch.float32) + d_cur
+        run_tok = _pick(layout.run_p(q), nq).to(torch.float32) + d_cur
         queue_tokens = torch.where(valid, run_tok, 0.0).sum(-1,
                                                             keepdim=True)
         est_remaining = rem * k2 * queue_tokens
         l_est = (elapsed + est_remaining + extra) / torch.clamp(d_hat,
                                                                 min=1.0)
     would_violate = valid & (l_est >= cfg.latency_L)
-    run_s = _pick(layout.run_pred_s(q), n)
+    run_s = _pick(layout.run_pred_s(q), nq)
     penalty = torch.where(would_violate, run_s, 0.0).sum(-1)
     if up is not None:
         doomed = (torch.where(valid, run_s, 0.0).sum(-1)
                   + _pick(state["pending"]["pred_s"], n))
         penalty = torch.where(_pick(up, n), penalty, doomed)
+    if view is not None:
+        from repro_torch.distributed import collectives
+
+        penalty = collectives.sum_disjoint(
+            torch.where(_owned(view, n)[0], penalty, 0.0), view.group,
+            reader="impact")
     return torch.where(action > 0, penalty, 0.0)
 
 
@@ -273,11 +414,21 @@ def _admit(cfg: EnvConfig, state: dict, action: torch.Tensor, up=None,
     if admit_min is not None:
         shed = (action > 0) & (pred_s < _pick(admit_min, n))
         gate = gate & ~shed
+    view = state.get("shard")
+    nq = n
+    if view is not None:                    # the owner of expert n pushes
+        mine, nq = _owned(view, n)
+        wait_caps = _block(view, wait_caps)
     queues, pushed = layout.push_wait(
-        state["queues"], n, p=r["p_len"], d_true=_pick(r["out_len"], n),
+        state["queues"], nq, p=r["p_len"], d_true=_pick(r["out_len"], n),
         score=_pick(r["score"], n), pred_s=pred_s,
-        pred_d=_pick(r["pred_d"], n), t=state["clock"], gate=gate,
-        wait_cap=wait_caps)
+        pred_d=_pick(r["pred_d"], n), t=state["clock"],
+        gate=gate if view is None else gate & mine, wait_cap=wait_caps)
+    if view is not None:
+        from repro_torch.distributed import collectives
+
+        pushed = collectives.sum_disjoint(pushed.to(torch.int32), view.group,
+                                          reader="admit") > 0
     dropped = (action == 0) | ((action > 0) & ~shed & ~pushed)
     return queues, dropped.to(torch.float32), shed.to(torch.float32)
 
@@ -310,9 +461,16 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
     full = lambda width: torch.full((cfg.n_experts,), width,
                                     dtype=torch.int32, device=dev)
     admit_min, retry_buf = None, state.get("retry_buf")
+    view = state.get("shard")
+    if view is not None and (fo is not None or st is not None):
+        # eviction, draining and re-admission read and write every
+        # expert's queues; the step keeps its block afterwards
+        queues = queues_of(state, "failover" if fo is not None
+                           else "scenario")
     if fo is not None:
-        up_now = up if up is not None else torch.ones_like(
-            state["expert_clock"], dtype=torch.bool)
+        up_now = up if up is not None else torch.ones(
+            state["clock"].shape + (cfg.n_experts,), dtype=torch.bool,
+            device=dev)
         # drain before evict: stranded work on an expert that is down and
         # cap-shrunk is retried, not evicted
         queues, retry_buf, retried, shed = failover.drain_failed(
@@ -331,6 +489,8 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
             occ = failover.occupancy(queues, rc_now, wc_now)
             admit_min = failover.admit_min_of(occ, fo, cfg.n_experts)
 
+    if view is not None and (fo is not None or st is not None):
+        queues = {k: x[:, view.lo:view.hi] for k, x in queues.items()}
     state = {**state, "queues": queues}
     penalty = impact_penalty(cfg, pool, state, action, up=up)
     queues, dropped, arr_shed = _admit(cfg, state, action, up=up,
@@ -353,10 +513,12 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
     else:
         par = engine.pool_params(pool, run_caps, wait_caps, up, k_scale,
                                  admit_min)
+        if view is not None:
+            par = par[..., view.lo:view.hi, :]
     queues, clocks, acc = engine.advance_all(
         pool, cfg.latency_L, queues, state["expert_clock"], t_next,
         backend=cfg.engine_backend, admit_order=cfg.admit_order, par=par,
-        shard_body=cfg.shard_body)
+        shard_body=cfg.shard_body, local=view is not None)
     acc = {k: v.sum(-1) for k, v in acc.items()}           # over experts
 
     reward = acc["phi"] - penalty - cfg.drop_penalty * dropped
@@ -382,6 +544,8 @@ def step(cfg: EnvConfig, pool: ExpertPool, state: dict,
                  "stats": stats}
     if fo is not None:
         new_state["retry_buf"] = retry_buf
+    if view is not None:
+        new_state["shard"] = view
     info = {"reward": reward, "penalty": penalty, "completions": acc["done"],
             "phi": acc["phi"]}
     return new_state, reward, info

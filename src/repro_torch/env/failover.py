@@ -211,18 +211,32 @@ def readmit(queues: dict, buf: dict, up: torch.Tensor, t: torch.Tensor,
         n_re, n_shed
 
 
-def occupancy(queues: dict, run_caps: torch.Tensor, wait_caps: torch.Tensor
-              ) -> torch.Tensor:
-    """(B,) fleet occupancy in [0, 1]: valid in-cap slots over live
-    capacity (caps (N,) or (B, N))."""
+def _used(queues: dict, run_caps, wait_caps) -> torch.Tensor:
+    """(B, N) valid in-cap slots per expert (caps (N,) or (B, N))."""
     rv = run_valid(queues) & slot_valid(run_caps, queues["run_i"].shape[-2])
     wv = wait_valid(queues) & slot_valid(wait_caps,
                                          queues["wait_i"].shape[-2])
-    used = (rv.to(torch.float32).sum((-1, -2))
-            + wv.to(torch.float32).sum((-1, -2)))
+    return rv.to(torch.float32).sum(-1) + wv.to(torch.float32).sum(-1)
+
+
+def occupancy(queues: dict, run_caps: torch.Tensor, wait_caps: torch.Tensor,
+              view=None) -> torch.Tensor:
+    """(B,) fleet occupancy in [0, 1]: valid in-cap slots over live
+    capacity (caps (N,) or (B, N)).  With ``view`` (``env.ShardView``)
+    ``queues`` hold this rank's block of experts, whose per-expert counts
+    are gathered (reader ``"occupancy"``)."""
+    if view is None:
+        used = _used(queues, run_caps, wait_caps)
+    else:
+        from repro_torch.distributed import collectives
+
+        block = lambda c: c[..., view.lo:view.hi]
+        used = collectives.gather_blocks(
+            [_used(queues, block(run_caps), block(wait_caps))], view.group,
+            reader="occupancy")[0]
     live = torch.clamp((run_caps.sum(-1) + wait_caps.sum(-1)).to(
         torch.float32), min=1.0)
-    return used / live
+    return used.sum(-1) / live
 
 
 def admit_min_of(occ: torch.Tensor, cfg: FailoverConfig, n_experts: int
@@ -253,4 +267,5 @@ def fleet_occupancy(cfg, state: dict) -> torch.Tensor:
         run_caps = full(cfg.run_cap)
     if wait_caps is None:
         wait_caps = full(cfg.wait_cap)
-    return occupancy(state["queues"], run_caps, wait_caps)
+    return occupancy(state["queues"], run_caps, wait_caps,
+                     state.get("shard"))

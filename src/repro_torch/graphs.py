@@ -50,6 +50,24 @@ def add_launch_counts(delta) -> None:
         setattr(ops, attr, getattr(ops, attr) + d)
 
 
+def capture(fn: Callable[[], object],
+            generators: Iterable[torch.Generator] = ()):
+    """``fn`` run once eagerly on a side stream, then captured: the warm-up
+    PyTorch asks before capturing a backward ("whole-network capture").
+    Returns (the ``StepGraph``, the warm-up's output).  The memory the
+    warm-up freed goes back to the device before the capture, so a step
+    whose working set is a large share of the card finds room in the
+    graph's own pool."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return StepGraph(fn, generators=generators), out
+
+
 class StepGraph:
     """``fn()`` captured once as a CUDA graph, in the memory pool ``pool``
     (``torch.cuda.graph_pool_handle()``; graphs that never run at the same

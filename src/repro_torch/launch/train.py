@@ -1,15 +1,31 @@
-"""Train the QoS-aware router (the port's ``repro/launch/train.py
---router``).
+"""Train an LM or the QoS-aware router (port of ``repro/launch/train.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --router --iters 400 \\
-        [--obs-fmt padded|segments] [--ragged-caps] [--scenario NAME] \\
-        [--failover [--retry-budget 2] [--shed-watermark 0.9]] \\
-        [--straggler-z 4.0] [--router-mesh] [--device cuda] [--eager] \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --steps 200 [--global-batch 8] [--seq-len 128] [--reduced] \
+        [--ckpt-dir DIR] [--ckpt-every 50] [--device cuda] [--eager]
+
+The LM path trains the dense and MoE families (``train.trainer.Trainer``
+over ``data.pipeline.SyntheticLM``) on the CUDA device, each step replayed
+from a CUDA graph (``--eager`` runs them eagerly; ``--device cpu`` with
+``--reduced`` runs the reduced config of the same family on the CPU).  The
+global batch is cut into the config's ``microbatches`` when it divides,
+else taken whole.  With ``--ckpt-dir`` it checkpoints every
+``--ckpt-every`` steps and at the last one, and a rerun resumes from the
+newest checkpoint (to the same stream: the trainer asks the data for each
+step's batch by its number).  The reference drops its mesh on one device;
+the LM model mesh is ROADMAP queue A item 5, so ``--data-parallel`` or
+``--model-parallel`` above 1 and ``--production-mesh`` raise, as do the
+recurrent and enc-dec families.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --router --iters 400 \
+        [--obs-fmt padded|segments] [--ragged-caps] [--scenario NAME] \
+        [--failover [--retry-budget 2] [--shed-watermark 0.9]] \
+        [--straggler-z 4.0] [--router-mesh] [--device cuda] [--eager] \
         [--out router.npz]
 
-Trains with ``core.training.train_router`` on the CUDA device, every
-collect step and update replayed from a CUDA graph (``--eager`` runs them
-eagerly).  ``--scenario`` trains against a scripted scenario of
+Trains the router with ``core.training.train_router`` on the CUDA device,
+every collect step and update replayed from a CUDA graph (``--eager`` runs
+them eagerly).  ``--scenario`` trains against a scripted scenario of
 ``repro_torch.scenarios``; ``--failover`` arms the failure-aware request
 lifecycle; ``--straggler-z`` flags slow iterations.  ``--out`` saves the
 trained router in the reference's tree layout (``core.io.save_pytree``),
@@ -21,12 +37,11 @@ mesh=...)``), bit-identical to the unsharded run.  In one process it is a
 world of one (NCCL on the card, gloo with ``--device cpu``); under
 torchrun, one rank per process:
 
-    PYTHONPATH=src torchrun --nproc_per_node=4 -m repro_torch.launch.train \\
+    PYTHONPATH=src torchrun --nproc_per_node=4 -m repro_torch.launch.train \
         --router --router-mesh --device cpu --iters 2
 
 On CUDA torchrun takes one GPU per rank.  Only rank 0 logs and writes
-``--out``.  The LM trainer (ROADMAP queue A item 5) is not ported: it
-raises.
+``--out``.
 """
 from __future__ import annotations
 
@@ -37,9 +52,12 @@ from typing import Optional
 import torch.distributed as dist
 
 from repro_torch import device as device_lib, scenarios
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import features, io, sac as sac_lib, training
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.env import env as env_lib
 from repro_torch.launch import mesh as mesh_lib, route
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def router_configs(args, dev, say=print):
@@ -121,8 +139,7 @@ def _train(args, dev, mesh):
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--router", action="store_true",
-                   help="train the QoS router (the LM trainer is not "
-                        "ported)")
+                   help="train the QoS router instead of an LM")
     p.add_argument("--router-mesh", action="store_true",
                    help="shard the replay buffer over the expert mesh of "
                         "every rank (a world of one, or torchrun's)")
@@ -135,23 +152,60 @@ def parser() -> argparse.ArgumentParser:
                    help="flag iterations whose wall-time z-score exceeds "
                         "this (fault_tolerance.StragglerDetector)")
     p.add_argument("--iters", type=int, default=400)
+    p.add_argument("--arch", default="qwen1.5-0.5b")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--global-batch", type=int, default=8)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--reduced", action="store_true",
+                   help="reduced same-family config (CPU-runnable)")
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--data-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--production-mesh", action="store_true")
     p.add_argument("--device", default="cuda")
     p.add_argument("--eager", action="store_true",
-                   help="run every collect step and update eagerly (no "
-                        "CUDA graph)")
+                   help="run every step (router: collect step and update) "
+                        "eagerly, with no CUDA graph")
     p.add_argument("--out", default="",
                    help="save the trained router here (npz, the "
                         "reference's tree)")
     return p
 
 
+def train_lm_main(args, log_fn=print):
+    """Train an LM from parsed flags; returns (the final train state, the
+    ``Trainer``, which holds the step and checkpoint times)."""
+    if (args.production_mesh or args.data_parallel > 1
+            or args.model_parallel > 1):
+        raise NotImplementedError(
+            "an LM mesh over more than one device (--data-parallel, "
+            "--model-parallel, --production-mesh) is ROADMAP queue A item "
+            "5; on one device the reference drops its mesh too")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    if args.global_batch % max(1, cfg.microbatches):
+        cfg = dataclasses.replace(cfg, microbatches=1)
+    tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                         ckpt_every=args.ckpt_every)
+    trainer = Trainer(cfg, tcfg, log_fn=log_fn, device=args.device,
+                      graphs=not args.eager)
+    data = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq_len,
+        global_batch=args.global_batch, microbatches=cfg.microbatches),
+        device=trainer.device)
+    state = trainer.init_or_restore(seed=0)
+    state = trainer.run(state, data)
+    log_fn(f"[train] done at step {int(state['step'])}")
+    return state, trainer
+
+
 def main(argv: Optional[list] = None):
     args = parser().parse_args(argv)
-    if not args.router:
-        raise NotImplementedError(
-            "the LM trainer (Adafactor, train/trainer.py) is not ported yet; "
-            "ROADMAP.md queue A item 5.  Pass --router to train the router")
-    return train_router_main(args)
+    if args.router:
+        return train_router_main(args)
+    return train_lm_main(args)
 
 
 if __name__ == "__main__":

@@ -50,6 +50,30 @@ def _model_and_offsets(cfg, device):
                    "moe_layers": (model.n_dense, 1)}
 
 
+def reference_groups(model, cfg) -> dict:
+    """A dense or MoE model's parameters by the reference's leaf paths
+    (keys joined by ``/``): a leaf the reference stacks over layers
+    (``layers/...``, or an MoE model's ``dense_layers/...`` and
+    ``moe_layers/...``) is the list of the port's per-layer tensors in
+    stack order, every other leaf its tensor.  The optimizers and the
+    checkpoints work on this view, so their state and files take the
+    reference's shapes and names."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense and MoE families train (ROADMAP "
+            "queue A item 5)")
+    groups = {}
+    for name, p in model.named_parameters():
+        if not name.startswith("layers."):
+            groups[name.replace(".", "/")] = p
+            continue
+        _, i, leaf = name.split(".", 2)
+        stack = ("layers" if cfg.family == "dense" else
+                 "dense_layers" if int(i) < model.n_dense else "moe_layers")
+        groups.setdefault(f"{stack}/{leaf.replace('.', '/')}", []).append(p)
+    return groups
+
+
 def lm_params_from_numpy(tree: dict, cfg, device=None):
     """The reference's param tree (``init_params`` of its transformer,
     rwkv6 or rglru module, leaves as numpy arrays) as the port's model on

@@ -9,7 +9,9 @@ plain versions, the reference's ``decode_attention`` among them, live in
 its ``ref.py``).  ``local_attention`` stays plain PyTorch, as the
 reference computes it in XLA and not in Pallas: it is RecurrentGemma's
 over whole sequences (the flash kernel takes head dims up to 128, and
-RecurrentGemma's is 256).
+RecurrentGemma's is 256).  ``blockwise_attention`` is the reference's
+``attn_impl="xla"`` attention, the one it trains with: plain PyTorch under
+autograd, since neither package has a backward for the flash kernel.
 """
 from __future__ import annotations
 
@@ -108,6 +110,95 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
         out[:, lo:hi] = torch.einsum("bkgqs,bskd->bqkgd", p, vf[:, k_lo:hi])
     return out.reshape(b, s, h, dh).to(q.dtype)
+
+
+def block_pairs(n_q: int, n_kv: int, block_q: int, block_kv: int,
+                causal: bool, window: int, kv_offset: int) -> list:
+    """The (q-block, kv-block) pairs that hold any unmasked entry, q-block
+    major (the reference's ``_block_pairs``)."""
+    pairs = []
+    for i in range(n_q):
+        q_lo, q_hi = i * block_q, (i + 1) * block_q - 1
+        for j in range(n_kv):
+            k_lo = j * block_kv + kv_offset
+            k_hi = (j + 1) * block_kv - 1 + kv_offset
+            if causal and k_lo > q_hi:
+                continue                        # entirely in the future
+            if window > 0 and k_hi < q_lo - window + 1:
+                continue                        # entirely outside the window
+            pairs.append((i, j))
+    return pairs or [(0, 0)]
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        block_q: int = 512, block_kv: int = 1024,
+                        kv_offset: int = 0) -> torch.Tensor:
+    """Streaming-softmax GQA attention visiting only the block pairs that
+    hold unmasked entries, accumulators in float32 (the reference's
+    ``layers.blockwise_attention``), differentiable.
+
+    q (B, Sq, H, dh); k, v (B, Skv, KV, dh) -> (B, Sq, H, dh) in q's dtype.
+    KV heads are repeated to H.  Each q-block walks its kv-blocks in the
+    reference's pair order with its own running max, sum and accumulator,
+    so the arithmetic is the reference's; both products take the operands
+    in float32 (exact for bf16 inputs), as its ``preferred_element_type``
+    accumulates them."""
+    out_dtype = q.dtype
+    b, sq, h, dh = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    assert h % kv == 0, (h, kv)
+    g = h // kv
+    block_q, block_kv = min(block_q, sq), min(block_kv, skv)
+    pad_q, pad_kv = (-sq) % block_q, (-skv) % block_kv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    n_q, n_kv = (sq + pad_q) // block_q, (skv + pad_kv) // block_kv
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(g, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    q_in = torch.arange(block_q, dtype=torch.int32, device=dev)
+    k_in = torch.arange(block_kv, dtype=torch.int32, device=dev)
+    pairs = block_pairs(n_q, n_kv, block_q, block_kv, causal, window,
+                        kv_offset)
+    outs = []
+    for i in range(n_q):
+        m = torch.full((b, h, block_q), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, block_q, dh), dtype=torch.float32,
+                          device=dev)
+        qb = qh[:, :, i * block_q:(i + 1) * block_q].float()
+        for j in (j for ii, j in pairs if ii == i):
+            kb = kh[:, :, j * block_kv:(j + 1) * block_kv].float()
+            vb = vh[:, :, j * block_kv:(j + 1) * block_kv]
+            s = torch.einsum("bhqd,bhsd->bhqs", qb, kb) * scale
+            qpos = i * block_q + q_in
+            kpos = j * block_kv + k_in + kv_offset
+            mask = (kpos[None, :] < skv + kv_offset).expand(block_q, -1)
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window > 0:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(mask, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            # fully masked rows (m_new = -inf) get p = 0
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = corr * l + p.sum(-1)
+            pv = torch.einsum("bhqs,bhsd->bhqd", p.to(vb.dtype).float(),
+                              vb.float())
+            acc = corr[..., None] * acc + pv
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=2).transpose(1, 2)[:, :sq]
+    return out.to(out_dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down):

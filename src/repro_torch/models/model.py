@@ -1,7 +1,8 @@
 """Unified model API: family dispatch (port of ``repro/models/model.py``).
 
     init_params(cfg, seed, device)                  -> params (nn.Module)
-    forward(params, cfg, tokens)                    -> (logits, aux_loss)
+    forward(params, cfg, tokens, train=False)       -> (logits, aux_loss)
+    lm_loss(params, cfg, batch)                     -> (loss, metrics)
     init_cache(cfg, batch, max_len, device)         -> serving cache
     prefill(params, cfg, tokens, max_len, **kw)     -> (logits, cache)
     decode_step(params, cfg, cache, token)          -> (logits, cache)
@@ -9,10 +10,15 @@
 The dense and MoE families (``transformer``), RWKV6 (``ssm``) and
 RecurrentGemma (``hybrid``) are ported; enc-dec raises (ROADMAP queue A,
 item 5).  Only the transformer's prefill takes ``lengths``: the recurrent
-families' caches share one position across the batch.  ``lm_loss`` waits
-for training.
+families' caches share one position across the batch.
+
+``lm_loss`` is the training loss of the dense and MoE families, through
+the transformer's training forward; the recurrent families and enc-dec
+raise there (ROADMAP queue A item 5).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import rglru, rwkv6, transformer
 
@@ -33,7 +39,10 @@ def init_params(cfg, seed: int = 0, device=None):
     return _family_mod(cfg).init_params(cfg, seed=seed, device=device)
 
 
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, train: bool = False):
+    """``train`` asks for the training forward (the transformer's only)."""
+    if train:
+        return transformer.forward(params, cfg, tokens, train=True)
     return _family_mod(cfg).forward(params, cfg, tokens)
 
 
@@ -47,3 +56,44 @@ def prefill(params, cfg, tokens, max_len: int, **kw):
 
 def decode_step(params, cfg, cache, token):
     return _family_mod(cfg).decode_step(params, cfg, cache, token)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(params, cfg, batch: dict):
+    """Next-token cross entropy over positions [0, S-2] predicting [1,
+    S-1] of ``batch["tokens"]`` (B, S), targets below 0 masked, through
+    the training forward; returns (loss + 0.01 * aux, {"loss", "aux_loss",
+    "perplexity"}), as the reference's ``lm_loss``.  The log-sum-exp is in
+    float32 from the logits' own max; padded vocab ids carry -1e9 logits
+    (``transformer.unembed``), so they add nothing to it.  Dense and MoE
+    families only."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: lm_loss trains the dense and MoE families; family "
+            f"{cfg.family!r} waits for ROADMAP queue A item 5 (enc-dec, and "
+            "the recurrent families' training)")
+    tokens = batch["tokens"]
+    logits, aux = forward(params, cfg, tokens, train=True)
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1]
+    m = logits.amax(-1).float()
+    e = torch.exp(logits.float() - m[..., None])
+    lse = m + torch.log(e.sum(-1))
+    del e
+    # the label's logit, one element per row (the reference sums a one-hot
+    # mask over the vocabulary, which adds zeros to it)
+    label = logits.float().gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    nll = lse - label
+    mask = (targets >= 0).float()
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+def count_params(params) -> int:
+    return sum(p.numel() for p in params.parameters())

@@ -10,6 +10,13 @@ plain versions.  B4b keeps ``x@wg`` and ``x@wu`` in float32 up to one
 rounding, where the reference's einsum chain rounds them to the activation
 dtype first; at float32 the two agree to rounding.
 
+Training (``moe_block(..., train=True)``) runs the reference's expert
+FFN, three einsums, under autograd, since the kernels have no backward.
+Its dispatch and combine are gathers through a static row table (which
+assignment fills each buffer row), so their backward passes add each
+gradient row once and never meet in an atomic add: a step is the same bit
+for bit however often it runs, eagerly or from a CUDA graph.
+
 The reference's expert-parallel ``_moe_sharded`` (shard_map over a
 ``model`` axis) belongs to the LM model mesh, ROADMAP queue A item 5;
 ``moe_block`` is the local path.  Nothing here synchronises with the host: dispatch and combine are
@@ -88,7 +95,16 @@ def _expert_ffn(xin: torch.Tensor, p: MoE) -> torch.Tensor:
     return expert_gemm(expert_swiglu(xin, p.w_gate, p.w_up), p.w_down)
 
 
-def _moe_local(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def _expert_ffn_einsum(xin: torch.Tensor, p: MoE) -> torch.Tensor:
+    """The reference's ``_expert_ffn``: (E, C, d) -> (E, C, d), each
+    einsum rounded to the activation dtype, differentiable."""
+    h = torch.einsum("ecd,edf->ecf", xin, p.w_gate)
+    u = torch.einsum("ecd,edf->ecf", xin, p.w_up)
+    return torch.einsum("ecf,efd->ecd", F.silu(h) * u, p.w_down)
+
+
+def _moe_local(p: MoE, x: torch.Tensor, cfg, train: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     T, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     capacity = _capacity(T, cfg)
@@ -100,7 +116,6 @@ def _moe_local(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor
     ids_flat = ids.reshape(-1).long()
     gates_flat = gates.reshape(-1)
     slot = _slot_in_expert(ids_flat, e).long()
-    token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
     keep = slot < capacity
 
     # row e*C + slot of a flat buffer with one spare row at the end, where
@@ -108,9 +123,20 @@ def _moe_local(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor
     # and from which they read 0 (its mode="fill")
     spare = e * capacity
     dest = torch.where(keep, ids_flat * capacity + slot, spare)
-    buf = torch.zeros((spare + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest] = x[token_idx]
-    y = _expert_ffn(buf[:spare].view(e, capacity, d), p)
+    if train:
+        # assignment a = token a // k; src[r] = the assignment in row r,
+        # or T*k, a zero row (a kept row has one assignment)
+        xk = torch.cat([x[:, None].expand(T, k, d).reshape(T * k, d),
+                        x.new_zeros((1, d))])
+        src = torch.full((spare + 1,), T * k, dtype=torch.long,
+                         device=x.device)
+        src[dest] = torch.arange(T * k, device=x.device)
+        y = _expert_ffn_einsum(xk[src[:spare]].view(e, capacity, d), p)
+    else:
+        token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
+        buf = torch.zeros((spare + 1, d), dtype=x.dtype, device=x.device)
+        buf[dest] = x[token_idx]
+        y = _expert_ffn(buf[:spare].view(e, capacity, d), p)
     y = torch.cat([y.reshape(spare, d), y.new_zeros((1, d))])
     y_tok = y[dest]
     w = (gates_flat * keep.float())[:, None].to(y_tok.dtype)
@@ -123,6 +149,8 @@ def _moe_local(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor
     return out.to(x.dtype), aux
 
 
-def moe_block(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (T, d) token-major -> (out (T, d), aux loss scalar)."""
-    return _moe_local(p, x, cfg)
+def moe_block(p: MoE, x: torch.Tensor, cfg, train: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (T, d) token-major -> (out (T, d), aux loss scalar); ``train``
+    runs the einsum FFN under autograd (module docstring)."""
+    return _moe_local(p, x, cfg, train)

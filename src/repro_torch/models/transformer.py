@@ -11,9 +11,17 @@ first, then its MoE blocks (the reference's ``dense_layers`` and
 ``moe_layers`` stacks), which is also the cache's layer order.  An MoE
 block's FFN is ``models/moe.py`` (the grouped expert kernels B4b, B4a).
 
-Prefill attention always goes through the flash-attention kernel
-(``kernels/flash_attn/ops.py``), the reference's ``attn_impl="pallas"``
-path.  Decode attention always goes through the decode-attention kernel
+Serving (``prefill``, ``decode_step``, and ``forward`` by default) takes
+the kernels: prefill attention always goes through the flash-attention
+kernel (``kernels/flash_attn/ops.py``), the reference's
+``attn_impl="pallas"`` path.  Training asks for ``forward(..., train=
+True)``, the reference's training forward: attention follows
+``cfg.attn_impl`` (``"xla"``, every config's default, is
+``layers.blockwise_attention`` in plain PyTorch under autograd;
+``"pallas"`` is the flash kernel, which has no backward in either
+package, so asking for gradients through it raises), and an MoE layer's
+expert FFN is the reference's einsums (``moe.moe_block(..., train=True)``).
+Parameters take gradients only there.  Decode attention always goes through the decode-attention kernel
 (``kernels/decode_attn/ops.py``), with its mask chosen by the
 configuration, here and nowhere else (``Block.decode``): under full
 attention ``lengths = min(pos+1, S)``, because such a cache is filled in
@@ -25,8 +33,7 @@ The KV cache is a dict with the reference's layout (``k``/``v`` of
 ``(n_layers, B, S, KV, dh)``, ``kv_pos (B, S)``, ``pos (B,)``), but
 ``decode_step`` updates it in place, ``pos`` included, and returns the same
 dict, where the reference builds a new one: every tensor keeps its storage,
-so a CUDA graph of the step replays on it.  The other families are not
-ported yet (ROADMAP queue A).
+so a CUDA graph of the step replays on it.
 """
 from __future__ import annotations
 
@@ -87,25 +94,27 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, dtype, device)
 
-    def ffn(self, y):
+    def ffn(self, y, train: bool = False):
         """y (B, S, d) -> (out (B, S, d), aux loss); the MoE layer routes
         the B*S tokens together, as the reference does."""
         if not self.use_moe:
             return (mlp_block(self.mlp, self.cfg, y),
                     torch.zeros((), device=y.device))
         b, s, d = y.shape
-        out, aux = moe_lib.moe_block(self.moe, y.reshape(b * s, d), self.cfg)
+        out, aux = moe_lib.moe_block(self.moe, y.reshape(b * s, d), self.cfg,
+                                     train=train)
         return out.reshape(b, s, d), aux
 
-    def forward(self, x, positions):
-        """Whole sequences (forward, prefill): x (B, S, d) -> (x, k, v,
-        aux loss)."""
+    def forward(self, x, positions, train: bool = False):
+        """Whole sequences (forward, prefill; ``train`` the training
+        forward): x (B, S, d) -> (x, k, v, aux loss)."""
         cfg = self.cfg
         h, k, v = attention_full(self.attn, cfg,
                                  layers.rms_norm(x, self.attn_norm, cfg.norm_eps),
-                                 positions)
+                                 positions, train=train)
         x = x + h
-        out, aux = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps))
+        out, aux = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps),
+                            train=train)
         return x + out, k, v, aux
 
     def decode(self, x, pos, slot, k_cache, v_cache, kv_pos, lengths):
@@ -205,12 +214,23 @@ def _qkv(p: Attention, cfg, x, positions):
     return q, k, v
 
 
-def attention_full(p: Attention, cfg, x, positions):
-    """Causal (or sliding-window) attention over whole sequences, through
-    the flash-attention kernel, which reads q, k and v as (B, H, S, dh)
-    views of the (B, S, H, dh) tensors (no copies).  Returns (out, k, v)."""
+def attention_full(p: Attention, cfg, x, positions, train: bool = False):
+    """Causal (or sliding-window) attention over whole sequences.  Serving
+    goes through the flash-attention kernel, which reads q, k and v as (B,
+    H, S, dh) views of the (B, S, H, dh) tensors (no copies); ``train``
+    follows ``cfg.attn_impl`` (module docstring).  Returns (out, k, v)."""
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.window if cfg.attention == "swa" else 0
+    if train and cfg.attn_impl == "xla":
+        o = layers.blockwise_attention(q, k, v, causal=True, window=window,
+                                       block_q=cfg.attn_block_q,
+                                       block_kv=cfg.attn_block_kv)
+        return torch.einsum("bshe,hed->bsd", o, p.wo), k, v
+    if train and torch.is_grad_enabled() and q.requires_grad:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_impl='pallas' trains through the flash-"
+            "attention kernel (B2), which has a backward in neither "
+            "package; train with attn_impl='xla' (the default)")
     o = flash_attn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                    causal=True, window=window).transpose(1, 2)
     return torch.einsum("bshe,hed->bsd", o, p.wo), k, v
@@ -225,24 +245,31 @@ def mlp_block(p: MLP, cfg, x):
 # ---------------------------------------------------------------------------
 
 
-def _embed(params: Transformer, cfg, tokens):
-    return params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+def _embed(params: Transformer, cfg, tokens, train: bool = False):
+    # training looks up through F.embedding, whose backward sums a
+    # token's rows without atomics; a negative id (a masked target's
+    # input) reads from the end, as indexing does
+    x = (torch.nn.functional.embedding(
+        tokens.remainder(params.embed.shape[0]), params.embed) if train
+         else params.embed[tokens])
+    return x.to(getattr(torch, cfg.compute_dtype))
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def forward(params: Transformer, cfg, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Transformer, cfg, tokens: torch.Tensor,
+            train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (logits (B, S, Vp), aux loss: the MoE layers'
-    load-balancing losses summed, 0 for a dense model)."""
+    load-balancing losses summed, 0 for a dense model).  ``train`` is the
+    training forward (module docstring)."""
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, train)
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), device=x.device)
     for blk in params.layers:
-        x, _, _, a = blk(x, positions)
+        x, _, _, a = blk(x, positions, train)
         aux = aux + a
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x), aux

@@ -1,21 +1,34 @@
-"""AdamW with float32 moments (port of the AdamW half of
-``repro/train/optimizer.py``), updating parameters in place.
+"""AdamW with float32 moments and Adafactor with a factored second moment
+(port of ``repro/train/optimizer.py``), updating parameters in place.
 
 ``lr_schedule`` is linear warmup then cosine decay to a floor of 0.1 of
-the peak; gradients are clipped by their global norm; weight decay
-applies to parameters of two or more dimensions only.  The step count is
-a device tensor (``AdamW.step``) that the learning rate and the bias
-corrections read on the device, so a CUDA graph of an update uses the
-step it holds at each replay.  Adafactor, the LM trainer's optimizer, is
-not ported.
+the peak; gradients are clipped by their global norm and keep their own
+dtype (a bf16 gradient is rounded after clipping, as in the reference);
+weight decay applies to parameters of two or more dimensions only.  Both
+optimizers keep float32 state and update a bf16 parameter through float32,
+rounding back once.  The step count is a device tensor (``.step``) that the
+learning rate, the bias corrections and Adafactor's ``beta2`` read on the
+device, so a CUDA graph of an update uses the step it holds at each replay.
+
+Parameters come as ``name -> tensor``, or ``name -> list of tensors`` for
+a leaf that the reference stacks over layers (``models.io.reference_groups``
+gives an LM's leaves so).  A list counts as one leaf of one more dimension,
+as the reference's stacked array does: its weight decay and Adafactor's
+factoring and RMS clipping follow the stacked shape (a stack of per-layer
+norms is a matrix to the reference), and its state is stacked too.
+
+    opt = make_optimizer("adafactor", peak_lr=3e-4)(params)
+    stats = opt.update(grads)          # grads in the order of opt.tensors()
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Sequence, Union
 
 import torch
+
+Leaf = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +41,8 @@ class OptimizerConfig:
     b2: float = 0.95
     eps: float = 1e-8
     grad_clip: float = 1.0
+    # adafactor
+    decay_rate: float = 0.8
 
 
 def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
@@ -45,44 +60,208 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _clip(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (x.to(torch.float32) * scale).to(x.dtype)
+
+
 def clip_by_global_norm(tensors: List[torch.Tensor], max_norm: float):
-    """(tensors scaled by ``min(1, max_norm / norm)``, norm)."""
+    """(tensors scaled by ``min(1, max_norm / norm)`` in float32 and
+    returned in their own dtype, norm)."""
     norm = global_norm(tensors)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return [(x.to(torch.float32) * scale).to(x.dtype) for x in tensors], norm
+    scale = _clip_scale(norm, max_norm)
+    return [_clip(x, scale) for x in tensors], norm
 
 
-class AdamW:
-    """AdamW over ``params`` (name -> parameter), moments ``m``/``v`` by
-    the same names in float32, ``step`` an int32 device scalar."""
+def _members(leaf: Leaf) -> List[torch.Tensor]:
+    return [leaf] if isinstance(leaf, torch.Tensor) else list(leaf)
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: OptimizerConfig):
+
+def _stacked(leaf: Leaf) -> bool:
+    return not isinstance(leaf, torch.Tensor)
+
+
+def _shape(leaf: Leaf) -> tuple:
+    """The reference's shape of a leaf: a list is a stack over layers."""
+    if _stacked(leaf):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(leaf.shape)
+
+
+def _zeros(shape, dev) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+
+class _Optimizer:
+    """The parameters (``params``: name -> leaf), the step and the
+    gradient clipping both optimizers share."""
+
+    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig):
         self.cfg = cfg
         self.params = dict(params)
-        dev = next(iter(self.params.values())).device
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=dev)
-        self.m = {k: zeros(p) for k, p in self.params.items()}
-        self.v = {k: zeros(p) for k, p in self.params.items()}
-        self.step = torch.zeros((), dtype=torch.int32, device=dev)
+        self.device = _members(next(iter(self.params.values())))[0].device
+        self.step = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every parameter tensor, in the order ``update`` takes grads."""
+        return [t for leaf in self.params.values() for t in _members(leaf)]
+
+    def _clipped(self, grads):
+        """({name: that leaf's grads}, the global norm, a function that
+        clips one gradient, the lr).  A list of grads is emptied, so each
+        gradient is freed once its leaf is updated; each is clipped as
+        ``clip_by_global_norm`` clips it, when its leaf is updated."""
+        flat = list(grads)
+        if isinstance(grads, list):
+            grads.clear()
+        norm = global_norm(flat)
+        scale = _clip_scale(norm, self.cfg.grad_clip)
+        clip = lambda x: _clip(x, scale)
+        out, i = {}, 0
+        for k, leaf in self.params.items():
+            n = len(_members(leaf))
+            out[k], i = flat[i:i + n], i + n
+        del flat
+        return out, norm, clip, lr_schedule(self.cfg, self.step)
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The optimizer state in the reference's tree, keys joined by
+        ``/`` (``m/<leaf>``, ``v/<leaf>/vr``, ...): a stacked leaf's state
+        is one stacked tensor, as the reference keeps it."""
+        raise NotImplementedError
+
+
+class AdamW(_Optimizer):
+    """AdamW over ``params``, moments ``m``/``v`` by the same names in
+    float32 (a stacked leaf's moments stacked), ``step`` an int32 device
+    scalar."""
+
+    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig):
+        super().__init__(params, cfg)
+        self.m = {k: _zeros(_shape(p), self.device)
+                  for k, p in self.params.items()}
+        self.v = {k: _zeros(_shape(p), self.device)
+                  for k, p in self.params.items()}
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor]) -> dict:
-        """One step with ``grads`` in the order of ``params``, in place;
-        returns ``{"grad_norm", "lr"}`` (device scalars)."""
+        """One step with ``grads`` in the order of ``tensors()``, in place
+        (a list of grads is emptied); returns ``{"grad_norm", "lr"}``
+        (device scalars)."""
         cfg = self.cfg
-        grads, gnorm = clip_by_global_norm(list(grads), cfg.grad_clip)
-        lr = lr_schedule(cfg, self.step)
+        grads, gnorm, clip, lr = self._clipped(grads)
         t = (self.step + 1).to(torch.float32)
         bc1 = 1 - torch.pow(cfg.b1, t)
         bc2 = 1 - torch.pow(cfg.b2, t)
-        for (k, p), g in zip(self.params.items(), grads):
-            g = g.to(torch.float32)
-            m, v = self.m[k], self.v[k]
-            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            if p.dim() >= 2:                       # decay matrices only
-                delta = delta + cfg.weight_decay * p.to(torch.float32)
-            p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+        for k, leaf in self.params.items():
+            decay = len(_shape(leaf)) >= 2            # decay matrices only
+            stacked = _stacked(leaf)
+            members = grads.pop(k)
+            for i, p in enumerate(_members(leaf)):
+                m = self.m[k][i] if stacked else self.m[k]
+                v = self.v[k][i] if stacked else self.v[k]
+                g = clip(members[i]).to(torch.float32)
+                members[i] = None
+                m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+                v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
+                delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+                if decay:
+                    delta = delta + cfg.weight_decay * p.to(torch.float32)
+                p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
         return {"grad_norm": gnorm, "lr": lr}
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        return {**{f"m/{k}": x for k, x in self.m.items()},
+                **{f"v/{k}": x for k, x in self.v.items()}}
+
+
+def _factored(shape: tuple) -> bool:
+    return len(shape) >= 2 and min(shape[-2:]) >= 2
+
+
+def _stack(ts: List[torch.Tensor]) -> torch.Tensor:
+    """A leaf's members as its stacked tensor: a view for a stack of one."""
+    return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
+
+
+class Adafactor(_Optimizer):
+    """Adafactor without momentum: for a leaf whose last two dimensions are
+    both at least 2, the second moment is kept factored as row and column
+    means (``vr``, ``vc``), else whole (``v``); ``beta2 = 1 - t^-0.8``;
+    updates are divided by their RMS when it exceeds 1.  A stacked leaf is
+    updated as one tensor (its factoring and RMS span the stack), each
+    other leaf alone."""
+
+    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig):
+        super().__init__(params, cfg)
+        self.v = {}
+        for k, leaf in self.params.items():
+            s = _shape(leaf)
+            self.v[k] = ({"vr": _zeros(s[:-1], self.device),
+                          "vc": _zeros(s[:-2] + s[-1:], self.device)}
+                         if _factored(s) else {"v": _zeros(s, self.device)})
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor]) -> dict:
+        """One step with ``grads`` in the order of ``tensors()``, in place
+        (a list of grads is emptied); returns ``{"grad_norm", "lr"}``
+        (device scalars)."""
+        cfg = self.cfg
+        grads, gnorm, clip, lr = self._clipped(grads)
+        t = (self.step + 1).to(torch.float32)
+        beta2 = 1.0 - torch.pow(t, -cfg.decay_rate)
+        for k, leaf in self.params.items():
+            stacked = _stacked(leaf)
+            members = _members(leaf)
+            g = [clip(x) for x in grads.pop(k)]
+            g = (_stack(g) if stacked else g[0]).to(torch.float32)
+            g2 = torch.square(g) + 1e-30
+            v = self.v[k]
+            if "vr" in v:
+                v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * g2.mean(-1))
+                v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * g2.mean(-2))
+                del g2
+                denom = torch.clamp(v["vr"].mean(-1, keepdim=True), min=1e-30)
+                vhat = v["vr"][..., None] * v["vc"][..., None, :] \
+                    / denom[..., None]
+            else:
+                v["v"].copy_(beta2 * v["v"] + (1 - beta2) * g2)
+                del g2
+                vhat = v["v"]
+            delta = g / (torch.sqrt(vhat) + 1e-30)
+            del g, vhat
+            # update clipping (Adafactor's RMS rule)
+            rms = torch.sqrt(torch.square(delta).mean() + 1e-30)
+            delta = delta / torch.clamp(rms, min=1.0)
+            p = _stack(members) if stacked else members[0]
+            if p.dim() >= 2:
+                delta = delta + cfg.weight_decay * p.to(torch.float32)
+            new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+            del delta
+            if stacked:
+                for i, m in enumerate(members):
+                    m.copy_(new[i])
+            else:
+                p.copy_(new)
+        return {"grad_norm": gnorm, "lr": lr}
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        return {f"v/{k}/{part}": x for k, v in self.v.items()
+                for part, x in v.items()}
+
+
+OPTIMIZERS = {"adamw": AdamW, "adafactor": Adafactor}
+
+
+def make_optimizer(name: str, **kw
+                   ) -> Callable[[Dict[str, Leaf]], _Optimizer]:
+    """The optimizer ``name`` (``adamw`` or ``adafactor``) with the
+    ``OptimizerConfig`` fields ``kw``, as a function of the parameters
+    (the reference's ``opt.init``)."""
+    if name not in OPTIMIZERS:
+        raise ValueError(name)
+    cfg = OptimizerConfig(**kw)
+    return lambda params: OPTIMIZERS[name](params, cfg)

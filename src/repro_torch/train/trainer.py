@@ -1,0 +1,151 @@
+"""The LM trainer (port of ``repro/train/trainer.py``): the training step
+replayed from a CUDA graph, checkpoint and restart, straggler detection,
+preemption safety.
+
+    trainer = Trainer(model_cfg, TrainerConfig(...))
+    state = trainer.init_or_restore(seed=0)
+    state = trainer.run(state, data)
+
+Fault-tolerance contract: checkpoints every ``ckpt_every`` steps, at the
+last step and on SIGTERM (preemption); ``init_or_restore`` resumes from
+the newest manifest.  ``run`` takes the batch of each step from
+``next(data)`` when ``data`` is an iterator, else from ``data.batch(step)``
+(restart-safe: a ``SyntheticLM`` passed itself gives a resumed run the
+stream it would have seen).  The state is ``launch.steps.train_state``'s,
+updated in place; ``tree(state)`` is its checkpoint view in the
+reference's layout (``params/...``, ``opt/...``, ``step``).  The trainer
+keeps each step's wall seconds (``step_s``, the batch and the wait for the
+step included) and each checkpoint's (``save_s``, ``restore_s``).  A mesh
+waits for the LM model mesh, ROADMAP queue A item 5.
+"""
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from typing import Callable
+
+from repro_torch.device import resolve
+from repro_torch.distributed.fault_tolerance import StragglerDetector
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import model as model_lib
+from repro_torch.train import checkpoint, optimizer as opt_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_dir: str = ""
+    ckpt_every: int = 50
+    keep_last: int = 3
+    log_every: int = 10
+    peak_lr: float = 3e-4
+    warmup_steps: int = 20
+    straggler_z: float = 4.0
+    on_straggler: str = "log"   # log | raise
+
+
+def _nest(flat: dict) -> dict:
+    out = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out
+
+
+def tree(state: dict) -> dict:
+    """A train state's checkpoint tree, in the reference's layout."""
+    opt = state["opt"]
+    return {"params": _nest(opt.params), "opt": _nest(opt.state()),
+            "step": state["step"]}
+
+
+class Trainer:
+    """Trains ``model_cfg`` (dense or MoE) with its ``optimizer`` on
+    ``device`` (CUDA by default); ``graphs=False`` runs every step
+    eagerly."""
+
+    def __init__(self, model_cfg, cfg: TrainerConfig, mesh=None,
+                 log_fn: Callable = print, device=None, graphs: bool = True):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the LM trainer takes no mesh yet: the LM model mesh and "
+                "its MeshPolicy are ROADMAP queue A item 5")
+        if model_cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"{model_cfg.name}: family {model_cfg.family!r} does not "
+                "train yet (ROADMAP queue A item 5); the dense and MoE "
+                "families do")
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.mesh = None
+        self.log_fn = log_fn
+        self.device = resolve(device)
+        self.opt = opt_lib.make_optimizer(
+            model_cfg.optimizer, peak_lr=cfg.peak_lr,
+            warmup_steps=cfg.warmup_steps, total_steps=cfg.total_steps)
+        self._step_fn = steps_lib.make_train_step(model_cfg, graphs=graphs)
+        self.straggler = StragglerDetector(z_threshold=cfg.straggler_z)
+        self._preempted = False
+        self.step_s, self.save_s, self.restore_s = [], [], None
+
+    # ------------------------------------------------------------------
+    def init_state(self, seed: int = 0) -> dict:
+        params = model_lib.init_params(self.model_cfg, seed=seed,
+                                       device=self.device)
+        return steps_lib.train_state(self.model_cfg, params, self.opt)
+
+    def init_or_restore(self, seed: int = 0) -> dict:
+        state = self.init_state(seed)
+        if self.cfg.ckpt_dir and checkpoint.latest_step(
+                self.cfg.ckpt_dir) is not None:
+            t0 = time.perf_counter()
+            checkpoint.restore(self.cfg.ckpt_dir, tree(state))
+            self.restore_s = time.perf_counter() - t0
+            self.log_fn(f"[trainer] restored step {int(state['step'])}")
+        return state
+
+    # ------------------------------------------------------------------
+    def _install_sigterm(self):
+        def handler(signum, frame):
+            self._preempted = True
+        try:
+            signal.signal(signal.SIGTERM, handler)
+        except ValueError:
+            pass  # not main thread
+
+    def run(self, state: dict, data) -> dict:
+        cfg = self.cfg
+        self._install_sigterm()
+        start = int(state["step"])
+        for step in range(start, cfg.total_steps):
+            t0 = time.perf_counter()
+            batch = next(data) if hasattr(data, "__next__") else data.batch(step)
+            state, metrics = self._step_fn(state, batch)
+            loss = float(metrics["loss"])           # waits for the step
+            dt = time.perf_counter() - t0
+            self.step_s.append(dt)
+            if self.straggler.update(dt):
+                self.log_fn(f"[trainer] STRAGGLER step={step} dt={dt:.2f}s "
+                            f"(mean {self.straggler.mean:.2f}s)")
+                if cfg.on_straggler == "raise":
+                    raise RuntimeError(f"straggler at step {step}")
+            if step % cfg.log_every == 0 or step == cfg.total_steps - 1:
+                self.log_fn(f"[trainer] step={step} loss={loss:.4f} "
+                            f"gnorm={float(metrics['grad_norm']):.3f} "
+                            f"dt={dt*1000:.0f}ms")
+            should_ckpt = cfg.ckpt_dir and (
+                (step + 1) % cfg.ckpt_every == 0 or self._preempted
+                or step == cfg.total_steps - 1)
+            if should_ckpt:
+                t0 = time.perf_counter()
+                path = checkpoint.save(cfg.ckpt_dir, step + 1, tree(state),
+                                       keep_last=cfg.keep_last)
+                self.save_s.append(time.perf_counter() - t0)
+                if self._preempted:
+                    self.log_fn(f"[trainer] preempted; saved {path}")
+                    return state
+        return state

@@ -23,6 +23,50 @@ def test_shard_engine_equals_torch_backend(tmp_path):
             assert torch.equal(got["queues"][k], x), (rank, k)
 
 
+def test_shard_env_keeps_blocks_and_gathers_what_it_reads(tmp_path):
+    """The env under ``engine_backend="shard"`` on 4 ranks, N=8: each
+    rank's state holds its 2 experts' queue rows and clocks, which,
+    concatenated in rank order, equal the ``"torch"`` backend's, with the
+    same metrics, for QLL on a ragged fleet, a SAC router on the padded
+    observation and QLL under ``rolling_outage`` with failover.  The
+    advance gathers the six accumulators alone (B x N x 6 words a step)
+    and never the queue rows; each reader's gather moves what it reads:
+    the routers' two counts per expert, one float per env for the impact
+    penalty, one word per env for the push, the channels it reads for
+    the observation (six words a running slot, five a waiting one),
+    every row for the failover step, one float per expert for the shed
+    watermark."""
+    res = run_world("shard_env", 4, tmp_path)
+    b, n, r, w = 2, 8, 5, 5
+    rows_words = n * (2 * 5 * r + 2 * 4 * w)     # run_i/f 5 ch, wait_i/f 4
+    obs_words = n * (6 * r + 5 * w)
+    per_step = {"accumulators": b * n * 6 * 4, "impact": b * 4,
+                "admit": b * 4}
+    expect = {
+        "qll": {**per_step, "router load": b * n * 2 * 4},
+        "sac": {**per_step, "observation": b * obs_words * 4},
+        "failover": {**per_step, "router load": b * n * 2 * 4,
+                     "failover": b * rows_words * 4,
+                     "occupancy": b * n * 4}}
+    steps = {"qll": 60, "sac": 20, "failover": 160}
+    assert res[0]["failover torch"]["metrics"]["redispatched"] > 0
+    for name, want_bytes in expect.items():
+        want = res[0][name + " torch"]
+        assert want["metrics"]["completed"] > 0, name
+        for rank, rk in enumerate(res):
+            assert rk["rows"] == (2 * rank, 2 * rank + 2)
+            got = rk[name]
+            assert got["metrics"] == want["metrics"], (name, rank)
+            assert got["bytes"] == {k: v * steps[name]
+                                    for k, v in want_bytes.items()}, (
+                name, got["bytes"])
+        for k, x in want["tensors"].items():
+            dim = 0 if k.startswith("retry_buf") else 1
+            got = (res[0][name]["tensors"][k] if dim == 0 else torch.cat(
+                [rk[name]["tensors"][k] for rk in res], dim=1))
+            assert torch.equal(got, x), (name, k)
+
+
 def test_collectives_on_four_ranks(tmp_path):
     """``ring_allreduce`` within 1e-4 of the exact sum and
     ``compressed_allreduce`` of a replicated input within ``max|g| / 127 +

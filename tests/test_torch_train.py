@@ -481,8 +481,10 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert "sharded over DeviceMesh((expert=1)" in capsys.readouterr().out
     assert io.router_ckpt_compatible(io.load_pytree(mesh_path))
     assert not torch.distributed.is_initialized()
+    # the LM path trains on one device; a mesh above one raises
     with pytest.raises(NotImplementedError, match="queue A item 5"):
-        train_cli.main(["--iters", "1", "--device", "cpu"])
+        train_cli.main(["--steps", "1", "--device", "cpu",
+                        "--data-parallel", "2"])
     with pytest.raises(KeyError):
         train_cli.main(["--router", "--iters", "1", "--device", "cpu",
                         "--scenario", "no_such_scenario"])

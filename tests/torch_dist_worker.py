@@ -111,6 +111,52 @@ def shard_engine(rank, world, _arg):
     return out
 
 
+def _routed(env_cfg, pool, policy, n_envs, steps):
+    """``policy`` over ``RoutingLoop`` for ``steps`` eager steps: the final
+    env state's tensors and metrics, and the bytes each reader's gathers
+    brought this rank (``collectives.BYTES``)."""
+    collectives.BYTES.clear()
+    loop = training.RoutingLoop(env_cfg, pool, policy, n_envs)
+    loop.run(steps, graphs=False)
+    tensors = {f"{k} {j}": x for k, q in loop.state.items()
+               if k in ("queues", "retry_buf") for j, x in q.items()}
+    tensors["expert_clock"] = loop.state["expert_clock"]
+    return {"tensors": {k: x.clone() for k, x in tensors.items()},
+            "metrics": loop.metrics(), "bytes": dict(collectives.BYTES)}
+
+
+def shard_env(rank, world, _arg):
+    """The env under ``engine_backend="shard"`` (N=8, 2 experts a rank):
+    QLL on a ragged fleet, a seeded SAC router on the padded observation,
+    and QLL under ``rolling_outage`` with failover and a shed watermark,
+    2 envs each; rank 0 also runs them on ``"torch"``."""
+    import dataclasses
+
+    from repro_torch.env.failover import FailoverConfig
+    from repro_torch.launch import route
+
+    steps = {"qll": 60, "sac": 20, "failover": 160}
+    base, pool = route.make_env(8, ragged_caps=True, device="cpu")
+    sac = sac_lib.SAC(sac_lib.SACConfig(n_actions=9, flat_dim=24),
+                      torch.Generator().manual_seed(3))
+    fo_cfg, _ = route.make_env(8, device="cpu", scenario="rolling_outage",
+                               failover=FailoverConfig(shed_watermark=0.5))
+    runs = {"qll": (base, route.make_policies(base)[3]),
+            "sac": (dataclasses.replace(base, run_caps=None, wait_caps=None),
+                    route.make_policies(base, sac)[4]),
+            "failover": (fo_cfg, route.make_policies(fo_cfg)[3])}
+    out = {"rows": _span(sharding.expert_rows(mesh_lib.make_expert_mesh(),
+                                              8))}
+    for name, (cfg, policy) in runs.items():
+        shard = dataclasses.replace(cfg, engine_backend="shard")
+        out[name] = _routed(shard, pool, policy, 2, steps[name])
+        if rank == 0:
+            out[name + " torch"] = _routed(
+                dataclasses.replace(cfg, engine_backend="torch"), pool,
+                policy, 2, steps[name])
+    return out
+
+
 def cli(rank, world, out_dir):
     """``launch/train.py --router --router-mesh`` in this world; rank 0
     also runs it unsharded."""
@@ -163,7 +209,7 @@ def _copies(tree):
 
 
 CASES = {"iteration": iteration, "shard_engine": shard_engine, "cli": cli,
-         "collectives": collective_ops}
+         "collectives": collective_ops, "shard_env": shard_env}
 
 
 def run_world(case, world, tmp_path, arg=None):
