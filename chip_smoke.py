@@ -2,7 +2,7 @@
 NVIDIA GPU and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py predictor lm_train shard_engine   # those alone
+    python3 chip_smoke.py predictor lm_train shard_engine lm_mesh  # alone
 
 With phase names it runs those phases alone, checks no kernel, prints no
 kernels line, and its last line is ``{"ok": null, "partial": [...]}``:
@@ -17,9 +17,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 kernel function (``nvcc --resource-usage``, alongside).
   2. kernel   — the lockstep-advance kernel (B1) against its plain PyTorch
                 version: 16 envs x 1,024 experts (16,384 rows, R=W=5), then
-                4 envs x 6 experts (the N=6 serving rows), each over 100
+                4 envs x 6 experts (the N=6 serving rows), over 100
                 consecutive advances per admission order, every fourth one
-                held against the plain loop, with arrivals
+                held against the plain loop (at 16,384 rows those of the
+                first 50, and advance 50, where B1 is timed), with arrivals
                 pushed between advances, ragged caps, about 1/8 of experts
                 down, admission floors on some rows and a t_next per env.
                 Queues, clocks and wait-valid bits must be bit-exact,
@@ -34,7 +35,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 final state must be equal bit for bit, and requests routed
                 per second are printed for both.  Each run must launch
                 B1 once per env step; a shorter QLL run on the plain engine
-                must end in the same state as on the kernel.
+                (40 steps at N=6, 25 at N=1,024) must end in the same state
+                as on the kernel.
   4. profile  — for QLL and SAC in each setting: the graphed step's wall
                 time, each layer's device time (observation, policy, env
                 step, each captured alone and replayed in turn), and the
@@ -184,7 +186,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
  14. train_scale — the reference's fleet-scale training shapes
                 (``benchmarks/bench_scaling.py train_sweep``): N=64 padded
                 and segments, N=256 segments; 2 envs, 2 x 2 collect, 2
-                updates of 16, buffer 1,024; 21 iterations graphed, eager
+                updates of 16, buffer 1,024; 11 iterations graphed, eager
                 and eager on B1's plain version (128 and 512 rows), all
                 bit-equal; iterations/s and peak memory, graphed and eager.
  15. scenario — routing under ``stress`` and under ``rolling_outage`` with
@@ -219,7 +221,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 caps), final state and metrics bit-equal to
                 ``engine_backend="cuda"`` and to the whole-state design
                 (``whole_state``, its B1 launches not counted; QLL's avg
-                QoS at N=6 still 0.7336170673370361), QLL's state after 100
+                QoS at N=6 still 0.7336170673370361), QLL's state after 50
                 steps bit-equal to the plain loop as each rank's body
                 (``shard_body="torch"``, eager); requests/s of the three;
                 the bytes each reader's collectives bring a rank in one
@@ -244,14 +246,37 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 layers, Adafactor, 4 microbatches: the peak reckoned first,
                 2 eager steps against the first 2 of 5 graphed (every
                 parameter and state tensor bit-equal).
- 20. kernels  — the kernel table line; each kernel's launches are those of
-                the counted main paths (3 and 13-17 for B1, 8, 9 and 12 for
-                the others), calls of its wrapper; B5's and B6's entries
-                name the kernels a call launches (``functions``) and count
-                them (``kernels_launched``: calls times kernels per call).
+ 20. lm_mesh  — the LM model mesh in a world of one NCCL rank on
+                ``make_host_mesh(1, 1)``: (a) qwen1.5-0.5b at published
+                width in bf16, AdamW, 8 x 128 tokens, 6 steps through
+                ``Trainer(mesh=...)`` (the step under its ``MeshPolicy``,
+                the parameters a ``ShardedLM``, every collective in the
+                graph) against the meshless ``Trainer`` from seed 0:
+                parameters, moments and every step's metrics bit-equal; ms
+                a step, tokens/s, peak memory and the collectives' bytes
+                of both.  (b) dbrx-132b at published widths cut to 4 of 40
+                layers (as in 9): ``_moe_sharded`` called with model = 1
+                on the first MoE layer's 512 tokens of a 4 x 128 prefill
+                against ``_moe_local`` (within 2^-6 of the largest
+                output; ``aux`` equal), its B4b and B4a calls against their
+                plain versions; the prefill (eager, then a replay) and 8
+                decode steps under a 1 x 1 policy over a ``ShardedLM`` of
+                serving blocks, graphed, bit-equal to the same steps
+                without a policy, B2 n_layers per prefill, B3 n_layers per
+                decode, B4b and B4a once per MoE layer of each (counted
+                for the kernels line); (c) one prefill and decode under
+                the policy through the kernels against their plain
+                versions (the plain run replays the kernel run's expert
+                routing), as in 8.
+ 21. kernels  — the kernel table line; each kernel's launches are those of
+                the counted main paths (3 and 13-17 for B1, 8, 9, 12 and
+                20 for the others), calls of its wrapper; B5's and B6's
+                entries name the kernels a call launches (``functions``)
+                and count them (``kernels_launched``: calls times kernels
+                per call).
 
 The phases run in the order 1, 10 and 11's per-pass traces (one profiler
-session), 2-9, 12, 10, 11, 13-19.  Every kernel library is built and loaded
+session), 2-9, 12, 10, 11, 13-20.  Every kernel library is built and loaded
 before the first profiler session: on this card a library loaded after
 the tracer first started makes later sessions miss kernel records.  A ``seconds`` line gives each phase's time
 and the total.  The last line
@@ -410,9 +435,19 @@ def bulk_arrivals(layout, q, rng, t, wait_caps, p_arrive, dev):
     return q
 
 
-def kernel_phase(dev, n_envs=16, n=1024, steps=100, p_arrive=0.16):
+# advances per admission order at 16,384 rows held against the plain
+# loop, whose 0.3-0.6 s a call sets this phase's time; the kernel still
+# runs all 100, and B1 is timed at advance 50 (the 24-row run holds all)
+KERNEL_CHECKED = 50
+
+
+def kernel_phase(dev, n_envs=16, n=1024, steps=100, checked=None,
+                 p_arrive=0.16):
     """B1 against its plain version on ``n_envs`` x ``n`` rows (module
-    docstring, phase 2), then timed on one mid-run advance."""
+    docstring, phase 2) over the first ``checked`` of ``steps`` advances
+    (all by default) and at advance ``steps // 2``, then timed on that
+    mid-run advance."""
+    checked = steps if checked is None else checked
     from repro_torch.env import engine, engine_layout as layout, profiles
     from repro_torch.kernels.lockstep_advance import ops
 
@@ -450,7 +485,7 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100, p_arrive=0.16):
                                        admit_order=order)
             # every fourth advance against the plain loop, whose 0.3-0.5 s
             # per call sets this phase's time; the kernel runs every advance
-            if k % 4 == 0 or k == steps // 2:
+            if (k < checked and k % 4 == 0) or k == steps // 2:
                 compared += 1
                 counts = {}
                 ref = engine.advance_shard(*args, latency_L=lat_l,
@@ -499,6 +534,7 @@ def kernel_phase(dev, n_envs=16, n=1024, steps=100, p_arrive=0.16):
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
     row = {"phase": "kernel", "name": "lockstep_advance", "rows": rows,
            "R": r, "W": w, "advances_per_order": steps,
+           "advances_checked": checked,
            "orders": list(engine.ADMIT_ORDERS), "bit_exact": True,
            "launches_compared": compared, "max_abs_err": max_err,
            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
@@ -793,14 +829,14 @@ TRAIN_CHECK_ITERS = 24       # graphed against eager: 15 collect, then 9 updatin
 # steps of the scenario runs held against B1's plain version, which waits
 # for the card once per turn: past the cap claim at 40 s of ``stress`` and
 # into the first outage (20-50 s) of ``rolling_outage``
-SCENARIO_PLAIN_STEPS = 500
+SCENARIO_PLAIN_STEPS = 400
 EVAL = dict(n_steps=750, n_envs=4)     # the serve phase's protocol, seed 1234
 EVAL_KEYS = ("mean_reward", "avg_qos", "completed", "dropped",
              "violation_rate")
 # the failover scenario run's arrival rate: 1.6x the paper's 5/s, so that
 # overload shedding and drains both happen in 750 steps x 4 envs
 SCENARIO_RATE = 8.0
-SCALE_ITERS = 20
+SCALE_ITERS = 10
 
 
 def differing(a: dict, b: dict) -> list:
@@ -1226,7 +1262,7 @@ def train_cli_phase(dev):
 
 # the plain loop waits for the card once per turn: the "shard" engine is
 # held against it over its first steps only
-SHARD_PLAIN_STEPS = 100
+SHARD_PLAIN_STEPS = 50
 SHARD_ENGINE_CASES = ((6, 4, 750, "padded", False),
                       (1024, 16, 200, "segments", True))
 
@@ -1777,6 +1813,286 @@ def lm_train_phase(dev):
           "eager": {"step_s": twins["eager"]["step_s"],
                     "max_memory_allocated":
                         twins["eager"]["max_memory_allocated"]}})
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the LM model mesh in a world of one NCCL rank
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 6     # qwen trainer steps a run (the first captures)
+MESH_DECODES = 8         # decode steps under the policy and without
+# _moe_sharded against _moe_local on one layer's tokens: the same expert
+# buffers through B4b and B4a, combined in float32 and rounded once against
+# four bf16 adds; held to 2^-6 of the largest output
+MOE_SHARDED_REL_TOL = 2.0 ** -6
+# B4a on activations: float32 order across 10,752 products, as a share of
+# the largest output (mesh_moe)
+B4A_SCALE_TOL = 2.0 ** -10
+
+
+@contextlib.contextmanager
+def expert_calls():
+    """Record every B4b and B4a call of the MoE layer (inputs and output),
+    in call order."""
+    from repro_torch.models import moe
+
+    real = (moe.expert_swiglu, moe.expert_gemm)
+    calls = []
+
+    def swiglu(x, wg, wu):
+        out = real[0](x, wg, wu)
+        calls.append(("grouped_swiglu", (x, wg, wu), out))
+        return out
+
+    def gemm(h, wd):
+        out = real[1](h, wd)
+        calls.append(("grouped_gemm", (h, wd), out))
+        return out
+
+    moe.expert_swiglu, moe.expert_gemm = swiglu, gemm
+    try:
+        yield calls
+    finally:
+        moe.expert_swiglu, moe.expert_gemm = real
+
+
+def mesh_training(dev, mesh) -> None:
+    """(a) qwen1.5-0.5b at published width in bf16, AdamW, 8 x 128 tokens:
+    ``Trainer(mesh=)`` against the meshless ``Trainer`` from seed 0, each
+    step a CUDA graph replay after the first; state and every step's
+    metrics bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import collectives
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = get_config("qwen1.5-0.5b")
+    runs = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()     # the other run's state
+        collectives.BYTES.clear()
+        tc = trainer_lib.TrainerConfig(total_steps=MESH_TRAIN_STEPS,
+                                       log_every=10 ** 9)
+        tr = trainer_lib.Trainer(cfg, tc, mesh=m, device=dev,
+                                 log_fn=lambda *a, **k: None)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                      global_batch=8), mesh=m, device=dev)
+        metrics, step = [], tr._step_fn
+
+        def recorded(st, batch):
+            st, out = step(st, batch)
+            metrics.append({k: float(v) for k, v in out.items()})
+            return st, out
+        tr._step_fn = recorded
+        state = tr.run(tr.init_state(seed=0), data)
+        runs[name] = {"state": state, "metrics": metrics,
+                      "rates": step_rates(tr.step_s, 8 * 128, QWEN_PARAMS),
+                      "peak_memory_above_start":
+                          torch.cuda.max_memory_allocated() - base,
+                      "bytes": dict(collectives.BYTES),
+                      "graphs": len(step.graphs)}
+        assert runs[name]["graphs"] == 1, runs[name]["graphs"]
+    same = same_train_state(runs["meshless"]["state"], runs["mesh"]["state"])
+    assert same and runs["mesh"]["metrics"] == runs["meshless"]["metrics"]
+    assert all(np.isfinite(m["loss"]) for m in runs["mesh"]["metrics"])
+    emit({"phase": "lm_mesh", "check": "training", "model": cfg.name,
+          "mesh": str(mesh), "dtype": "bfloat16", "optimizer": "adamw",
+          "global_batch": 8, "seq_len": 128, "steps": MESH_TRAIN_STEPS,
+          "bit_equal": True,
+          "losses": [m["loss"] for m in runs["mesh"]["metrics"]],
+          **{name: {k: r[k] for k in ("rates", "peak_memory_above_start",
+                                      "bytes")}
+             for name, r in runs.items()}})
+    del runs
+    free_cuda()
+
+
+def mesh_moe(dev, mesh, model, cfg) -> None:
+    """(b) ``_moe_sharded`` at model = 1 on the first MoE layer's tokens of
+    a 4 x 128 prefill against ``_moe_local`` on them (and
+    ``_moe_data_parallel`` at data = 1 likewise), and its B4b and B4a
+    calls against their plain versions (B4a also against its split
+    algorithm, ``grouped_gemm_split_ref``)."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import (grouped_gemm_ref,
+                                                  grouped_gemm_split_ref,
+                                                  grouped_swiglu_ref)
+    from repro_torch.models import moe, transformer
+
+    rng = np.random.default_rng(8)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (4, 128)),
+                           dtype=torch.int32, device=dev)
+    xs, real = [], moe.moe_block
+
+    def first_input(p, x, c, train=False):
+        xs.append(x.clone())
+        return real(p, x, c, train)
+    moe.moe_block = first_input
+    try:
+        with torch.no_grad():
+            transformer.prefill(model, cfg, toks, 128)
+    finally:
+        moe.moe_block = real
+    x, p = xs[0], model.layers[cfg.n_dense_layers].moe
+    with torch.no_grad(), expert_calls() as calls:
+        y, aux = moe._moe_sharded(p, x, cfg, mesh)
+    y_loc, aux_loc = moe._moe_local(p, x, cfg)
+    with torch.no_grad():
+        y_dp, aux_dp = moe._moe_data_parallel(p, x, cfg, mesh)
+    assert [c[0] for c in calls] == ["grouped_swiglu", "grouped_gemm"]
+    assert calls[0][1][0].shape[:2] == (cfg.n_experts,
+                                        moe._capacity(x.shape[0], cfg))
+    err = float((y.float() - y_loc.float()).abs().max())
+    scale = float(y_loc.float().abs().max())
+    rows = []
+    for name, args, out in calls:
+        out = out.float()
+        if name == "grouped_swiglu":
+            # each element within atol + rtol * |ref|, as phase 7 holds it
+            ref = grouped_swiglu_ref(*args).float()
+            over = float(((out - ref).abs() / (FLASH_TOL[torch.bfloat16]
+                                               * (1 + ref.abs()))).max())
+        else:
+            # outputs reach ~4e4 as sums of 10,752 products, and float32
+            # sums in another order move an element by ~1e-5 of that
+            # scale, which near a cancelled element is many of its bf16
+            # steps: each element within one bf16 rounding step of itself
+            # plus 2^-10 of the largest output, against the plain version
+            # and against the card's split algorithm in plain PyTorch
+            ref = grouped_gemm_ref(*args).float()
+            split = grouped_gemm_split_ref(*args, ops.sm_count(dev)).float()
+            over = max(float(((out - r).abs() / (
+                TILED_REL_TOL * r.abs() + B4A_SCALE_TOL * r.abs().max()))
+                .max()) for r in (ref, split))
+        rows.append({"kernel": name, "shape": list(args[0].shape),
+                     "max_abs_err": float((out - ref).abs().max()),
+                     "max_abs_ref": float(ref.abs().max()),
+                     "over_tol": over})
+        assert over <= 1.0, rows[-1]
+    row = {"phase": "lm_mesh", "check": "moe_sharded_vs_local",
+           "model": cfg.name, "tokens": x.shape[0],
+           "e_local": cfg.n_experts,
+           "cap_local": moe._capacity(x.shape[0], cfg),
+           "max_abs_diff": err, "max_abs_out": scale,
+           "tol": MOE_SHARDED_REL_TOL * scale,
+           "aux_equal": bool(torch.equal(aux, aux_loc)),
+           "finite": bool(torch.isfinite(y).all()), "kernels": rows,
+           # the data-parallel MoE at data = 1: the local path's buffers,
+           # its aux from the probabilities' sum over T against their mean
+           "data_parallel_max_abs_diff":
+               float((y_dp.float() - y_loc.float()).abs().max()),
+           "data_parallel_aux_rel_diff":
+               float((aux_dp - aux_loc).abs() / aux_loc.abs())}
+    emit(row)
+    assert row["finite"] and row["aux_equal"], row
+    assert err <= MOE_SHARDED_REL_TOL * scale, row
+    assert row["data_parallel_max_abs_diff"] <= MOE_SHARDED_REL_TOL * scale
+    assert row["data_parallel_aux_rel_diff"] <= 1e-5, row
+
+
+def mesh_steps(dev, mesh, model, cfg) -> dict:
+    """(b) the prefill and decode steps under a 1 x 1 policy (over a
+    ``ShardedLM`` of serving blocks) against the same steps without one,
+    graphed: logits and cache bit-equal.  (c) the same steps run eagerly
+    under the policy through the kernels against their plain versions
+    (the plain run replays the kernel run's expert routing).  Returns the
+    graphed policy steps' launches."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.api import MeshPolicy, use_mesh_policy
+    from repro_torch.launch import steps
+    from repro_torch.models import io as model_io, transformer
+
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    sp = model_io.ShardedLM(model, cfg, mesh, train=False)
+    assert not sp._split                     # every leaf its own block
+    rng = np.random.default_rng(9)
+    max_len = 128 + MESH_DECODES
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (4, 128)),
+                           dtype=torch.int32, device=dev)
+    nxt = torch.as_tensor(rng.integers(2, cfg.vocab, (MESH_DECODES, 4)),
+                          dtype=torch.int32, device=dev)
+
+    def run(params, pol):
+        prefill = steps.make_prefill_step(cfg, max_len, pol)
+        decode = steps.make_decode_step(cfg, pol)
+        first, _ = prefill(params, toks)            # eager, then captured
+        logits, cache = prefill(params, toks)       # a replay
+        out = {"prefill_first": first, "prefill": logits,
+               "cache": {k: v.clone() for k, v in cache.items()}}
+        for i in range(MESH_DECODES):
+            logits, cache = decode(params, cache, nxt[i])
+            out[f"decode{i}"] = logits
+        return out
+
+    plain = run(model, None)
+    before = counters()
+    got = run(sp, policy)
+    launches = {k: counters()[k] - before[k] for k in before}
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attn=2 * cfg.n_layers,
+                decode_attn=MESH_DECODES * cfg.n_layers,
+                grouped_swiglu=(2 + MESH_DECODES) * n_moe,
+                grouped_gemm=(2 + MESH_DECODES) * n_moe)
+    assert launches == want, (launches, want)
+    differs = [k for k in plain if not (
+        all(torch.equal(plain[k][c], got[k][c]) for c in plain[k])
+        if isinstance(plain[k], dict) else torch.equal(plain[k], got[k]))]
+    assert not differs, differs
+
+    # the kernels under the policy against their plain versions
+    def eager():
+        with use_mesh_policy(policy), torch.no_grad():
+            pre, cache = transformer.prefill(sp.model, cfg, toks[:1], max_len)
+            dec, _ = transformer.decode_step(sp.model, cfg, cache, nxt[0, :1])
+        return pre, dec
+
+    with moe_routing() as ids:
+        kern = eager()
+    with plain_kernels(), moe_routing(replay=ids):
+        ref = eager()
+    checks = []
+    for name, a, b in zip(("prefill", "decode"), kern, ref):
+        a, b = (t.float()[0, :cfg.vocab] for t in (a, b))
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        checks.append({"step": name, "max_abs_logit_diff": err,
+                       "max_abs_logit": scale, "tol": LOGIT_REL_TOL * scale,
+                       "greedy": [int(a.argmax()), int(b.argmax())]})
+        assert err <= LOGIT_REL_TOL * scale, checks[-1]
+        assert checks[-1]["greedy"][0] == checks[-1]["greedy"][1], checks[-1]
+    emit({"phase": "lm_mesh", "check": "steps_under_policy",
+          "model": cfg.name, "layers": cfg.n_layers, "prompts": [4, 128],
+          "decodes": MESH_DECODES, "bit_equal_to_no_policy": True,
+          "launches": launches, "kernels_vs_plain": checks})
+    return launches
+
+
+def lm_mesh_phase(dev) -> dict:
+    """The LM model mesh in a world of one NCCL rank on
+    ``make_host_mesh(1, 1)`` (module docstring).  Returns the kernel
+    launches of its main path, the graphed steps under the policy."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+
+    dev = mesh_lib.init_world(dev)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        mesh_training(dev, mesh)
+        cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=MOE_DEPTH)
+        model = model_lib.init_params(cfg, seed=2, device=dev)
+        mesh_moe(dev, mesh, model, cfg)
+        launches = mesh_steps(dev, mesh, model, cfg)
+        del model
+        free_cuda()
+        return launches
+    finally:
+        mesh_lib.close_world()
 
 
 # ---------------------------------------------------------------------------
@@ -3410,7 +3726,7 @@ def only_phases(names, dev, timed) -> None:
     from repro_torch.launch import mesh as mesh_lib
 
     known = {"predictor": predictor_phase, "lm_train": lm_train_phase,
-             "shard_engine": shard_engine_runs}
+             "shard_engine": shard_engine_runs, "lm_mesh": lm_mesh_phase}
     for name in names:
         if name not in known:
             raise SystemExit(f"unknown phase {name!r}; known: {sorted(known)}")
@@ -3474,11 +3790,11 @@ def main() -> int:
 
     # phases 10 and 11's per-pass traces, first (see scan_pass_times)
     passes = timed("rwkv6_scan", scan_pass_times, dev)
-    kernel = timed("kernel", kernel_phase, dev)
+    kernel = timed("kernel", kernel_phase, dev, 16, 1024, 100, KERNEL_CHECKED)
     timed("kernel", kernel_phase, dev, 4, 6)            # the N=6 x 4 rows
-    launches, _ = timed("serve", serve_phase, dev, 6, 4, 750, 75, "padded",
+    launches, _ = timed("serve", serve_phase, dev, 6, 4, 750, 40, "padded",
                         False, 0)
-    more, _ = timed("serve", serve_phase, dev, 1024, 16, 200, 50,
+    more, _ = timed("serve", serve_phase, dev, 1024, 16, 200, 25,
                     "segments", True, 0)
     launches += more
     flash = timed("flash", flash_phase, dev)
@@ -3501,9 +3817,10 @@ def main() -> int:
     del unsharded
     timed("predictor", predictor_phase, dev)
     timed("lm_train", lm_train_phase, dev)
+    on_mesh = timed("lm_mesh", lm_mesh_phase, dev)
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t0})
-    lm = {k: dense[k] + mixed[k] + recurrent[k] for k in dense}
+    lm = {k: dense[k] + mixed[k] + recurrent[k] + on_mesh[k] for k in dense}
 
     flash_row = next(r for r in flash
                      if (r["expert_heads"], r["S"], r["dtype"]) == LINE_CASE)

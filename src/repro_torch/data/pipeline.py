@@ -9,6 +9,12 @@ the stream.  The tables are the reference's numpy draws, bit for bit; the
 per-step draws are the port's own (the reference's come from a JAX key),
 and ``walk`` takes either.  Batches keep the trainer's microbatch layout
 (M, B/M, S).
+
+On a mesh (``SyntheticLM(cfg, mesh)``) each data rank draws the same
+global batch from the seed and keeps its rows by ``sharding_``, a spec
+(the default ``distributed.sharding.batch_spec``: dim 0, or dim 1 of
+(M, B/M, S), over the data axes), so a mesh changes no token and a
+restart on another mesh continues the same stream.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +61,17 @@ def walk(tables: torch.Tensor, domain: torch.Tensor, tok0: torch.Tensor,
 
 class SyntheticLM:
     """``batch(step)`` -> ``{"tokens": (B, S) or (M, B/M, S) int32}`` on
-    ``device`` (CUDA by default); iterating yields steps 0, 1, ...."""
+    ``device`` (CUDA by default), this rank's rows of it on a ``mesh``;
+    iterating yields steps 0, 1, ...."""
 
-    def __init__(self, cfg: DataConfig, device=None):
+    def __init__(self, cfg: DataConfig, mesh=None, sharding_=None,
+                 device=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and sharding_ is None:
+            sharding_ = sharding.batch_spec(mesh, cfg.global_batch,
+                                            cfg.microbatches)
+        self.sharding = sharding_
         self.device = resolve(device)
         self.tables = torch.as_tensor(_domain_tables(cfg)).to(
             self.device, torch.int64)
@@ -85,6 +99,9 @@ class SyntheticLM:
             tokens = tokens.reshape(cfg.microbatches,
                                     cfg.global_batch // cfg.microbatches,
                                     cfg.seq_len)
+        if self.sharding is not None:
+            tokens = sharding.local_shard(tokens, self.sharding,
+                                          self.mesh).contiguous()
         return tokens
 
     def batch(self, step: int) -> dict:

@@ -29,6 +29,26 @@ replay adds nothing there, so a caller counts an eager step.
 * ``ring_allreduce``: the sum over the ranks by a ring, reduce-scatter
   then all-gather in ``2(n - 1)`` rounds of ``batch_isend_irecv``, in the
   reference's schedule.
+
+The LM mesh's (each on the sub-groups of named mesh axes, one collective
+per axis, so a spec's ``("pod", "data")`` is two; each counts its bytes
+in ``BYTES[reader]``; none waits for the host, so each runs inside a CUDA
+graph):
+
+* ``sum_over``: the SUM all-reduce, in place (gradients; the loss's
+  normaliser); ``gather_cat`` above also gathers the data-parallel MoE's
+  routing counts;
+* ``gather_spec``: a tensor whole from this rank's block by its spec (a
+  parameter gathered at its use), minor axis first;
+* autograd functions: ``sum_forward`` (the MoE combine: forward the sum
+  over ``model``, backward the gradient unchanged, since every model rank
+  computes what follows alike; also the data-parallel MoE's router
+  probabilities summed over the data axes, each rank's share reaching its
+  own loss once), ``sum_backward`` (forward the tensor,
+  backward the sum over ``model``: an input that the model ranks use for
+  parts of one sum), ``data_mean`` (the MoE's ``aux``: forward the mean
+  over the data axes, backward the gradient over their size, each data
+  rank's loss holding its share).
 """
 from __future__ import annotations
 
@@ -36,6 +56,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import spec_axes
 
 _WORD = torch.int32
 _TO_WORDS = (torch.float32, torch.int32, torch.bool)
@@ -213,3 +235,88 @@ def ring_allreduce(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
         recv = shift(acc[(idx + 1 - step) % n])
         acc[(idx - step) % n] = recv
     return acc.reshape(-1)[:m]
+
+
+# ---------------------------------------------------------------------------
+# The LM mesh
+# ---------------------------------------------------------------------------
+
+
+def sum_over(x: torch.Tensor, mesh, axes, reader: Optional[str] = None
+             ) -> torch.Tensor:
+    """``x`` summed over the ranks of the mesh ``axes``, in place: one
+    all-reduce per axis."""
+    for a in axes:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
+        _count(reader, x)
+    return x
+
+
+def gather_spec(x: torch.Tensor, spec, mesh, keep=(),
+                reader: Optional[str] = None) -> torch.Tensor:
+    """The tensor whose block by ``spec`` this rank holds in ``x``, whole
+    but for the axes ``keep``: along each split dim, one all-gather per
+    axis, the minor first (a block's index is row-major over its axes)."""
+    for dim, entry in enumerate(spec):
+        for a in reversed([a for a in spec_axes(entry) if a not in keep]):
+            x = gather_cat(x, mesh.get_group(a), dim=dim, reader=reader)
+    return x
+
+
+def mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for the others: a one-word all-reduce
+    over each axis in turn."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    sum_over(torch.zeros(1, device=dev), mesh, mesh.mesh_dim_names)
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, reader):
+        return sum_over(x.clone(), mesh, axes, reader)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, reader):
+        ctx.args = (mesh, axes, reader)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over(g.clone(), *ctx.args), None, None, None
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, n, reader):
+        ctx.n = n
+        return sum_over(x.clone(), mesh, axes, reader) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None, None, None
+
+
+def sum_forward(x, mesh, axes, reader: Optional[str] = None):
+    """Forward the sum over ``axes``; backward the gradient unchanged."""
+    return _SumForward.apply(x, mesh, tuple(axes), reader)
+
+
+def sum_backward(x, mesh, axes, reader: Optional[str] = None):
+    """Forward ``x``; backward the gradient summed over ``axes``."""
+    return _SumBackward.apply(x, mesh, tuple(axes), reader)
+
+
+def data_mean(x, mesh, axes, reader: Optional[str] = None):
+    """The mean over the ranks of ``axes``; the gradient comes back
+    divided by their number."""
+    n = 1
+    for a in axes:
+        n *= dist.get_world_size(mesh.get_group(a))
+    return _DataMean.apply(x, mesh, tuple(axes), n, reader)

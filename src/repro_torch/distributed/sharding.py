@@ -1,10 +1,10 @@
-"""Where router training's tensors live on a mesh (port of the router half
-of ``repro/distributed/sharding.py``).
+"""Where tensors live on a mesh (port of ``repro/distributed/sharding.py``).
 
-A mesh is a ``DeviceMesh`` of ``launch.mesh`` with an ``expert`` axis and,
-for training, perhaps a ``data`` axis.  The reference names a
+A mesh is a ``DeviceMesh`` of ``launch.mesh``.  The reference names a
 ``PartitionSpec`` for each array and lets XLA place the shards; here each
-rank holds its own shard, and these helpers say which rows are its own:
+rank holds its own shard, and these helpers say which part is its own.
+
+Router training (an ``expert`` axis and perhaps a ``data`` axis):
 
   * the engine's expert axis: a ``(B, N, ...)`` queue tensor splits on N
     into one block of ``N / k`` experts per rank of the ``expert`` axis
@@ -15,11 +15,24 @@ rank holds its own shard, and these helpers say which rows are its own:
   * the collect batch: on a 2-D mesh the envs split over ``data``
     (``data_shards``).
 
-The LM rules (``param_spec``, ``cache_spec``, ``activation_rules``,
-``batch_axes``, ``data_spec``) belong to the LM trainer, ROADMAP queue A
-item 5.
+The LMs (a ``("data", "model")`` or ``("pod", "data", "model")`` mesh),
+by the reference's rules and names: FSDP over ``data`` (and ``pod``) on
+the widest non-tensor-parallel dim of every weight when training, tensor
+parallelism over ``model`` on heads, ff, vocab and experts
+(``param_spec``, ``shard_params_specs``); serving caches over batch and
+sequence (``cache_spec``, ``shard_cache_specs``); the batch over the data
+axes (``batch_axes``, ``data_spec``); activation rules for a
+``MeshPolicy`` (``activation_rules``).  A spec is a tuple with one entry
+per dim: ``None``, an axis name, or a tuple of names (the first the
+major), as a ``PartitionSpec`` holds them.  The rules read a mesh only
+through ``mesh_shape``, so a stand-in with a ``.shape`` dict (the
+production meshes' 256 and 512 ranks) gives the same specs.
+``local_shard`` is this rank's part of a tensor by its spec.
 """
 from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,8 +42,7 @@ DATA = "data"      # collect-batch (env) axis of the 2-D training mesh
 
 def axis_size(mesh, axis: str) -> int:
     """The size of ``axis`` on ``mesh`` (1 without a mesh or the axis)."""
-    names = () if mesh is None else (mesh.mesh_dim_names or ())
-    return 1 if axis not in names else mesh.size(names.index(axis))
+    return 1 if mesh is None else mesh_shape(mesh).get(axis, 1)
 
 
 def axis_index(mesh, axis: str) -> int:
@@ -110,3 +122,325 @@ def shard_replay_buffer(buf: dict, mesh) -> dict:
         else:
             out[k] = rows(x)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The LM rules
+# ---------------------------------------------------------------------------
+
+# logical axes of the LM rules
+FSDP = "fsdp"   # data(+pod) sharding of params
+TP = "tp"       # model axis
+
+# name -> logical spec of the trailing dims (longest match wins)
+_PARAM_RULES = {
+    # embeddings / heads
+    "embed": (TP, FSDP),          # (vocab, d)
+    "lm_head": (FSDP, TP),        # (d, vocab)
+    # attention
+    "wq": (FSDP, TP, None),       # (d, H, dh)
+    "wk": (FSDP, TP, None),       # (d, KV, dh)
+    "wv": (FSDP, TP, None),
+    "wo": (TP, None, FSDP),       # (H, dh, d)
+    "bq": (TP, None),
+    "bk": (TP, None),
+    "bv": (TP, None),
+    # dense mlp
+    "w_gate": (FSDP, TP),         # (d, f)
+    "w_up": (FSDP, TP),
+    "w_down": (TP, FSDP),         # (f, d)
+    "w1": (FSDP, TP),
+    "b1": (TP,),
+    "w2": (TP, FSDP),
+    "b2": (None,),
+    # moe (stacked expert dim first)
+    "router": (None, None),
+    # rwkv time mix
+    "wr": (FSDP, TP),
+    "wg": (FSDP, TP),
+    "wA": (FSDP, None),
+    "wB": (None, FSDP),
+    "u": (TP, None),              # (H, dh)
+    "wk_c": (FSDP, TP),
+    "wv_c": (TP, FSDP),
+    "wr_c": (FSDP, TP),
+    # rglru
+    "w_x": (FSDP, TP),            # (d, rnn)
+    "conv_w": (None, TP),         # (cw, rnn)
+    "conv_b": (TP,),
+    "w_r": (FSDP, TP),
+    "w_i": (FSDP, TP),
+    "b_r": (TP,),
+    "b_i": (TP,),
+    "lam": (TP,),
+    "w_out": (TP, FSDP),          # (rnn, d)
+}
+
+# MoE expert-stacked weights: (E, d, f) / (E, f, d) — expert dim -> TP (EP)
+_MOE_RULES = {
+    "w_gate": (TP, FSDP, None),
+    "w_up": (TP, FSDP, None),
+    "w_down": (TP, None, FSDP),
+}
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size: a ``DeviceMesh`` by its ``mesh_dim_names``, or
+    anything with a ``.shape`` mapping (the reference's ``Mesh``, a test's
+    stand-in)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names:
+        return {a: int(mesh.size(i)) for i, a in enumerate(names)}
+    return {a: int(n) for a, n in dict(mesh.shape).items()}
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (``None``, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_entry(axes):
+    """A spec entry as a ``PartitionSpec`` holds it: ``None``, a name for
+    one axis, a tuple for several."""
+    if isinstance(axes, tuple) and len(axes) == 1:
+        return axes[0]
+    return axes
+
+
+def _names(path) -> list:
+    return path.split("/") if isinstance(path, str) else list(path)
+
+
+def _axes_for(mesh, logical: Optional[str], fsdp_axes: Tuple[str, ...],
+              dim: int) -> Optional[Tuple[str, ...]]:
+    if logical is None:
+        return None
+    shape = mesh_shape(mesh)
+    axes = fsdp_axes if logical == FSDP else ("model",)
+    axes = tuple(a for a in axes if a in shape)
+    if not axes:
+        return None
+    size = math.prod(shape[a] for a in axes)
+    if size == 1 or dim % size != 0:
+        # try a prefix of the axes (e.g. only "pod" when (pod,data) doesn't divide)
+        for k in range(len(axes) - 1, 0, -1):
+            sz = math.prod(shape[a] for a in axes[:k])
+            if sz > 1 and dim % sz == 0:
+                return axes[:k]
+        return None
+    return axes
+
+
+def fsdp_axes_for(mesh, train: bool) -> Tuple[str, ...]:
+    if not train:
+        return ()  # serving: replicate params over data for read-only weights
+    shape = mesh_shape(mesh)
+    return tuple(a for a in ("pod", "data") if a in shape)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's data-parallel axes, ``pod`` first."""
+    shape = mesh_shape(mesh)
+    return tuple(a for a in ("pod", "data") if a in shape)
+
+
+def is_expert_weight(path) -> bool:
+    """An MoE layer's expert-stacked weight (``_MOE_RULES``)."""
+    names = _names(path)
+    return "moe" in names and names[-1] in _MOE_RULES
+
+
+def param_spec(path: Sequence, arr_shape: Tuple[int, ...], mesh, *,
+               train: bool) -> tuple:
+    """The spec of the parameter at ``path`` (its names, or a
+    ``/``-joined string) of shape ``arr_shape``: the rule of its last name
+    (``_MOE_RULES`` inside a ``moe`` component) on its trailing dims,
+    leading (stacked) dims unsharded."""
+    names = _names(path)
+    name = names[-1]
+    rules = _MOE_RULES if is_expert_weight(names) else _PARAM_RULES
+    logical = rules.get(name)
+    fsdp = fsdp_axes_for(mesh, train)
+    if logical is None:
+        # norms / scalars / unknown small params: replicate
+        return (None,) * len(arr_shape)
+    n_lead = len(arr_shape) - len(logical)
+    if n_lead < 0:  # e.g. adafactor factored moments with a reduced dim
+        return (None,) * len(arr_shape)
+    spec = [None] * n_lead
+    for dim, lg in zip(arr_shape[n_lead:], logical):
+        axes = _axes_for(mesh, lg, fsdp, dim)
+        spec.append(None if axes is None else (axes if len(axes) > 1 else axes[0]))
+    return tuple(spec)
+
+
+def shard_params_specs(param_shapes: dict, mesh, *, train: bool) -> dict:
+    """``path -> spec`` for a flat ``path -> shape`` (or tensor) dict with
+    ``/``-joined paths."""
+    return {k: param_spec(k, tuple(getattr(x, "shape", x)), mesh, train=train)
+            for k, x in param_shapes.items()}
+
+
+def batch_axes(mesh, batch_size: int) -> Optional[Tuple[str, ...]]:
+    """Axes to shard the batch dim over: the largest divisible subset of
+    (pod, data) — preferring full, then data alone, then pod alone."""
+    shape = mesh_shape(mesh)
+    axes = data_axes(mesh)
+    candidates = [axes] + [(a,) for a in sorted(axes, key=lambda a: -shape[a])]
+    for cand in candidates:
+        size = math.prod(shape[a] for a in cand)
+        if size > 1 and batch_size % size == 0:
+            return cand
+    return None
+
+
+def data_spec(mesh, batch_size: int, ndim: int) -> tuple:
+    """Shard dim 0 (batch) over pod+data, rest replicated."""
+    ax = batch_axes(mesh, batch_size)
+    spec = [None] * ndim
+    if ax is not None:
+        spec[0] = ax if len(ax) > 1 else ax[0]
+    return tuple(spec)
+
+
+def batch_spec(mesh, global_batch: int, microbatches: int = 1) -> tuple:
+    """The spec of a (B, S) token batch, or (M, B/M, S) with ``M =
+    microbatches > 1`` and dim 1 over the data axes (the reference's
+    ``batch_specs``).  The port's steps take each rank's rows, so the rows
+    must split over every data axis: raises otherwise."""
+    m = max(1, microbatches)
+    rows = global_batch // m if m > 1 else global_batch
+    n_data = math.prod(mesh_shape(mesh)[a] for a in data_axes(mesh))
+    if n_data > 1 and batch_axes(mesh, rows) != data_axes(mesh):
+        raise ValueError(
+            f"a batch of {rows} rows does not split over the data axes "
+            f"{data_axes(mesh)} ({n_data} ranks); the port's steps take "
+            "each rank's rows")
+    spec = data_spec(mesh, rows, 2)
+    return spec if m == 1 else (None,) + spec
+
+
+def cache_spec(path: Sequence, arr_shape: Tuple[int, ...], mesh,
+               batch_size: int) -> tuple:
+    """Serving cache sharding: batch dim over data(+pod), kv-heads/state
+    channels over model when divisible."""
+    name = _names(path)[-1]
+    shape = mesh_shape(mesh)
+    bax = spec_entry(batch_axes(mesh, batch_size))
+    model_ok = lambda d: (d % shape["model"] == 0 and shape["model"] > 1)
+
+    if name in ("pos", "enc_len"):
+        if len(arr_shape) == 1:  # per-sequence positions (B,)
+            return (bax,)
+        return (None,) * len(arr_shape)
+    if name in ("kv_pos",):
+        lead = [None] * (len(arr_shape) - 2)
+        return tuple(lead + [bax, None]) if len(arr_shape) >= 2 else (None,)
+    if name in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
+        # (L?, B, S, KV, dh): batch over data, SEQUENCE over model
+        spec = [None] * len(arr_shape)
+        spec[-4] = bax
+        if model_ok(arr_shape[-3]):
+            spec[-3] = "model"
+        elif model_ok(arr_shape[-2]):
+            spec[-2] = "model"
+        return tuple(spec)
+    if name == "S":  # rwkv state (L, B, H, dk, dv)
+        spec = [None] * len(arr_shape)
+        spec[-4] = bax
+        if model_ok(arr_shape[-3]):
+            spec[-3] = "model"
+        return tuple(spec)
+    if name in ("tm_prev", "cm_prev"):  # (L, B, d)
+        spec = [None] * len(arr_shape)
+        spec[-2] = bax
+        if model_ok(arr_shape[-1]):
+            spec[-1] = "model"
+        return tuple(spec)
+    if name == "h":  # rglru (n, B, rnn)
+        spec = [None] * len(arr_shape)
+        spec[-2] = bax
+        if model_ok(arr_shape[-1]):
+            spec[-1] = "model"
+        return tuple(spec)
+    if name == "conv":  # (n, B, cw-1, rnn)
+        spec = [None] * len(arr_shape)
+        spec[-3] = bax
+        if model_ok(arr_shape[-1]):
+            spec[-1] = "model"
+        return tuple(spec)
+    spec = [None] * len(arr_shape)
+    if len(arr_shape) >= 2:
+        spec[-2] = bax
+    return tuple(spec)
+
+
+def shard_cache_specs(cache, mesh, batch_size: int, _path=()):
+    """The spec of every tensor of a cache (dicts and lists of tensors),
+    by the name of the dict key above it; the same structure."""
+    if isinstance(cache, dict):
+        return {k: shard_cache_specs(x, mesh, batch_size, _path + (k,))
+                for k, x in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return [shard_cache_specs(x, mesh, batch_size, _path) for x in cache]
+    return cache_spec(_path, tuple(cache.shape), mesh, batch_size)
+
+
+def activation_rules(mesh, *, train: bool) -> dict:
+    """Logical activation axes -> mesh axes for api.constrain()."""
+    bax = data_axes(mesh)
+    return {
+        "batch": bax or None,
+        "tokens": bax or None,       # flattened token dim
+        "experts": ("model",),
+        "capacity": bax or None,
+        "heads": ("model",),
+        "seq": ("model",),           # sequence parallelism segments
+        "embed": None,
+        "ff": ("model",),
+        "vocab": ("model",),
+    }
+
+
+# ---------------------------------------------------------------------------
+# A rank's part of a tensor by its spec
+# ---------------------------------------------------------------------------
+
+
+def block_index(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a dim split over
+    ``axes``, the first the major."""
+    shape = mesh_shape(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * shape[a] + axis_index(mesh, a)
+        n *= shape[a]
+    return idx, n
+
+
+def local_shard(x: torch.Tensor, spec: Sequence, mesh,
+                keep: Sequence = ()) -> torch.Tensor:
+    """This rank's block of ``x`` (a view) along every dim its spec splits,
+    leaving out the axes ``keep`` (which ``x`` is already split over)."""
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in spec_axes(entry) if a not in keep)
+        if not axes:
+            continue
+        i, n = block_index(mesh, axes)
+        per = x.shape[dim] // n
+        x = x.narrow(dim, i * per, per)
+    return x
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, mesh) -> tuple:
+    """The shape of a rank's block of a tensor of ``shape``."""
+    sizes = mesh_shape(mesh)
+    return tuple(n // math.prod(sizes[a] for a in spec_axes(e))
+                 for n, e in zip(shape, spec))
+
+
+def is_split(spec: Sequence, keep: Sequence = ()) -> bool:
+    """Whether the spec splits any dim over an axis outside ``keep``."""
+    return any(a not in keep for e in spec for a in spec_axes(e))

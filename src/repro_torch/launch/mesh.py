@@ -1,5 +1,5 @@
-"""The process group and the router-training meshes (port of
-``repro/launch/mesh.py``'s expert and training meshes).
+"""The process group and the meshes over it (port of
+``repro/launch/mesh.py``).
 
 The reference builds ``jax.sharding.Mesh``es over the visible devices.
 Here a device is a rank of the default ``torch.distributed`` process
@@ -14,14 +14,21 @@ communicator exists before a CUDA graph captures a collective; the CPU
 runs gloo.  Neither falls back to the other.  NCCL takes one GPU per rank,
 so a rank without a GPU of its own raises.
 
-Not ported here: the LM model meshes (``make_production_mesh``,
-``make_host_mesh``, ``make_mesh_compat``; ROADMAP queue A item 5) and the
-TPU constants.  Importing this module starts nothing.
+Meshes: ``make_expert_mesh`` and ``make_train_mesh`` (router training),
+``make_host_mesh(data, model)`` (an LM ``("data", "model")`` mesh over the
+ranks there are, clipped to the world's size as the reference clips it to
+its devices) and ``make_production_mesh`` (the reference's 16 x 16 pod, or
+2 x 16 x 16 with ``("pod", "data", "model")``; it raises, as
+``jax.make_mesh`` does, in a world with fewer ranks).  A mesh over fewer
+ranks than the world takes the first ones.  ``make_mesh_compat`` (jax's
+axis types) has no meaning here; the reference's TPU v5e constants for its
+roofline are not ported.  Importing this module starts nothing.
 """
 from __future__ import annotations
 
 import datetime
 import functools
+import math
 import os
 import tempfile
 from typing import Optional
@@ -97,12 +104,14 @@ def init_world(device: DeviceLike = None, *, init_file: Optional[str] = None,
         kw["device_id"] = dev
     dist.init_process_group(backend, **kw)
     _mesh.cache_clear()
+    _grid.cache_clear()
     return dev
 
 
 def close_world() -> None:
     """Destroy the default process group (and the meshes built on it)."""
     _mesh.cache_clear()
+    _grid.cache_clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -146,3 +155,33 @@ def make_train_mesh(n_devices: Optional[int] = None,
         raise ValueError(
             f"n_devices={n} not divisible into a data axis of {data}")
     return _mesh(n, data)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(shape: tuple, names: tuple):
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    ranks = torch.tensor(device_order(math.prod(shape))).reshape(shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 = 256 ranks ``("data", "model")``; 2 x 16 x 16 = 512
+    ``("pod", "data", "model")`` when ``multi_pod``.  Raises, with
+    ``jax.make_mesh``'s message, in a smaller world."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = dist.get_world_size()
+    if n < math.prod(shape):
+        raise ValueError(f"Number of devices {n} must be >= the product of "
+                         f"mesh_shape {shape}")
+    return _grid(shape, names)
+
+
+def make_host_mesh(data: int = 1, model: int = 1):
+    """A ``("data", "model")`` mesh over the ranks there are, clipped as
+    the reference clips it: ``data = min(data, n)``, ``model = max(1,
+    min(model, n // data))``; cached.  Needs ``init_world`` first."""
+    n = dist.get_world_size()
+    data = min(data, n)
+    model = max(1, min(model, n // max(data, 1)))
+    return _grid((data, model), ("data", "model"))

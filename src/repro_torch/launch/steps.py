@@ -41,11 +41,24 @@ batch shape, and a new prompt costs one copy of its cache; the caller
 goes on from the cache the step returns.  On the CPU the steps are the
 model's (the decode updates the cache in place).
 
-The reference wraps each step in a ``MeshPolicy``.  The port's process
-group and meshes exist (``launch/mesh.py``), but the LM's sharding rules
-and the ``MeshPolicy`` wrapping belong to the LM model mesh, ROADMAP queue
-A item 5, so the steps take no policy yet.  The spec functions
-(``param_specs`` through ``make_step``) are tooling, item 6.
+Each step takes an optional ``MeshPolicy`` (``distributed/api.py``) and
+runs under ``use_mesh_policy(policy)``, as the reference's do.  Under one,
+``params`` is a ``models.io.ShardedLM`` (or a whole model) and the batch,
+tokens and caches are this rank's rows by ``sharding.batch_axes`` (with
+``M > 1`` microbatches, dim 1 of (M, B/M, S), as
+``data.pipeline.SyntheticLM(mesh=)`` gives them).  A step first gathers
+every leaf its spec splits into the model's tensors (``ShardedLM.
+gather_``), so the dense layers compute whole on every ``model`` rank,
+while an MoE layer runs expert-parallel (``models/moe.py``); the training
+step then sums each gradient over the data axes and keeps this rank's
+block (``ShardedLM.reduce_grads``) for the optimizer, which updates the
+blocks (``train_state`` builds it with the ``ShardedLM`` as its layout).
+The loss keeps the global normaliser (``model.lm_loss``).  Every
+collective runs inside the step's CUDA graph.  Splitting the dense
+compute over ``model`` (column- and row-parallel attention and MLP,
+vocab-parallel embedding and loss) is not done: ROADMAP queue A.  The
+spec functions (``param_specs`` through ``make_step``) are tooling,
+item 6.
 """
 from __future__ import annotations
 
@@ -53,6 +66,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.api import use_mesh_policy
 from repro_torch.graphs import StepGraph, capture
 from repro_torch.models import io as model_io, model as model_lib
 
@@ -65,11 +79,26 @@ def train_state(cfg, params, opt_factory) -> dict:
     ``train.optimizer.make_optimizer`` returns it) over the model's
     reference leaves (``models.io.reference_groups``), "step": the
     optimizer's int32 device step}``; the parameters are set to take
-    gradients."""
+    gradients.  ``params`` may be a ``models.io.ShardedLM``: the optimizer
+    then updates its blocks, with it as the layout."""
+    if isinstance(params, model_io.ShardedLM):
+        for p in params.compute_tensors():
+            p.requires_grad_(True)
+        opt = opt_factory(params.leaves, params)
+        return {"params": params, "opt": opt, "step": opt.step}
     for p in params.parameters():
         p.requires_grad_(True)
     opt = opt_factory(model_io.reference_groups(params, cfg))
     return {"params": params, "opt": opt, "step": opt.step}
+
+
+def _model(params):
+    """The module a step computes with, after gathering a ``ShardedLM``'s
+    split leaves into it."""
+    if isinstance(params, model_io.ShardedLM):
+        params.gather_()
+        return params.model
+    return params
 
 
 def _grads(loss, params) -> list:
@@ -78,35 +107,46 @@ def _grads(loss, params) -> list:
             for p, g in zip(params, out)]
 
 
-def make_train_step(cfg, *, graphs: bool = True) -> Callable:
+def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
     """The training step (module docstring): ``train_step(state, batch)``
     with ``state`` from ``train_state`` (whose optimizer it uses) and
     ``batch["tokens"]`` (B, S), or (M, B/M, S) with ``cfg.microbatches = M
     > 1``; returns (the same state, updated in place, and the metrics
     ``loss``, ``aux_loss``, ``perplexity``, ``grad_norm`` and ``lr`` as
-    device scalars that a later step does not overwrite).  Its ``graphs``
-    maps (optimizer, batch shape) to (state, batch buffer, ``StepGraph``)
-    for each capture."""
+    device scalars that a later step does not overwrite).  Under
+    ``policy`` the state's params are a ``ShardedLM`` and the batch this
+    rank's rows.  Its ``graphs`` maps (optimizer, batch shape) to (state,
+    batch buffer, ``StepGraph``) for each capture."""
     M = max(1, cfg.microbatches)
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
 
-    def grad_one(params, opt, tokens):
+    def grad_one(model, wrt, tokens):
         with torch.enable_grad():
-            total, metrics = model_lib.lm_loss(params, cfg,
+            total, metrics = model_lib.lm_loss(model, cfg,
                                                {"tokens": tokens})
-            grads = _grads(total, opt.tensors())
+            grads = _grads(total, wrt)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def body(state, tokens):
+        with use_mesh_policy(policy):
+            return _body(state, tokens)
+
+    def _body(state, tokens):
         params, opt = state["params"], state["opt"]
+        sharded = isinstance(params, model_io.ShardedLM)
+        if sharded != (policy is not None):
+            raise ValueError("a training step under a mesh policy takes a "
+                             "ShardedLM's state, and only then")
+        model = _model(params)
+        wrt = params.compute_tensors() if sharded else opt.tensors()
         if M == 1:
-            grads, metrics = grad_one(params, opt, tokens)
+            grads, metrics = grad_one(model, wrt, tokens)
         else:
             acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                   for p in opt.tensors()]
+                   for p in wrt]
             ms = []
             for i in range(M):
-                g, m = grad_one(params, opt, tokens[i])
+                g, m = grad_one(model, wrt, tokens[i])
                 for a, x in zip(acc, g):
                     a.add_(x.to(acc_dtype))
                 del g
@@ -115,6 +155,8 @@ def make_train_step(cfg, *, graphs: bool = True) -> Callable:
             del acc
             metrics = {k: torch.stack([m[k] for m in ms]).mean(0)
                        for k in ms[0]}
+        if sharded:
+            grads = params.reduce_grads(grads)
         stats = opt.update(grads)
         del grads
         opt.step.add_(1)
@@ -171,25 +213,29 @@ def _shapes(cache):
     return tuple(cache.shape), cache.dtype, cache.device
 
 
-def make_prefill_step(cfg, max_len: int) -> Callable:
-    """The prefill step; its ``graphs`` maps each of the last
-    ``MAX_PREFILL_GRAPHS`` token shapes seen on CUDA, least recently used
-    first, to (params, token buffer, ``StepGraph``)."""
+def make_prefill_step(cfg, max_len: int, policy=None) -> Callable:
+    """The prefill step, under ``policy`` when given (module docstring);
+    its ``graphs`` maps each of the last ``MAX_PREFILL_GRAPHS`` token
+    shapes seen on CUDA, least recently used first, to (params, token
+    buffer, ``StepGraph``)."""
     held = {}
     pool = []
 
+    def run(params, tokens):
+        with use_mesh_policy(policy):
+            return model_lib.prefill(_model(params), cfg, tokens, max_len)
+
     def prefill_step(params, batch):
         if batch.device.type != "cuda":
-            return model_lib.prefill(params, cfg, batch, max_len)
+            return run(params, batch)
         key = (tuple(batch.shape), batch.dtype, batch.device)
         entry = held.pop(key, None)
         if entry is None or entry[0] is not params:
-            out = model_lib.prefill(params, cfg, batch, max_len)
+            out = run(params, batch)
             if not pool:
                 pool.append(torch.cuda.graph_pool_handle())
             buf = batch.clone()
-            graph = StepGraph(lambda: model_lib.prefill(params, cfg, buf,
-                                                        max_len), pool=pool[0])
+            graph = StepGraph(lambda: run(params, buf), pool=pool[0])
             held[key] = (params, buf, graph)
             while len(held) > MAX_PREFILL_GRAPHS:
                 del held[next(iter(held))]
@@ -205,20 +251,24 @@ def make_prefill_step(cfg, max_len: int) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg) -> Callable:
-    """The decode step; its ``graphs`` maps each cache shape seen on CUDA
-    to (params, the step's cache, token buffer, ``StepGraph``)."""
+def make_decode_step(cfg, policy=None) -> Callable:
+    """The decode step, under ``policy`` when given (module docstring);
+    its ``graphs`` maps each cache shape seen on CUDA to (params, the
+    step's cache, token buffer, ``StepGraph``)."""
     held = {}
+
+    def run(params, cache, token):
+        with use_mesh_policy(policy):
+            return model_lib.decode_step(_model(params), cfg, cache, token)
 
     def decode_step(params, cache, token):
         if token.device.type != "cuda":
-            return model_lib.decode_step(params, cfg, cache, token)
+            return run(params, cache, token)
         key = (_shapes(cache), tuple(token.shape))
         entry = held.get(key)
         if entry is None or entry[0] is not params:
             own, buf = clone_cache(cache), torch.empty_like(token)
-            graph = StepGraph(lambda: model_lib.decode_step(
-                params, cfg, own, buf)[0])
+            graph = StepGraph(lambda: run(params, own, buf)[0])
             entry = held[key] = (params, own, buf, graph)
         elif cache is not entry[1]:
             copy_cache_(entry[1], cache)

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --steps 200 [--global-batch 8] [--seq-len 128] [--reduced] \
-        [--ckpt-dir DIR] [--ckpt-every 50] [--device cuda] [--eager]
+        [--ckpt-dir DIR] [--ckpt-every 50] [--device cuda] [--eager] \
+        [--data-parallel 1] [--model-parallel 1] [--production-mesh]
 
 The LM path trains the dense and MoE families (``train.trainer.Trainer``
 over ``data.pipeline.SyntheticLM``) on the CUDA device, each step replayed
@@ -12,10 +13,20 @@ global batch is cut into the config's ``microbatches`` when it divides,
 else taken whole.  With ``--ckpt-dir`` it checkpoints every
 ``--ckpt-every`` steps and at the last one, and a rerun resumes from the
 newest checkpoint (to the same stream: the trainer asks the data for each
-step's batch by its number).  The reference drops its mesh on one device;
-the LM model mesh is ROADMAP queue A item 5, so ``--data-parallel`` or
-``--model-parallel`` above 1 and ``--production-mesh`` raise, as do the
-recurrent and enc-dec families.
+step's batch by its number).  The recurrent and enc-dec families raise.
+
+``--data-parallel``/``--model-parallel`` above 1 or ``--production-mesh``
+join the process group (torchrun's, or a world of one this process
+starts and ends, as ``--router-mesh`` does) and build
+``launch.mesh.make_host_mesh(dp, mp)`` (clipped to the world) or
+``make_production_mesh()`` (which raises in a world under 256 ranks); the
+trainer gets the mesh when it holds more than one rank, as the
+reference's does, and each rank trains on its rows and blocks; rank 0
+logs and writes the checkpoints:
+
+    PYTHONPATH=src torchrun --standalone --nproc_per_node=4 \
+        -m repro_torch.launch.train --arch qwen1.5-0.5b --reduced \
+        --device cpu --data-parallel 2 --model-parallel 2 --steps 4
 
     PYTHONPATH=src python -m repro_torch.launch.train --router --iters 400 \
         [--obs-fmt padded|segments] [--ragged-caps] [--scenario NAME] \
@@ -175,13 +186,25 @@ def parser() -> argparse.ArgumentParser:
 
 def train_lm_main(args, log_fn=print):
     """Train an LM from parsed flags; returns (the final train state, the
-    ``Trainer``, which holds the step and checkpoint times)."""
-    if (args.production_mesh or args.data_parallel > 1
+    ``Trainer``, which holds the step and checkpoint times).  With a mesh
+    flag it joins (or starts, and then ends) the process group."""
+    if not (args.production_mesh or args.data_parallel > 1
             or args.model_parallel > 1):
-        raise NotImplementedError(
-            "an LM mesh over more than one device (--data-parallel, "
-            "--model-parallel, --production-mesh) is ROADMAP queue A item "
-            "5; on one device the reference drops its mesh too")
+        return _train_lm(args, device_lib.resolve(args.device), None, log_fn)
+    opened = not dist.is_initialized()
+    dev = mesh_lib.init_world(args.device)
+    try:
+        mesh = (mesh_lib.make_production_mesh() if args.production_mesh
+                else mesh_lib.make_host_mesh(args.data_parallel,
+                                             args.model_parallel))
+        return _train_lm(args, dev, mesh if mesh.size() > 1 else None,
+                         log_fn)
+    finally:
+        if opened:
+            mesh_lib.close_world()
+
+
+def _train_lm(args, dev, mesh, log_fn):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -189,15 +212,17 @@ def train_lm_main(args, log_fn=print):
         cfg = dataclasses.replace(cfg, microbatches=1)
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every)
-    trainer = Trainer(cfg, tcfg, log_fn=log_fn, device=args.device,
+    trainer = Trainer(cfg, tcfg, mesh=mesh, log_fn=log_fn, device=dev,
                       graphs=not args.eager)
+    if mesh is not None:
+        trainer.log_fn(f"[train] {cfg.name} on {mesh}")
     data = SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq_len,
         global_batch=args.global_batch, microbatches=cfg.microbatches),
-        device=trainer.device)
+        mesh=mesh, device=trainer.device)
     state = trainer.init_or_restore(seed=0)
     state = trainer.run(state, data)
-    log_fn(f"[train] done at step {int(state['step'])}")
+    trainer.log_fn(f"[train] done at step {int(state['step'])}")
     return state, trainer
 
 

@@ -16,13 +16,22 @@ shapes, so carrying them across is a copy:
 
 Each leaf takes its parameter's dtype, so rglru's ``lam`` stays float32 in
 a bf16 model.
+
+``reference_groups`` is the other way: the port's tensors by the
+reference's leaf paths.  On a mesh (``launch/mesh.py``) a model is a
+``ShardedLM``: this rank's block of every leaf by
+``distributed.sharding.param_spec``, and the model it computes with
+(``sharded_params_from_numpy`` carries the reference's tree onto a mesh,
+``sharded_params_to_numpy`` gathers it back).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import rglru, rwkv6
 from repro_torch.models.transformer import Transformer
 
@@ -50,28 +59,166 @@ def _model_and_offsets(cfg, device):
                    "moe_layers": (model.n_dense, 1)}
 
 
+def _stack_of(model, cfg, i: int):
+    """(the reference's stack of port layer ``i``, its index there)."""
+    if cfg.family == "dense":
+        return "layers", i
+    if cfg.family == "moe":
+        return (("dense_layers", i) if i < model.n_dense
+                else ("moe_layers", i - model.n_dense))
+    if cfg.family == "ssm":
+        return "layers", i
+    n_super = cfg.n_layers // len(rglru.PATTERN)
+    if i < 3 * n_super:
+        return f"super.{('rec1', 'rec2', 'attn')[i % 3]}", i // 3
+    return "tail", i - 3 * n_super
+
+
 def reference_groups(model, cfg) -> dict:
-    """A dense or MoE model's parameters by the reference's leaf paths
-    (keys joined by ``/``): a leaf the reference stacks over layers
-    (``layers/...``, or an MoE model's ``dense_layers/...`` and
-    ``moe_layers/...``) is the list of the port's per-layer tensors in
-    stack order, every other leaf its tensor.  The optimizers and the
-    checkpoints work on this view, so their state and files take the
-    reference's shapes and names."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families train (ROADMAP "
-            "queue A item 5)")
+    """A model's parameters by the reference's leaf paths (keys joined by
+    ``/``): a leaf the reference stacks over layers (``layers/...``; an MoE
+    model's ``dense_layers/...`` and ``moe_layers/...``; RecurrentGemma's
+    ``super/rec1/...``, ``super/rec2/...``, ``super/attn/...`` and
+    ``tail/...``) is the list of the port's per-layer tensors in stack
+    order, every other leaf its tensor.  The optimizers, the checkpoints
+    and the mesh's shards work on this view, so their state and files take
+    the reference's shapes and names."""
     groups = {}
     for name, p in model.named_parameters():
         if not name.startswith("layers."):
             groups[name.replace(".", "/")] = p
             continue
         _, i, leaf = name.split(".", 2)
-        stack = ("layers" if cfg.family == "dense" else
-                 "dense_layers" if int(i) < model.n_dense else "moe_layers")
-        groups.setdefault(f"{stack}/{leaf.replace('.', '/')}", []).append(p)
+        stack, _ = _stack_of(model, cfg, int(i))
+        groups.setdefault(f"{stack.replace('.', '/')}/"
+                          f"{leaf.replace('.', '/')}", []).append(p)
     return groups
+
+
+class ShardedLM:
+    """This rank's part of an LM on a mesh (``ShardedLM(model, cfg, mesh,
+    train)`` takes it from the whole ``model``).
+
+    ``leaves``: reference path -> this rank's block of the leaf by
+    ``param_spec(..., train=train)`` (a tensor, or the list of its
+    per-layer blocks for a stacked leaf): what the optimizer updates and
+    the checkpoint saves.  ``specs``: path -> the (stacked) leaf's spec;
+    ``shapes``: path -> its whole shape.  ``model``: the port's module that
+    a step computes with, each tensor whole, but for an expert weight's
+    expert dim, which stays split over ``model`` (the local experts of
+    ``moe._moe_sharded``).  A leaf that its spec does not split is its own
+    block (one tensor); ``gather_`` fills the others from the blocks, and
+    ``reduce_grads`` turns gradients of the model's tensors into the
+    blocks' (summed over the data axes, then this rank's block).
+
+    What the mesh cuts is the blocks and the optimizer state over them.
+    The model's tensors stay whole between steps (but the experts' dim
+    over ``model``), and so are the gradients until ``reduce_grads``: a
+    rank holds the whole parameters plus its split blocks, more than the
+    meshless run's parameters (ROADMAP queue A: gathering each leaf at
+    its use and freeing it after)."""
+
+    def __init__(self, model, cfg, mesh, train: bool):
+        self.model, self.cfg, self.mesh, self.train = model, cfg, mesh, train
+        owner = {id(p): (mod, attr) for mod in model.modules()
+                 for attr, p in mod.named_parameters(recurse=False)}
+        self.leaves, self.specs, self.shapes = {}, {}, {}
+        self._compute, self._member = [], []     # per member tensor
+        self._split = []                         # (compute, block, spec, keep)
+        for path, leaf in reference_groups(model, cfg).items():
+            stacked = not isinstance(leaf, torch.Tensor)
+            members = list(leaf) if stacked else [leaf]
+            shape = (((len(members),) if stacked else ())
+                     + tuple(members[0].shape))
+            spec = sharding.param_spec(path, shape, mesh, train=train)
+            mspec = spec[1:] if stacked else spec
+            assert not stacked or spec[0] is None, (path, spec)
+            keep = (("model",) if sharding.is_expert_weight(path)
+                    and "model" in sharding.spec_axes(mspec[0]) else ())
+            blocks = []
+            for p in members:
+                if keep:                         # this rank's experts only
+                    mod, attr = owner[id(p)]
+                    local = sharding.local_shard(
+                        p, (mspec[0],) + (None,) * (p.dim() - 1), mesh)
+                    p = nn.Parameter(local.clone(),
+                                     requires_grad=p.requires_grad)
+                    setattr(mod, attr, p)
+                if sharding.is_split(mspec, keep):
+                    block = sharding.local_shard(p, mspec, mesh,
+                                                 keep=keep).clone()
+                    self._split.append((p, block, mspec, keep))
+                else:
+                    block = p
+                blocks.append(block)
+                self._compute.append(p)
+                self._member.append((mspec, keep))
+            self.leaves[path] = blocks if stacked else blocks[0]
+            self.specs[path], self.shapes[path] = spec, shape
+
+    def compute_tensors(self) -> list:
+        """The model's tensors, in the order of the leaves' blocks."""
+        return list(self._compute)
+
+    @torch.no_grad()
+    def gather_(self) -> None:
+        """Fill every model tensor whose leaf is split from the blocks
+        (an all-gather per split axis; reader ``"lm_params"``)."""
+        for full, block, spec, keep in self._split:
+            full.copy_(collectives.gather_spec(block, spec, self.mesh, keep,
+                                               reader="lm_params"))
+
+    @torch.no_grad()
+    def reduce_grads(self, grads) -> list:
+        """Gradients of ``compute_tensors()`` -> gradients of the blocks:
+        each summed over the data axes in place (reader ``"lm_grads"``),
+        then this rank's block of it (a view).  A list is emptied."""
+        out = []
+        axes = sharding.data_axes(self.mesh)
+        grads = grads if isinstance(grads, list) else list(grads)
+        for i, (spec, keep) in enumerate(self._member):
+            g, grads[i] = grads[i], None
+            if g.is_contiguous():
+                collectives.sum_over(g, self.mesh, axes, reader="lm_grads")
+            else:
+                # a collective takes contiguous storage (an einsum's
+                # gradient may come back strided); the sum goes back into
+                # the gradient's own layout, whose reductions (the norm)
+                # then run in the order they run without a mesh
+                g.copy_(collectives.sum_over(g.contiguous(), self.mesh,
+                                             axes, reader="lm_grads"))
+            out.append(sharding.local_shard(g, spec, self.mesh, keep=keep))
+        grads.clear()
+        return out
+
+
+def sharded_params_from_numpy(tree: dict, cfg, mesh, *, train: bool,
+                              device=None) -> ShardedLM:
+    """The reference's param tree carried onto ``mesh``: this rank's
+    blocks by ``param_spec(..., train=train)`` and the model it computes
+    with, on ``device`` (CUDA by default)."""
+    return ShardedLM(lm_params_from_numpy(tree, cfg, device), cfg, mesh,
+                     train)
+
+
+def sharded_params_to_numpy(sp: ShardedLM) -> dict:
+    """The inverse: every leaf gathered whole (a collective: every rank of
+    the mesh calls it), as the reference's nested tree of float32 numpy
+    arrays, stacked leaves stacked."""
+    out = {}
+    for path, leaf in sp.leaves.items():
+        spec = sp.specs[path]
+        if isinstance(leaf, torch.Tensor):
+            full = collectives.gather_spec(leaf, spec, sp.mesh)
+        else:
+            full = torch.stack([collectives.gather_spec(b, spec[1:], sp.mesh)
+                                for b in leaf])
+        node = out
+        *head, name = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[name] = full.detach().float().cpu().numpy()
+    return out
 
 
 def lm_params_from_numpy(tree: dict, cfg, device=None):

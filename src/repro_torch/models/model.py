@@ -14,12 +14,16 @@ families' caches share one position across the batch.
 
 ``lm_loss`` is the training loss of the dense and MoE families, through
 the transformer's training forward; the recurrent families and enc-dec
-raise there (ROADMAP queue A item 5).
+raise there (ROADMAP queue A item 5).  Under a mesh policy the tokens are
+this rank's rows, and the loss keeps the reference's global normaliser:
+the mask counts are summed over the data axes before the division.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.api import current_policy
 from repro_torch.models import rglru, rwkv6, transformer
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
@@ -70,7 +74,14 @@ def lm_loss(params, cfg, batch: dict):
     "perplexity"}), as the reference's ``lm_loss``.  The log-sum-exp is in
     float32 from the logits' own max; padded vocab ids carry -1e9 logits
     (``transformer.unembed``), so they add nothing to it.  Dense and MoE
-    families only."""
+    families only.
+
+    Under a mesh policy ``batch`` is this rank's rows: the returned total
+    is its share, ``sum(nll * mask)`` over its rows divided by the mask
+    count summed over the data axes, plus ``0.01 * aux`` (whose gradient
+    the MoE divides among the data ranks), so the gradients summed over
+    the data ranks are the whole batch's; ``loss`` is the shares summed
+    (reader ``"lm_loss"``)."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: lm_loss trains the dense and MoE families; family "
@@ -89,8 +100,15 @@ def lm_loss(params, cfg, batch: dict):
     label = logits.float().gather(-1, targets.clamp(min=0)[..., None])[..., 0]
     nll = lse - label
     mask = (targets >= 0).float()
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    total = loss + 0.01 * aux
+    # without a policy the sums over no axes are the tensors themselves
+    policy = current_policy()
+    mesh = policy.mesh if policy is not None else None
+    axes = sharding.data_axes(mesh) if policy is not None else ()
+    count = collectives.sum_over(mask.sum(), mesh, axes, reader="lm_loss")
+    share = (nll * mask).sum() / torch.clamp(count, min=1.0)
+    total = share + 0.01 * aux
+    loss = collectives.sum_over(share.detach().clone(), mesh, axes,
+                                reader="lm_loss")
     return total, {"loss": loss, "aux_loss": aux,
                    "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
 

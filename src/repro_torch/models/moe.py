@@ -17,19 +17,40 @@ assignment fills each buffer row), so their backward passes add each
 gradient row once and never meet in an atomic add: a step is the same bit
 for bit however often it runs, eagerly or from a CUDA graph.
 
-The reference's expert-parallel ``_moe_sharded`` (shard_map over a
-``model`` axis) belongs to the LM model mesh, ROADMAP queue A item 5;
-``moe_block`` is the local path.  Nothing here synchronises with the host: dispatch and combine are
-index arithmetic on the device.
+Under a ``MeshPolicy`` (``distributed/api.py``) each rank holds its rows
+of tokens.  With a ``model`` axis larger than 1, ``moe_block`` runs the
+reference's expert-parallel ``_moe_sharded``: every (data, model) rank
+routes its tokens, keeps the assignments to its ``E / model`` experts
+within a capacity of ``_capacity(T / n_data)`` (``moe_plan``), runs them
+through its experts (B4b then B4a when serving) and adds its partial
+output, in ``cfg.moe_psum_dtype``, to the other model ranks' by one
+all-reduce; ``aux`` is the mean over the data axes.  The rank's part is
+``moe_shard_body``, apart from the collectives, so one process can run
+every rank's and sum them.  Where the reference falls back to
+``_moe_local`` on all tokens (``E % model`` or ``T % n_data`` non-zero),
+and under a policy whose ``model`` axis is 1 (where the reference runs
+``_moe_local`` on every data rank's tokens), ``_moe_data_parallel`` runs
+that function on this rank's tokens: only the routing counts and the
+router probabilities' sums cross the data axes.  In training the
+combine's backward hands every model rank the output's gradient
+unchanged, and the gradients of the tokens and gates that the model ranks
+each used for part of the sum are summed over ``model``
+(``collectives.sum_forward``, ``sum_backward``).  Nothing here
+synchronises with the host: dispatch and combine are index arithmetic on
+the device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+import types
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.api import current_policy
 from repro_torch.kernels.moe_gemm.ops import expert_gemm, expert_swiglu
 
 
@@ -103,6 +124,49 @@ def _expert_ffn_einsum(xin: torch.Tensor, p: MoE) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", F.silu(h) * u, p.w_down)
 
 
+def _dispatch_ffn(p, x, experts, slot, keep, n_e: int, capacity: int,
+                  train: bool) -> torch.Tensor:
+    """Assignment a (token a // k) into row ``experts[a] * capacity +
+    slot[a]`` of ``n_e`` capacity buffers where ``keep[a]``, through the
+    expert FFN of ``p``'s ``n_e`` experts; returns each assignment's
+    output row (T*k, d), 0 where not kept."""
+    T, d = x.shape
+    k = experts.shape[0] // T
+    # row e*C + slot of a flat buffer with one spare row at the end, where
+    # the dropped assignments land (the reference's mode="drop" at index C)
+    # and from which they read 0 (its mode="fill")
+    spare = n_e * capacity
+    dest = torch.where(keep, experts * capacity + slot, spare)
+    if train:
+        # assignment a = token a // k; src[r] = the assignment in row r,
+        # or T*k, a zero row (a kept row has one assignment)
+        xk = torch.cat([x[:, None].expand(T, k, d).reshape(T * k, d),
+                        x.new_zeros((1, d))])
+        src = torch.full((spare + 1,), T * k, dtype=torch.long,
+                         device=x.device)
+        src[dest] = torch.arange(T * k, device=x.device)
+        y = _expert_ffn_einsum(xk[src[:spare]].view(n_e, capacity, d), p)
+    else:
+        token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
+        buf = torch.zeros((spare + 1, d), dtype=x.dtype, device=x.device)
+        buf[dest] = x[token_idx]
+        y = _expert_ffn(buf[:spare].view(n_e, capacity, d), p)
+    y = torch.cat([y.reshape(spare, d), y.new_zeros((1, d))])
+    return y[dest]
+
+
+def _combine(y_tok, gates_flat, keep, T: int, k: int, acc_dtype):
+    """Each token's k outputs weighted by their gates (0 where not kept)
+    and added in order in ``acc_dtype`` (the reference's zeros((T, d),
+    acc).at[token_idx].add(y_tok.astype(acc)))."""
+    w = (gates_flat * keep.float())[:, None].to(y_tok.dtype)
+    y_tok = (y_tok * w).view(T, k, -1)
+    out = y_tok[:, 0].to(acc_dtype)
+    for j in range(1, k):
+        out = out + y_tok[:, j].to(acc_dtype)
+    return out
+
+
 def _moe_local(p: MoE, x: torch.Tensor, cfg, train: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     T, d = x.shape
@@ -114,43 +178,140 @@ def _moe_local(p: MoE, x: torch.Tensor, cfg, train: bool = False
     aux = _aux_loss(probs, ids, e)
 
     ids_flat = ids.reshape(-1).long()
-    gates_flat = gates.reshape(-1)
     slot = _slot_in_expert(ids_flat, e).long()
     keep = slot < capacity
-
-    # row e*C + slot of a flat buffer with one spare row at the end, where
-    # the dropped assignments land (the reference's mode="drop" at index C)
-    # and from which they read 0 (its mode="fill")
-    spare = e * capacity
-    dest = torch.where(keep, ids_flat * capacity + slot, spare)
-    if train:
-        # assignment a = token a // k; src[r] = the assignment in row r,
-        # or T*k, a zero row (a kept row has one assignment)
-        xk = torch.cat([x[:, None].expand(T, k, d).reshape(T * k, d),
-                        x.new_zeros((1, d))])
-        src = torch.full((spare + 1,), T * k, dtype=torch.long,
-                         device=x.device)
-        src[dest] = torch.arange(T * k, device=x.device)
-        y = _expert_ffn_einsum(xk[src[:spare]].view(e, capacity, d), p)
-    else:
-        token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-        buf = torch.zeros((spare + 1, d), dtype=x.dtype, device=x.device)
-        buf[dest] = x[token_idx]
-        y = _expert_ffn(buf[:spare].view(e, capacity, d), p)
-    y = torch.cat([y.reshape(spare, d), y.new_zeros((1, d))])
-    y_tok = y[dest]
-    w = (gates_flat * keep.float())[:, None].to(y_tok.dtype)
-    y_tok = (y_tok * w).view(T, k, d)
-    # the reference's zeros((T, d)).at[token_idx].add(y_tok): the k
-    # assignments of a token added in order, each add rounded to the dtype
-    out = y_tok[:, 0]
-    for j in range(1, k):
-        out = out + y_tok[:, j]
+    y_tok = _dispatch_ffn(p, x, ids_flat, slot, keep, e, capacity, train)
+    out = _combine(y_tok, gates.reshape(-1), keep, T, k, y_tok.dtype)
     return out.to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh policy
+# ---------------------------------------------------------------------------
+
+
+def moe_plan(cfg, t_global: int, n_data: int, model: int
+             ) -> Optional[Tuple[int, int]]:
+    """(experts a model rank holds, its capacity) of ``_moe_sharded`` for
+    ``t_global`` tokens on ``n_data`` x ``model`` ranks, or None where the
+    reference falls back to ``_moe_local`` (``E % model`` or ``T %
+    n_data`` non-zero)."""
+    if cfg.n_experts % model != 0 or t_global % n_data != 0:
+        return None
+    return cfg.n_experts // model, _capacity(t_global // n_data, cfg)
+
+
+def local_experts(p, m_idx: int, e_local: int):
+    """Model rank ``m_idx``'s experts of ``p``: ``p`` itself when it holds
+    ``e_local`` (a ``ShardedLM``'s model), else its block of all E."""
+    if p.w_gate.shape[0] == e_local:
+        return p
+    cut = lambda w: w[m_idx * e_local:(m_idx + 1) * e_local]
+    return types.SimpleNamespace(w_gate=cut(p.w_gate), w_up=cut(p.w_up),
+                                 w_down=cut(p.w_down))
+
+
+def moe_shard_body(w, x, gates, ids, cfg, m_idx: int, e_local: int,
+                   cap_local: int, train: bool = False) -> torch.Tensor:
+    """One (data, model) rank's part of ``_moe_sharded`` (the reference's
+    ``local_fn`` between its collectives): its tokens ``x`` (T, d) routed
+    (``gates``, ``ids`` (T, k)), the assignments to its experts
+    ``[m_idx * e_local, (m_idx + 1) * e_local)`` (``w``, those experts'
+    weights) that fit ``cap_local`` through them, combined with their
+    gates; returns the partial output (T, d) in ``cfg.moe_psum_dtype``,
+    which the model ranks sum."""
+    T = x.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    ids_flat = ids.reshape(-1).long()
+    slot = _slot_in_expert(ids_flat, e).long()
+    keep = slot < cap_local
+    local_e = ids_flat - m_idx * e_local
+    mine = (local_e >= 0) & (local_e < e_local) & keep
+    y_tok = _dispatch_ffn(w, x, local_e, slot, mine, e_local, cap_local,
+                          train)
+    return _combine(y_tok, gates.reshape(-1), mine, T, k,
+                    getattr(torch, cfg.moe_psum_dtype))
+
+
+def _moe_sharded(p, x: torch.Tensor, cfg, mesh, train: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's expert-parallel MoE on ``mesh`` (module docstring);
+    ``x`` (T, d) is this rank's tokens."""
+    T = x.shape[0]
+    shape = sharding.mesh_shape(mesh)
+    daxes = sharding.data_axes(mesh)
+    n_data = math.prod(shape[a] for a in daxes)
+    plan = moe_plan(cfg, T * n_data, n_data, shape["model"])
+    if plan is None:
+        return _moe_data_parallel(p, x, cfg, mesh, train)
+    e_local, cap_local = plan
+    m_idx = sharding.axis_index(mesh, "model")
+    gates, ids, probs = route_topk(x.float() @ p.router, cfg.top_k)
+    aux = collectives.data_mean(_aux_loss(probs, ids, cfg.n_experts), mesh,
+                                daxes, reader="moe_aux")
+    if train:
+        x = collectives.sum_backward(x, mesh, ("model",), reader="moe_grads")
+        gates = collectives.sum_backward(gates, mesh, ("model",),
+                                         reader="moe_grads")
+    partial = moe_shard_body(local_experts(p, m_idx, e_local), x, gates,
+                             ids, cfg, m_idx, e_local, cap_local, train)
+    out = collectives.sum_forward(partial, mesh, ("model",),
+                                  reader="moe_combine")
+    return out.to(x.dtype), aux
+
+
+def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_moe_local`` of every data rank's tokens at once, this rank's
+    rows of it (``p`` holds all E experts), computed from this rank's
+    tokens: the expert FFN acts row by row, so only the routing needs the
+    other ranks.  Their per-expert assignment counts and top-1 counts are
+    gathered over the data axes (2E words a rank, reader
+    ``"moe_counts"``); an assignment's slot among all of them is its slot
+    here plus the earlier ranks' count of its expert, and it is kept below
+    the capacity of all ``T * n_data`` tokens.  The kept ones fill
+    buffers of ``min(capacity, T)`` rows an expert by their slot here (a
+    token meets an expert once).  ``aux`` is the reference's over every
+    token: the router probabilities' sums added over the data axes
+    (reader ``"moe_aux"``) with their gradient handed back unchanged, so
+    each rank's share of it reaches its own loss once."""
+    daxes = sharding.data_axes(mesh)
+    i, n = sharding.block_index(mesh, daxes)
+    T = x.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    capacity = _capacity(T * n, cfg)
+    gates, ids, probs = route_topk(x.float() @ p.router, k)
+    ids_flat = ids.reshape(-1).long()
+    slot = _slot_in_expert(ids_flat, e).long()
+    counts = torch.zeros((1, 2 * e), dtype=torch.int32, device=x.device)
+    counts.scatter_add_(1, torch.cat([ids_flat, ids[:, 0].long() + e])[None],
+                        torch.ones((1, T * k + T), dtype=torch.int32,
+                                   device=x.device))
+    for a in reversed(daxes):
+        counts = collectives.gather_cat(counts, mesh.get_group(a), dim=0,
+                                        reader="moe_counts")
+    before = counts[:i, :e].sum(0)
+    keep = slot + before[ids_flat] < capacity
+    y_tok = _dispatch_ffn(p, x, ids_flat, slot, keep, e, min(capacity, T),
+                          train)
+    out = _combine(y_tok, gates.reshape(-1), keep, T, k, y_tok.dtype)
+    me = collectives.sum_forward(probs.sum(0), mesh, daxes,
+                                 reader="moe_aux") / (T * n)
+    ce = counts[:, e:].sum(0).float() / (T * n)
+    return out.to(x.dtype), e * (me * ce).sum()
 
 
 def moe_block(p: MoE, x: torch.Tensor, cfg, train: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (T, d) token-major -> (out (T, d), aux loss scalar); ``train``
-    runs the einsum FFN under autograd (module docstring)."""
+    runs the einsum FFN under autograd (module docstring).  Under a mesh
+    policy: ``_moe_sharded`` when its ``model`` axis is larger than 1,
+    else ``_moe_data_parallel`` when it has more than one data rank."""
+    policy = current_policy()
+    if policy is not None:
+        shape = sharding.mesh_shape(policy.mesh)
+        if shape.get("model", 1) > 1:
+            return _moe_sharded(p, x, cfg, policy.mesh, train)
+        if math.prod(shape[a] for a in sharding.data_axes(policy.mesh)) > 1:
+            return _moe_data_parallel(p, x, cfg, policy.mesh, train)
     return _moe_local(p, x, cfg, train)

@@ -15,6 +15,13 @@ port needs no ``ml_dtypes``).  Writes go to a temp directory, are fsynced
 and renamed into place, so a preempted save never corrupts the latest
 checkpoint; ``keep_last`` prunes older steps.  ``restore`` copies into the
 tensors of a like-shaped tree, in place.
+
+A sharded state (``mesh=`` and ``specs=``: each leaf's spec by its path)
+holds each rank's blocks: ``save`` gathers every leaf whole to every rank
+(a collective, in path order) and rank 0 writes ``shard_0.npz``, as the
+reference's single-host save does; ``restore`` gives each rank its block
+of the whole arrays by the target mesh's specs, so a checkpoint saved on
+one mesh restores on another (the reference's elastic restart).
 """
 from __future__ import annotations
 
@@ -25,6 +32,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives, sharding
 
 BF16 = "bfloat16"
 
@@ -48,11 +58,26 @@ def _to_numpy(leaf) -> np.ndarray:
     return x.numpy()
 
 
+def _whole(leaf, spec, mesh):
+    """A leaf (a tensor or a stack's list) whole from this rank's blocks."""
+    if spec is None:
+        return leaf
+    if isinstance(leaf, torch.Tensor):
+        return collectives.gather_spec(leaf, spec, mesh)
+    return [collectives.gather_spec(x, spec[1:], mesh) for x in leaf]
+
+
 def save(ckpt_dir: str, step: int, state: dict, *, keep_last: int = 3,
-         host_id: int = 0) -> str:
-    """Atomic checkpoint write. Returns the checkpoint path."""
+         host_id: int = 0, mesh=None, specs: Optional[dict] = None) -> str:
+    """Atomic checkpoint write. Returns the checkpoint path.  With ``mesh``
+    every rank calls it; rank 0 writes (module docstring)."""
     flat = _flatten(state)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if mesh is not None:
+        flat = {k: _whole(flat[k], specs.get(k), mesh) for k in sorted(flat)}
+        if dist.get_rank() != 0:
+            collectives.mesh_barrier(mesh)
+            return final
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
 
@@ -83,6 +108,8 @@ def save(ckpt_dir: str, step: int, state: dict, *, keep_last: int = 3,
                    and not d.endswith(".tmp"))
     for d in steps[:-keep_last]:
         shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+    if mesh is not None:
+        collectives.mesh_barrier(mesh)
     return final
 
 
@@ -102,11 +129,13 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 @torch.no_grad()
 def restore(ckpt_dir: str, like: dict, *, step: Optional[int] = None,
-            host_id: int = 0) -> dict:
+            host_id: int = 0, mesh=None, specs: Optional[dict] = None
+            ) -> dict:
     """Copy the checkpoint at ``step`` (the latest by default) into the
     tensors of ``like``, a tree of the saved structure, in place, and
-    return it.  Raises ``FileNotFoundError`` without a checkpoint,
-    ``ValueError`` for a corrupt one or a leaf missing or misshapen."""
+    return it; with ``mesh`` this rank's block of each leaf by ``specs``.
+    Raises ``FileNotFoundError`` without a checkpoint, ``ValueError`` for
+    a corrupt one or a leaf missing or misshapen."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -131,6 +160,9 @@ def restore(ckpt_dir: str, like: dict, *, step: Optional[int] = None,
             raise ValueError(f"checkpoint {path!r} has no leaf {key!r}")
         meta = manifest["leaves"][key]
         src = _from_numpy(data[meta["name"]], meta["dtype"])
+        spec = None if mesh is None else specs.get(key)
+        if spec is not None:
+            src = sharding.local_shard(src, spec, mesh)
         members = [leaf] if isinstance(leaf, torch.Tensor) else list(leaf)
         want = (tuple(leaf.shape) if isinstance(leaf, torch.Tensor)
                 else (len(members),) + tuple(members[0].shape))

@@ -19,6 +19,20 @@ norms is a matrix to the reference), and its state is stacked too.
 
     opt = make_optimizer("adafactor", peak_lr=3e-4)(params)
     stats = opt.update(grads)          # grads in the order of opt.tensors()
+
+On a mesh the parameters are a rank's blocks (``models.io.ShardedLM``'s
+``leaves``) and ``layout`` (the ``ShardedLM``: its ``mesh``, and per leaf
+its ``specs`` and whole ``shapes``) says how each is split.  AdamW's
+moments split as their leaves, so its update is elementwise on the blocks.
+The global norm counts every element once: each tensor's sum of squares
+is added by the ranks that hold its block at coordinate 0 on every axis
+its spec does not split, then summed over the mesh.  Adafactor factors by
+the whole shape; its row and column means, the mean of its row statistic
+and its RMS clip sum over the axes that split the dims they span, and its
+factored moments are stored split as the reference's ``state_specs``
+splits them (``param_spec`` of the moment's own shape), gathered and cut
+where that differs from the leaf's split.  On one rank, or where nothing
+is split, each update is the unsharded one, bit for bit.
 """
 from __future__ import annotations
 
@@ -27,6 +41,8 @@ import math
 from typing import Callable, Dict, Iterable, List, Sequence, Union
 
 import torch
+
+from repro_torch.distributed import collectives, sharding
 
 Leaf = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -97,13 +113,82 @@ def _zeros(shape, dev) -> torch.Tensor:
 
 class _Optimizer:
     """The parameters (``params``: name -> leaf), the step and the
-    gradient clipping both optimizers share."""
+    gradient clipping both optimizers share; ``layout`` for a mesh's
+    blocks (module docstring)."""
 
-    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig):
+    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig,
+                 layout=None):
         self.cfg = cfg
         self.params = dict(params)
+        self.layout = layout
         self.device = _members(next(iter(self.params.values())))[0].device
         self.step = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._owner = None
+
+    def _owns(self, k: str) -> bool:
+        """Whether this rank adds leaf ``k``'s block to the global norm:
+        its coordinate is 0 on every axis the leaf's spec does not
+        split."""
+        mesh = self.layout.mesh
+        used = {a for e in self.layout.specs[k] for a in sharding.spec_axes(e)}
+        return all(sharding.axis_index(mesh, a) == 0
+                   for a in sharding.mesh_shape(mesh) if a not in used)
+
+    def _global_norm(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        if self.layout is None:
+            return global_norm(tensors)
+        if self._owner is None:
+            self._owner = torch.tensor(
+                [float(self._owns(k)) for k, leaf in self.params.items()
+                 for _ in _members(leaf)], device=self.device)
+        sq = torch.stack([torch.square(x.to(torch.float32)).sum()
+                          for x in tensors]) * self._owner
+        mesh = self.layout.mesh
+        collectives.sum_over(sq, mesh, tuple(sharding.mesh_shape(mesh)),
+                             reader="optimizer")
+        return torch.sqrt(sq.sum())
+
+    def _spec(self, k: str, n_dims: int) -> tuple:
+        return (self.layout.specs[k] if self.layout is not None
+                else (None,) * n_dims)
+
+    def _mean(self, x, dim: int, entry, n: int, keepdim: bool = False):
+        """The mean over dim ``dim`` (``n`` long whole, split by spec entry
+        ``entry``)."""
+        axes = sharding.spec_axes(entry)
+        if not axes:
+            return x.mean(dim, keepdim=keepdim)
+        t = x.sum(dim, keepdim=keepdim)
+        collectives.sum_over(t, self.layout.mesh, axes, reader="optimizer")
+        return t / n
+
+    def _relayout(self, x, src: tuple, dst: tuple):
+        """``x``, this rank's block by spec ``src``, as its block by
+        ``dst``."""
+        if tuple(src) == tuple(dst):
+            return x
+        mesh = self.layout.mesh
+        whole = collectives.gather_spec(x, src, mesh, reader="optimizer")
+        return sharding.local_shard(whole, dst, mesh).clone()
+
+    def moment_spec(self, k: str, shape: tuple) -> tuple:
+        """The spec of leaf ``k``'s state of ``shape`` (the reference's
+        ``state_specs``: ``param_spec`` of that shape)."""
+        if self.layout is None:
+            return (None,) * len(shape)
+        return sharding.param_spec(k, shape, self.layout.mesh, train=True)
+
+    def _whole_shape(self, k: str, leaf: Leaf) -> tuple:
+        return (tuple(self.layout.shapes[k]) if self.layout is not None
+                else _shape(leaf))
+
+    def _zeros(self, k: str, shape: tuple) -> torch.Tensor:
+        """Zeros for leaf ``k``'s state of whole ``shape``: this rank's
+        block by ``moment_spec``."""
+        if self.layout is not None:
+            shape = sharding.local_shape(shape, self.moment_spec(k, shape),
+                                         self.layout.mesh)
+        return _zeros(shape, self.device)
 
     def tensors(self) -> List[torch.Tensor]:
         """Every parameter tensor, in the order ``update`` takes grads."""
@@ -117,7 +202,7 @@ class _Optimizer:
         flat = list(grads)
         if isinstance(grads, list):
             grads.clear()
-        norm = global_norm(flat)
+        norm = self._global_norm(flat)
         scale = _clip_scale(norm, self.cfg.grad_clip)
         clip = lambda x: _clip(x, scale)
         out, i = {}, 0
@@ -133,14 +218,19 @@ class _Optimizer:
         is one stacked tensor, as the reference keeps it."""
         raise NotImplementedError
 
+    def state_specs(self) -> Dict[str, tuple]:
+        """The spec of each ``state()`` entry (a rank's block of it)."""
+        raise NotImplementedError
+
 
 class AdamW(_Optimizer):
     """AdamW over ``params``, moments ``m``/``v`` by the same names in
     float32 (a stacked leaf's moments stacked), ``step`` an int32 device
     scalar."""
 
-    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig):
-        super().__init__(params, cfg)
+    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig,
+                 layout=None):
+        super().__init__(params, cfg, layout)
         self.m = {k: _zeros(_shape(p), self.device)
                   for k, p in self.params.items()}
         self.v = {k: _zeros(_shape(p), self.device)
@@ -177,6 +267,11 @@ class AdamW(_Optimizer):
         return {**{f"m/{k}": x for k, x in self.m.items()},
                 **{f"v/{k}": x for k, x in self.v.items()}}
 
+    def state_specs(self) -> Dict[str, tuple]:
+        return {f"{part}/{k}": self._spec(k, x.dim())
+                for part, moments in (("m", self.m), ("v", self.v))
+                for k, x in moments.items()}
+
 
 def _factored(shape: tuple) -> bool:
     return len(shape) >= 2 and min(shape[-2:]) >= 2
@@ -195,14 +290,16 @@ class Adafactor(_Optimizer):
     updated as one tensor (its factoring and RMS span the stack), each
     other leaf alone."""
 
-    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig):
-        super().__init__(params, cfg)
+    def __init__(self, params: Dict[str, Leaf], cfg: OptimizerConfig,
+                 layout=None):
+        super().__init__(params, cfg, layout)
         self.v = {}
         for k, leaf in self.params.items():
-            s = _shape(leaf)
-            self.v[k] = ({"vr": _zeros(s[:-1], self.device),
-                          "vc": _zeros(s[:-2] + s[-1:], self.device)}
-                         if _factored(s) else {"v": _zeros(s, self.device)})
+            s = self._whole_shape(k, leaf)
+            self.v[k] = ({"vr": self._zeros(k, s[:-1]),
+                          "vc": self._zeros(k, s[:-2] + s[-1:])}
+                         if _factored(s) else {"v": _zeros(_shape(leaf),
+                                                           self.device)})
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor]) -> dict:
@@ -218,15 +315,26 @@ class Adafactor(_Optimizer):
             members = _members(leaf)
             g = [clip(x) for x in grads.pop(k)]
             g = (_stack(g) if stacked else g[0]).to(torch.float32)
+            s = self._whole_shape(k, leaf)
+            S = self._spec(k, len(s))
             g2 = torch.square(g) + 1e-30
             v = self.v[k]
             if "vr" in v:
-                v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * g2.mean(-1))
-                v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * g2.mean(-2))
-                del g2
-                denom = torch.clamp(v["vr"].mean(-1, keepdim=True), min=1e-30)
-                vhat = v["vr"][..., None] * v["vc"][..., None, :] \
-                    / denom[..., None]
+                rows, cols = S[:-1], S[:-2] + S[-1:]
+                r_spec = self.moment_spec(k, s[:-1])
+                c_spec = self.moment_spec(k, s[:-2] + s[-1:])
+                r = self._relayout(self._mean(g2, -1, S[-1], s[-1]), rows,
+                                   r_spec)
+                c = self._relayout(self._mean(g2, -2, S[-2], s[-2]), cols,
+                                   c_spec)
+                v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * r)
+                v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * c)
+                del g2, r, c
+                vr = self._relayout(v["vr"], r_spec, rows)
+                vc = self._relayout(v["vc"], c_spec, cols)
+                denom = torch.clamp(self._mean(vr, -1, S[-2], s[-2],
+                                               keepdim=True), min=1e-30)
+                vhat = vr[..., None] * vc[..., None, :] / denom[..., None]
             else:
                 v["v"].copy_(beta2 * v["v"] + (1 - beta2) * g2)
                 del g2
@@ -234,7 +342,8 @@ class Adafactor(_Optimizer):
             delta = g / (torch.sqrt(vhat) + 1e-30)
             del g, vhat
             # update clipping (Adafactor's RMS rule)
-            rms = torch.sqrt(torch.square(delta).mean() + 1e-30)
+            rms = torch.sqrt(self._mean_all(torch.square(delta), S, s)
+                             + 1e-30)
             delta = delta / torch.clamp(rms, min=1.0)
             p = _stack(members) if stacked else members[0]
             if p.dim() >= 2:
@@ -248,20 +357,37 @@ class Adafactor(_Optimizer):
                 p.copy_(new)
         return {"grad_norm": gnorm, "lr": lr}
 
+    def _mean_all(self, x, spec: tuple, shape: tuple):
+        """The mean of every element of a leaf split by ``spec``."""
+        axes = tuple(a for e in spec for a in sharding.spec_axes(e))
+        if not axes:
+            return x.mean()
+        t = x.sum()
+        collectives.sum_over(t, self.layout.mesh, axes, reader="optimizer")
+        return t / math.prod(shape)
+
     def state(self) -> Dict[str, torch.Tensor]:
         return {f"v/{k}/{part}": x for k, v in self.v.items()
                 for part, x in v.items()}
+
+    def state_specs(self) -> Dict[str, tuple]:
+        out = {}
+        for k, leaf in self.params.items():
+            s = self._whole_shape(k, leaf)
+            for part, x in self.v[k].items():
+                whole = {"vr": s[:-1], "vc": s[:-2] + s[-1:], "v": s}[part]
+                out[f"v/{k}/{part}"] = self.moment_spec(k, whole)
+        return out
 
 
 OPTIMIZERS = {"adamw": AdamW, "adafactor": Adafactor}
 
 
-def make_optimizer(name: str, **kw
-                   ) -> Callable[[Dict[str, Leaf]], _Optimizer]:
+def make_optimizer(name: str, **kw) -> Callable[..., _Optimizer]:
     """The optimizer ``name`` (``adamw`` or ``adafactor``) with the
-    ``OptimizerConfig`` fields ``kw``, as a function of the parameters
-    (the reference's ``opt.init``)."""
+    ``OptimizerConfig`` fields ``kw``, as a function of the parameters and
+    a mesh's ``layout`` (the reference's ``opt.init``)."""
     if name not in OPTIMIZERS:
         raise ValueError(name)
     cfg = OptimizerConfig(**kw)
-    return lambda params: OPTIMIZERS[name](params, cfg)
+    return lambda params, layout=None: OPTIMIZERS[name](params, cfg, layout)

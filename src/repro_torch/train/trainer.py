@@ -15,8 +15,15 @@ stream it would have seen).  The state is ``launch.steps.train_state``'s,
 updated in place; ``tree(state)`` is its checkpoint view in the
 reference's layout (``params/...``, ``opt/...``, ``step``).  The trainer
 keeps each step's wall seconds (``step_s``, the batch and the wait for the
-step included) and each checkpoint's (``save_s``, ``restore_s``).  A mesh
-waits for the LM model mesh, ROADMAP queue A item 5.
+step included) and each checkpoint's (``save_s``, ``restore_s``).
+
+``Trainer(model_cfg, cfg, mesh=...)`` trains on an LM mesh
+(``launch.mesh.make_host_mesh``): its step runs under a ``MeshPolicy`` of
+``activation_rules(mesh, train=True)``, ``init_state`` keeps each rank's
+blocks of the parameters by ``param_spec(..., train=True)`` (a
+``models.io.ShardedLM``) and the optimizer's state likewise, the data are
+each rank's rows (``SyntheticLM(mesh=)``), checkpoints are written whole
+by rank 0 and restored onto any mesh, and only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -25,10 +32,15 @@ import signal
 import time
 from typing import Callable
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.api import MeshPolicy
 from repro_torch.distributed.fault_tolerance import StragglerDetector
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models import model as model_lib
+from repro_torch.models import io as model_io, model as model_lib
 from repro_torch.train import checkpoint, optimizer as opt_lib
 
 
@@ -57,23 +69,28 @@ def _nest(flat: dict) -> dict:
 
 
 def tree(state: dict) -> dict:
-    """A train state's checkpoint tree, in the reference's layout."""
+    """A train state's checkpoint tree, in the reference's layout (on a
+    mesh, this rank's blocks)."""
     opt = state["opt"]
     return {"params": _nest(opt.params), "opt": _nest(opt.state()),
             "step": state["step"]}
 
 
+def tree_specs(state: dict) -> dict:
+    """Each sharded leaf's spec by its checkpoint path (``params/...``,
+    ``opt/...``)."""
+    sp, opt = state["params"], state["opt"]
+    return {**{f"params/{k}": v for k, v in sp.specs.items()},
+            **{f"opt/{k}": v for k, v in opt.state_specs().items()}}
+
+
 class Trainer:
     """Trains ``model_cfg`` (dense or MoE) with its ``optimizer`` on
-    ``device`` (CUDA by default); ``graphs=False`` runs every step
-    eagerly."""
+    ``device`` (CUDA by default), on ``mesh`` when given (module
+    docstring); ``graphs=False`` runs every step eagerly."""
 
     def __init__(self, model_cfg, cfg: TrainerConfig, mesh=None,
                  log_fn: Callable = print, device=None, graphs: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the LM trainer takes no mesh yet: the LM model mesh and "
-                "its MeshPolicy are ROADMAP queue A item 5")
         if model_cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{model_cfg.name}: family {model_cfg.family!r} does not "
@@ -81,13 +98,19 @@ class Trainer:
                 "families do")
         self.model_cfg = model_cfg
         self.cfg = cfg
-        self.mesh = None
-        self.log_fn = log_fn
+        self.mesh = mesh
+        lead = mesh is None or dist.get_rank() == 0
+        self.log_fn = log_fn if lead else (lambda *a, **k: None)
         self.device = resolve(device)
         self.opt = opt_lib.make_optimizer(
             model_cfg.optimizer, peak_lr=cfg.peak_lr,
             warmup_steps=cfg.warmup_steps, total_steps=cfg.total_steps)
-        self._step_fn = steps_lib.make_train_step(model_cfg, graphs=graphs)
+        self.policy = None
+        if mesh is not None:
+            self.policy = MeshPolicy(mesh, sharding.activation_rules(
+                mesh, train=True))
+        self._step_fn = steps_lib.make_train_step(model_cfg, self.policy,
+                                                  graphs=graphs)
         self.straggler = StragglerDetector(z_threshold=cfg.straggler_z)
         self._preempted = False
         self.step_s, self.save_s, self.restore_s = [], [], None
@@ -96,14 +119,24 @@ class Trainer:
     def init_state(self, seed: int = 0) -> dict:
         params = model_lib.init_params(self.model_cfg, seed=seed,
                                        device=self.device)
+        if self.mesh is not None:
+            params = model_io.ShardedLM(params, self.model_cfg, self.mesh,
+                                        train=True)
         return steps_lib.train_state(self.model_cfg, params, self.opt)
+
+    def _sharded(self, state) -> dict:
+        """``checkpoint``'s mesh arguments for ``state``."""
+        if self.mesh is None:
+            return {}
+        return {"mesh": self.mesh, "specs": tree_specs(state)}
 
     def init_or_restore(self, seed: int = 0) -> dict:
         state = self.init_state(seed)
         if self.cfg.ckpt_dir and checkpoint.latest_step(
                 self.cfg.ckpt_dir) is not None:
             t0 = time.perf_counter()
-            checkpoint.restore(self.cfg.ckpt_dir, tree(state))
+            checkpoint.restore(self.cfg.ckpt_dir, tree(state),
+                               **self._sharded(state))
             self.restore_s = time.perf_counter() - t0
             self.log_fn(f"[trainer] restored step {int(state['step'])}")
         return state
@@ -137,15 +170,25 @@ class Trainer:
                 self.log_fn(f"[trainer] step={step} loss={loss:.4f} "
                             f"gnorm={float(metrics['grad_norm']):.3f} "
                             f"dt={dt*1000:.0f}ms")
+            if cfg.ckpt_dir and self.mesh is not None:
+                self._preempted = self._any_rank(self._preempted)
             should_ckpt = cfg.ckpt_dir and (
                 (step + 1) % cfg.ckpt_every == 0 or self._preempted
                 or step == cfg.total_steps - 1)
             if should_ckpt:
                 t0 = time.perf_counter()
                 path = checkpoint.save(cfg.ckpt_dir, step + 1, tree(state),
-                                       keep_last=cfg.keep_last)
+                                       keep_last=cfg.keep_last,
+                                       **self._sharded(state))
                 self.save_s.append(time.perf_counter() - t0)
                 if self._preempted:
                     self.log_fn(f"[trainer] preempted; saved {path}")
                     return state
         return state
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank of the mesh (a preemption
+        seen by one rank saves on all, as a save is a collective)."""
+        x = torch.tensor([float(flag)], device=self.device)
+        collectives.sum_over(x, self.mesh, self.mesh.mesh_dim_names)
+        return bool(x.item() > 0)

@@ -1390,3 +1390,135 @@ def test_shard_engine_in_a_world_of_one_equals_cuda_on_card(nccl_world):
     assert loops["cuda"].metrics() == loops["shard"].metrics()
     _assert_same_state(loops["shard40"].state, loops["plain40"].state,
                        "plain")
+
+
+# ---------------------------------------------------------------------------
+# The LM model mesh in a world of one NCCL rank
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_sharded_at_model_one_matches_local_on_card(nccl_world, dtype):
+    """``_moe_sharded`` on a 1 x 1 mesh (every expert, the whole
+    capacity, here one that drops) through B4b and B4a against
+    ``_moe_local``: the same expert buffers; the combine in float32 and
+    rounded once, against the local path's adds in the activation dtype;
+    ``aux`` equal; B4b and B4a once each."""
+    import types
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+
+    cfg = reduce_config(get_config("dbrx-132b"), capacity_factor=0.5)
+    gen = torch.Generator(device=nccl_world).manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=nccl_world)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = types.SimpleNamespace(router=rnd(d, e) / d ** 0.5,
+                              w_gate=(rnd(e, d, f) / d ** 0.5).to(dtype),
+                              w_up=(rnd(e, d, f) / d ** 0.5).to(dtype),
+                              w_down=(rnd(e, f, d) / f ** 0.5).to(dtype))
+    x = rnd(96, d).to(dtype)
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    before = (moe_ops.SWIGLU_LAUNCHES, moe_ops.GEMM_LAUNCHES)
+    y, aux = moe._moe_sharded(p, x, cfg, mesh)
+    assert (moe_ops.SWIGLU_LAUNCHES, moe_ops.GEMM_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    y_loc, aux_loc = moe._moe_local(p, x, cfg)
+    assert y.dtype == dtype and torch.equal(aux, aux_loc)
+    scale = float(y_loc.float().abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -6
+    assert float((y.float() - y_loc.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_data_parallel_at_data_one_matches_local_on_card(nccl_world,
+                                                             dtype):
+    """``_moe_data_parallel`` on a 1 x 1 mesh (the routing counts gathered
+    over a data axis of one, a capacity that drops) through B4b and B4a
+    against ``_moe_local``: the same expert buffers, so the same output;
+    ``aux`` from the probabilities' sum over T against their mean."""
+    import types
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+
+    cfg = reduce_config(get_config("dbrx-132b"), capacity_factor=0.5)
+    gen = torch.Generator(device=nccl_world).manual_seed(6)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=nccl_world)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = types.SimpleNamespace(router=rnd(d, e) / d ** 0.5,
+                              w_gate=(rnd(e, d, f) / d ** 0.5).to(dtype),
+                              w_up=(rnd(e, d, f) / d ** 0.5).to(dtype),
+                              w_down=(rnd(e, f, d) / f ** 0.5).to(dtype))
+    x = rnd(96, d).to(dtype)
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    before = (moe_ops.SWIGLU_LAUNCHES, moe_ops.GEMM_LAUNCHES)
+    y, aux = moe._moe_data_parallel(p, x, cfg, mesh)
+    assert (moe_ops.SWIGLU_LAUNCHES, moe_ops.GEMM_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    y_loc, aux_loc = moe._moe_local(p, x, cfg)
+    assert y.dtype == dtype and torch.equal(y, y_loc)
+    torch.testing.assert_close(aux, aux_loc, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_lm_mesh_in_a_world_of_one_equals_no_mesh_on_card(nccl_world):
+    """Reduced qwen1.5-0.5b, 3 graphed trainer steps on a 1 x 1 mesh
+    (``Trainer(mesh=)``: the policy, a ``ShardedLM``, the collectives in
+    the graph) against the meshless trainer: every tensor and metric
+    bit-equal.  Reduced dbrx-132b's prefill and 3 decode steps under a
+    1 x 1 policy against the same steps without one, graphed: bit-equal."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.api import MeshPolicy
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import io as model_io
+    from repro_torch.train import checkpoint, trainer as trainer_lib
+
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    cfg = reduce_config(get_config("qwen1.5-0.5b"))
+    runs = []
+    for m in (None, mesh):
+        tr = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(total_steps=3),
+                                 mesh=m, device=nccl_world,
+                                 log_fn=lambda *a: None)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                      global_batch=4), mesh=m,
+                           device=nccl_world)
+        st = tr.init_state(seed=0)
+        metrics = []
+        for i in range(3):
+            st, out = tr._step_fn(st, data.batch(i))
+            metrics.append({k: float(v) for k, v in out.items()})
+        assert len(tr._step_fn.graphs) == 1
+        runs.append((checkpoint._flatten(trainer_lib.tree(st)), metrics))
+    (a, ma), (b, mb) = runs
+    assert ma == mb and set(a) == set(b)
+    for k in a:
+        for x, y in zip(a[k] if isinstance(a[k], list) else [a[k]],
+                        b[k] if isinstance(b[k], list) else [b[k]]):
+            assert torch.equal(x, y), k
+
+    cfg = reduce_config(get_config("dbrx-132b"))
+    model = model_lib.init_params(cfg, seed=1, device=nccl_world)
+    sp = model_io.ShardedLM(model, cfg, mesh, train=False)
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)),
+                           dtype=torch.int32, device=nccl_world)
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 2)),
+                          dtype=torch.int32, device=nccl_world)
+    outs = []
+    for params, pol in ((model, None), (sp, policy)):
+        prefill = steps.make_prefill_step(cfg, 32, pol)
+        decode = steps.make_decode_step(cfg, pol)
+        prefill(params, toks)
+        logits, cache = prefill(params, toks)          # a replay
+        got = [logits]
+        for t in nxt:
+            logits, cache = decode(params, cache, t)
+            got.append(logits)
+        outs.append(torch.stack(got))
+    assert torch.equal(outs[0], outs[1])

@@ -21,6 +21,7 @@ SCRIPT = textwrap.dedent("""
     import repro_torch
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
+    assert "repro_torch.distributed.api" in names, names
     for name in names:
         importlib.import_module(name)
     from repro_torch.kernels import build

@@ -16,6 +16,7 @@ the step counter and checkpointed values exact.
 import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ from repro.models import model as jmodel, transformer as jtf
 from repro.train import checkpoint as jckpt, optimizer as jopt
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data import pipeline
-from repro_torch.launch import steps, train as train_cli
+from repro_torch.launch import mesh as mesh_lib, steps, train as train_cli
 from repro_torch.models import io, layers, model as model_lib
 from repro_torch.train import checkpoint, optimizer as opt_lib
 from repro_torch.train import trainer as trainer_lib
@@ -298,7 +299,9 @@ def test_checkpoint_round_trip_bf16_prune_and_corruption(tmp_path):
 def test_trainer_restart_reproduces_the_straight_run(tmp_path):
     """4 steps with checkpoints, then a new trainer restored from them for
     2 more, equal bit for bit to 6 straight steps (the data asked for
-    each step by its number); logs, and a mesh refused."""
+    each step by its number); logs; and the restored trainer on a 1 x 1
+    mesh in a world of one (its policy, its blocks) bit for bit the same
+    (meshes of more ranks: ``tests/test_torch_mesh.py``)."""
     cfg = reduce_config(get_config("qwen1.5-0.5b"))
     data = pipeline.SyntheticLM(pipeline.DataConfig(
         vocab=cfg.vocab, seq_len=16, global_batch=4), device="cpu")
@@ -321,9 +324,26 @@ def test_trainer_restart_reproduces_the_straight_run(tmp_path):
         assert torch.equal(a, b), k
     for k, x in resumed["opt"].state().items():
         assert torch.equal(x, straight["opt"].state()[k]), k
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(), mesh=object(),
-                            device="cpu")
+    # step 4's checkpoint alone, restored on the mesh, for steps 4 and 5
+    shutil.copytree(tmp_path / "step_00000004",
+                    tmp_path / "mesh" / "step_00000004")
+    mesh_lib.init_world("cpu")
+    try:
+        tc = trainer_lib.TrainerConfig(total_steps=6,
+                                       ckpt_dir=str(tmp_path / "mesh"))
+        tr = trainer_lib.Trainer(cfg, tc, mesh=mesh_lib.make_host_mesh(1, 1),
+                                 log_fn=logs.append, device="cpu")
+        assert tr.policy is not None
+        on_mesh = tr.init_or_restore(seed=0)
+        assert int(on_mesh["step"]) == 4
+        on_mesh = tr.run(on_mesh, data)
+    finally:
+        mesh_lib.close_world()
+    for k, x in checkpoint._flatten(trainer_lib.tree(on_mesh)).items():
+        y = checkpoint._flatten(trainer_lib.tree(straight))[k]
+        for a, b in zip(x if isinstance(x, list) else [x],
+                        y if isinstance(y, list) else [y]):
+            assert torch.equal(a, b), k
 
 
 def test_train_cli_lm_path(capsys):
@@ -333,8 +353,17 @@ def test_train_cli_lm_path(capsys):
     assert int(state["step"]) == 2 and len(trainer.step_s) == 2
     assert isinstance(state["opt"], opt_lib.Adafactor)
     assert "done at step 2" in capsys.readouterr().out
-    for argv in (["--model-parallel", "2"], ["--production-mesh"],
-                 ["--arch", "rwkv6-7b"], ["--arch", "whisper-medium"]):
+    # a mesh flag in one process: a world of one, which clips the host
+    # mesh to 1 x 1 and so trains without a mesh, as the reference does;
+    # the production mesh needs 256 ranks
+    state, trainer = train_cli.main(["--model-parallel", "2", "--reduced",
+                                     "--device", "cpu", "--steps", "1"])
+    assert int(state["step"]) == 1 and trainer.mesh is None
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="mesh_shape \\(16, 16\\)"):
+        train_cli.main(["--production-mesh", "--reduced", "--device", "cpu",
+                        "--steps", "1"])
+    for argv in (["--arch", "rwkv6-7b"], ["--arch", "whisper-medium"]):
         with pytest.raises(NotImplementedError, match="item 5"):
             train_cli.main(argv + ["--reduced", "--device", "cpu",
                                    "--steps", "1"])

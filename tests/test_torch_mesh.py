@@ -1,0 +1,666 @@
+"""The port's LM model mesh on the CPU against the JAX reference.
+
+In one process, with the reference's duck-typed ``FakeMesh``
+(``tests/test_sharding_rules.py``) for the production meshes:
+
+  * every parameter's spec, for training and serving, of every
+    architecture on both production meshes, through the port's own
+    module paths (``models.io.reference_groups``) where the port has the
+    family and through the reference's names for whisper-medium; the
+    Adafactor and AdamW state specs (the reference's ``state_specs``);
+  * the cache specs of four architectures by the reference's cache names;
+    ``batch_axes``' fallbacks, ``activation_rules``, ``MeshPolicy``,
+    ``use_mesh_policy`` and ``make_host_mesh``'s clipping;
+  * ``_moe_sharded``: the port's per-rank bodies, summed over every
+    coordinate of a 2 x 2 mesh, against the reference's ``_moe_sharded``
+    on a 2 x 2 mesh of four forced host devices (a subprocess, as
+    ``tests/test_multidevice.py`` runs it), reduced dbrx-132b in float32
+    with a capacity that drops tokens, and the fallbacks.
+
+On 4 and 2 gloo ranks (``tests/torch_dist_worker.py``, one CPU process
+each): LM training on 2 x 2 and 4 x 1 against one process, each rank's
+blocks, an elastic restart, MoE serving under a 2 x 2 policy, and
+``launch/train.py --data-parallel 2``.
+"""
+import json
+import os
+import subprocess
+import sys
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config, list_archs
+from repro.distributed import api as japi, sharding as jsharding
+from repro.launch import mesh as jmesh
+from repro.models import model as jmodel
+from repro.train import optimizer as jopt
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.distributed import api, sharding
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import io, moe
+from repro_torch.train import checkpoint, optimizer as opt_lib
+from repro_torch.train import trainer as trainer_lib
+from torch_dist_worker import (LM_ARCHS, LM_TRAIN, lm_cfg, moe_dp_grads,
+                               moe_dp_inputs, run_world)
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+
+
+class FakeMesh:
+    """Duck-typed mesh exposing .shape only (rules never touch devices)."""
+
+    def __init__(self, shape: dict):
+        self.shape = shape
+
+
+MESHES = {
+    "pod16x16": FakeMesh({"data": 16, "model": 16}),
+    "pod2x16x16": FakeMesh({"pod": 2, "data": 16, "model": 16}),
+}
+
+
+def _ref_paths(tree) -> dict:
+    """A reference tree's leaves by ``/``-joined path: (names, shape)."""
+    out = {}
+    for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        names = [getattr(p, "key", getattr(p, "name", None)) for p in path]
+        out["/".join(map(str, names))] = (path, tuple(x.shape))
+    return out
+
+
+def _port_leaves(cfg) -> dict:
+    """The port's leaves of ``cfg`` at full size on the meta device:
+    ``/``-joined reference path -> stacked shape."""
+    model, _ = io._model_and_offsets(cfg, torch.device("meta"))
+    out = {}
+    for k, leaf in io.reference_groups(model, cfg).items():
+        if isinstance(leaf, torch.Tensor):
+            out[k] = tuple(leaf.shape)
+        else:
+            out[k] = (len(leaf),) + tuple(leaf[0].shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The rules against the reference's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", list(list_archs()))
+def test_param_and_state_specs_match_reference(arch, mesh_name):
+    """Every tensor's spec, train and serve, equals the reference's; the
+    port's module paths reach every reference leaf (whisper-medium, which
+    the port does not build yet, by the reference's names); Adafactor's
+    and AdamW's state specs equal the reference's ``state_specs`` rule
+    (``param_spec`` of the moment's own shape by its leaf's path)."""
+    mesh = MESHES[mesh_name]
+    cfg = jax_get_config(arch)
+    shapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0),
+                                                       cfg))
+    ref = _ref_paths(shapes)
+    port = ({k: shape for k, (_, shape) in ref.items()}
+            if cfg.family == "encdec" else _port_leaves(get_config(arch)))
+    assert port == {k: shape for k, (_, shape) in ref.items()}
+    for train in (True, False):
+        got = sharding.shard_params_specs(port, mesh, train=train)
+        for k, (path, shape) in ref.items():
+            want = tuple(jsharding.param_spec(path, shape, mesh, train=train))
+            assert got[k] == want, (k, train, got[k], want)
+    if cfg.family == "encdec":
+        return
+    specs = sharding.shard_params_specs(port, mesh, train=True)
+    leaves = {k: torch.empty(sharding.local_shape(s, specs[k], mesh),
+                             device="meta") for k, s in port.items()}
+    layout = types.SimpleNamespace(mesh=mesh, specs=specs, shapes=port)
+    for name in ("adafactor", "adamw"):
+        jstate = jax.eval_shape(jopt.make_optimizer(name).init, shapes)
+        want = {}
+        for k, (path, shape) in _ref_paths(jstate).items():
+            sub = [p for p in path if getattr(p, "key", None)
+                   not in ("m", "v", "vr", "vc")]
+            want[k] = tuple(jsharding.param_spec(sub, shape, mesh, train=True))
+        opt = opt_lib.make_optimizer(name)(leaves, layout)
+        assert opt.state_specs() == want, name
+        assert {k: tuple(x.shape) for k, x in opt.state().items()} == {
+            k: sharding.local_shape(_ref_paths(jstate)[k][1], want[k], mesh)
+            for k in want}
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-7b",
+                                  "recurrentgemma-2b", "whisper-medium"])
+def test_cache_specs_match_reference(arch):
+    mesh = MESHES["pod16x16"]
+    cfg = jax_get_config(arch)
+    shapes = jax.eval_shape(lambda: jmodel.init_cache(cfg, 128, 1024))
+    tree = jax.tree_util.tree_map(
+        lambda x: torch.empty(x.shape, device="meta"), shapes)
+    got = sharding.shard_cache_specs(tree, mesh, 128)
+    for path, x in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        want = tuple(jsharding.cache_spec(path, x.shape, mesh, 128))
+        node = got
+        for p in path:
+            node = node[getattr(p, "key", getattr(p, "idx", None))]
+        assert node == want, (arch, path, node, want)
+        names = [getattr(p, "key", None) for p in path]
+        assert sharding.cache_spec(names, x.shape, mesh, 128) == want
+
+
+def test_batch_axes_data_spec_and_batch_spec():
+    mesh = MESHES["pod2x16x16"]
+    assert sharding.batch_axes(mesh, 256) == ("pod", "data")
+    assert sharding.batch_axes(mesh, 32) == ("pod", "data")
+    assert sharding.batch_axes(mesh, 16) == ("data",)   # largest divisible
+    assert sharding.batch_axes(mesh, 8) == ("pod",)
+    assert sharding.batch_axes(mesh, 1) is None
+    for m in MESHES.values():
+        for b in range(1, 513):
+            assert sharding.batch_axes(m, b) == jsharding.batch_axes(m, b)
+    host = FakeMesh({"data": 2, "model": 2})
+    assert sharding.data_spec(host, 8, 3) == ("data", None, None)
+    assert sharding.batch_spec(host, 8, 1) == ("data", None)
+    assert sharding.batch_spec(host, 8, 2) == (None, "data", None)
+    with pytest.raises(ValueError, match="does not split"):
+        sharding.batch_spec(host, 6, 2)
+
+
+def test_activation_rules_policy_and_its_nesting():
+    for m in MESHES.values():
+        for train in (True, False):
+            assert sharding.activation_rules(m, train=train) == \
+                jsharding.activation_rules(m, train=train)
+        rules = sharding.activation_rules(m, train=True)
+        axes = ("batch", "seq", "embed", "experts", None)
+        assert api.MeshPolicy(m, rules).spec(axes) == tuple(
+            japi.MeshPolicy(m, rules).spec(axes))
+    outer, inner = api.MeshPolicy(None, {}), api.MeshPolicy(None, {})
+    assert api.current_policy() is None
+    with api.use_mesh_policy(outer):
+        with api.use_mesh_policy(inner):
+            assert api.current_policy() is inner
+            with api.use_mesh_policy(None):
+                assert api.current_policy() is None
+            assert api.current_policy() is inner
+        assert api.current_policy() is outer
+    assert api.current_policy() is None
+    x = torch.ones(3)
+    assert api.constrain(x, "batch") is x
+
+
+@pytest.mark.parametrize("world", [1, 2, 4, 8])
+def test_host_mesh_clips_as_the_reference(world, monkeypatch):
+    """``make_host_mesh(data, model)``'s shape in a world of ``world``
+    ranks equals the reference's on as many devices; the production
+    meshes need 256 (512) ranks and raise with the reference's message
+    below."""
+    monkeypatch.setattr(mesh_lib.dist, "get_world_size", lambda *a: world)
+    monkeypatch.setattr(mesh_lib, "_grid", lambda shape, names: (shape,
+                                                                 names))
+    monkeypatch.setattr(jmesh.jax, "devices", lambda *a: [None] * world)
+    monkeypatch.setattr(jmesh, "make_mesh_compat", lambda shape, axes: (
+        tuple(shape), tuple(axes)))
+    for data in range(1, 10):
+        for model in range(1, 10):
+            assert mesh_lib.make_host_mesh(data, model) == \
+                jmesh.make_host_mesh(data, model), (data, model)
+    for multi in (False, True):
+        with pytest.raises(ValueError) as e:
+            mesh_lib.make_production_mesh(multi_pod=multi)
+        assert str(e.value) == (f"Number of devices {world} must be >= the "
+                                f"product of mesh_shape "
+                                f"{(2, 16, 16) if multi else (16, 16)}")
+    monkeypatch.setattr(mesh_lib.dist, "get_world_size", lambda *a: 512)
+    assert mesh_lib.make_production_mesh() == ((16, 16), ("data", "model"))
+    assert mesh_lib.make_production_mesh(multi_pod=True) == (
+        (2, 16, 16), ("pod", "data", "model"))
+
+
+class Coord:
+    """One rank of a mesh in one process: axis names, sizes and this
+    rank's coordinate on each axis (what ``ShardedLM`` reads of a
+    ``DeviceMesh``)."""
+
+    def __init__(self, sizes: dict, at: dict):
+        self.mesh_dim_names = tuple(sizes)
+        self.sizes, self.at = sizes, at
+
+    def size(self, i=None):
+        return self.sizes[self.mesh_dim_names[i]]
+
+    def get_local_rank(self, axis):
+        return self.at[axis]
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "serve"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "dbrx-132b"])
+def test_reference_weights_carried_onto_each_rank(arch, train):
+    """``sharded_params_from_numpy`` on every coordinate of a 2 x 2 mesh:
+    each rank's blocks are the reference's tree cut by the reference's
+    spec at that coordinate, and the model it computes with holds every
+    leaf whole but the experts of its ``model`` coordinate."""
+    from repro.configs import reduce_config as jax_reduce_config
+    from repro.models import transformer as jtf
+
+    cfg = reduce_config(get_config(arch))
+    jcfg = jax_reduce_config(jax_get_config(arch))
+    tree = jax.tree_util.tree_map(
+        np.asarray, jtf.init_params(jax.random.PRNGKey(1), jcfg))
+    fake = FakeMesh({"data": 2, "model": 2})
+    ref = _ref_paths(tree)
+    whole = {k: np.asarray(x) for k, x in
+             zip(ref, jax.tree_util.tree_leaves(tree))}
+    for d in range(2):
+        for m in range(2):
+            sp = io.sharded_params_from_numpy(
+                tree, cfg, Coord({"data": 2, "model": 2},
+                                 {"data": d, "model": m}),
+                train=train, device="cpu")
+            assert set(sp.leaves) == set(ref)
+            for k, (path, shape) in ref.items():
+                spec = jsharding.param_spec(path, shape, fake, train=train)
+                want = whole[k]
+                for dim, entry in enumerate(spec):
+                    axes = sharding.spec_axes(entry)
+                    if axes:
+                        n = int(np.prod([2 for _ in axes]))
+                        i = (d * 2 + m if axes == ("data", "model")
+                             else {"data": d, "model": m}[axes[0]])
+                        per = want.shape[dim] // n
+                        want = np.take(want, range(i * per, (i + 1) * per),
+                                       axis=dim)
+                leaf = sp.leaves[k]
+                got = (leaf if isinstance(leaf, torch.Tensor)
+                       else torch.stack(list(leaf)))
+                np.testing.assert_array_equal(got.numpy(), want, err_msg=k)
+            for name, p in sp.model.named_parameters():
+                if ".moe.w_" in name:
+                    assert p.shape[0] == cfg.n_experts // 2, name
+
+
+# ---------------------------------------------------------------------------
+# _moe_sharded against the reference's on four forced host devices
+# ---------------------------------------------------------------------------
+
+# (name, config overrides, tokens): capacity that drops tokens; a bf16
+# combine; the reference's two fallbacks (E % model, T % n_data)
+MOE_CASES = [("drops", {"capacity_factor": 0.5}, 64),
+             ("drops_more", {"capacity_factor": 0.25}, 128),
+             ("bf16_combine", {"capacity_factor": 0.5,
+                               "moe_psum_dtype": "bfloat16"}, 64),
+             ("fallback_experts", {"n_experts": 3, "capacity_factor": 0.5}, 64),
+             ("fallback_tokens", {"capacity_factor": 0.5}, 63)]
+# float32 products and sums in another order than XLA's, on outputs up to
+# ~70 that are sums of many terms of either sign: within 1e-5 relative, or
+# 1e-6 of the largest output; a bf16 combine rounds each partial
+MOE_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2e-2, 2e-2)}
+
+
+def _close_moe(got, want, dtype):
+    rtol, scale = MOE_TOL[dtype]
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=scale * float(np.abs(want).max()))
+
+REFERENCE_MOE = """
+import json, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config, reduce_config
+from repro.models import moe
+from repro.launch.mesh import make_mesh_compat
+mesh = make_mesh_compat((2, 2), ("data", "model"))
+out = {}
+for name, over, t in json.loads(sys.argv[1]):
+    cfg = reduce_config(get_config("dbrx-132b"), **over)
+    key = jax.random.PRNGKey(3)
+    params = moe.init_moe(key, cfg, jnp.float32)
+    x = jax.random.normal(jax.random.PRNGKey(4), (t, cfg.d_model))
+    with mesh:
+        y, aux = jax.jit(lambda p, x: moe._moe_sharded(p, x, cfg, mesh))(
+            params, x)
+    yl, auxl = jax.jit(lambda p, x: moe._moe_local(p, x, cfg))(params, x)
+    for k, v in params.items():
+        out[f"{name} {k}"] = np.asarray(v)
+    out[f"{name} x"] = np.asarray(x)
+    out[f"{name} out"] = np.asarray(y)
+    out[f"{name} aux"] = np.asarray(aux)
+    out[f"{name} local"] = np.asarray(yl)
+    out[f"{name} local_aux"] = np.asarray(auxl)
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_moe(tmp_path_factory):
+    path = tmp_path_factory.mktemp("moe") / "ref.npz"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", REFERENCE_MOE,
+                          json.dumps(MOE_CASES), str(path)],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("name,over,t", MOE_CASES,
+                         ids=[c[0] for c in MOE_CASES])
+def test_moe_sharded_bodies_match_reference(reference_moe, name, over, t):
+    """Each (data, model) coordinate's ``moe_shard_body`` on its rows and
+    experts, the partials summed over ``model`` in ``moe_psum_dtype`` and
+    the auxes averaged over ``data``, equal the reference's
+    ``_moe_sharded``, dropping by the local capacity; where ``moe_plan``
+    falls back, the reference's output is ``_moe_local``'s, which the
+    port's ``_moe_local`` on every token gives."""
+    cfg = reduce_config(get_config("dbrx-132b"), **over)
+    ref = {k.split(" ", 1)[1]: v for k, v in reference_moe.items()
+           if k.split(" ", 1)[0] == name}
+    p = types.SimpleNamespace(**{k: torch.as_tensor(ref[k]) for k in
+                                 ("router", "w_gate", "w_up", "w_down")})
+    x = torch.as_tensor(ref["x"])
+    plan = moe.moe_plan(cfg, t, 2, 2)
+    if name.startswith("fallback"):
+        assert plan is None
+        np.testing.assert_array_equal(ref["out"], ref["local"])
+        y, aux = moe._moe_local(p, x, cfg)
+        _close_moe(y.numpy(), ref["out"], "float32")
+        np.testing.assert_allclose(float(aux), ref["aux"], rtol=1e-6)
+        return
+    e_local, cap_local = plan
+    assert (e_local, cap_local) == (2, moe._capacity(t // 2, cfg))
+    rows, auxes, kept = [], [], 0
+    for d in range(2):
+        xd = x[d * t // 2:(d + 1) * t // 2]
+        gates, ids, probs = moe.route_topk(xd @ p.router, cfg.top_k)
+        auxes.append(moe._aux_loss(probs, ids, cfg.n_experts))
+        parts = [moe.moe_shard_body(moe.local_experts(p, m, e_local), xd,
+                                    gates, ids, cfg, m, e_local, cap_local)
+                 for m in range(2)]
+        rows.append((parts[0] + parts[1]).to(x.dtype))
+        slot = moe._slot_in_expert(ids.reshape(-1), cfg.n_experts)
+        kept += int((slot < cap_local).sum())
+    assert kept < t * cfg.top_k          # the local capacity drops tokens
+    _close_moe(torch.cat(rows).numpy(), ref["out"], cfg.moe_psum_dtype)
+    np.testing.assert_allclose(float(sum(auxes) / 2), ref["aux"], rtol=1e-6)
+    # the global capacity keeps other assignments: not the local path's
+    assert np.abs(ref["out"] - ref["local"]).max() > 1e-3
+
+
+def test_moe_sharded_on_a_world_of_one_is_the_local_moe():
+    """``_moe_sharded`` on a 1 x 1 mesh holds every expert at the whole
+    capacity: ``_moe_local``'s output, but for the combine's float32 sum
+    (bit-equal here in float32); ``moe_block`` under a 1 x 1 policy is
+    ``_moe_local`` itself."""
+    cfg = reduce_config(get_config("dbrx-132b"))
+    p = types.SimpleNamespace(**{
+        k: torch.randn(s, generator=torch.Generator().manual_seed(i))
+        for i, (k, s) in enumerate(
+            (("router", (64, 4)), ("w_gate", (4, 64, 128)),
+             ("w_up", (4, 64, 128)), ("w_down", (4, 128, 64))))})
+    x = torch.randn(40, 64, generator=torch.Generator().manual_seed(9))
+    mesh_lib.init_world("cpu")
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        y, aux = moe._moe_sharded(p, x, cfg, mesh)
+        with api.use_mesh_policy(api.MeshPolicy(mesh, {})):
+            yb, auxb = moe.moe_block(p, x, cfg)
+    finally:
+        mesh_lib.close_world()
+    yl, auxl = moe._moe_local(p, x, cfg)
+    assert torch.equal(yb, yl) and torch.equal(auxb, auxl)
+    np.testing.assert_allclose(y.numpy(), yl.numpy(), rtol=1e-6, atol=1e-6)
+    assert torch.equal(aux, auxl)
+
+
+# ---------------------------------------------------------------------------
+# Multi-process runs on gloo
+# ---------------------------------------------------------------------------
+
+# 3 steps in float32: sums in another order (per-rank partial sums, the
+# gathered gradients summed over ranks) move values by float32 rounding;
+# Adafactor divides by a root of the squared gradient, so an element whose
+# gradient is near 0 can move its update by a share of the lr
+PARAM_TOL = dict(atol=2e-6, rtol=1e-5)
+METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
+RUNS = [(arch, shape) for arch in LM_ARCHS for shape in ((2, 2), (4, 1))]
+
+
+@pytest.fixture(scope="module")
+def lm_world(tmp_path_factory):
+    d = tmp_path_factory.mktemp("lm_mesh")
+    return d, run_world("lm_mesh", 4, d)
+
+
+def _excess(got, want, tol) -> float:
+    """The largest amount by which a leaf of ``got`` is off ``want``
+    beyond ``tol`` (below 0: every element within it)."""
+    return max(float((np.abs(g - want[k]) - tol["atol"]
+                      - tol["rtol"] * np.abs(want[k])).max())
+               for k, g in got.items())
+
+
+def _same_run(got, want, param_tol, metric_tol):
+    assert set(got["state"]) == set(want["state"])
+    for k, w in want["state"].items():
+        np.testing.assert_allclose(got["state"][k], w, err_msg=k,
+                                   **param_tol)
+    for g, w in zip(got["metrics"], want["metrics"]):
+        for k in ("loss", "aux_loss", "grad_norm", "lr", "perplexity"):
+            np.testing.assert_allclose(g[k], w[k], err_msg=k, **metric_tol)
+
+
+def _oracle(res, arch, shape):
+    """One process's run that ``arch`` on ``shape`` should equal: dbrx on
+    2 x 2 averages each data rank's load-balancing loss (the reference's
+    ``_moe_sharded``), everything else computes the whole batch's."""
+    if arch == "dbrx-132b" and shape == (2, 2):
+        return res[0]["dbrx-132b plain data-rank aux"]
+    return res[0][f"{arch} plain"]
+
+
+@pytest.mark.parametrize("arch,shape", RUNS, ids=[f"{a}-{s[0]}x{s[1]}"
+                                                  for a, s in RUNS])
+def test_mesh_training_matches_one_process(lm_world, arch, shape):
+    """Three trainer steps on ``make_host_mesh(*shape)`` of 4 ranks: the
+    whole parameters and optimizer state (gathered), loss, aux loss, grad
+    norm and lr of every step equal one process's; every rank's metrics
+    alike; the one process's parameters moved from their start by more
+    than a hundred times the tolerance, so a state left as it was fails."""
+    _, res = lm_world
+    want = _oracle(res, arch, shape)
+    got = res[0][f"{arch} {shape}"]
+    _same_run(got, want, PARAM_TOL, METRIC_TOL)
+    for r in res[1:]:
+        assert r[f"{arch} {shape}"]["metrics"] == got["metrics"]
+    params = {k: v for k, v in want["state"].items()
+              if k.startswith("params/")}
+    init = {k: want["init"][k] for k in params}
+    moved = {k: float(np.abs(v - init[k]).max()) for k, v in params.items()}
+    assert min(moved.values()) > 100 * PARAM_TOL["atol"], moved
+
+
+def test_2x2_moe_differs_only_by_the_data_rank_aux(lm_world):
+    """dbrx on 2 x 2 equals the one-process run whose load-balancing loss
+    is the mean of each data rank's (test_mesh_training_matches_one_process)
+    and not the run whose loss is the whole batch's: the parameters of the
+    two one-process runs differ by more than the tolerance, and so does
+    the mesh's from the second, so the comparison sees the data-rank mean."""
+    _, res = lm_world
+    got = res[0]["dbrx-132b (2, 2)"]["state"]
+    rank_aux = res[0]["dbrx-132b plain data-rank aux"]["state"]
+    whole_aux = res[0]["dbrx-132b plain"]["state"]
+    assert _excess(got, rank_aux, PARAM_TOL) <= 0
+    assert _excess(rank_aux, whole_aux, PARAM_TOL) > 10 * PARAM_TOL["atol"]
+    assert _excess(got, whole_aux, PARAM_TOL) > 10 * PARAM_TOL["atol"]
+
+
+@pytest.mark.parametrize("arch,shape", RUNS, ids=[f"{a}-{s[0]}x{s[1]}"
+                                                  for a, s in RUNS])
+def test_each_rank_stores_its_blocks(lm_world, arch, shape):
+    """A leaf whose spec splits it over all 4 ranks is stored as a
+    quarter on every rank (parameters and moments); a leaf split over
+    fewer as that share; the blocks at most ~0.3 of the whole a rank.
+    What a rank holds between steps is those blocks and the tensors it
+    computes with, which stay whole but for the experts' dim over
+    ``model``: the mesh cuts the stored blocks and the optimizer state,
+    not the parameters a rank computes with (ROADMAP queue A, the
+    gather-and-free split), so a rank holds more than the whole
+    parameters."""
+    _, res = lm_world
+    plain = res[0][f"{arch} plain"]
+    whole_params = sum(v for k, v in plain["whole_bytes"].items()
+                       if k.startswith("params/"))
+    expert_params = sum(v for k, v in plain["whole_bytes"].items()
+                        if k.startswith("params/")
+                        and sharding.is_expert_weight(k))
+    assert plain["held_bytes"] == sum(plain["whole_bytes"].values())
+    for r in res:
+        run = r[f"{arch} {shape}"]
+        sizes = {"data": shape[0], "model": shape[1]}
+        n_split = 0
+        for k, spec in run["specs"].items():
+            share = 1
+            for e in spec:
+                for a in sharding.spec_axes(e):
+                    share *= sizes[a]
+            assert run["block_bytes"][k] * share == run["whole_bytes"][k], k
+            n_split += share == 4
+        assert n_split >= 8
+        total = lambda b: sum(v for k, v in b.items() if k != "step")
+        assert total(run["block_bytes"]) < 0.3 * total(run["whole_bytes"])
+        # the compute copy: whole, but the experts over model
+        assert run["compute_bytes"] == (whole_params - expert_params
+                                        + expert_params // shape[1])
+        split_params = sum(v for k, v in run["block_bytes"].items()
+                           if k.startswith("params/")
+                           and any(sharding.spec_axes(e)
+                                   for e in run["specs"][k]))
+        assert run["held_bytes"] >= run["compute_bytes"] + split_params
+        assert run["held_bytes"] > whole_params > 0
+
+
+def test_data_parallel_moe_is_the_local_moe_of_all_tokens(lm_world):
+    """``_moe_data_parallel`` on the 4 x 1 mesh, each rank its 16 of 64
+    tokens, with a capacity that drops assignments: the rows of its
+    outputs, served and trained, and its aux are ``_moe_local``'s on all
+    64 tokens, and the gradients of a loss over them (x's rows; the
+    router's and experts', summed over the ranks) are that one process's."""
+    _, res = lm_world
+    cfg, p, x, c = moe_dp_inputs()
+    ids = moe.route_topk(x @ p.router, cfg.top_k)[1].reshape(-1).long()
+    kept = moe._slot_in_expert(ids, cfg.n_experts) < moe._capacity(64, cfg)
+    assert 0 < int(kept.sum()) < ids.numel()        # the capacity drops
+    with torch.no_grad():
+        serve, serve_aux = moe._moe_local(p, x, cfg)
+    xr = x.clone().requires_grad_(True)
+    y, aux = moe._moe_local(p, xr, cfg, train=True)
+    grads = moe_dp_grads(y, aux, c, p, xr)
+    ranks = [r["moe data parallel"] for r in res]
+    for key, want in (("serve", serve), ("y", y.detach())):
+        _close_moe(torch.cat([r[key] for r in ranks]).numpy(), want.numpy(),
+                   "float32")
+    for r in ranks:
+        np.testing.assert_allclose(float(r["serve_aux"]), float(serve_aux),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(float(r["aux"]), float(aux.detach()),
+                                   rtol=1e-6)
+    _close_moe(torch.cat([r["grads"][0] for r in ranks]).numpy(),
+               grads[0].numpy(), "float32")
+    for j in range(1, 5):
+        _close_moe(sum(r["grads"][j] for r in ranks).numpy(),
+                   grads[j].numpy(), "float32")
+
+
+def test_checkpoint_from_2x2_restores_in_a_world_of_one(lm_world):
+    """qwen's step-2 checkpoint, written by rank 0 of the 2 x 2 mesh
+    whole, restores into a ``Trainer`` on a 1 x 1 mesh in a world of one
+    (each leaf its block of the new mesh) and its third step equals the
+    straight run's."""
+    d, res = lm_world
+    ckpt = str(d / "ckpt22")
+    assert checkpoint.latest_step(ckpt) == 2
+    cfg = lm_cfg("qwen1.5-0.5b")
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from torch_dist_worker import LM_BATCH, LM_SEQ
+
+    mesh_lib.init_world("cpu")
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        tc = trainer_lib.TrainerConfig(ckpt_dir=ckpt, ckpt_every=10,
+                                       **LM_TRAIN)
+        tr = trainer_lib.Trainer(cfg, tc, mesh=mesh, device="cpu",
+                                 log_fn=lambda *a: None)
+        st = tr.init_or_restore(seed=0)
+        assert int(st["step"]) == 2
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=LM_SEQ,
+                                      global_batch=LM_BATCH), mesh=mesh,
+                           device="cpu")
+        st = tr.run(st, data)
+        got = {k: checkpoint._to_numpy(v) for k, v in
+               checkpoint._flatten(trainer_lib.tree(st)).items()}
+    finally:
+        mesh_lib.close_world()
+    want = res[0]["qwen1.5-0.5b plain"]["state"]
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, err_msg=k, **PARAM_TOL)
+
+
+def test_moe_serving_steps_under_a_2x2_policy(lm_world):
+    """Reduced dbrx's prefill and two decode steps under a 2 x 2 policy
+    (serving blocks: experts over ``model``, replicated over ``data``;
+    each data rank its two prompts; ``_moe_sharded`` with B4b and B4a's
+    plain versions): each data row's logits, concatenated, equal the
+    unsharded steps'; the model ranks alike; the collectives counted."""
+    _, res = lm_world
+    by = {r["coord(2, 2)"]: r["serve"] for r in res}
+    for d in range(2):
+        assert torch.equal(by[(d, 0)], by[(d, 1)])
+    got = torch.cat([by[(0, 0)], by[(1, 0)]], dim=1)
+    np.testing.assert_allclose(got.numpy(), res[0]["serve plain"].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    seen = res[0]["serve bytes"]
+    assert seen["lm_params"] > 0 and seen["moe_combine"] > 0
+    assert "lm_grads" not in seen
+
+
+def _paths(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_paths(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def test_mesh_cli_on_two_ranks(tmp_path):
+    """``launch/train.py --arch qwen1.5-0.5b --reduced --data-parallel 2``
+    in a world of two equals the CLI without a mesh; rank 0 alone logs
+    and writes the checkpoint, which holds the gathered parameters;
+    ``--production-mesh`` raises as the reference's ``jax.make_mesh``
+    does."""
+    res = run_world("lm_cli", 2, tmp_path)
+    r0, r1 = res
+    assert "data=2, model=1" in r0["mesh"]
+    assert any("done at step 2" in line for line in r0["logs"])
+    assert r1["logs"] == []
+    for r in res:
+        assert r["production"] == ("Number of devices 2 must be >= the "
+                                   "product of mesh_shape (16, 16)")
+    flat, flat1 = _paths(r0["params"]), _paths(r1["params"])
+    assert set(flat) == set(flat1) == set(r0["plain"])
+    for k, w in r0["plain"].items():
+        np.testing.assert_allclose(flat[k], w, err_msg=k, **PARAM_TOL)
+        np.testing.assert_array_equal(flat[k], flat1[k])
+    saved = np.load(tmp_path / "cli_ckpt" / "step_00000002" / "shard_0.npz")
+    manifest = json.loads((tmp_path / "cli_ckpt" / "step_00000002" /
+                           "manifest.json").read_text())
+    for k, w in flat.items():
+        meta = manifest["leaves"][f"params/{k}"]
+        np.testing.assert_array_equal(saved[meta["name"]], w)
+    assert not (tmp_path / "cli_ckpt" / "step_00000002" /
+                "shard_1.npz").exists()

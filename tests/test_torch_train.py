@@ -481,10 +481,13 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert "sharded over DeviceMesh((expert=1)" in capsys.readouterr().out
     assert io.router_ckpt_compatible(io.load_pytree(mesh_path))
     assert not torch.distributed.is_initialized()
-    # the LM path trains on one device; a mesh above one raises
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        train_cli.main(["--steps", "1", "--device", "cpu",
-                        "--data-parallel", "2"])
+    # the LM path with a mesh flag in one process: a world of one, the
+    # host mesh clipped to 1 x 1, trained without a mesh as the reference
+    # does; the CLI ends the world it started
+    state, trainer = train_cli.main(["--steps", "1", "--device", "cpu",
+                                     "--reduced", "--data-parallel", "2"])
+    assert int(state["step"]) == 1 and trainer.mesh is None
+    assert not torch.distributed.is_initialized()
     with pytest.raises(KeyError):
         train_cli.main(["--router", "--iters", "1", "--device", "cpu",
                         "--scenario", "no_such_scenario"])

@@ -6,14 +6,17 @@ and ``run_world``, which starts every rank of one.
 Each rank joins a gloo world on a ``FileStore`` in ``dir``, runs ``case``
 with one CPU thread (CPU reductions follow the thread count, so every
 process that makes a compared tensor uses the same one), and saves what
-it returns to ``dir/<case>-<rank>.pt`` for ``tests/test_torch_distributed.py``
-to compare.  Imports neither JAX nor the reference package.
+it returns to ``dir/<case>-<rank>.pt`` for the tests to compare
+(``tests/test_torch_distributed.py``, ``test_torch_collectives.py``,
+``test_torch_mesh.py``).  Imports neither JAX nor the reference package.
 """
+import contextlib
 import datetime
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -22,11 +25,16 @@ WORKER = os.path.abspath(__file__)
 SRC = os.path.join(os.path.dirname(WORKER), "..", "src")
 sys.path.insert(0, SRC)
 
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.core import sac as sac_lib, training  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.distributed import collectives, sharding  # noqa: E402
+from repro_torch.distributed.api import MeshPolicy  # noqa: E402
 from repro_torch.env import engine, engine_layout as layout  # noqa: E402
 from repro_torch.env import env as env_lib, profiles  # noqa: E402
-from repro_torch.launch import mesh as mesh_lib, train  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib, steps, train  # noqa: E402
+from repro_torch.models import io as model_io, model as model_lib  # noqa: E402
+from repro_torch.train import checkpoint, trainer as trainer_lib  # noqa: E402
 
 TIMEOUT = datetime.timedelta(seconds=60)     # each collective's
 DEADLINE_S = 150                             # each run's
@@ -196,6 +204,226 @@ def collective_ops(rank, world, _arg):
             "gathered": collectives.gather_rows(rows, group)}
 
 
+# LM training on a mesh: reduced qwen1.5-0.5b (AdamW) and reduced dbrx-132b
+# (Adafactor, 2 microbatches); 8 sequences of 16 tokens, 3 steps after a
+# warmup of one (the learning rates 0, peak and about half of it, so the
+# parameters move far past the tests' tolerance).  dbrx's capacity factor
+# of 2 gives every expert room for all 32 tokens of a data rank's
+# microbatch, so neither the unsharded capacity nor the sharded one drops
+# a token and the two runs compute the same function
+LM_ARCHS = {"qwen1.5-0.5b": {}, "dbrx-132b": {"microbatches": 2,
+                                              "capacity_factor": 2.0}}
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 16, 3
+LM_TRAIN = dict(total_steps=LM_STEPS, warmup_steps=1)
+
+
+def lm_cfg(arch):
+    return reduce_config(get_config(arch), **LM_ARCHS[arch])
+
+
+def _lm_run(arch, mesh, ckpt_dir=""):
+    """``LM_STEPS`` trainer steps of ``arch`` on ``mesh`` (None: one
+    process): each step's metrics, the whole final state (gathered; every
+    rank calls) and the bytes of this rank's parameter and state blocks
+    against the whole's."""
+    cfg = lm_cfg(arch)
+    tc = trainer_lib.TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=2,
+                                   log_every=1, **LM_TRAIN)
+    tr = trainer_lib.Trainer(cfg, tc, mesh=mesh, device="cpu",
+                             log_fn=lambda *a, **k: None)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=LM_SEQ,
+                                  global_batch=LM_BATCH,
+                                  microbatches=cfg.microbatches),
+                       mesh=mesh, device="cpu")
+    st = tr.init_state(seed=0)
+    # copies: a float32 leaf's numpy form shares the tensor's memory,
+    # which the steps update in place
+    init = {k: np.array(checkpoint._to_numpy(v)) for k, v in
+            checkpoint._flatten(trainer_lib.tree(st)).items()
+            } if mesh is None else None
+    metrics = []
+    for i in range(LM_STEPS):
+        st, m = tr._step_fn(st, data.batch(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if ckpt_dir and i + 1 == 2:
+            checkpoint.save(ckpt_dir, i + 1, trainer_lib.tree(st),
+                            **tr._sharded(st))
+    flat = checkpoint._flatten(trainer_lib.tree(st))
+    specs = trainer_lib.tree_specs(st) if mesh is not None else {}
+    size = lambda xs: sum(x.numel() * x.element_size() for x in
+                          (xs if isinstance(xs, list) else [xs]))
+    whole = {k: checkpoint._whole(v, specs.get(k), mesh) if mesh is not None
+             else v for k, v in flat.items()}
+    compute = (st["params"].compute_tensors() if mesh is not None
+               else list(st["params"].parameters()))
+    # every storage this rank keeps between steps, each once: the tensors
+    # it computes with, its blocks and its optimizer state
+    held = {}
+    for x in compute + [x for v in flat.values() for x in
+                        (v if isinstance(v, list) else [v])]:
+        held[x.untyped_storage().data_ptr()] = x.untyped_storage().nbytes()
+    out = {"metrics": metrics, "block_bytes": {k: size(v) for k, v in
+                                                flat.items()},
+           "whole_bytes": {k: size(v) for k, v in whole.items()},
+           "compute_bytes": size(compute), "held_bytes": sum(held.values()),
+           "specs": specs, "init": init}
+    if mesh is None or dist_rank() == 0:
+        out["state"] = {k: checkpoint._to_numpy(v) for k, v in whole.items()}
+    return out
+
+
+def dist_rank():
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def _serve(arch, mesh, policy):
+    """A 4 x 8 prefill and two decode steps of reduced ``arch`` (serving
+    weights, seed 1), under ``policy`` on this rank's rows."""
+    cfg = lm_cfg(arch)
+    model = model_lib.init_params(cfg, seed=1, device="cpu")
+    params = (model_io.ShardedLM(model, cfg, mesh, train=False)
+              if mesh is not None else model)
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 8)),
+                           dtype=torch.int32)
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4)),
+                          dtype=torch.int32)
+    if mesh is not None:
+        spec = sharding.data_spec(mesh, 4, 2)
+        toks = sharding.local_shard(toks, spec, mesh).contiguous()
+        nxt = sharding.local_shard(nxt, (None,) + spec[:1], mesh).contiguous()
+    prefill = steps.make_prefill_step(cfg, 16, policy)
+    decode = steps.make_decode_step(cfg, policy)
+    logits, cache = prefill(params, toks)
+    out = [logits]
+    for t in nxt:
+        logits, cache = decode(params, cache, t)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def moe_dp_inputs():
+    """Reduced dbrx's MoE in float32 with a capacity factor of 0.5, so
+    assignments drop: its weights (taking gradients), 64 tokens and the
+    (64, d) weights of a test loss ``(y * c).sum() + 3 * aux``."""
+    from repro_torch.models import moe
+
+    cfg = reduce_config(get_config("dbrx-132b"), capacity_factor=0.5)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    g = torch.Generator().manual_seed(5)
+    new = lambda *shape: torch.randn(shape, generator=g).requires_grad_(True)
+    p = types.SimpleNamespace(router=new(d, e), w_gate=new(e, d, f),
+                              w_up=new(e, d, f), w_down=new(e, f, d))
+    return cfg, p, torch.randn(64, d, generator=g), torch.randn(64, d,
+                                                                generator=g)
+
+
+def moe_dp_grads(y, aux, c, p, x):
+    """The test loss's gradients: x's, then the router's and experts'."""
+    return torch.autograd.grad((y * c).sum() + 3 * aux,
+                               [x, p.router, p.w_gate, p.w_up, p.w_down])
+
+
+def _moe_data_parallel(mesh):
+    """``moe_dp_inputs``' MoE through ``_moe_data_parallel`` on this data
+    rank's rows: served, and trained (output, aux, the gradients)."""
+    from repro_torch.models import moe
+
+    cfg, p, x, c = moe_dp_inputs()
+    i, n = sharding.block_index(mesh, sharding.data_axes(mesh))
+    t = x.shape[0] // n
+    rows, c = x[i * t:(i + 1) * t].clone(), c[i * t:(i + 1) * t]
+    with torch.no_grad():
+        serve, serve_aux = moe._moe_data_parallel(p, rows, cfg, mesh)
+    rows.requires_grad_(True)
+    y, aux = moe._moe_data_parallel(p, rows, cfg, mesh, train=True)
+    return {"serve": serve, "serve_aux": serve_aux, "y": y.detach(),
+            "aux": aux.detach(), "grads": moe_dp_grads(y, aux, c, p, rows)}
+
+
+def lm_mesh(rank, world, out_dir):
+    """LM training on ``make_host_mesh(2, 2)`` and ``(4, 1)`` for both
+    archs (qwen's 2 x 2 run also checkpoints step 2 under
+    ``out_dir/ckpt22``),
+    and reduced dbrx served under a 2 x 2 policy; rank 0 also runs all of
+    it in one process."""
+    out = {}
+    for shape in ((2, 2), (4, 1)):
+        mesh = mesh_lib.make_host_mesh(*shape)
+        out[f"coord{shape}"] = tuple(sharding.axis_index(mesh, a)
+                                     for a in ("data", "model"))
+        for arch in LM_ARCHS:
+            ckpt = (os.path.join(out_dir, "ckpt22")
+                    if shape == (2, 2) and arch == "qwen1.5-0.5b" else "")
+            out[f"{arch} {shape}"] = _lm_run(arch, mesh, ckpt)
+        if shape == (4, 1):
+            out["moe data parallel"] = _moe_data_parallel(mesh)
+    mesh = mesh_lib.make_host_mesh(2, 2)
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    collectives.BYTES.clear()
+    out["serve"] = _serve("dbrx-132b", mesh, policy)
+    out["serve bytes"] = dict(collectives.BYTES)
+    if rank == 0:
+        for arch in LM_ARCHS:
+            out[f"{arch} plain"] = _lm_run(arch, None)
+        out["serve plain"] = _serve("dbrx-132b", None, None)
+        # dbrx alone with the load-balancing loss of each half of a
+        # microbatch's tokens averaged: the 2 x 2 mesh's, whose aux is
+        # each data rank's averaged over ``data`` (the reference's pmean)
+        with data_rank_aux(2):
+            out["dbrx-132b plain data-rank aux"] = _lm_run("dbrx-132b", None)
+    return out
+
+
+@contextlib.contextmanager
+def data_rank_aux(n_data):
+    """The MoE's load-balancing loss as the mean of the losses of
+    ``n_data`` equal, consecutive blocks of its tokens: a data rank's
+    rows of a microbatch are such a block."""
+    from repro_torch.models import moe
+
+    real = moe._aux_loss
+
+    def aux(probs, ids, e):
+        t = probs.shape[0] // n_data
+        parts = [real(probs[j * t:(j + 1) * t], ids[j * t:(j + 1) * t], e)
+                 for j in range(n_data)]
+        return sum(parts[1:], parts[0]) / n_data
+
+    moe._aux_loss = aux
+    try:
+        yield
+    finally:
+        moe._aux_loss = real
+
+
+def lm_cli(rank, world, out_dir):
+    """``launch/train.py --data-parallel 2`` on reduced qwen in this world
+    (its parameters gathered whole; checkpoints under ``out_dir/cli_ckpt``),
+    ``--production-mesh`` refused; rank 0 also runs the CLI without a
+    mesh."""
+    argv = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+            "--steps", "2", "--global-batch", "4", "--seq-len", "16"]
+    logs = []
+    state, trainer = train.train_lm_main(train.parser().parse_args(
+        argv + ["--data-parallel", "2", "--ckpt-dir",
+                os.path.join(out_dir, "cli_ckpt")]), log_fn=logs.append)
+    out = {"params": model_io.sharded_params_to_numpy(state["params"]),
+           "logs": logs, "mesh": str(trainer.mesh)}
+    try:
+        train.main(argv + ["--production-mesh"])
+    except ValueError as e:
+        out["production"] = str(e)
+    if rank == 0:
+        plain, _ = train.main(argv)
+        out["plain"] = {k: checkpoint._to_numpy(v) for k, v in
+                        model_io.reference_groups(plain["params"],
+                                                  lm_cfg("qwen1.5-0.5b")
+                                                  ).items()}
+    return out
+
+
 def _copies(tree):
     """Every tensor of ``tree`` in storage of its own (``torch.save`` refuses
     views of one buffer in two dtypes)."""
@@ -209,7 +437,8 @@ def _copies(tree):
 
 
 CASES = {"iteration": iteration, "shard_engine": shard_engine, "cli": cli,
-         "collectives": collective_ops, "shard_env": shard_env}
+         "collectives": collective_ops, "shard_env": shard_env,
+         "lm_mesh": lm_mesh, "lm_cli": lm_cli}
 
 
 def run_world(case, world, tmp_path, arg=None):
