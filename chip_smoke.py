@@ -3,8 +3,11 @@ NVIDIA GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py predictor lm_train shard_engine lm_mesh  # alone
+    python3 chip_smoke.py lm_encdec flash decode_attn             # alone
 
-With phase names it runs those phases alone, checks no kernel, prints no
+With phase names (``predictor``, ``lm_train``, ``shard_engine``,
+``lm_mesh``, ``lm_encdec``, ``flash``, ``decode_attn``) it runs those
+phases alone, checks no kernel, prints no
 kernels line, and its last line is ``{"ok": null, "partial": [...]}``:
 only a run with no argument ends with ``{"ok": true, ...}``.
 
@@ -45,7 +48,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   5. flash    — the flash-attention kernel (B2) against its plain version:
                 each expert's full-width heads at S=16 and 128, danube's
                 heads at S=1,024 under a binding window of 256, starcoder2's
-                at S=4,096 causal; bf16 within 2e-2 and float32 within 2e-5
+                at S=4,096 causal, and whisper-medium's unmasked (4 x 16/16
+                x 64: Sq = Skv = 1,500, and Sq = 448 over Skv = 1,500);
+                bf16 within 2e-2 and float32 within 2e-5
                 (max abs), and against the kernel's tile algorithm in plain
                 PyTorch (``attention_tiled_ref``: bf16 within one rounding
                 step of the output, float32 2e-5).  Times the kernel, the
@@ -58,7 +63,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 version of each mask: under ``lengths``, the full-attention
                 experts' heads (qwen, starcoder2, dbrx), 4 sequences of
                 ragged lengths over the serving cache (S=192, read in its
-                (B, S, KV, dh) layout) and starcoder2's over S=4,096; under
+                (B, S, KV, dh) layout), starcoder2's over S=4,096 and
+                whisper-medium's (16/16 x 64) over S=1,500; under
                 ``kv_pos``, danube's heads on its serving ring (S=192) and
                 recurrentgemma's (10/1 x 256) on its window of 2,048, rings
                 that have wrapped; bf16 2e-2, float32 2e-5, and against the
@@ -268,15 +274,49 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 the policy through the kernels against their plain
                 versions (the plain run replays the kernel run's expert
                 routing), as in 8.
- 21. kernels  — the kernel table line; each kernel's launches are those of
-                the counted main paths (3 and 13-17 for B1, 8, 9, 12 and
-                20 for the others), calls of its wrapper; B5's and B6's
+ 21. lm_encdec — whisper-medium at its published widths and depth in bf16
+                (24 + 24 layers, 814,190,592 parameters, random weights from
+                seed 0), through ``launch/steps.py``: 4 streams of 1,500
+                random frame embeddings (the conv stem is a stub, as in the
+                reference) prefilled into caches of max_len 1,500 (1.18
+                GB), the step's eager first call against its replay
+                (bit-equal caches); 32 greedy decodes from
+                <|startoftranscript|> replayed from a CUDA graph against
+                the same run eagerly on a copy (bit-equal logits and
+                caches; each step timed); the teacher-forced ``forward`` on
+                the decoded tokens within 2^-4 of its largest logit of the
+                decode's (``LOGIT_REL_TOL``).  Counted from 0: B2 24 per
+                prefill and 72 per forward (the encoder's 24 unmasked, the
+                decoder's 24 causal and 24 cross), B3 48 per decode step
+                (self and cross, both under ``lengths``).  Then the
+                prefill's cross cache, one decode step from it and the
+                teacher-forced forward through the kernels against the
+                same calls through their plain versions, each within 2^-4
+                of the plain result's largest value, the greedy token the
+                same wherever the plain top-2 margin exceeds twice the
+                difference (this covers the forward's B2 shapes, 32 x
+                1,500 unmasked and 32 x 32 causal).  Then prefills
+                graphed and eager and the forward timed, and profiled
+                windows of a prefill and of 8 decode steps (the traces
+                must hold B2's and B3's launches).  Training:
+                ``make_train_step`` with AdamW (``cfg.remat``: each layer
+                recomputed in the backward) on 4 x 1,500 frames and 4 x
+                128 tokens, 3 steps graphed against 3 eager from the same
+                weights (every parameter, moment and loss bit-equal); ms a
+                step, peak memory, and the forward, backward and AdamW
+                each captured alone.
+ 22. kernels  — the kernel table line; each kernel's launches are those of
+                the counted main paths (3 and 13-17 for B1, 8, 9, 12, 20
+                and 21 for the others), calls of its wrapper; B5's and B6's
                 entries name the kernels a call launches (``functions``)
                 and count them (``kernels_launched``: calls times kernels
                 per call).
 
 The phases run in the order 1, 10 and 11's per-pass traces (one profiler
-session), 2-9, 12, 10, 11, 13-20.  Every kernel library is built and loaded
+session), 2-9, 12, 21's serving, 10, 11, 13-20, 21's training: every
+profiled LM window comes before the first backward pass (whisper's
+prefill window, taken after the training phases, lost one B2 record in
+each of three takes; taken before them it held every record).  Every kernel library is built and loaded
 before the first profiler session: on this card a library loaded after
 the tracer first started makes later sessions miss kernel records.  A ``seconds`` line gives each phase's time
 and the total.  The last line
@@ -1662,19 +1702,20 @@ def step_rates(step_s, tokens, n_params) -> dict:
             "model_flops_share": 6 * n_params * tokens / s / BF16_OPS_PER_S}
 
 
-def train_step_layers(state, cfg, dev) -> dict:
+def train_step_layers(state, cfg, dev, batch=None) -> dict:
     """A training step's parts, each captured alone and replayed (device
     ms by CUDA events, median of 10): the forward and loss; forward, loss
     and backward; the optimizer's update on those gradients (it moves the
-    state: call last)."""
+    state: call last).  ``batch`` defaults to 8 x 128 ``SyntheticLM``
+    tokens."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.graphs import capture
     from repro_torch.models import model as model_lib
 
     params, opt = state["params"], state["opt"]
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
-                                  global_batch=8), device=dev)
-    batch = data.batch(0)
+    if batch is None:
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                       global_batch=8), device=dev).batch(0)
 
     def forward():
         with torch.no_grad():
@@ -2115,6 +2156,11 @@ FLASH_CASES = [
     ("starcoder2-15b", 48, 4, 128, 16, 0), ("starcoder2-15b", 48, 4, 128, 128, 0),
     ("h2o-danube-3-4b", 32, 8, 120, 1024, 256),
     ("starcoder2-15b", 48, 4, 128, 4096, 0)]
+# (label, B, H, KV, dh, Sq, Skv): whisper-medium's unmasked calls, G = 1:
+# the encoder's self-attention over 1,500 frames, and cross-attention from
+# the 448 tokens of its text context over them
+WHISPER_FLASH_CASES = [("whisper-medium", 4, 16, 16, 64, 1500, 1500),
+                       ("whisper-medium", 4, 16, 16, 64, 448, 1500)]
 LINE_CASE = ("starcoder2-15b", 128, "bfloat16")   # the kernels line's row
 
 
@@ -2127,12 +2173,12 @@ def visible_pairs(s: int, window: int) -> int:
     return int(seen.sum())
 
 
-def sdpa(q, k, v, window):
+def sdpa(q, k, v, window, causal=True):
     """PyTorch's fused attention on the same inputs: the yardstick, never
     called by the port."""
     import torch.nn.functional as F
     if window <= 0:
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
     s = q.shape[2]
     i = torch.arange(s, device=q.device)
@@ -2157,41 +2203,48 @@ def flash_phase(dev):
                                                     attention_tiled_ref)
 
     rows = []
-    for label, h, kv, dh, s, window in FLASH_CASES:
-        gen = torch.Generator(device=dev).manual_seed(s * h + dh)
+    # (label, B, H, KV, dh, Sq, Skv, window, causal)
+    cases = ([(label, 1, h, kv, dh, s, s, window, True)
+              for label, h, kv, dh, s, window in FLASH_CASES]
+             + [(label, b, h, kv, dh, sq, skv, 0, False)
+                for label, b, h, kv, dh, sq, skv in WHISPER_FLASH_CASES])
+    for label, b, h, kv, dh, s, skv, window, causal in cases:
+        gen = torch.Generator(device=dev).manual_seed(s * h + dh + skv - s)
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (torch.randn((1, n, s, dh), generator=gen,
+            q, k, v = (torch.randn((b, n, m, dh), generator=gen,
                                    device=dev).to(dtype)
-                       for n in (h, kv, kv))
-            got = ops.flash_attn(q, k, v, causal=True, window=window)
-            ref = attention_ref(q, k, v, causal=True, window=window)
-            tiled = attention_tiled_ref(q, k, v, causal=True, window=window)
+                       for n, m in ((h, s), (kv, skv), (kv, skv)))
+            kw = dict(causal=causal, window=window)
+            got = ops.flash_attn(q, k, v, **kw)
+            ref = attention_ref(q, k, v, **kw)
+            tiled = attention_tiled_ref(q, k, v, **kw)
             torch.cuda.synchronize()
             err = float((got.float() - ref.float()).abs().max())
             tiled_err = float((got.float() - tiled.float()).abs().max())
             tiled_share = over_tiled(got, tiled, dtype)
+            case = f"{label} Sq={s} Skv={skv} window={window} causal={causal}"
             if not err <= FLASH_TOL[dtype]:
-                raise AssertionError(f"flash_attn {label} S={s} window={window} "
-                                     f"{dtype}: max abs error {err}")
+                raise AssertionError(f"flash_attn {case} {dtype}: max abs "
+                                     f"error {err}")
             if not tiled_share <= 1.0:
-                raise AssertionError(f"flash_attn {label} S={s} window={window} "
-                                     f"{dtype}: {tiled_share} of the tolerance "
+                raise AssertionError(f"flash_attn {case} {dtype}: "
+                                     f"{tiled_share} of the tolerance "
                                      f"against the tile algorithm")
-            lib = sdpa(q, k, v, window)
+            lib = sdpa(q, k, v, window, causal)
             lib_err = float((lib.float() - ref.float()).abs().max())
-            reps = 5 if s >= 1024 else 20
+            reps = 5 if max(s, skv) >= 1024 else 20
             nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-            flops = 4 * h * dh * visible_pairs(s, window)
+            pairs = visible_pairs(s, window) if causal else s * skv
+            flops = 4 * b * h * dh * pairs
             rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / rate * 1e3
-            fns = {"": lambda: ops.flash_attn(q, k, v, causal=True,
-                                              window=window),
-                   "plain_": lambda: attention_ref(q, k, v, causal=True,
-                                                   window=window),
-                   "library_": lambda: sdpa(q, k, v, window)}
-            row = {"phase": "flash", "expert_heads": label, "H": h, "KV": kv,
-                   "dh": dh, "S": s, "window": window,
+            fns = {"": lambda: ops.flash_attn(q, k, v, **kw),
+                   "plain_": lambda: attention_ref(q, k, v, **kw),
+                   "library_": lambda: sdpa(q, k, v, window, causal)}
+            row = {"phase": "flash", "expert_heads": label, "B": b, "H": h,
+                   "KV": kv, "dh": dh, "S": s, "Skv": skv, "causal": causal,
+                   "window": window,
                    "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                    "tol": FLASH_TOL[dtype], "tiled_max_abs_err": tiled_err,
                    "tiled_share_of_tol": tiled_share,
@@ -2218,13 +2271,15 @@ def flash_phase(dev):
 
 # (label, H, KV, dh, S, mask): the full-attention experts' heads at the
 # serving cache (4 slots x 192 positions), starcoder2's over a long cache,
-# danube's on its serving ring and recurrentgemma's on its window
+# danube's on its serving ring, recurrentgemma's on its window, and
+# whisper-medium's (G = 1) over its cache of 1,500 slots
 DECODE_CASES = [("qwen1.5-0.5b", 16, 16, 64, 192, "lengths"),
                 ("starcoder2-15b", 48, 4, 128, 192, "lengths"),
                 ("dbrx-132b", 48, 8, 128, 192, "lengths"),
                 ("h2o-danube-3-4b", 32, 8, 120, 192, "kv_pos"),
                 ("recurrentgemma-2b", 10, 1, 256, 2048, "kv_pos"),
-                ("starcoder2-15b", 48, 4, 128, 4096, "lengths")]
+                ("starcoder2-15b", 48, 4, 128, 4096, "lengths"),
+                ("whisper-medium", 16, 16, 64, 1500, "lengths")]
 DECODE_LINE_CASE = ("dbrx-132b", 192, "bfloat16")   # the kernels line's row
 
 
@@ -2510,10 +2565,12 @@ def plain_kernels():
     from repro_torch.kernels.flash_attn.ref import attention_ref
     from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, grouped_swiglu_ref
     from repro_torch.kernels.rwkv6_scan.ref import wkv_chunked_ref
-    from repro_torch.models import moe, rglru, rwkv6, transformer
+    from repro_torch.models import encdec, moe, rglru, rwkv6, transformer
 
     swaps = [(transformer, "flash_attn", attention_ref),
              (transformer, "decode_attn", decode_attn_plain),
+             (encdec, "flash_attn", attention_ref),
+             (encdec, "decode_attn", decode_attn_plain),
              (rglru, "decode_attn", decode_attn_plain),
              (moe, "expert_swiglu", grouped_swiglu_ref),
              (moe, "expert_gemm", grouped_gemm_ref),
@@ -3712,6 +3769,278 @@ def lm_recurrent_phase(dev):
     return got, kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the enc-dec family (whisper-medium) at full width
+# ---------------------------------------------------------------------------
+
+ENCDEC_STREAMS = 4
+ENCDEC_FRAMES = 1500        # Whisper's 30 s window after the conv stem
+ENCDEC_DECODES = 32
+ENCDEC_TRAIN_TOKENS = 128
+ENCDEC_TRAIN_STEPS = 3
+WHISPER_PARAMS = 814_190_592
+WHISPER_SOT = 50258         # <|startoftranscript|>, the decoder's first token
+
+
+def spread_ms(times) -> dict:
+    ms = np.asarray(times) * 1e3
+    return {"min_ms": float(ms.min()), "median_ms": float(np.median(ms)),
+            "max_ms": float(ms.max())}
+
+
+def encdec_window(label, run, n, expected) -> None:
+    """``run()`` (``n`` replayed prefills or decode steps) timed, then
+    under torch.profiler (``profiled``): per call the wall ms, the
+    device's busy ms, its idle share against the unprofiled wall time, the
+    kernels, and B2's and B3's launches and ms (``traced``)."""
+    t = synced()
+    run()
+    wall_ms = (synced() - t) * 1e3 / n
+    _, kernels, takes = profiled(run, expected, label)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    row = {"phase": "lm_encdec", "check": "window", "window": label,
+           "calls": n, "wall_ms_per_call": wall_ms,
+           "device_busy_ms_per_call": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "kernels_per_call": len(kernels) / n, "trace_takes": takes}
+    traced(row, kernels, expected)
+    emit(row)
+
+
+def encdec_plain_vs_kernel(params, cfg, frames, fed, sot) -> None:
+    """The prefill's cross cache, one decode step from it and the
+    teacher-forced forward on ``fed``, through the kernels and through
+    their plain versions, same weights and inputs (module docstring)."""
+    from repro_torch.models import model as model_lib
+
+    def run():
+        with torch.no_grad():
+            cache = model_lib.prefill(params, cfg, {"frames": frames},
+                                      ENCDEC_FRAMES)
+            cross = {k: cache[k].clone() for k in ("cross_k", "cross_v")}
+            dec, _ = model_lib.decode_step(params, cfg, cache, sot)
+            del cache
+            tf, _ = model_lib.forward(params, cfg, {"frames": frames,
+                                                    "tokens": fed})
+        return {**cross, "decode": dec[:, :cfg.vocab],
+                "forward": tf[..., :cfg.vocab]}
+
+    got = run()
+    with plain_kernels():
+        ref = run()
+    for k, plain in ref.items():
+        a, b = got[k].float(), plain.float()
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        row = {"phase": "lm_encdec", "check": f"{k}_kernels_vs_plain",
+               "shape": list(b.shape), "max_abs_diff": err,
+               "max_abs_plain": scale, "tol": LOGIT_REL_TOL * scale,
+               "finite": bool(torch.isfinite(a).all())}
+        if k in ("decode", "forward"):
+            top2 = torch.topk(b, 2, dim=-1).values
+            sure = (top2[..., 0] - top2[..., 1]) > 2 * err
+            same = a.argmax(-1) == b.argmax(-1)
+            row.update(greedy_agreement=float(same.float().mean()),
+                       greedy_checked=int(sure.sum()),
+                       greedy_differs_where_sure=int((sure & ~same).sum()))
+        emit(row)
+        assert row["finite"], row
+        assert err <= LOGIT_REL_TOL * scale, row
+        assert row.get("greedy_differs_where_sure", 0) == 0, row
+    del got, ref
+    free_cuda()
+
+
+def encdec_serve(params, cfg, dev) -> dict:
+    """Prefill (eager first call and its graph's replay, bit-equal), 32
+    greedy decodes graphed and eager (bit-equal logits and caches), and
+    the teacher-forced forward on the decoded tokens against the decode's
+    logits; returns the launch counts of that run (module docstring).
+    Then ``encdec_plain_vs_kernel``, the prefill's, the eager prefill's
+    and the forward's times, and a
+    profiled window of a prefill and of 8 decode steps, graphed."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+
+    b, s = ENCDEC_STREAMS, ENCDEC_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((b, s, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    prefill = steps.make_prefill_step(cfg, s)
+    reset_counters()
+    t = synced()
+    eager_cache = prefill(params, {"frames": frames})   # eager, the capture
+    first_s = synced() - t
+    per_prefill = counters()["flash_attn"]
+    cache = prefill(params, {"frames": frames})          # a replay
+    assert counters()["flash_attn"] == 2 * per_prefill == 2 * cfg.n_enc_layers
+    for k in cache:
+        assert torch.equal(cache[k], eager_cache[k]), k
+    cache_bytes = sum(x.numel() * x.element_size() for x in cache.values())
+    del eager_cache
+
+    sot = torch.full((b,), WHISPER_SOT, dtype=torch.int32, device=dev)
+    decode = steps.make_decode_step(cfg)
+    eager = lambda p, c, tok: model_lib.decode_step(p, cfg, c, tok)
+    runs = {}
+    for name, fn, c in (("eager", eager, steps.clone_cache(cache)),
+                        ("graphed", decode, cache)):
+        seen, carry = [], {"cache": c, "tok": sot}
+
+        def one(_, fn=fn, seen=seen, carry=carry):
+            logits, carry["cache"] = fn(params, carry["cache"], carry["tok"])
+            seen.append(logits)
+            carry["tok"] = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+
+        before = counters()["decode_attn"]
+        times = timed_iterations(one, 0, ENCDEC_DECODES)
+        assert (counters()["decode_attn"] - before
+                == ENCDEC_DECODES * 2 * cfg.n_layers), name
+        runs[name] = (torch.stack(seen, 1), carry["cache"], times)
+    (ge, gc, g_times), (ee, ec, e_times) = runs["graphed"], runs["eager"]
+    assert torch.equal(ge, ee)
+    for k in gc:
+        assert torch.equal(gc[k], ec[k]), k
+    assert int(gc["pos"]) == ENCDEC_DECODES
+    fed = torch.cat([sot[:, None], ge[:, :-1, :cfg.vocab].argmax(-1).to(
+        torch.int32)], 1)
+    before = counters()["flash_attn"]
+    with torch.no_grad():
+        tf, _ = model_lib.forward(params, cfg, {"frames": frames,
+                                                "tokens": fed})
+    per_forward = counters()["flash_attn"] - before
+    assert per_forward == cfg.n_enc_layers + 2 * cfg.n_layers
+    got = counters()
+    real = slice(0, cfg.vocab)
+    err = float((ge[..., real].float() - tf[..., real].float()).abs().max())
+    scale = float(tf[..., real].float().abs().max())
+    agree = float((ge[..., real].argmax(-1) == tf[..., real].argmax(-1))
+                  .float().mean())
+    emit({"phase": "lm_encdec", "check": "serve", "streams": b, "frames": s,
+          "max_len": s, "cache_bytes": cache_bytes,
+          "prefill_first_call_s": first_s,
+          "flash_per_prefill": per_prefill, "flash_per_forward": per_forward,
+          "decode_attn_per_decode": 2 * cfg.n_layers,
+          "decodes": ENCDEC_DECODES, "graphed_equals_eager": True,
+          "decode_graphed": spread_ms(g_times),
+          "decode_eager": spread_ms(e_times),
+          "teacher_forced_max_abs_err": err, "largest_logit": scale,
+          "tol": LOGIT_REL_TOL * scale, "greedy_agreement": agree})
+    if not err <= LOGIT_REL_TOL * scale:
+        raise AssertionError(f"whisper decode vs teacher-forced forward: "
+                             f"{err} above {LOGIT_REL_TOL} x {scale}")
+    del runs, ge, ee, ec, tf, cache
+    # outside the counted run: the kernels against their plain versions,
+    # times, and where they go
+    encdec_plain_vs_kernel(params, cfg, frames, fed, sot)
+    timing = {"prefill_graphed_ms": cuda_ms(
+        lambda: prefill(params, {"frames": frames}), 5),
+        "prefill_eager_ms": cuda_ms(lambda: model_lib.prefill(
+            params, cfg, {"frames": frames}, s), 5),
+        "forward_ms": cuda_ms(lambda: model_lib.forward(
+            params, cfg, {"frames": frames, "tokens": fed}), 5)}
+    emit({"phase": "lm_encdec", "check": "serve_times", **timing})
+    encdec_window("prefill", lambda: prefill(params, {"frames": frames}), 1,
+                  {"b2": cfg.n_enc_layers, "b3": 0})
+    n_dec = 8
+
+    def decodes():
+        for _ in range(n_dec):                   # the step's own cache
+            decode(params, gc, sot)
+
+    encdec_window("decode", decodes, n_dec,
+                  {"b2": 0, "b3": n_dec * 2 * cfg.n_layers})
+    del prefill, decode, gc
+    free_cuda()
+    return got
+
+
+def encdec_train(cfg, dev) -> dict:
+    """``make_train_step`` with AdamW on 4 x 1,500 frames and 4 x 128
+    tokens: 3 steps graphed against 3 eager from the same weights, every
+    parameter and state tensor bit-equal; ms a step and peak memory; the
+    step's parts each captured alone (``train_step_layers``)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b = ENCDEC_STREAMS
+    batch = {"frames": torch.randn((b, ENCDEC_FRAMES, cfg.d_model),
+                                   generator=gen, device=dev).to(
+                                       torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab, (b, ENCDEC_TRAIN_TOKENS),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    twins = {}
+    for name, graphs in (("eager", False), ("graphed", True)):
+        torch.cuda.reset_peak_memory_stats()
+        params = model_lib.init_params(cfg, seed=0, device=dev)
+        opt = opt_lib.make_optimizer("adamw", peak_lr=3e-4, warmup_steps=0,
+                                     total_steps=ENCDEC_TRAIN_STEPS)
+        st = steps.train_state(cfg, params, opt)
+        step = steps.make_train_step(cfg, graphs=graphs)
+        losses = []
+
+        def one(_, st=st, step=step, losses=losses):
+            _, m = step(st, batch)                  # updates st in place
+            losses.append(float(m["loss"]))
+
+        times = timed_iterations(one, 0, ENCDEC_TRAIN_STEPS)
+        twins[name] = {"state": st, "step_s": times, "losses": losses,
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()}
+    assert twins["graphed"]["losses"] == twins["eager"]["losses"]
+    assert all(np.isfinite(twins["graphed"]["losses"]))
+    assert same_train_state(twins["graphed"]["state"],
+                            twins["eager"]["state"])
+    del twins["eager"]["state"]
+    free_cuda()
+    out = {"phase": "lm_encdec", "check": "train", "optimizer": "adamw",
+           "remat": cfg.remat, "batch": b, "frames": ENCDEC_FRAMES,
+           "tokens": ENCDEC_TRAIN_TOKENS,
+           "graphed_equals_eager_steps": ENCDEC_TRAIN_STEPS,
+           "layers_ms": train_step_layers(twins["graphed"]["state"], cfg,
+                                          dev, batch)}
+    for name, tw in twins.items():
+        out[name] = {"step_s": tw["step_s"], "losses": tw["losses"],
+                     "ms_per_step": float(np.median(tw["step_s"][1:])) * 1e3,
+                     "max_memory_allocated": tw["max_memory_allocated"]}
+    emit(out)
+    del twins
+    free_cuda()
+    return out
+
+
+def encdec_serve_phase(dev) -> dict:
+    """whisper-medium's serving half (module docstring); returns its
+    counted run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("whisper-medium")
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    assert model_lib.count_params(params) == WHISPER_PARAMS
+    got = encdec_serve(params, cfg, dev)
+    del params
+    free_cuda()
+    return got
+
+
+def encdec_train_phase(dev) -> None:
+    from repro_torch.configs import get_config
+
+    encdec_train(get_config("whisper-medium"), dev)
+
+
+def lm_encdec_phase(dev) -> dict:
+    """whisper-medium at its published widths in bf16 (module docstring):
+    serving, then training; returns the serving run's launch counts."""
+    got = encdec_serve_phase(dev)
+    encdec_train_phase(dev)
+    return got
+
+
 def kernel_line(name, source, replaces, launches, row, library_ms):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
@@ -3726,7 +4055,9 @@ def only_phases(names, dev, timed) -> None:
     from repro_torch.launch import mesh as mesh_lib
 
     known = {"predictor": predictor_phase, "lm_train": lm_train_phase,
-             "shard_engine": shard_engine_runs, "lm_mesh": lm_mesh_phase}
+             "shard_engine": shard_engine_runs, "lm_mesh": lm_mesh_phase,
+             "lm_encdec": lm_encdec_phase, "flash": flash_phase,
+             "decode_attn": decode_attn_phase}
     for name in names:
         if name not in known:
             raise SystemExit(f"unknown phase {name!r}; known: {sorted(known)}")
@@ -3803,6 +4134,7 @@ def main() -> int:
     dense = timed("lm_serve", lm_serve_phase, dev)
     mixed = timed("lm_moe", lm_moe_phase, dev)
     recurrent, scan_kernels = timed("lm_recurrent", lm_recurrent_phase, dev)
+    whisper = timed("lm_encdec", encdec_serve_phase, dev)
     wkv = timed("rwkv6_scan", rwkv6_scan_phase, dev, passes)
     lru = timed("rglru_scan", rglru_scan_phase, dev, passes)
     # the training phases last: their graphs, backward passes and profiled
@@ -3818,9 +4150,11 @@ def main() -> int:
     timed("predictor", predictor_phase, dev)
     timed("lm_train", lm_train_phase, dev)
     on_mesh = timed("lm_mesh", lm_mesh_phase, dev)
+    timed("lm_encdec", encdec_train_phase, dev)
     emit({"phase": "seconds", **seconds,
           "total": time.perf_counter() - t0})
-    lm = {k: dense[k] + mixed[k] + recurrent[k] + on_mesh[k] for k in dense}
+    lm = {k: dense[k] + mixed[k] + recurrent[k] + on_mesh[k] + whisper[k]
+          for k in dense}
 
     flash_row = next(r for r in flash
                      if (r["expert_heads"], r["S"], r["dtype"]) == LINE_CASE)

@@ -1,14 +1,19 @@
 """Step functions over the unified model API (port of
-``repro/launch/steps.py``): the training step of the dense and MoE
-families, and the prefill and decode steps that serve the recurrent
-families, which ``ExpertServer`` does not, as the reference serves them.
+``repro/launch/steps.py``): the training step of the dense, MoE and
+enc-dec families, and the prefill and decode steps that serve the
+recurrent and enc-dec families, which ``ExpertServer`` does not, as the
+reference serves them.
 
     train_step = make_train_step(cfg, opt)
     state, metrics = train_step(state, batch)           # state: train_state
     prefill_step = make_prefill_step(cfg, max_len)
     logits, cache = prefill_step(params, tokens)        # tokens (B, T)
+    cache = prefill_step(params, {"frames": frames})    # enc-dec
     decode_step = make_decode_step(cfg)
     logits, cache = decode_step(params, cache, token)   # token (B,)
+
+A training batch is ``{"tokens"}``, and enc-dec's ``{"frames",
+"tokens"}``, as the reference's ``lm_loss`` reads them.
 
 On CUDA every step is a CUDA graph, as the reference jits them.  The
 training step's first call runs eagerly on a side stream (the warm-up a
@@ -16,18 +21,20 @@ backward needs before capture) and captures the step on a static copy of
 its batch; every later call copies the batch in and replays.  One step is
 ``model.lm_loss``'s gradient and the optimizer's update, in place on the
 parameters, the optimizer's state and its device step; with
-``cfg.microbatches = M > 1`` the batch is (M, B/M, S) and the step loops
-over the M slices inside the graph, summing their gradients in
+``cfg.microbatches = M > 1`` each of the batch's tensors has M slices on
+its leading dim ((M, B/M, S) tokens, (M, B/M, S_enc, d) frames) and the
+step loops over the M slices inside the graph, summing their gradients in
 ``cfg.grad_accum_dtype`` before dividing by M, and averages their
 metrics.  A replayed step is bit-equal to the same step run eagerly
 (``graphs=False``).
 
-The prefill step captures ``model.prefill`` once per (params, token
-shape) over a static token buffer: its first call for a shape runs the
-prefill eagerly (which makes what a capture cannot: loaded libraries,
-lazily made constants) and captures it, and every later call copies the
-prompt in and replays.  It returns copies of the graph's logits and
-cache, so no replay overwrites a cache a caller holds, and its captures
+The prefill step captures ``model.prefill`` once per (params, prompt
+shape) over a static buffer of the prompt (tokens, or enc-dec's frames):
+its first call for a shape runs the prefill eagerly (which makes what a
+capture cannot: loaded libraries, lazily made constants) and captures
+it, and every later call copies the prompt in and replays.  It returns
+copies of the graph's outputs (logits and cache, or enc-dec's cache
+alone), so no replay overwrites a cache a caller holds, and its captures
 share one memory pool (each replay's outputs are copied before the next
 replay).  A recurrent prompt cannot be padded to a bucket without
 changing its state, so each new length costs a capture; the step holds
@@ -56,7 +63,9 @@ blocks (``train_state`` builds it with the ``ShardedLM`` as its layout).
 The loss keeps the global normaliser (``model.lm_loss``).  Every
 collective runs inside the step's CUDA graph.  Splitting the dense
 compute over ``model`` (column- and row-parallel attention and MLP,
-vocab-parallel embedding and loss) is not done: ROADMAP queue A.  The
+vocab-parallel embedding and loss) is not done: ROADMAP queue A, and
+until it is, enc-dec's steps raise under a policy whose mesh holds more
+than one rank.  The
 spec functions (``param_specs`` through ``make_step``) are tooling,
 item 6.
 """
@@ -101,6 +110,11 @@ def _model(params):
     return params
 
 
+def _check_policy(cfg, policy) -> None:
+    if policy is not None:
+        model_io.refuse_encdec_mesh(cfg, policy.mesh)
+
+
 def _grads(loss, params) -> list:
     out = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
@@ -111,27 +125,28 @@ def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
     """The training step (module docstring): ``train_step(state, batch)``
     with ``state`` from ``train_state`` (whose optimizer it uses) and
     ``batch["tokens"]`` (B, S), or (M, B/M, S) with ``cfg.microbatches = M
-    > 1``; returns (the same state, updated in place, and the metrics
-    ``loss``, ``aux_loss``, ``perplexity``, ``grad_norm`` and ``lr`` as
-    device scalars that a later step does not overwrite).  Under
+    > 1`` (enc-dec's ``batch["frames"]`` likewise, (B, S_enc, d) or (M,
+    B/M, S_enc, d)); returns (the same state, updated in place, and the
+    metrics ``loss``, ``aux_loss``, ``perplexity``, ``grad_norm`` and
+    ``lr`` as device scalars that a later step does not overwrite).  Under
     ``policy`` the state's params are a ``ShardedLM`` and the batch this
-    rank's rows.  Its ``graphs`` maps (optimizer, batch shape) to (state,
-    batch buffer, ``StepGraph``) for each capture."""
+    rank's rows.  Its ``graphs`` maps (optimizer, batch shapes) to (state,
+    batch buffers, ``StepGraph``) for each capture."""
+    _check_policy(cfg, policy)
     M = max(1, cfg.microbatches)
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
 
-    def grad_one(model, wrt, tokens):
+    def grad_one(model, wrt, batch):
         with torch.enable_grad():
-            total, metrics = model_lib.lm_loss(model, cfg,
-                                               {"tokens": tokens})
+            total, metrics = model_lib.lm_loss(model, cfg, batch)
             grads = _grads(total, wrt)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
-    def body(state, tokens):
+    def body(state, batch):
         with use_mesh_policy(policy):
-            return _body(state, tokens)
+            return _body(state, batch)
 
-    def _body(state, tokens):
+    def _body(state, batch):
         params, opt = state["params"], state["opt"]
         sharded = isinstance(params, model_io.ShardedLM)
         if sharded != (policy is not None):
@@ -140,13 +155,14 @@ def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
         model = _model(params)
         wrt = params.compute_tensors() if sharded else opt.tensors()
         if M == 1:
-            grads, metrics = grad_one(model, wrt, tokens)
+            grads, metrics = grad_one(model, wrt, batch)
         else:
             acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
                    for p in wrt]
             ms = []
             for i in range(M):
-                g, m = grad_one(model, wrt, tokens[i])
+                g, m = grad_one(model, wrt,
+                                {k: x[i] for k, x in batch.items()})
                 for a, x in zip(acc, g):
                     a.add_(x.to(acc_dtype))
                 del g
@@ -165,18 +181,19 @@ def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
     held = {}
 
     def train_step(state, batch):
-        tokens = batch["tokens"]
-        if not (graphs and tokens.is_cuda):
-            return state, body(state, tokens)
-        key = (id(state["opt"]), tuple(tokens.shape))
+        if not (graphs and batch["tokens"].is_cuda):
+            return state, body(state, batch)
+        key = (id(state["opt"]),) + tuple(
+            (k, tuple(x.shape)) for k, x in sorted(batch.items()))
         if key not in held:
-            buf = tokens.clone()
+            buf = {k: x.clone() for k, x in batch.items()}
             fn = lambda: body(state, buf)
             graph, metrics = capture(fn)
             held[key] = (state, buf, graph)
             return state, metrics
         _, buf, graph = held[key]
-        buf.copy_(tokens)
+        for k, x in batch.items():
+            buf[k].copy_(x)
         out = graph.replay()
         return state, {k: v.clone() for k, v in out.items()}
 
@@ -185,11 +202,11 @@ def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
 
 
 def clone_cache(cache):
-    """A copy of a cache (dicts and lists of tensors)."""
+    """A copy of a cache (dicts, lists and tuples of tensors)."""
     if isinstance(cache, dict):
         return {k: clone_cache(x) for k, x in cache.items()}
-    if isinstance(cache, list):
-        return [clone_cache(x) for x in cache]
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(clone_cache(x) for x in cache)
     return cache.clone()
 
 
@@ -214,27 +231,30 @@ def _shapes(cache):
 
 
 def make_prefill_step(cfg, max_len: int, policy=None) -> Callable:
-    """The prefill step, under ``policy`` when given (module docstring);
-    its ``graphs`` maps each of the last ``MAX_PREFILL_GRAPHS`` token
-    shapes seen on CUDA, least recently used first, to (params, token
-    buffer, ``StepGraph``)."""
+    """The prefill step, under ``policy`` when given (module docstring):
+    ``prefill_step(params, batch)`` with tokens (B, T), or enc-dec's
+    ``{"frames": (B, S, d)}``.  Its ``graphs`` maps each of the last
+    ``MAX_PREFILL_GRAPHS`` prompt shapes seen on CUDA, least recently used
+    first, to (params, prompt buffer, ``StepGraph``)."""
+    _check_policy(cfg, policy)
     held = {}
     pool = []
 
-    def run(params, tokens):
+    def run(params, prompt):
         with use_mesh_policy(policy):
-            return model_lib.prefill(_model(params), cfg, tokens, max_len)
+            return model_lib.prefill(_model(params), cfg, prompt, max_len)
 
     def prefill_step(params, batch):
-        if batch.device.type != "cuda":
-            return run(params, batch)
-        key = (tuple(batch.shape), batch.dtype, batch.device)
+        prompt = batch["frames"] if isinstance(batch, dict) else batch
+        if prompt.device.type != "cuda":
+            return run(params, prompt)
+        key = (tuple(prompt.shape), prompt.dtype, prompt.device)
         entry = held.pop(key, None)
         if entry is None or entry[0] is not params:
-            out = run(params, batch)
+            out = run(params, prompt)
             if not pool:
                 pool.append(torch.cuda.graph_pool_handle())
-            buf = batch.clone()
+            buf = prompt.clone()
             graph = StepGraph(lambda: run(params, buf), pool=pool[0])
             held[key] = (params, buf, graph)
             while len(held) > MAX_PREFILL_GRAPHS:
@@ -242,10 +262,9 @@ def make_prefill_step(cfg, max_len: int, policy=None) -> Callable:
             return out
         held[key] = entry                               # now the most recent
         _, buf, graph = entry
-        buf.copy_(batch)
-        logits, cache = graph.replay()
+        buf.copy_(prompt)
         # copies: the graph's outputs are overwritten by its next replay
-        return logits.clone(), clone_cache(cache)
+        return clone_cache(graph.replay())
 
     prefill_step.graphs = held
     return prefill_step
@@ -255,6 +274,7 @@ def make_decode_step(cfg, policy=None) -> Callable:
     """The decode step, under ``policy`` when given (module docstring);
     its ``graphs`` maps each cache shape seen on CUDA to (params, the
     step's cache, token buffer, ``StepGraph``)."""
+    _check_policy(cfg, policy)
     held = {}
 
     def run(params, cache, token):

@@ -13,7 +13,10 @@ global batch is cut into the config's ``microbatches`` when it divides,
 else taken whole.  With ``--ckpt-dir`` it checkpoints every
 ``--ckpt-every`` steps and at the last one, and a rerun resumes from the
 newest checkpoint (to the same stream: the trainer asks the data for each
-step's batch by its number).  The recurrent and enc-dec families raise.
+step's batch by its number).  The recurrent families raise, and so does
+enc-dec: ``SyntheticLM`` gives token batches only, as the reference's
+launcher feeds them, and enc-dec's loss needs frames too (its training
+step is ``launch.steps.make_train_step`` on ``{"frames", "tokens"}``).
 
 ``--data-parallel``/``--model-parallel`` above 1 or ``--production-mesh``
 join the process group (torchrun's, or a world of one this process

@@ -12,7 +12,9 @@ shapes, so carrying them across is a copy:
 - rwkv6: ``layers[i]`` to ``layers.i``;
 - rglru: superblock i's ``super.rec1``, ``super.rec2`` and ``super.attn``
   to ``layers.3i``, ``layers.(3i+1)`` and ``layers.(3i+2)``, ``tail[j]`` to
-  ``layers.(3 n_super + j)``.
+  ``layers.(3 n_super + j)``;
+- enc-dec: ``enc_layers[i]`` to ``enc_layers.i``, ``dec_layers[i]`` to
+  ``dec_layers.i``.
 
 Each leaf takes its parameter's dtype, so rglru's ``lam`` stays float32 in
 a bf16 model.
@@ -26,14 +28,19 @@ reference's leaf paths.  On a mesh (``launch/mesh.py``) a model is a
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn as nn
 
 from repro_torch.device import resolve
 from repro_torch.distributed import collectives, sharding
-from repro_torch.models import rglru, rwkv6
+from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models.transformer import Transformer
+
+# the port's per-layer module lists (names start ``<list>.<i>.``)
+LAYER_LISTS = ("layers", "enc_layers", "dec_layers")
 
 
 def _flatten(tree, prefix=""):
@@ -46,21 +53,32 @@ def _flatten(tree, prefix=""):
 
 def _model_and_offsets(cfg, device):
     """The port's empty model and, per stacked name of the reference's tree,
-    the layer index of its first entry and the stride between entries."""
+    the port's layer list it goes to, the index there of its first entry
+    and the stride between entries."""
     if cfg.family == "ssm":
-        return rwkv6.RWKV6(cfg, device), {"layers": (0, 1)}
+        return rwkv6.RWKV6(cfg, device), {"layers": ("layers", 0, 1)}
     if cfg.family == "hybrid":
         model = rglru.RecurrentGemma(cfg, device)
         n_super = cfg.n_layers // len(rglru.PATTERN)
-        return model, {"super.rec1": (0, 3), "super.rec2": (1, 3),
-                       "super.attn": (2, 3), "tail": (3 * n_super, 1)}
+        return model, {"super.rec1": ("layers", 0, 3),
+                       "super.rec2": ("layers", 1, 3),
+                       "super.attn": ("layers", 2, 3),
+                       "tail": ("layers", 3 * n_super, 1)}
+    if cfg.family == "encdec":
+        return encdec.EncDec(cfg, device), {
+            "enc_layers": ("enc_layers", 0, 1),
+            "dec_layers": ("dec_layers", 0, 1)}
     model = Transformer(cfg, device)
-    return model, {"layers": (0, 1), "dense_layers": (0, 1),
-                   "moe_layers": (model.n_dense, 1)}
+    return model, {"layers": ("layers", 0, 1),
+                   "dense_layers": ("layers", 0, 1),
+                   "moe_layers": ("layers", model.n_dense, 1)}
 
 
-def _stack_of(model, cfg, i: int):
-    """(the reference's stack of port layer ``i``, its index there)."""
+def _stack_of(model, cfg, lst: str, i: int):
+    """(the reference's stack of layer ``i`` of the port's list ``lst``,
+    its index there)."""
+    if lst != "layers":                         # enc-dec: the same names
+        return lst, i
     if cfg.family == "dense":
         return "layers", i
     if cfg.family == "moe":
@@ -79,20 +97,32 @@ def reference_groups(model, cfg) -> dict:
     ``/``): a leaf the reference stacks over layers (``layers/...``; an MoE
     model's ``dense_layers/...`` and ``moe_layers/...``; RecurrentGemma's
     ``super/rec1/...``, ``super/rec2/...``, ``super/attn/...`` and
-    ``tail/...``) is the list of the port's per-layer tensors in stack
-    order, every other leaf its tensor.  The optimizers, the checkpoints
-    and the mesh's shards work on this view, so their state and files take
-    the reference's shapes and names."""
+    ``tail/...``; enc-dec's ``enc_layers/...`` and ``dec_layers/...``) is
+    the list of the port's per-layer tensors in stack order, every other
+    leaf its tensor.  The optimizers, the checkpoints and the mesh's
+    shards work on this view, so their state and files take the
+    reference's shapes and names."""
     groups = {}
     for name, p in model.named_parameters():
-        if not name.startswith("layers."):
+        lst, _, rest = name.partition(".")
+        if lst not in LAYER_LISTS:
             groups[name.replace(".", "/")] = p
             continue
-        _, i, leaf = name.split(".", 2)
-        stack, _ = _stack_of(model, cfg, int(i))
+        i, leaf = rest.split(".", 1)
+        stack, _ = _stack_of(model, cfg, lst, int(i))
         groups.setdefault(f"{stack.replace('.', '/')}/"
                           f"{leaf.replace('.', '/')}", []).append(p)
     return groups
+
+
+def refuse_encdec_mesh(cfg, mesh) -> None:
+    """Enc-dec runs on a mesh of one rank only: raise on a larger one."""
+    if cfg.family == "encdec" and math.prod(
+            sharding.mesh_shape(mesh).values()) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: enc-dec on a mesh of more than one rank comes with "
+            "the Megatron-style split of the dense compute (ROADMAP queue A "
+            "item 5)")
 
 
 class ShardedLM:
@@ -119,6 +149,7 @@ class ShardedLM:
     its use and freeing it after)."""
 
     def __init__(self, model, cfg, mesh, train: bool):
+        refuse_encdec_mesh(cfg, mesh)
         self.model, self.cfg, self.mesh, self.train = model, cfg, mesh, train
         owner = {id(p): (mod, attr) for mod in model.modules()
                  for attr, p in mod.named_parameters(recurse=False)}
@@ -223,9 +254,9 @@ def sharded_params_to_numpy(sp: ShardedLM) -> dict:
 
 def lm_params_from_numpy(tree: dict, cfg, device=None):
     """The reference's param tree (``init_params`` of its transformer,
-    rwkv6 or rglru module, leaves as numpy arrays) as the port's model on
-    ``device`` (CUDA by default), in ``cfg.param_dtype``.  Raises on a
-    missing, extra or misshapen leaf."""
+    rwkv6, rglru or encdec module, leaves as numpy arrays) as the port's
+    model on ``device`` (CUDA by default), in ``cfg.param_dtype``.  Raises
+    on a missing, extra or misshapen leaf."""
     model, offsets = _model_and_offsets(cfg, resolve(device))
     state = {}
     for name, value in _flatten(tree):
@@ -234,9 +265,9 @@ def lm_params_from_numpy(tree: dict, cfg, device=None):
         if stack is None:
             state[name] = value
             continue
-        first, step = offsets[stack]
+        lst, first, step = offsets[stack]
         leaf = name[len(stack) + 1:]
         for i in range(value.shape[0]):
-            state[f"layers.{first + step * i}.{leaf}"] = value[i]
+            state[f"{lst}.{first + step * i}.{leaf}"] = value[i]
     model.load_state_dict(state, strict=True)
     return model

@@ -1,22 +1,28 @@
 """Unified model API: family dispatch (port of ``repro/models/model.py``).
 
     init_params(cfg, seed, device)                  -> params (nn.Module)
-    forward(params, cfg, tokens, train=False)       -> (logits, aux_loss)
+    forward(params, cfg, batch, train=False)        -> (logits, aux_loss)
     lm_loss(params, cfg, batch)                     -> (loss, metrics)
     init_cache(cfg, batch, max_len, device)         -> serving cache
-    prefill(params, cfg, tokens, max_len, **kw)     -> (logits, cache)
+    prefill(params, cfg, batch, max_len, **kw)      -> (logits, cache) | cache
     decode_step(params, cfg, cache, token)          -> (logits, cache)
 
-The dense and MoE families (``transformer``), RWKV6 (``ssm``) and
-RecurrentGemma (``hybrid``) are ported; enc-dec raises (ROADMAP queue A,
-item 5).  Only the transformer's prefill takes ``lengths``: the recurrent
-families' caches share one position across the batch.
+``batch`` is (B, S) int tokens for the LM families, and for enc-dec the
+reference's dict: ``{"frames" (B, S, d), "tokens" (B, T)}`` for
+``forward`` and ``lm_loss``, ``{"frames"}`` for ``prefill``, which then
+returns the cache alone, as the reference's does.
 
-``lm_loss`` is the training loss of the dense and MoE families, through
-the transformer's training forward; the recurrent families and enc-dec
-raise there (ROADMAP queue A item 5).  Under a mesh policy the tokens are
-this rank's rows, and the loss keeps the reference's global normaliser:
-the mask counts are summed over the data axes before the division.
+Every family of the reference is ported: the dense and MoE families
+(``transformer``), RWKV6 (``ssm``), RecurrentGemma (``hybrid``) and
+whisper's enc-dec (``encdec``).  Only the transformer's prefill takes
+``lengths``: the other families' caches share one position across the
+batch.
+
+``lm_loss`` is the training loss of the dense, MoE and enc-dec families,
+through their training forwards; the recurrent families raise there
+(ROADMAP queue A item 5).  Under a mesh policy the tokens are this rank's
+rows, and the loss keeps the reference's global normaliser: the mask
+counts are summed over the data axes before the division.
 """
 from __future__ import annotations
 
@@ -24,18 +30,17 @@ import torch
 
 from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.api import current_policy
-from repro_torch.models import rglru, rwkv6, transformer
+from repro_torch.models import encdec, rglru, rwkv6, transformer
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
-             "hybrid": rglru}
+             "hybrid": rglru, "encdec": encdec}
 
 
 def _family_mod(cfg):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the port serves "
-            "the dense, MoE, RWKV6 and RG-LRU families (enc-dec is ROADMAP "
-            "queue A)")
+            f"{cfg.name}: unknown family {cfg.family!r}; the port has "
+            f"{sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -43,19 +48,19 @@ def init_params(cfg, seed: int = 0, device=None):
     return _family_mod(cfg).init_params(cfg, seed=seed, device=device)
 
 
-def forward(params, cfg, tokens, train: bool = False):
-    """``train`` asks for the training forward (the transformer's only)."""
-    if train:
-        return transformer.forward(params, cfg, tokens, train=True)
-    return _family_mod(cfg).forward(params, cfg, tokens)
+def forward(params, cfg, batch, train: bool = False):
+    """``train`` asks for the training forward (the transformer's and
+    enc-dec's; the recurrent families have none)."""
+    kw = {"train": True} if train else {}
+    return _family_mod(cfg).forward(params, cfg, batch, **kw)
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
     return _family_mod(cfg).init_cache(cfg, batch, max_len, device=device)
 
 
-def prefill(params, cfg, tokens, max_len: int, **kw):
-    return _family_mod(cfg).prefill(params, cfg, tokens, max_len, **kw)
+def prefill(params, cfg, batch, max_len: int, **kw):
+    return _family_mod(cfg).prefill(params, cfg, batch, max_len, **kw)
 
 
 def decode_step(params, cfg, cache, token):
@@ -70,11 +75,12 @@ def decode_step(params, cfg, cache, token):
 def lm_loss(params, cfg, batch: dict):
     """Next-token cross entropy over positions [0, S-2] predicting [1,
     S-1] of ``batch["tokens"]`` (B, S), targets below 0 masked, through
-    the training forward; returns (loss + 0.01 * aux, {"loss", "aux_loss",
-    "perplexity"}), as the reference's ``lm_loss``.  The log-sum-exp is in
-    float32 from the logits' own max; padded vocab ids carry -1e9 logits
-    (``transformer.unembed``), so they add nothing to it.  Dense and MoE
-    families only.
+    the training forward (enc-dec's over ``batch["frames"]`` too);
+    returns (loss + 0.01 * aux, {"loss", "aux_loss", "perplexity"}), as
+    the reference's ``lm_loss``.  The log-sum-exp is in float32 from the
+    logits' own max; padded vocab ids carry -1e9 logits
+    (``transformer.unembed``), so they add nothing to it.  Dense, MoE and
+    enc-dec families only.
 
     Under a mesh policy ``batch`` is this rank's rows: the returned total
     is its share, ``sum(nll * mask)`` over its rows divided by the mask
@@ -82,13 +88,14 @@ def lm_loss(params, cfg, batch: dict):
     the MoE divides among the data ranks), so the gradients summed over
     the data ranks are the whole batch's; ``loss`` is the shares summed
     (reader ``"lm_loss"``)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "encdec"):
         raise NotImplementedError(
-            f"{cfg.name}: lm_loss trains the dense and MoE families; family "
-            f"{cfg.family!r} waits for ROADMAP queue A item 5 (enc-dec, and "
-            "the recurrent families' training)")
+            f"{cfg.name}: lm_loss trains the dense, MoE and enc-dec "
+            f"families; family {cfg.family!r} waits for ROADMAP queue A "
+            "item 5 (the recurrent families' training)")
     tokens = batch["tokens"]
-    logits, aux = forward(params, cfg, tokens, train=True)
+    logits, aux = forward(params, cfg, batch if cfg.family == "encdec"
+                          else tokens, train=True)
     targets = tokens[:, 1:].long()
     logits = logits[:, :-1]
     m = logits.amax(-1).float()

@@ -51,8 +51,9 @@ from repro_torch.models import layers, moe as moe_lib
 def _check_family(cfg) -> None:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the transformer "
-            "covers the dense and MoE families (the others are ROADMAP queue A)")
+            f"{cfg.name}: family {cfg.family!r} is not the transformer's, "
+            "which covers the dense and MoE families (models.model "
+            "dispatches the others)")
 
 
 class Attention(nn.Module):

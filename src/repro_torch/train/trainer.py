@@ -92,10 +92,15 @@ class Trainer:
     def __init__(self, model_cfg, cfg: TrainerConfig, mesh=None,
                  log_fn: Callable = print, device=None, graphs: bool = True):
         if model_cfg.family not in ("dense", "moe"):
+            why = ("it feeds SyntheticLM token batches only, as the "
+                   "reference's launcher does, and enc-dec's lm_loss needs "
+                   "frames too (train it through launch.steps."
+                   "make_train_step on {'frames', 'tokens'} batches)"
+                   if model_cfg.family == "encdec" else
+                   "it does not train yet (ROADMAP queue A item 5)")
             raise NotImplementedError(
-                f"{model_cfg.name}: family {model_cfg.family!r} does not "
-                "train yet (ROADMAP queue A item 5); the dense and MoE "
-                "families do")
+                f"{model_cfg.name}: the trainer trains the dense and MoE "
+                f"families; for family {model_cfg.family!r} {why}")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.mesh = mesh

@@ -1522,3 +1522,100 @@ def test_lm_mesh_in_a_world_of_one_equals_no_mesh_on_card(nccl_world):
             got.append(logits)
         outs.append(torch.stack(got))
     assert torch.equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# The enc-dec family at whisper's head shapes (16 query heads over 16 KV
+# heads of 64: G = 1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv", [(150, 150), (48, 150), (100, 1500)])
+def test_flash_attn_kernel_unmasked_at_g1_on_card(cuda_device, sq, skv,
+                                                  dtype):
+    """B2 without the causal mask at G = 1, dh 64, as the encoder (Sq =
+    Skv) and the cross-attention (Sq != Skv) call it, with Skv not a
+    multiple of the 64-key tile: against ``attention_ref`` and, in bf16,
+    the tile algorithm, through the model's (B, S, H, dh) views."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + skv)
+    q = torch.randn((2, sq, 16, 64), generator=gen,
+                    device=cuda_device).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((2, skv, 16, 64), generator=gen,
+                        device=cuda_device).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    before = fa_ops.LAUNCHES
+    got = fa_ops.flash_attn(q, k, v, causal=False)
+    assert fa_ops.LAUNCHES == before + 1 and got.shape == q.shape
+    ref = attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        tiled = attention_tiled_ref(q, k, v, causal=False).float()
+        scale = tiled.abs().clamp(min=1.0)
+        assert float(((got.float() - tiled).abs() / scale).max()) \
+            <= TILED_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_on_a_padded_cross_cache_at_g1_on_card(
+        cuda_device, dtype):
+    """B3 at G = 1 (16/16 x 64) over a cross cache of 1,600 slots that
+    holds 1,500 encoder positions and large garbage past them, masked by
+    ``lengths = enc_len``: the plain version over the 1,500 slots alone,
+    within its tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    b, h, dh, s, enc_len = 4, 16, 64, 1600, 1500
+    q = torch.randn((b, h, dh), generator=gen, device=cuda_device).to(dtype)
+    cache = torch.randn((2, b, s, h, dh), generator=gen,
+                        device=cuda_device).to(dtype)
+    cache[:, :, enc_len:] = 1e4
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    lengths = torch.full((b,), enc_len, dtype=torch.int32, device=cuda_device)
+    got = da_ops.decode_attn(q, k, v, lengths)
+    ref = decode_attn_plain(q, k[:, :, :enc_len], v[:, :, :enc_len],
+                            lengths)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_graphed_encdec_prefill_and_decode_match_eager_on_card(cuda_device):
+    """Reduced whisper: ``make_prefill_step`` on ``{"frames"}`` (eager,
+    then a replay) equals ``model.prefill`` bit for bit; ten greedy decode
+    steps replayed from a graph give bit-equal logits and cache to the
+    model's step run eagerly on a copy; a prefill launches B2 once per
+    encoder layer, a decode step B3 twice per decoder layer."""
+    cfg = reduce_config(get_config("whisper-medium"))
+    params = model_lib.init_params(cfg, seed=5, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    frames = torch.randn((2, 40, cfg.d_model), generator=gen,
+                         device=cuda_device)
+    prefill = steps.make_prefill_step(cfg, 48)
+    fa = graphs.COUNTERS.index(("flash_attn", "LAUNCHES"))
+    for _ in range(2):
+        before = graphs.launch_counts()
+        cache = prefill(params, {"frames": frames})
+        assert graphs.launch_counts()[fa] - before[fa] == cfg.n_enc_layers
+    want = model_lib.prefill(params, cfg, {"frames": frames}, 48)
+    for k in want:
+        assert torch.equal(cache[k], want[k]), k
+    eager = lambda p, c, t: model_lib.decode_step(p, cfg, c, t)
+    outs = []
+    for decode, c in ((steps.make_decode_step(cfg), cache),
+                      (eager, steps.clone_cache(cache))):
+        tok = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+        seen = []
+        before = graphs.launch_counts()
+        for _ in range(10):
+            logits, c = decode(params, c, tok)
+            seen.append(logits)
+            tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        got = tuple(a - b for a, b in zip(graphs.launch_counts(), before))
+        assert got == (0, 0, 20 * cfg.n_layers, 0, 0, 0, 0), (decode, got)
+        outs.append((torch.stack(seen), c))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for k in outs[0][1]:
+        assert torch.equal(outs[0][1][k], outs[1][1][k]), k

@@ -308,20 +308,21 @@ def test_init_params_shapes_scales_and_defaults():
 
 
 def test_unported_families_raise():
-    """The dense, MoE, RWKV6 and RG-LRU families are ported; enc-dec alone
-    raises through the family dispatch, and the transformer still refuses
-    the other families."""
-    raised = []
+    """Every family of the reference dispatches (each architecture's
+    reduced config builds through ``model.init_params``); an unknown family
+    raises there, and the transformer still refuses the other families."""
+    families = set()
     for arch in list_archs():
         cfg = reduce_config(get_config(arch))
-        if cfg.family != "encdec":
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model_lib.init_params(cfg, device="cpu")
-        raised.append(arch)
-    assert raised == ["whisper-medium"]
-    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model = model_lib.init_params(cfg, device="cpu")
+        assert model_lib.count_params(model) > 0, arch
+        families.add(cfg.family)
+    assert families == {"dense", "moe", "ssm", "hybrid", "encdec"}
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        model_lib.init_params(dataclasses.replace(cfg, family="conv"),
+                              device="cpu")
+    for arch in ("rwkv6-7b", "recurrentgemma-2b", "whisper-medium"):
+        with pytest.raises(NotImplementedError, match="dense and MoE"):
             transformer.init_params(reduce_config(get_config(arch)),
                                     device="cpu")
 

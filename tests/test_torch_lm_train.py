@@ -147,10 +147,18 @@ def test_pallas_attention_refuses_gradients_and_other_families_raise():
     with torch.no_grad():                       # no gradient asked: served
         logits, _ = model_lib.forward(model, cfg, toks, train=True)
     assert logits.shape == (1, 16, cfg.vocab_padded)
-    for arch in ("rwkv6-7b", "recurrentgemma-2b", "whisper-medium"):
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
         with pytest.raises(NotImplementedError, match="item 5"):
             model_lib.lm_loss(None, reduce_config(get_config(arch)),
                               {"tokens": toks})
+    # enc-dec trains (tests/test_torch_encdec.py), on frames and tokens
+    cfg = reduce_config(get_config("whisper-medium"))
+    frames = torch.zeros((1, 8, cfg.d_model))
+    with torch.no_grad():
+        total, _ = model_lib.lm_loss(
+            model_lib.init_params(cfg, device="cpu"), cfg,
+            {"frames": frames, "tokens": toks % cfg.vocab})
+    assert bool(torch.isfinite(total))
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +371,8 @@ def test_train_cli_lm_path(capsys):
     with pytest.raises(ValueError, match="mesh_shape \\(16, 16\\)"):
         train_cli.main(["--production-mesh", "--reduced", "--device", "cpu",
                         "--steps", "1"])
-    for argv in (["--arch", "rwkv6-7b"], ["--arch", "whisper-medium"]):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            train_cli.main(argv + ["--reduced", "--device", "cpu",
-                                   "--steps", "1"])
+    for arch, match in (("rwkv6-7b", "item 5"),
+                        ("whisper-medium", "token batches only")):
+        with pytest.raises(NotImplementedError, match=match):
+            train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
+                            "--steps", "1"])

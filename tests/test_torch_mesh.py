@@ -5,9 +5,7 @@ In one process, with the reference's duck-typed ``FakeMesh``
 
   * every parameter's spec, for training and serving, of every
     architecture on both production meshes, through the port's own
-    module paths (``models.io.reference_groups``) where the port has the
-    family and through the reference's names for whisper-medium; the
-    Adafactor and AdamW state specs (the reference's ``state_specs``);
+    module paths (``models.io.reference_groups``); the Adafactor and AdamW state specs (the reference's ``state_specs``);
   * the cache specs of four architectures by the reference's cache names;
     ``batch_axes``' fallbacks, ``activation_rules``, ``MeshPolicy``,
     ``use_mesh_policy`` and ``make_host_mesh``'s clipping;
@@ -94,25 +92,22 @@ def _port_leaves(cfg) -> dict:
 @pytest.mark.parametrize("arch", list(list_archs()))
 def test_param_and_state_specs_match_reference(arch, mesh_name):
     """Every tensor's spec, train and serve, equals the reference's; the
-    port's module paths reach every reference leaf (whisper-medium, which
-    the port does not build yet, by the reference's names); Adafactor's
-    and AdamW's state specs equal the reference's ``state_specs`` rule
-    (``param_spec`` of the moment's own shape by its leaf's path)."""
+    port's module paths reach every reference leaf (whisper-medium's two
+    stacks too); Adafactor's and AdamW's state specs equal the reference's
+    ``state_specs`` rule (``param_spec`` of the moment's own shape by its
+    leaf's path)."""
     mesh = MESHES[mesh_name]
     cfg = jax_get_config(arch)
     shapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0),
                                                        cfg))
     ref = _ref_paths(shapes)
-    port = ({k: shape for k, (_, shape) in ref.items()}
-            if cfg.family == "encdec" else _port_leaves(get_config(arch)))
+    port = _port_leaves(get_config(arch))
     assert port == {k: shape for k, (_, shape) in ref.items()}
     for train in (True, False):
         got = sharding.shard_params_specs(port, mesh, train=train)
         for k, (path, shape) in ref.items():
             want = tuple(jsharding.param_spec(path, shape, mesh, train=train))
             assert got[k] == want, (k, train, got[k], want)
-    if cfg.family == "encdec":
-        return
     specs = sharding.shard_params_specs(port, mesh, train=True)
     leaves = {k: torch.empty(sharding.local_shape(s, specs[k], mesh),
                              device="meta") for k, s in port.items()}
