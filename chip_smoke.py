@@ -273,7 +273,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 for the kernels line); (c) one prefill and decode under
                 the policy through the kernels against their plain
                 versions (the plain run replays the kernel run's expert
-                routing), as in 8.
+                routing), as in 8.  (d) whisper-medium at published
+                widths cut to 4 + 4 layers: prefill (2 x 1,500 frames)
+                and 4 greedy decodes under a 1 x 1 policy, graphed,
+                bit-equal to no policy (B2 4 per prefill, B3 8 per
+                decode, counted for the kernels line), and 2 training
+                steps on a ``ShardedLM`` under the policy bit-equal to
+                the meshless steps.  (e) the Megatron split at published
+                widths in bf16: one layer each of qwen1.5-0.5b,
+                starcoder2-15b and dbrx-132b, every ``model`` rank's body
+                for m = 2 and 4 run one after another in this process
+                (attention of a 2 x 256 prefill through B2, the MLP's ff
+                columns or the rank's experts through B4b and B4a, one
+                decode through B3 on the rank's part of the cache), the
+                partials summed by hand within 2^-6 of the whole layer's
+                largest output; each rank's B2, B3 and B4 calls against
+                their plain versions at its shapes, and their times
+                (checks only: not counted).
  21. lm_encdec — whisper-medium at its published widths and depth in bf16
                 (24 + 24 layers, 814,190,592 parameters, random weights from
                 seed 0), through ``launch/steps.py``: 4 streams of 1,500
@@ -1932,6 +1948,8 @@ def mesh_training(dev, mesh) -> None:
                       "rates": step_rates(tr.step_s, 8 * 128, QWEN_PARAMS),
                       "peak_memory_above_start":
                           torch.cuda.max_memory_allocated() - base,
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated(),
                       "bytes": dict(collectives.BYTES),
                       "graphs": len(step.graphs)}
         assert runs[name]["graphs"] == 1, runs[name]["graphs"]
@@ -1944,7 +1962,7 @@ def mesh_training(dev, mesh) -> None:
           "bit_equal": True,
           "losses": [m["loss"] for m in runs["mesh"]["metrics"]],
           **{name: {k: r[k] for k in ("rates", "peak_memory_above_start",
-                                      "bytes")}
+                                      "max_memory_allocated", "bytes")}
              for name, r in runs.items()}})
     del runs
     free_cuda()
@@ -1956,10 +1974,6 @@ def mesh_moe(dev, mesh, model, cfg) -> None:
     ``_moe_data_parallel`` at data = 1 likewise), and its B4b and B4a
     calls against their plain versions (B4a also against its split
     algorithm, ``grouped_gemm_split_ref``)."""
-    from repro_torch.kernels.moe_gemm import ops
-    from repro_torch.kernels.moe_gemm.ref import (grouped_gemm_ref,
-                                                  grouped_gemm_split_ref,
-                                                  grouped_swiglu_ref)
     from repro_torch.models import moe, transformer
 
     rng = np.random.default_rng(8)
@@ -1987,31 +2001,7 @@ def mesh_moe(dev, mesh, model, cfg) -> None:
                                         moe._capacity(x.shape[0], cfg))
     err = float((y.float() - y_loc.float()).abs().max())
     scale = float(y_loc.float().abs().max())
-    rows = []
-    for name, args, out in calls:
-        out = out.float()
-        if name == "grouped_swiglu":
-            # each element within atol + rtol * |ref|, as phase 7 holds it
-            ref = grouped_swiglu_ref(*args).float()
-            over = float(((out - ref).abs() / (FLASH_TOL[torch.bfloat16]
-                                               * (1 + ref.abs()))).max())
-        else:
-            # outputs reach ~4e4 as sums of 10,752 products, and float32
-            # sums in another order move an element by ~1e-5 of that
-            # scale, which near a cancelled element is many of its bf16
-            # steps: each element within one bf16 rounding step of itself
-            # plus 2^-10 of the largest output, against the plain version
-            # and against the card's split algorithm in plain PyTorch
-            ref = grouped_gemm_ref(*args).float()
-            split = grouped_gemm_split_ref(*args, ops.sm_count(dev)).float()
-            over = max(float(((out - r).abs() / (
-                TILED_REL_TOL * r.abs() + B4A_SCALE_TOL * r.abs().max()))
-                .max()) for r in (ref, split))
-        rows.append({"kernel": name, "shape": list(args[0].shape),
-                     "max_abs_err": float((out - ref).abs().max()),
-                     "max_abs_ref": float(ref.abs().max()),
-                     "over_tol": over})
-        assert over <= 1.0, rows[-1]
+    rows = check_expert_calls(calls)
     row = {"phase": "lm_mesh", "check": "moe_sharded_vs_local",
            "model": cfg.name, "tokens": x.shape[0],
            "e_local": cfg.n_experts,
@@ -2046,8 +2036,11 @@ def mesh_steps(dev, mesh, model, cfg) -> dict:
     from repro_torch.models import io as model_io, transformer
 
     policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    own = list(model.parameters())
     sp = model_io.ShardedLM(model, cfg, mesh, train=False)
-    assert not sp._split                     # every leaf its own block
+    # every leaf its own block: the model's tensors, none gathered
+    assert not sp.gathers and all(
+        a is b for a, b in zip(own, sp.model.parameters()))
     rng = np.random.default_rng(9)
     max_len = 128 + MESH_DECODES
     toks = torch.as_tensor(rng.integers(2, cfg.vocab, (4, 128)),
@@ -2110,6 +2103,320 @@ def mesh_steps(dev, mesh, model, cfg) -> dict:
     return launches
 
 
+WHISPER_MESH_LAYERS = 4       # encoder and decoder layers of the 1 x 1 run
+WHISPER_MESH_FRAMES = 1500
+WHISPER_MESH_DECODES = 4
+WHISPER_MESH_TRAIN_STEPS = 2
+
+
+def mesh_whisper(dev, mesh) -> dict:
+    """(d) whisper-medium at published widths in bf16, cut to 4 + 4
+    layers: the prefill (eager, then a replay) of 2 x 1,500 frames and 4
+    greedy decode steps under a 1 x 1 policy over a ``ShardedLM`` of
+    serving blocks, graphed, bit-equal to the same steps without one; then
+    2 training steps (``make_train_step``, AdamW, 2 x 1,500 frames and 2 x
+    128 tokens) on a ``ShardedLM`` of training blocks under the policy,
+    bit-equal to the meshless steps (state and losses).  Returns the
+    serving steps' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.api import MeshPolicy
+    from repro_torch.launch import steps
+    from repro_torch.models import io as model_io, model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(get_config("whisper-medium"),
+                              n_layers=WHISPER_MESH_LAYERS,
+                              n_enc_layers=WHISPER_MESH_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    frames = torch.randn((2, WHISPER_MESH_FRAMES, cfg.d_model),
+                         generator=gen, device=dev).to(torch.bfloat16)
+    sot = torch.full((2,), WHISPER_SOT, dtype=torch.int32, device=dev)
+    serve = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    model = model_lib.init_params(cfg, seed=4, device=dev)
+
+    def run(params, pol):
+        prefill = steps.make_prefill_step(cfg, WHISPER_MESH_FRAMES, pol)
+        decode = steps.make_decode_step(cfg, pol)
+        prefill(params, {"frames": frames})         # eager, then captured
+        cache = prefill(params, {"frames": frames})  # a replay
+        out = {f"cache {k}": v.clone() for k, v in cache.items()}
+        tok = sot
+        for i in range(WHISPER_MESH_DECODES):
+            logits, cache = decode(params, cache, tok)
+            out[f"decode{i}"] = logits
+            tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        return out
+
+    plain = run(model, None)
+    before = counters()
+    got = run(model_io.ShardedLM(model, cfg, mesh, train=False), serve)
+    launches = {k: counters()[k] - before[k] for k in before}
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attn=2 * cfg.n_enc_layers,
+                decode_attn=WHISPER_MESH_DECODES * 2 * cfg.n_layers)
+    assert launches == want, (launches, want)
+    differs = [k for k in plain if not torch.equal(plain[k], got[k])]
+    assert not differs, differs
+    del model, plain, got
+    free_cuda()
+
+    batch = {"frames": frames,
+             "tokens": torch.randint(0, cfg.vocab, (2, ENCDEC_TRAIN_TOKENS),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    twins, train = {}, MeshPolicy(mesh, sharding.activation_rules(
+        mesh, train=True))
+    for name in ("meshless", "mesh"):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()     # the other run's state
+        params = model_lib.init_params(cfg, seed=5, device=dev)
+        if name == "mesh":
+            params = model_io.ShardedLM(params, cfg, mesh, train=True)
+        opt = opt_lib.make_optimizer("adamw", peak_lr=3e-4, warmup_steps=0,
+                                     total_steps=WHISPER_MESH_TRAIN_STEPS)
+        st = steps.train_state(cfg, params, opt)
+        step = steps.make_train_step(cfg, train if name == "mesh" else None)
+        losses = [float(step(st, batch)[1]["loss"])
+                  for _ in range(WHISPER_MESH_TRAIN_STEPS)]
+        twins[name] = (st, losses, torch.cuda.max_memory_allocated() - base)
+    assert twins["mesh"][1] == twins["meshless"][1]
+    assert all(np.isfinite(twins["mesh"][1]))
+    assert same_train_state(twins["mesh"][0], twins["meshless"][0])
+    emit({"phase": "lm_mesh", "check": "whisper_under_policy",
+          "model": cfg.name, "layers": [cfg.n_enc_layers, cfg.n_layers],
+          "frames": [2, WHISPER_MESH_FRAMES],
+          "decodes": WHISPER_MESH_DECODES, "bit_equal_to_no_policy": True,
+          "launches": launches, "train_steps": WHISPER_MESH_TRAIN_STEPS,
+          "train_bit_equal": True, "losses": twins["mesh"][1],
+          "peak_memory_above_start": {k: v[2] for k, v in twins.items()}})
+    del twins
+    free_cuda()
+    return launches
+
+
+MESH_RANK_ARCHS = ("qwen1.5-0.5b", "starcoder2-15b", "dbrx-132b")
+MESH_RANK_MS = (2, 4)
+MESH_RANK_PROMPT = (2, 256)   # rows and tokens through the layer
+MESH_RANK_CACHE = 272         # the decode's cache slots
+# every model rank's partial output in bf16 (one product over its heads
+# or ff columns, rounded once), summed in float32 by hand, against the
+# whole layer's product rounded once: m roundings of partials of the
+# output's size, held to 2^-6 of the largest output
+MESH_RANK_REL_TOL = 2.0 ** -6
+ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+@contextlib.contextmanager
+def attention_calls():
+    """Record every B2 and B3 call of the transformer's layers (inputs,
+    keywords, output), in call order."""
+    from repro_torch.models import transformer
+
+    real = (transformer.flash_attn, transformer.decode_attn)
+    calls = []
+
+    def flash(q, k, v, **kw):
+        out = real[0](q, k, v, **kw)
+        calls.append(("flash_attn", (q, k, v), kw, out))
+        return out
+
+    def decode(q, k, v, lengths=None, **kw):
+        out = real[1](q, k, v, lengths, **kw)
+        calls.append(("decode_attn", (q, k, v), dict(lengths=lengths, **kw),
+                      out))
+        return out
+
+    transformer.flash_attn, transformer.decode_attn = flash, decode
+    try:
+        yield calls
+    finally:
+        transformer.flash_attn, transformer.decode_attn = real
+
+
+def check_attention_calls(calls, label) -> list:
+    """Each recorded B2 or B3 call against its plain version on the same
+    inputs (``FLASH_TOL``), a row per shape with its time on the card."""
+    from repro_torch.kernels.decode_attn import ops as da_ops
+    from repro_torch.kernels.decode_attn.ref import decode_attn_plain
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    kernels = {"flash_attn": (fa_ops.flash_attn, attention_ref),
+               "decode_attn": (da_ops.decode_attn, decode_attn_plain)}
+    rows = {}
+    for name, args, kw, out in calls:
+        kernel, plain = kernels[name]
+        err = float((out.float() - plain(*args, **kw).float()).abs().max())
+        tol = FLASH_TOL[out.dtype]
+        if not err <= tol:
+            raise AssertionError(f"{name} {label} q {tuple(args[0].shape)} "
+                                 f"k {tuple(args[1].shape)}: max abs error "
+                                 f"{err} above {tol}")
+        key = (name, tuple(args[0].shape), tuple(args[1].shape))
+        if key not in rows:
+            rows[key] = {"kernel": name, "q": list(args[0].shape),
+                         "k": list(args[1].shape), "calls": 0,
+                         "max_abs_err": 0.0, "tol": tol,
+                         "ms": device_ms(lambda: kernel(*args, **kw), 20)}
+        rows[key]["calls"] += 1
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+    return list(rows.values())
+
+
+def check_expert_calls(calls) -> list:
+    """Each recorded B4b and B4a call against its plain version (B4a also
+    against its split algorithm), as phase 7 holds them."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import (grouped_gemm_ref,
+                                                  grouped_gemm_split_ref,
+                                                  grouped_swiglu_ref)
+
+    rows = []
+    for name, args, out in calls:
+        out = out.float()
+        if name == "grouped_swiglu":
+            # each element within atol + rtol * |ref|, as phase 7 holds it
+            ref = grouped_swiglu_ref(*args).float()
+            over = float(((out - ref).abs() / (FLASH_TOL[torch.bfloat16]
+                                               * (1 + ref.abs()))).max())
+        else:
+            # outputs reach ~4e4 as sums of 10,752 products, and float32
+            # sums in another order move an element by ~1e-5 of that
+            # scale, which near a cancelled element is many of its bf16
+            # steps: each element within one bf16 rounding step of itself
+            # plus 2^-10 of the largest output, against the plain version
+            # and against the card's split algorithm in plain PyTorch
+            ref = grouped_gemm_ref(*args).float()
+            split = grouped_gemm_split_ref(*args,
+                                           ops.sm_count(out.device)).float()
+            over = max(float(((out - r).abs() / (
+                TILED_REL_TOL * r.abs() + B4A_SCALE_TOL * r.abs().max()))
+                .max()) for r in (ref, split))
+        rows.append({"kernel": name, "shape": list(args[0].shape),
+                     "max_abs_err": float((out - ref).abs().max()),
+                     "max_abs_ref": float(ref.abs().max()),
+                     "over_tol": over})
+        assert over <= 1.0, rows[-1]
+    return rows
+
+
+def rank_sum_check(whole, parts, what) -> dict:
+    """Every rank's partial output summed in float32 against the whole
+    layer's (``MESH_RANK_REL_TOL``)."""
+    total = sum(p.float() for p in parts)
+    err = float((total - whole.float()).abs().max())
+    scale = float(whole.float().abs().max())
+    row = {"part": what, "max_abs_diff": err, "max_abs_whole": scale,
+           "tol": MESH_RANK_REL_TOL * scale,
+           "finite": bool(torch.isfinite(total).all())}
+    if not (row["finite"] and err <= row["tol"]):
+        raise AssertionError(f"rank sums vs whole layer: {row}")
+    return row
+
+
+def mesh_rank_layer(dev, arch) -> None:
+    """(e) One layer of ``arch`` at published widths in bf16: every
+    ``model`` rank's body for m = 2 and m = 4, run one after another in
+    this process on its blocks (``sharding.rank_blocks``), the partial
+    outputs summed by hand against the whole layer: the attention of a
+    2 x 256 prefill through B2, its FFN (the MLP's ff columns, or the
+    rank's experts through B4b and B4a at the whole batch's capacity),
+    and one decode step through B3 on each rank's part of the cache.
+    Each rank's B2, B3 and B4 calls are held against their plain
+    versions at its shapes and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers, model as model_lib, moe
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    model = model_lib.init_params(cfg, seed=6, device=dev)
+    blk = model.layers[0]
+    b, s = MESH_RANK_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = transformer._positions(b, s, dev)
+    hn = layers.rms_norm(x, blk.attn_norm, cfg.norm_eps)
+    blocks = lambda m, r: sharding.rank_blocks(blk.attn, "layers/attn",
+                                               ATTN_NAMES, m, r)
+    with torch.no_grad():
+        whole, k, v = transformer.attention_body(blocks(1, 0), cfg, hn, pos)
+        y = layers.rms_norm(x + whole, blk.mlp_norm, cfg.norm_eps)
+        if blk.use_moe:
+            ffn_names, path = ("w_gate", "w_up", "w_down"), "moe_layers/moe"
+            tokens = y.reshape(b * s, -1)
+            gates, ids, _ = moe.route_topk(tokens.float() @ blk.moe.router,
+                                           cfg.top_k)
+            cap = moe._capacity(b * s, cfg)
+
+            def ffn(m, r):
+                w = sharding.rank_blocks(blk.moe, path, ffn_names, m, r)
+                e = cfg.n_experts // m
+                return moe.moe_shard_body(w, tokens, gates, ids, cfg, r, e,
+                                          cap)
+        else:
+            ffn_names, path = ("w_gate", "w_up", "w_down"), "layers/mlp"
+
+            def ffn(m, r):
+                return transformer.mlp_body(sharding.rank_blocks(
+                    blk.mlp, path, ffn_names, m, r), y)
+        ffn_whole = ffn(1, 0)
+        # the decode: a cache of the prefill's keys and values, one token
+        sc = MESH_RANK_CACHE
+        kc = torch.zeros((b, sc) + tuple(k.shape[2:]), dtype=k.dtype,
+                         device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :s], vc[:, :s] = k, v
+        xd = layers.rms_norm(torch.randn((b, 1, cfg.d_model), generator=gen,
+                                         device=dev).to(torch.bfloat16),
+                             blk.attn_norm, cfg.norm_eps)
+        dpos = torch.full((b,), s, dtype=torch.int32, device=dev)
+        kv_pos = torch.where(torch.arange(sc, device=dev)[None] <= s,
+                             torch.arange(sc, device=dev)[None],
+                             -1).to(torch.int32).expand(b, sc).contiguous()
+        lengths = (dpos + 1).to(torch.int32)
+        dec_whole = transformer.attention_decode_body(
+            blocks(1, 0), cfg, xd, dpos, dpos.long(), kc.clone(), vc.clone(),
+            kv_pos, lengths)
+    rows = []
+    for m in MESH_RANK_MS:
+        kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else \
+            cfg.n_kv_heads
+        with torch.no_grad(), attention_calls() as acalls, \
+                expert_calls() as ecalls:
+            att = [transformer.attention_body(blocks(m, r), cfg, hn, pos, r)[0]
+                   for r in range(m)]
+            ffns = [ffn(m, r) for r in range(m)]
+            decs = []
+            for r in range(m):
+                lo = r * kv if kv < cfg.n_kv_heads else 0
+                decs.append(transformer.attention_decode_body(
+                    blocks(m, r), cfg, xd, dpos, dpos.long(),
+                    kc[:, :, lo:lo + kv].clone(), vc[:, :, lo:lo + kv].clone(),
+                    kv_pos, lengths, r))
+        row = {"phase": "lm_mesh", "check": "rank_bodies", "model": arch,
+               "dtype": "bfloat16", "m": m, "prompt": [b, s],
+               "cache_slots": MESH_RANK_CACHE,
+               "heads_per_rank": cfg.n_heads // m, "kv_heads_per_rank": kv,
+               "sums": [rank_sum_check(whole, att, "attention"),
+                        rank_sum_check(ffn_whole, ffns,
+                                       "moe" if blk.use_moe else "mlp"),
+                        rank_sum_check(dec_whole, decs, "decode")],
+               "attention_kernels": check_attention_calls(
+                   acalls, f"{arch} m={m}"),
+               "expert_kernels": check_expert_calls(ecalls)}
+        assert len(acalls) == 2 * m, len(acalls)
+        assert len(ecalls) == (2 * m if blk.use_moe else 0), len(ecalls)
+        emit(row)
+        rows.append(row)
+        del acalls, ecalls, att, ffns, decs
+    del model, blk, whole, k, v, kc, vc
+    free_cuda()
+
+
 def lm_mesh_phase(dev) -> dict:
     """The LM model mesh in a world of one NCCL rank on
     ``make_host_mesh(1, 1)`` (module docstring).  Returns the kernel
@@ -2131,6 +2438,11 @@ def lm_mesh_phase(dev) -> dict:
         launches = mesh_steps(dev, mesh, model, cfg)
         del model
         free_cuda()
+        more = mesh_whisper(dev, mesh)
+        launches = {k: launches[k] + more[k] for k in launches}
+        # the rank bodies: checks, outside the counted runs
+        for arch in MESH_RANK_ARCHS:
+            mesh_rank_layer(dev, arch)
         return launches
     finally:
         mesh_lib.close_world()

@@ -1,0 +1,109 @@
+"""Per-rank bytes of an LM on a ``("data", "model")`` mesh, by the port's
+specs (arithmetic from the shapes, not a measurement).
+
+    PYTHONPATH=src python scripts/torch_mesh_bytes.py
+
+For each case it builds the port's model of the published config on the
+meta device (nothing is allocated), takes every leaf's spec
+(``distributed.sharding.param_spec``) and what a layer computes with
+(``compute_spec``), and prints one JSON line: the bytes a rank holds in
+the parameter dtype for its parameter blocks, its gradient blocks, its
+AdamW moments (two float32 tensors split as their leaves), the largest
+layer's weights gathered at their use (the transient), and the same
+figures in the layout before the split (a whole compute copy but for the
+experts' dim over ``model``, beside the blocks of the leaves the mesh
+splits, and whole gradients).
+Training cases are AdamW's; a serving case counts the parameters alone,
+split into the experts' and the rest.
+"""
+from __future__ import annotations
+
+import json
+import math
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding
+from repro_torch.models import io
+
+# (arch, data, model, train)
+CASES = [("starcoder2-15b", 4, 1, True), ("starcoder2-15b", 2, 2, True),
+         ("dbrx-132b", 1, 4, False), ("qwen1.5-0.5b", 4, 1, True)]
+
+
+class FakeMesh:
+    def __init__(self, shape: dict):
+        self.shape = shape
+
+
+def _numel(shape) -> int:
+    return math.prod(shape)
+
+
+def rank_bytes(arch: str, data: int, model: int, train: bool) -> dict:
+    cfg = get_config(arch)
+    mesh = FakeMesh({"data": data, "model": model})
+    elt = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    m, _ = io._model_and_offsets(cfg, torch.device("meta"))
+    out = {"arch": arch, "mesh": [data, model], "train": train,
+           "param_dtype": cfg.param_dtype}
+    whole = block = compute_old = split_block = 0
+    expert_block = expert_whole = 0
+    layer = {}
+    for path, leaf in io.reference_groups(m, cfg).items():
+        stacked = not isinstance(leaf, torch.Tensor)
+        members = list(leaf) if stacked else [leaf]
+        shape = (((len(members),) if stacked else ())
+                 + tuple(members[0].shape))
+        spec = sharding.param_spec(path, shape, mesh, train=train)
+        comp = sharding.compute_spec(path, shape, mesh, train=train)
+        n_whole = _numel(shape)
+        n_block = _numel(sharding.local_shape(shape, spec, mesh))
+        whole += n_whole
+        block += n_block
+        expert = sharding.is_expert_weight(path)
+        keep = ("model",) if expert else ()
+        old = [e if any(a in keep for a in sharding.spec_axes(e)) else None
+               for e in spec]
+        compute_old += _numel(sharding.local_shape(shape, old, mesh))
+        if sharding.is_split(spec, keep):
+            split_block += n_block
+        if expert:
+            expert_block += n_block
+            expert_whole += n_whole
+        per = _numel(sharding.local_shape(shape[1:] if stacked else shape,
+                                          comp[1:] if stacked else comp,
+                                          mesh))
+        gathered = any(a != "model" for e in spec
+                       for a in sharding.spec_axes(e))
+        if gathered:
+            for i in range(len(members)):
+                key = f"{path.split('/')[0]}.{i}" if stacked else path
+                layer[key] = layer.get(key, 0) + per
+    gb = lambda n, size=elt: n * size / 1e9
+    out.update(params_whole_gb=gb(whole), params_block_gb=gb(block))
+    if train:
+        out.update(
+            grads_block_gb=gb(block), adamw_moments_gb=gb(2 * block, 4),
+            largest_layer_gathered_gb=gb(max(layer.values(), default=0)),
+            split_total_gb=gb(2 * block) + gb(2 * block, 4),
+            before_compute_copy_gb=gb(compute_old),
+            before_whole_grads_gb=gb(compute_old),
+            before_blocks_gb=gb(split_block),
+            before_total_gb=(gb(2 * compute_old) + gb(split_block)
+                             + gb(2 * block, 4)))
+    else:
+        out.update(non_expert_block_gb=gb(block - expert_block),
+                   non_expert_whole_gb=gb(whole - expert_whole),
+                   experts_block_gb=gb(expert_block))
+    return out
+
+
+def main() -> None:
+    for case in CASES:
+        print(json.dumps(rank_bytes(*case)))
+
+
+if __name__ == "__main__":
+    main()

@@ -38,8 +38,20 @@ graph):
 * ``sum_over``: the SUM all-reduce, in place (gradients; the loss's
   normaliser); ``gather_cat`` above also gathers the data-parallel MoE's
   routing counts;
-* ``gather_spec``: a tensor whole from this rank's block by its spec (a
-  parameter gathered at its use), minor axis first;
+* ``gather_spec``: a tensor whole from this rank's block by its spec,
+  minor axis first; ``reduce_scatter_spec`` the other way (a sum, major
+  axis first); ``max_over``: the MAX all-reduce (the vocab-parallel
+  loss's maximum);
+* ``at_use``: a parameter as a layer computes with it.  A block that
+  ``models.io.ShardedLM`` split over the data axes (its ``gather_spec``
+  attribute) is gathered over them by an autograd function, reader
+  ``"lm_params"``, whose backward reduce-scatters the gradient into the
+  block's shape (a sum), reader ``"lm_grads"``; the ``model`` axis stays
+  split.  ``regathered()`` keeps such a gathered weight out of autograd's
+  saved tensors: a product that saves it (every einsum does) saves the
+  block instead and gathers it again when the backward reads it, so no
+  gathered weight outlives the layer's forward or backward
+  (``live_gathers`` counts those alive);
 * autograd functions: ``sum_forward`` (the MoE combine: forward the sum
   over ``model``, backward the gradient unchanged, since every model rank
   computes what follows alike; also the data-parallel MoE's router
@@ -48,10 +60,16 @@ graph):
   backward the sum over ``model``: an input that the model ranks use for
   parts of one sum), ``data_mean`` (the MoE's ``aux``: forward the mean
   over the data axes, backward the gradient over their size, each data
-  rank's loss holding its share).
+  rank's loss holding its share).  A layer split over ``model`` (Megatron
+  style, ``models/transformer.py``) ends in ``sum_forward`` (the
+  row-parallel output's all-reduce) and starts from ``sum_backward`` (its
+  input's gradient summed over the ranks that each used it for a part).
 """
 from __future__ import annotations
 
+import contextlib
+import types
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -127,7 +145,7 @@ def gather_cat(x: torch.Tensor, group, dim: int = 0,
     k = dist.get_world_size(group)
     out = torch.empty((k * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    dist.all_gather_into_tensor(out, x.detach().contiguous(), group=group)
     _count(reader, out)
     out = out.reshape((k,) + tuple(x.shape)).movedim(0, dim)
     shape = list(x.shape)
@@ -261,6 +279,113 @@ def gather_spec(x: torch.Tensor, spec, mesh, keep=(),
         for a in reversed([a for a in spec_axes(entry) if a not in keep]):
             x = gather_cat(x, mesh.get_group(a), dim=dim, reader=reader)
     return x
+
+
+def reduce_scatter_spec(x: torch.Tensor, spec, mesh, keep=(),
+                        reader: Optional[str] = None) -> torch.Tensor:
+    """The sum over the ranks of the axes that ``spec`` splits (but
+    ``keep``) of ``x``, a tensor of the whole shape, cut to this rank's
+    block: along each split dim, one reduce-scatter per axis, the major
+    first (``gather_spec``'s inverse)."""
+    for dim, entry in enumerate(spec):
+        for a in [a for a in spec_axes(entry) if a not in keep]:
+            group = mesh.get_group(a)
+            k = dist.get_world_size(group)
+            inp = x.movedim(dim, 0).contiguous()
+            out = inp.new_empty((inp.shape[0] // k,) + tuple(inp.shape[1:]))
+            dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM,
+                                       group=group)
+            _count(reader, out)
+            x = out.movedim(0, dim)
+    return x
+
+
+def max_over(x: torch.Tensor, mesh, axes, reader: Optional[str] = None
+             ) -> torch.Tensor:
+    """``x`` maximised over the ranks of the mesh ``axes``, in place."""
+    for a in axes:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+        _count(reader, x)
+    return x
+
+
+# storage address of a gathered weight -> (a weak reference to it, the
+# block, its spec, the mesh): what ``regathered``'s hooks need to gather it
+# again
+_GATHERED: Dict[int, tuple] = {}
+
+
+def live_gathers() -> int:
+    """How many weights gathered at their use are alive."""
+    return sum(ref() is not None for ref, *_ in _GATHERED.values())
+
+
+class _GatherAtUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, spec, mesh):
+        ctx.args = (spec, mesh)
+        return gather_spec(block, spec, mesh, ("model",), reader="lm_params")
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh = ctx.args
+        return (reduce_scatter_spec(g, spec, mesh, ("model",),
+                                    reader="lm_grads"), None, None)
+
+
+def at_use(p: torch.Tensor) -> torch.Tensor:
+    """``p`` as a layer computes with it: gathered over the data axes that
+    split it when it carries a ``gather_spec`` (module docstring), under
+    the current policy's mesh; else ``p`` itself."""
+    spec = getattr(p, "gather_spec", None)
+    if spec is None:
+        return p
+    from repro_torch.distributed.api import current_policy
+
+    policy = current_policy()
+    if policy is None:
+        raise RuntimeError("a parameter split over the data axes is "
+                           "gathered at its use under a mesh policy only")
+    full = _GatherAtUse.apply(p, spec, policy.mesh)
+    for k in [k for k, v in _GATHERED.items() if v[0]() is None]:
+        del _GATHERED[k]
+    _GATHERED[full.untyped_storage().data_ptr()] = (
+        weakref.ref(full), p, spec, policy.mesh)
+    return full
+
+
+def layer_weights(mod, names):
+    """``mod``'s parameters ``names`` as a layer computes with them
+    (``at_use``), in a namespace; a missing one is None."""
+    return types.SimpleNamespace(**{
+        n: None if getattr(mod, n) is None else at_use(getattr(mod, n))
+        for n in names})
+
+
+def _pack(t: torch.Tensor):
+    entry = _GATHERED.get(t.untyped_storage().data_ptr())
+    if entry is None or entry[0]() is None:
+        return t
+    _, block, spec, mesh = entry
+    return block, spec, mesh, tuple(t.shape), t.stride(), t.storage_offset()
+
+
+def _unpack(packed):
+    if isinstance(packed, torch.Tensor):
+        return packed
+    block, spec, mesh, shape, stride, offset = packed
+    with torch.no_grad():
+        full = gather_spec(block, spec, mesh, ("model",), reader="lm_params")
+    return full.as_strided(shape, stride, offset)
+
+
+@contextlib.contextmanager
+def regathered():
+    """Inside the block, a tensor that autograd saves and that is (a view
+    of) a weight gathered at its use is saved as its block and gathered
+    again when the backward reads it (module docstring)."""
+    with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
+        yield
 
 
 def mesh_barrier(mesh) -> None:

@@ -27,11 +27,14 @@ per dim: ``None``, an axis name, or a tuple of names (the first the
 major), as a ``PartitionSpec`` holds them.  The rules read a mesh only
 through ``mesh_shape``, so a stand-in with a ``.shape`` dict (the
 production meshes' 256 and 512 ranks) gives the same specs.
-``local_shard`` is this rank's part of a tensor by its spec.
+``local_shard`` is this rank's part of a tensor by its spec;
+``compute_spec`` the part a layer computes with (the ``model`` split
+kept, the data axes gathered at the use).
 """
 from __future__ import annotations
 
 import math
+import types
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -308,16 +311,14 @@ def data_spec(mesh, batch_size: int, ndim: int) -> tuple:
 def batch_spec(mesh, global_batch: int, microbatches: int = 1) -> tuple:
     """The spec of a (B, S) token batch, or (M, B/M, S) with ``M =
     microbatches > 1`` and dim 1 over the data axes (the reference's
-    ``batch_specs``).  The port's steps take each rank's rows, so the rows
-    must split over every data axis: raises otherwise."""
+    ``batch_specs``).  Rows that do not split over every data axis split
+    over ``batch_axes``' fallback, or over none: the data ranks outside it
+    hold the same rows, and a step under a policy whose ``"batch"`` rule
+    names the axes that split them (``distributed.api.batch_axes``)
+    scales its loss so that the gradients summed over every data axis are
+    the one-process run's (``models.model.lm_loss``)."""
     m = max(1, microbatches)
     rows = global_batch // m if m > 1 else global_batch
-    n_data = math.prod(mesh_shape(mesh)[a] for a in data_axes(mesh))
-    if n_data > 1 and batch_axes(mesh, rows) != data_axes(mesh):
-        raise ValueError(
-            f"a batch of {rows} rows does not split over the data axes "
-            f"{data_axes(mesh)} ({n_data} ranks); the port's steps take "
-            "each rank's rows")
     spec = data_spec(mesh, rows, 2)
     return spec if m == 1 else (None,) + spec
 
@@ -325,7 +326,14 @@ def batch_spec(mesh, global_batch: int, microbatches: int = 1) -> tuple:
 def cache_spec(path: Sequence, arr_shape: Tuple[int, ...], mesh,
                batch_size: int) -> tuple:
     """Serving cache sharding: batch dim over data(+pod), kv-heads/state
-    channels over model when divisible."""
+    channels over model when divisible.
+
+    This is the reference's layout, whose K/V split their SEQUENCE over
+    ``model`` (flash-decoding: each rank's partial softmax merged by a
+    psum).  The port's steps keep another (``launch/steps.py``): a rank's
+    batch rows and the KV heads its column-parallel ``wk``/``wv`` give it,
+    the KV heads over ``model`` where they divide and whole on every
+    ``model`` rank where they do not, so a step reshards nothing."""
     name = _names(path)[-1]
     shape = mesh_shape(mesh)
     bax = spec_entry(batch_axes(mesh, batch_size))
@@ -439,6 +447,52 @@ def local_shape(shape: Sequence[int], spec: Sequence, mesh) -> tuple:
     sizes = mesh_shape(mesh)
     return tuple(n // math.prod(sizes[a] for a in spec_axes(e))
                  for n, e in zip(shape, spec))
+
+
+def compute_spec(path, shape: Sequence[int], mesh, *, train: bool) -> tuple:
+    """The spec of the tensor a layer computes with for the leaf at
+    ``path`` of ``shape``: ``param_spec``'s ``model`` entries (tensor
+    parallelism), the data axes gathered at the use (FSDP).  A dim that
+    ``model`` does not divide stays whole, and the layer computes that
+    part whole on every ``model`` rank."""
+    return tuple(e if "model" in spec_axes(e) else None
+                 for e in param_spec(path, shape, mesh, train=train))
+
+
+class Coord:
+    """One rank of a mesh without a process group: axis sizes and this
+    rank's coordinate on each (what the rules and ``local_shard`` read of
+    a ``DeviceMesh``), so one process can cut every rank's blocks."""
+
+    def __init__(self, sizes: Dict[str, int], at: Dict[str, int]):
+        self.mesh_dim_names = tuple(sizes)
+        self.sizes, self.at = dict(sizes), dict(at)
+
+    def size(self, i=None):
+        return self.sizes[self.mesh_dim_names[i]]
+
+    def get_local_rank(self, axis):
+        return self.at[axis]
+
+
+def model_rank(m: int, m_idx: int) -> Coord:
+    """Rank ``m_idx`` of a ``(data 1, model m)`` mesh."""
+    return Coord({"data": 1, "model": m}, {"data": 0, "model": m_idx})
+
+
+def rank_blocks(mod, path: str, names, m: int, m_idx: int):
+    """Model rank ``m_idx``'s blocks of ``mod``'s whole parameters
+    ``names`` (each the leaf at ``path/name``) on a ``(data 1, model m)``
+    mesh, by ``compute_spec``: what that rank's layer body computes with,
+    in a namespace (a missing one is None)."""
+    coord = model_rank(m, m_idx)
+    out = {}
+    for n in names:
+        p = getattr(mod, n)
+        out[n] = None if p is None else local_shard(
+            p, compute_spec(f"{path}/{n}", tuple(p.shape), coord,
+                            train=False), coord)
+    return types.SimpleNamespace(**out)
 
 
 def is_split(spec: Sequence, keep: Sequence = ()) -> bool:

@@ -53,28 +53,36 @@ runs under ``use_mesh_policy(policy)``, as the reference's do.  Under one,
 ``params`` is a ``models.io.ShardedLM`` (or a whole model) and the batch,
 tokens and caches are this rank's rows by ``sharding.batch_axes`` (with
 ``M > 1`` microbatches, dim 1 of (M, B/M, S), as
-``data.pipeline.SyntheticLM(mesh=)`` gives them).  A step first gathers
-every leaf its spec splits into the model's tensors (``ShardedLM.
-gather_``), so the dense layers compute whole on every ``model`` rank,
-while an MoE layer runs expert-parallel (``models/moe.py``); the training
-step then sums each gradient over the data axes and keeps this rank's
-block (``ShardedLM.reduce_grads``) for the optimizer, which updates the
-blocks (``train_state`` builds it with the ``ShardedLM`` as its layout).
-The loss keeps the global normaliser (``model.lm_loss``).  Every
-collective runs inside the step's CUDA graph.  Splitting the dense
-compute over ``model`` (column- and row-parallel attention and MLP,
-vocab-parallel embedding and loss) is not done: ROADMAP queue A, and
-until it is, enc-dec's steps raise under a policy whose mesh holds more
-than one rank.  The
+``data.pipeline.SyntheticLM(mesh=)`` gives them).  The layers compute
+Megatron-style on the rank's blocks (``models/transformer.py``): the
+heads, ff and vocab over ``model``, each ending in an all-reduce over
+``model``, an MoE layer expert-parallel (``models/moe.py``), and in
+training every block split over the data axes gathered at its use and
+freed after (``ShardedLM.regathered``), its gradient reduce-scattered to
+the block in the backward.  The training step then sums the gradients of
+the blocks the data axes do not split over them
+(``ShardedLM.sum_replicated_grads``) and the optimizer updates the blocks
+(``train_state`` builds it with the ``ShardedLM`` as its layout); the
+microbatches' accumulators take the blocks' shapes.  The loss keeps the
+global normaliser (``model.lm_loss``).  The serving caches hold the
+rank's rows and the KV heads its ``wk``/``wv`` blocks give (the rank's
+``KV/m`` where the KV heads divide, all of them where they do not: no
+step reshards a cache; ``sharding.cache_spec`` is the reference's
+sequence split, which the port does not take), and prefill and decode
+return whole logits, the vocab slices gathered over ``model`` (one
+all-gather, reader ``"lm_logits"``), as the reference's steps return
+global arrays.  Every collective runs inside the step's CUDA graph.  The
 spec functions (``param_specs`` through ``make_step``) are tooling,
 item 6.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.distributed.api import use_mesh_policy
 from repro_torch.graphs import StepGraph, capture
 from repro_torch.models import io as model_io, model as model_lib
@@ -102,17 +110,18 @@ def train_state(cfg, params, opt_factory) -> dict:
 
 
 def _model(params):
-    """The module a step computes with, after gathering a ``ShardedLM``'s
-    split leaves into it."""
-    if isinstance(params, model_io.ShardedLM):
-        params.gather_()
-        return params.model
-    return params
+    """The module a step computes with (a ``ShardedLM``'s holds its
+    blocks)."""
+    return params.model if isinstance(params, model_io.ShardedLM) else params
 
 
-def _check_policy(cfg, policy) -> None:
-    if policy is not None:
-        model_io.refuse_encdec_mesh(cfg, policy.mesh)
+def _whole_logits(logits, cfg, policy):
+    """Logits whole over the vocab: a rank's vocab slices gathered over
+    ``model``."""
+    if policy is None or logits.shape[-1] == cfg.vocab_padded:
+        return logits
+    return collectives.gather_cat(logits, policy.mesh.get_group("model"),
+                                  dim=logits.dim() - 1, reader="lm_logits")
 
 
 def _grads(loss, params) -> list:
@@ -132,13 +141,14 @@ def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
     ``policy`` the state's params are a ``ShardedLM`` and the batch this
     rank's rows.  Its ``graphs`` maps (optimizer, batch shapes) to (state,
     batch buffers, ``StepGraph``) for each capture."""
-    _check_policy(cfg, policy)
     M = max(1, cfg.microbatches)
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
 
-    def grad_one(model, wrt, batch):
-        with torch.enable_grad():
-            total, metrics = model_lib.lm_loss(model, cfg, batch)
+    def grad_one(params, wrt, batch):
+        sharded = isinstance(params, model_io.ShardedLM)
+        with torch.enable_grad(), (params.regathered() if sharded
+                                   else contextlib.nullcontext()):
+            total, metrics = model_lib.lm_loss(_model(params), cfg, batch)
             grads = _grads(total, wrt)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -152,16 +162,15 @@ def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
         if sharded != (policy is not None):
             raise ValueError("a training step under a mesh policy takes a "
                              "ShardedLM's state, and only then")
-        model = _model(params)
         wrt = params.compute_tensors() if sharded else opt.tensors()
         if M == 1:
-            grads, metrics = grad_one(model, wrt, batch)
+            grads, metrics = grad_one(params, wrt, batch)
         else:
             acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
                    for p in wrt]
             ms = []
             for i in range(M):
-                g, m = grad_one(model, wrt,
+                g, m = grad_one(params, wrt,
                                 {k: x[i] for k, x in batch.items()})
                 for a, x in zip(acc, g):
                     a.add_(x.to(acc_dtype))
@@ -172,7 +181,7 @@ def make_train_step(cfg, policy=None, *, graphs: bool = True) -> Callable:
             metrics = {k: torch.stack([m[k] for m in ms]).mean(0)
                        for k in ms[0]}
         if sharded:
-            grads = params.reduce_grads(grads)
+            grads = params.sum_replicated_grads(grads)
         stats = opt.update(grads)
         del grads
         opt.step.add_(1)
@@ -236,13 +245,15 @@ def make_prefill_step(cfg, max_len: int, policy=None) -> Callable:
     ``{"frames": (B, S, d)}``.  Its ``graphs`` maps each of the last
     ``MAX_PREFILL_GRAPHS`` prompt shapes seen on CUDA, least recently used
     first, to (params, prompt buffer, ``StepGraph``)."""
-    _check_policy(cfg, policy)
     held = {}
     pool = []
 
     def run(params, prompt):
         with use_mesh_policy(policy):
-            return model_lib.prefill(_model(params), cfg, prompt, max_len)
+            out = model_lib.prefill(_model(params), cfg, prompt, max_len)
+            if isinstance(out, tuple):
+                return _whole_logits(out[0], cfg, policy), out[1]
+            return out
 
     def prefill_step(params, batch):
         prompt = batch["frames"] if isinstance(batch, dict) else batch
@@ -274,12 +285,13 @@ def make_decode_step(cfg, policy=None) -> Callable:
     """The decode step, under ``policy`` when given (module docstring);
     its ``graphs`` maps each cache shape seen on CUDA to (params, the
     step's cache, token buffer, ``StepGraph``)."""
-    _check_policy(cfg, policy)
     held = {}
 
     def run(params, cache, token):
         with use_mesh_policy(policy):
-            return model_lib.decode_step(_model(params), cfg, cache, token)
+            logits, cache = model_lib.decode_step(_model(params), cfg, cache,
+                                                  token)
+            return _whole_logits(logits, cfg, policy), cache
 
     def decode_step(params, cache, token):
         if token.device.type != "cuda":

@@ -25,6 +25,16 @@ reference trains (neither kernel has a backward in either package), each
 layer recomputed in the backward when ``cfg.remat`` is set, as the
 reference's ``jax.checkpoint`` does.
 
+Under a ``MeshPolicy`` whose ``model`` axis is larger than 1 the layers
+split as the transformer's do (``models/transformer.py``): every
+attention (the encoder's and decoder's self-attention and the
+cross-attention) on the rank's ``H/m`` heads of ``wq``/``wk``/``wv`` with
+``wo`` row-parallel; the GELU MLP's ``w1`` and ``b1`` column-parallel and
+``w2`` row-parallel, ``b2`` added once after the all-reduce; layer norms
+whole; the embedding vocab-parallel and ``lm_head`` the rank's vocab
+slice.  The cache then holds the rank's heads (``init_cache(heads=)``).
+A rank's part of each is ``mha_body`` and ``mlp_body``.
+
 The cache has the reference's layout (``self_k``/``self_v``/``cross_k``/
 ``cross_v`` of ``(n_layers, B, max_len, H, dh)``, ``enc_len`` and ``pos``
 scalars, ``kv_pos (B, max_len)``), but ``decode_step`` updates it in
@@ -41,6 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import generator, resolve
+from repro_torch.distributed import collectives
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.flash_attn.ops import flash_attn
 from repro_torch.models import layers, transformer
@@ -167,19 +178,32 @@ def init_params(cfg, seed: int = 0, device=None) -> EncDec:
 # ---------------------------------------------------------------------------
 
 
-def _mlp(p: MLP, x):
-    h = F.gelu(torch.einsum("bsd,df->bsf", x, p.w1) + p.b1,
+MHA_NAMES = ("wq", "wk", "wv", "wo")
+MLP_NAMES = ("w1", "b1", "w2", "b2")
+
+
+def mlp_body(w, x):
+    """A model rank's part of the GELU MLP on its blocks ``w`` (``w1 (d,
+    f/m)``, ``b1 (f/m)``, ``w2 (f/m, d)``): its partial output before
+    ``b2``, which the model ranks sum."""
+    h = F.gelu(torch.einsum("bsd,df->bsf", x, w.w1) + w.b1,
                approximate="tanh")             # jax.nn.gelu's default
-    return torch.einsum("bsf,fd->bsd", h, p.w2) + p.b2
+    return torch.einsum("bsf,fd->bsd", h, w.w2)
 
 
-def _mha(p: MHA, cfg, xq, xkv, *, causal: bool, train: bool):
-    """Attention of ``xq`` (B, Sq, d) over ``xkv`` (B, Skv, d) -> (B, Sq,
-    d): the flash-attention kernel when serving (through (B, H, S, dh)
-    views, no copies), ``blockwise_attention`` when training."""
-    q = torch.einsum("bsd,dhe->bshe", xq, p.wq)
-    k = torch.einsum("bsd,dhe->bshe", xkv, p.wk)
-    v = torch.einsum("bsd,dhe->bshe", xkv, p.wv)
+def _mlp(p: MLP, cfg, x):
+    w = collectives.layer_weights(p, MLP_NAMES)
+    tp = transformer.split_layer(w.w1.shape[1] != cfg.d_ff)
+    out = mlp_body(w, transformer.split_input(x, tp))
+    return transformer.split_output(out, tp) + w.b2
+
+
+def mha_body(w, cfg, xq, xkv, *, causal: bool, train: bool):
+    """A model rank's part of ``_mha`` on its heads' blocks ``w``: its
+    partial output (B, Sq, d), which the model ranks sum."""
+    q = torch.einsum("bsd,dhe->bshe", xq, w.wq)
+    k = torch.einsum("bsd,dhe->bshe", xkv, w.wk)
+    v = torch.einsum("bsd,dhe->bshe", xkv, w.wv)
     if train:
         o = layers.blockwise_attention(q, k, v, causal=causal,
                                        block_q=cfg.attn_block_q,
@@ -187,14 +211,26 @@ def _mha(p: MHA, cfg, xq, xkv, *, causal: bool, train: bool):
     else:
         o = flash_attn(q.transpose(1, 2), k.transpose(1, 2),
                        v.transpose(1, 2), causal=causal).transpose(1, 2)
-    return torch.einsum("bshe,hed->bsd", o, p.wo)
+    return layers.heads_out(o, w.wo)
+
+
+def _mha(p: MHA, cfg, xq, xkv, *, causal: bool, train: bool):
+    """Attention of ``xq`` (B, Sq, d) over ``xkv`` (B, Skv, d) -> (B, Sq,
+    d): the flash-attention kernel when serving (through (B, H, S, dh)
+    views, no copies), ``blockwise_attention`` when training."""
+    w = collectives.layer_weights(p, MHA_NAMES)
+    tp = transformer.split_layer(w.wq.shape[1] != cfg.n_heads)
+    q_in = transformer.split_input(xq, tp)
+    kv_in = q_in if xkv is xq else transformer.split_input(xkv, tp)
+    return transformer.split_output(
+        mha_body(w, cfg, q_in, kv_in, causal=causal, train=train), tp)
 
 
 def _enc_layer(lp: EncLayer, cfg, x, train: bool):
     eps = cfg.norm_eps
     hn = lp.ln1(x, eps)
     x = x + _mha(lp.attn, cfg, hn, hn, causal=False, train=train)
-    return x + _mlp(lp.mlp, lp.ln2(x, eps))
+    return x + _mlp(lp.mlp, cfg, lp.ln2(x, eps))
 
 
 def _dec_layer(lp: DecLayer, cfg, x, enc, train: bool):
@@ -203,7 +239,7 @@ def _dec_layer(lp: DecLayer, cfg, x, enc, train: bool):
     x = x + _mha(lp.self_attn, cfg, hn, hn, causal=True, train=train)
     x = x + _mha(lp.cross_attn, cfg, lp.ln2(x, eps), enc, causal=False,
                  train=train)
-    return x + _mlp(lp.mlp, lp.ln3(x, eps))
+    return x + _mlp(lp.mlp, cfg, lp.ln3(x, eps))
 
 
 def _run(layer, lp, cfg, train: bool, *xs):
@@ -265,10 +301,13 @@ def forward(params: EncDec, cfg, batch: dict, train: bool = False
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+def init_cache(cfg, batch: int, max_len: int, device=None,
+               heads: int = None) -> dict:
+    """The empty cache; ``heads`` the heads a model rank holds (all by
+    default)."""
     _check_family(cfg)
     dev = resolve(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_heads, cfg.d_head)
+    shape = (cfg.n_layers, batch, max_len, heads or cfg.n_heads, cfg.d_head)
     dtype = getattr(torch, cfg.compute_dtype)
     return {name: torch.zeros(shape, dtype=dtype, device=dev)
             for name in ("self_k", "self_v", "cross_k", "cross_v")} | {
@@ -290,12 +329,14 @@ def prefill(params: EncDec, cfg, batch, max_len: int) -> dict:
         raise ValueError(f"max_len {max_len} is shorter than the {s} encoder "
                          "frames the cross-attention cache holds")
     enc = encode(params, cfg, frames)
-    cache = init_cache(cfg, b, max_len, device=enc.device)
+    cache = init_cache(cfg, b, max_len, device=enc.device,
+                       heads=params.dec_layers[0].cross_attn.wk.shape[1])
     for i, lp in enumerate(params.dec_layers):
+        ca = collectives.layer_weights(lp.cross_attn, ("wk", "wv"))
         cache["cross_k"][i, :, :s] = torch.einsum("bsd,dhe->bshe", enc,
-                                                  lp.cross_attn.wk)
+                                                  ca.wk)
         cache["cross_v"][i, :, :s] = torch.einsum("bsd,dhe->bshe", enc,
-                                                  lp.cross_attn.wv)
+                                                  ca.wv)
     cache["enc_len"].fill_(s)
     return cache
 
@@ -331,7 +372,9 @@ def decode_step(params: EncDec, cfg, cache: dict, token: torch.Tensor
     x = x + pe.to(x.dtype)[None]
     cache["kv_pos"][bidx, slot] = pos
     for i, lp in enumerate(params.dec_layers):
-        sa, ca = lp.self_attn, lp.cross_attn
+        sa = collectives.layer_weights(lp.self_attn, MHA_NAMES)
+        ca = collectives.layer_weights(lp.cross_attn, MHA_NAMES)
+        tp = transformer.split_layer(sa.wq.shape[1] != cfg.n_heads)
         hn = lp.ln1(x, eps)
         q = torch.einsum("bsd,dhe->bshe", hn, sa.wq)
         sk, sv = cache["self_k"][i], cache["self_v"][i]
@@ -339,13 +382,15 @@ def decode_step(params: EncDec, cfg, cache: dict, token: torch.Tensor
         sv[bidx, slot] = torch.einsum("bsd,dhe->bshe", hn, sa.wv)[:, 0]
         o = decode_attn(q[:, 0].contiguous(), sk.transpose(1, 2),
                         sv.transpose(1, 2), self_len)
-        x = x + torch.einsum("bhe,hed->bd", o, sa.wo)[:, None]
+        x = x + transformer.split_output(
+            torch.einsum("bhe,hed->bd", o, sa.wo), tp)[:, None]
         q = torch.einsum("bsd,dhe->bshe", lp.ln2(x, eps), ca.wq)
         o = decode_attn(q[:, 0].contiguous(),
                         cache["cross_k"][i].transpose(1, 2),
                         cache["cross_v"][i].transpose(1, 2), cross_len)
-        x = x + torch.einsum("bhe,hed->bd", o, ca.wo)[:, None]
-        x = x + _mlp(lp.mlp, lp.ln3(x, eps))
+        x = x + transformer.split_output(
+            torch.einsum("bhe,hed->bd", o, ca.wo), tp)[:, None]
+        x = x + _mlp(lp.mlp, cfg, lp.ln3(x, eps))
     cache["pos"].add_(1)
     x = params.dec_final_ln(x, eps)
     return _unembed(params, cfg, x)[:, 0], cache

@@ -21,14 +21,14 @@ a bf16 model.
 
 ``reference_groups`` is the other way: the port's tensors by the
 reference's leaf paths.  On a mesh (``launch/mesh.py``) a model is a
-``ShardedLM``: this rank's block of every leaf by
-``distributed.sharding.param_spec``, and the model it computes with
+``ShardedLM``: a model whose parameters are this rank's block of every
+leaf by ``distributed.sharding.param_spec``
 (``sharded_params_from_numpy`` carries the reference's tree onto a mesh,
 ``sharded_params_to_numpy`` gathers it back).
 """
 from __future__ import annotations
 
-import math
+import contextlib
 
 import numpy as np
 import torch
@@ -115,47 +115,37 @@ def reference_groups(model, cfg) -> dict:
     return groups
 
 
-def refuse_encdec_mesh(cfg, mesh) -> None:
-    """Enc-dec runs on a mesh of one rank only: raise on a larger one."""
-    if cfg.family == "encdec" and math.prod(
-            sharding.mesh_shape(mesh).values()) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec on a mesh of more than one rank comes with "
-            "the Megatron-style split of the dense compute (ROADMAP queue A "
-            "item 5)")
-
-
 class ShardedLM:
     """This rank's part of an LM on a mesh (``ShardedLM(model, cfg, mesh,
-    train)`` takes it from the whole ``model``).
+    train)`` takes it from the whole ``model``, whose tensors it
+    replaces).
 
     ``leaves``: reference path -> this rank's block of the leaf by
     ``param_spec(..., train=train)`` (a tensor, or the list of its
     per-layer blocks for a stacked leaf): what the optimizer updates and
     the checkpoint saves.  ``specs``: path -> the (stacked) leaf's spec;
-    ``shapes``: path -> its whole shape.  ``model``: the port's module that
-    a step computes with, each tensor whole, but for an expert weight's
-    expert dim, which stays split over ``model`` (the local experts of
-    ``moe._moe_sharded``).  A leaf that its spec does not split is its own
-    block (one tensor); ``gather_`` fills the others from the blocks, and
-    ``reduce_grads`` turns gradients of the model's tensors into the
-    blocks' (summed over the data axes, then this rank's block).
-
-    What the mesh cuts is the blocks and the optimizer state over them.
-    The model's tensors stay whole between steps (but the experts' dim
-    over ``model``), and so are the gradients until ``reduce_grads``: a
-    rank holds the whole parameters plus its split blocks, more than the
-    meshless run's parameters (ROADMAP queue A: gathering each leaf at
-    its use and freeing it after)."""
+    ``shapes``: path -> its whole shape.  ``model``: the port's module,
+    whose parameters are those blocks and nothing else: a rank holds no
+    whole tensor of a split leaf between steps.  The layers compute on
+    them Megatron-style (``models/transformer.py``, ``models/encdec.py``,
+    ``models/moe.py``): a block split over ``model`` is what the layer
+    computes with (``sharding.compute_spec``), and a block that training
+    splits over the data axes carries its spec as ``gather_spec``, so the
+    layer gathers it at its use and frees it after, and its gradient
+    comes back reduce-scattered to the block (``collectives.at_use``;
+    ``regathered`` keeps the gathered weight out of the saved tensors).
+    ``sum_replicated_grads`` sums the gradients of the blocks that the
+    data axes do not split (norms, the router, a dim that does not
+    divide) over those axes."""
 
     def __init__(self, model, cfg, mesh, train: bool):
-        refuse_encdec_mesh(cfg, mesh)
         self.model, self.cfg, self.mesh, self.train = model, cfg, mesh, train
         owner = {id(p): (mod, attr) for mod in model.modules()
                  for attr, p in mod.named_parameters(recurse=False)}
+        daxes = sharding.data_axes(mesh)
         self.leaves, self.specs, self.shapes = {}, {}, {}
-        self._compute, self._member = [], []     # per member tensor
-        self._split = []                         # (compute, block, spec, keep)
+        self._blocks = []                        # per member tensor
+        self._replicated = []                    # (index, data axes)
         for path, leaf in reference_groups(model, cfg).items():
             stacked = not isinstance(leaf, torch.Tensor)
             members = list(leaf) if stacked else [leaf]
@@ -164,51 +154,45 @@ class ShardedLM:
             spec = sharding.param_spec(path, shape, mesh, train=train)
             mspec = spec[1:] if stacked else spec
             assert not stacked or spec[0] is None, (path, spec)
-            keep = (("model",) if sharding.is_expert_weight(path)
-                    and "model" in sharding.spec_axes(mspec[0]) else ())
+            used = {a for e in mspec for a in sharding.spec_axes(e)}
             blocks = []
             for p in members:
-                if keep:                         # this rank's experts only
+                if used:
                     mod, attr = owner[id(p)]
-                    local = sharding.local_shard(
-                        p, (mspec[0],) + (None,) * (p.dim() - 1), mesh)
-                    p = nn.Parameter(local.clone(),
-                                     requires_grad=p.requires_grad)
+                    p = nn.Parameter(
+                        sharding.local_shard(p, mspec, mesh).clone(),
+                        requires_grad=p.requires_grad)
+                    if used - {"model"}:
+                        p.gather_spec = mspec
                     setattr(mod, attr, p)
-                if sharding.is_split(mspec, keep):
-                    block = sharding.local_shard(p, mspec, mesh,
-                                                 keep=keep).clone()
-                    self._split.append((p, block, mspec, keep))
-                else:
-                    block = p
-                blocks.append(block)
-                self._compute.append(p)
-                self._member.append((mspec, keep))
+                rest = tuple(a for a in daxes if a not in used
+                             and sharding.axis_size(mesh, a) > 1)
+                if rest:
+                    self._replicated.append((len(self._blocks), rest))
+                self._blocks.append(p)
+                blocks.append(p)
             self.leaves[path] = blocks if stacked else blocks[0]
             self.specs[path], self.shapes[path] = spec, shape
+        self.gathers = any(hasattr(p, "gather_spec") for p in self._blocks)
 
     def compute_tensors(self) -> list:
-        """The model's tensors, in the order of the leaves' blocks."""
-        return list(self._compute)
+        """The model's tensors: the blocks, in the order of the leaves."""
+        return list(self._blocks)
+
+    def regathered(self):
+        """The context a training forward and backward run in:
+        ``collectives.regathered`` where a block is gathered at its use,
+        else nothing."""
+        return (collectives.regathered() if self.gathers
+                else contextlib.nullcontext())
 
     @torch.no_grad()
-    def gather_(self) -> None:
-        """Fill every model tensor whose leaf is split from the blocks
-        (an all-gather per split axis; reader ``"lm_params"``)."""
-        for full, block, spec, keep in self._split:
-            full.copy_(collectives.gather_spec(block, spec, self.mesh, keep,
-                                               reader="lm_params"))
-
-    @torch.no_grad()
-    def reduce_grads(self, grads) -> list:
-        """Gradients of ``compute_tensors()`` -> gradients of the blocks:
-        each summed over the data axes in place (reader ``"lm_grads"``),
-        then this rank's block of it (a view).  A list is emptied."""
-        out = []
-        axes = sharding.data_axes(self.mesh)
-        grads = grads if isinstance(grads, list) else list(grads)
-        for i, (spec, keep) in enumerate(self._member):
-            g, grads[i] = grads[i], None
+    def sum_replicated_grads(self, grads: list) -> list:
+        """Gradients of ``compute_tensors()``, each summed in place over
+        the data axes that do not split its block (reader
+        ``"lm_grads"``); the others came back reduce-scattered."""
+        for i, axes in self._replicated:
+            g = grads[i]
             if g.is_contiguous():
                 collectives.sum_over(g, self.mesh, axes, reader="lm_grads")
             else:
@@ -218,16 +202,14 @@ class ShardedLM:
                 # then run in the order they run without a mesh
                 g.copy_(collectives.sum_over(g.contiguous(), self.mesh,
                                              axes, reader="lm_grads"))
-            out.append(sharding.local_shard(g, spec, self.mesh, keep=keep))
-        grads.clear()
-        return out
+        return grads
 
 
 def sharded_params_from_numpy(tree: dict, cfg, mesh, *, train: bool,
                               device=None) -> ShardedLM:
     """The reference's param tree carried onto ``mesh``: this rank's
-    blocks by ``param_spec(..., train=train)`` and the model it computes
-    with, on ``device`` (CUDA by default)."""
+    blocks by ``param_spec(..., train=train)``, the parameters of the
+    model it computes with, on ``device`` (CUDA by default)."""
     return ShardedLM(lm_params_from_numpy(tree, cfg, device), cfg, mesh,
                      train)
 

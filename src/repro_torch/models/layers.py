@@ -201,6 +201,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(out_dtype)
 
 
+def heads_out(o, wo):
+    """The attention's output projection: o (..., H, dh) through wo (H,
+    dh, d) -> (..., d), as one product over the flattened heads, so the
+    backward saves ``wo`` as a view (an einsum over (h, e) saves a
+    copy)."""
+    return torch.einsum("...k,kd->...d", o.flatten(-2), wo.flatten(0, 1))
+
+
 def swiglu(x, w_gate, w_up, w_down):
     g = torch.einsum("...d,df->...f", x, w_gate)
     u = torch.einsum("...d,df->...f", x, w_up)

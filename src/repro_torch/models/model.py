@@ -22,14 +22,17 @@ batch.
 through their training forwards; the recurrent families raise there
 (ROADMAP queue A item 5).  Under a mesh policy the tokens are this rank's
 rows, and the loss keeps the reference's global normaliser: the mask
-counts are summed over the data axes before the division.
+counts are summed over the data axes before the division; where
+``model`` splits the vocab, the logits are this rank's slice and the
+cross entropy is vocab-parallel (``lm_loss``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed import collectives, sharding
-from repro_torch.distributed.api import current_policy
+from repro_torch.distributed import collectives
+from repro_torch.distributed.api import (batch_axes, current_policy,
+                                         model_parallel, replicas)
 from repro_torch.models import encdec, rglru, rwkv6, transformer
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
@@ -72,6 +75,22 @@ def decode_step(params, cfg, cache, token):
 # ---------------------------------------------------------------------------
 
 
+def cross_entropy_parts(logits, targets, m, lo: int = 0):
+    """A model rank's terms of the vocab-parallel cross entropy from its
+    vocab slice ``logits`` (..., V/m) of ids ``lo ..``, given ``m`` (...),
+    the maximum over the whole vocab: (the sum of ``exp(logit - m)`` over
+    its ids, in float32; the label's logit where the rank holds
+    ``targets``, else 0), each of which the model ranks sum."""
+    e = torch.exp(logits.float() - m[..., None])
+    s = e.sum(-1)
+    del e
+    local = targets.clamp(min=0) - lo
+    inside = (local >= 0) & (local < logits.shape[-1])
+    label = logits.float().gather(
+        -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    return s, torch.where(inside, label, 0.0)
+
+
 def lm_loss(params, cfg, batch: dict):
     """Next-token cross entropy over positions [0, S-2] predicting [1,
     S-1] of ``batch["tokens"]`` (B, S), targets below 0 masked, through
@@ -84,10 +103,17 @@ def lm_loss(params, cfg, batch: dict):
 
     Under a mesh policy ``batch`` is this rank's rows: the returned total
     is its share, ``sum(nll * mask)`` over its rows divided by the mask
-    count summed over the data axes, plus ``0.01 * aux`` (whose gradient
-    the MoE divides among the data ranks), so the gradients summed over
-    the data ranks are the whole batch's; ``loss`` is the shares summed
-    (reader ``"lm_loss"``)."""
+    count summed over the axes that split the rows (``api.batch_axes``)
+    and by the number of data ranks that hold the same rows
+    (``api.replicas``), plus ``0.01 * aux`` (whose gradient the MoE
+    divides among the data ranks), so the gradients summed over the data
+    ranks are the whole batch's; ``loss`` is the shares summed over the
+    axes that split the rows (reader ``"lm_loss"``).  Where ``model``
+    splits the vocab the logits are this rank's slice and the cross
+    entropy is vocab-parallel, term for term the reference's: the maximum
+    over the vocab (a MAX over ``model``), the sum of exponentials and
+    the label's logit from the rank that holds it, both summed over
+    ``model`` (``cross_entropy_parts``)."""
     if cfg.family not in ("dense", "moe", "encdec"):
         raise NotImplementedError(
             f"{cfg.name}: lm_loss trains the dense, MoE and enc-dec "
@@ -98,22 +124,38 @@ def lm_loss(params, cfg, batch: dict):
                           else tokens, train=True)
     targets = tokens[:, 1:].long()
     logits = logits[:, :-1]
-    m = logits.amax(-1).float()
-    e = torch.exp(logits.float() - m[..., None])
-    lse = m + torch.log(e.sum(-1))
-    del e
-    # the label's logit, one element per row (the reference sums a one-hot
-    # mask over the vocabulary, which adds zeros to it)
-    label = logits.float().gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    policy = current_policy()
+    tp = (model_parallel(policy) if logits.shape[-1] != cfg.vocab_padded
+          else None)
+    if tp is None:
+        m = logits.amax(-1).float()
+        e = torch.exp(logits.float() - m[..., None])
+        lse = m + torch.log(e.sum(-1))
+        del e
+        # the label's logit, one element per row (the reference sums a
+        # one-hot mask over the vocabulary, which adds zeros to it)
+        label = logits.float().gather(
+            -1, targets.clamp(min=0)[..., None])[..., 0]
+    else:
+        mesh, _, idx = tp
+        # the maximum only steadies the exponentials: no gradient
+        m = collectives.max_over(logits.detach().amax(-1).float(), mesh,
+                                 ("model",), reader="lm_loss")
+        s, label = cross_entropy_parts(logits, targets, m,
+                                       idx * logits.shape[-1])
+        lse = m + torch.log(collectives.sum_forward(s, mesh, ("model",),
+                                                    reader="lm_loss"))
+        label = collectives.sum_forward(label, mesh, ("model",),
+                                        reader="lm_loss")
     nll = lse - label
     mask = (targets >= 0).float()
     # without a policy the sums over no axes are the tensors themselves
-    policy = current_policy()
     mesh = policy.mesh if policy is not None else None
-    axes = sharding.data_axes(mesh) if policy is not None else ()
+    axes = batch_axes(policy)
     count = collectives.sum_over(mask.sum(), mesh, axes, reader="lm_loss")
     share = (nll * mask).sum() / torch.clamp(count, min=1.0)
-    total = share + 0.01 * aux
+    n_rep = replicas(policy)
+    total = (share if n_rep == 1 else share / n_rep) + 0.01 * aux
     loss = collectives.sum_over(share.detach().clone(), mesh, axes,
                                 reader="lm_loss")
     return total, {"loss": loss, "aux_loss": aux,

@@ -35,9 +35,12 @@ router probabilities' sums cross the data axes.  In training the
 combine's backward hands every model rank the output's gradient
 unchanged, and the gradients of the tokens and gates that the model ranks
 each used for part of the sum are summed over ``model``
-(``collectives.sum_forward``, ``sum_backward``).  Nothing here
-synchronises with the host: dispatch and combine are index arithmetic on
-the device.
+(``collectives.sum_forward``, ``sum_backward``).  The layer's tokens are
+the same on every ``model`` rank: the attention before it (split over
+``model``, ``models/transformer.py``) ends in an all-reduce.  In training
+the expert weights' blocks, split over the data axes, are gathered at
+their use (``collectives.at_use``).  Nothing here synchronises with the
+host: dispatch and combine are index arithmetic on the device.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives, sharding
-from repro_torch.distributed.api import current_policy
+from repro_torch.distributed.api import batch_axes, current_policy
 from repro_torch.kernels.moe_gemm.ops import expert_gemm, expert_swiglu
 
 
@@ -233,17 +236,19 @@ def moe_shard_body(w, x, gates, ids, cfg, m_idx: int, e_local: int,
                     getattr(torch, cfg.moe_psum_dtype))
 
 
-def _moe_sharded(p, x: torch.Tensor, cfg, mesh, train: bool = False
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_sharded(p, x: torch.Tensor, cfg, mesh, train: bool = False,
+                 baxes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's expert-parallel MoE on ``mesh`` (module docstring);
-    ``x`` (T, d) is this rank's tokens."""
+    ``x`` (T, d) is this rank's tokens, split over the data axes
+    ``baxes`` (every one by default; the others hold the same tokens)."""
     T = x.shape[0]
     shape = sharding.mesh_shape(mesh)
     daxes = sharding.data_axes(mesh)
-    n_data = math.prod(shape[a] for a in daxes)
+    baxes = daxes if baxes is None else baxes
+    n_data = math.prod(shape[a] for a in baxes)
     plan = moe_plan(cfg, T * n_data, n_data, shape["model"])
     if plan is None:
-        return _moe_data_parallel(p, x, cfg, mesh, train)
+        return _moe_data_parallel(p, x, cfg, mesh, train, baxes)
     e_local, cap_local = plan
     m_idx = sharding.axis_index(mesh, "model")
     gates, ids, probs = route_topk(x.float() @ p.router, cfg.top_k)
@@ -260,8 +265,8 @@ def _moe_sharded(p, x: torch.Tensor, cfg, mesh, train: bool = False
     return out.to(x.dtype), aux
 
 
-def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False,
+                       baxes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_moe_local`` of every data rank's tokens at once, this rank's
     rows of it (``p`` holds all E experts), computed from this rank's
     tokens: the expert FFN acts row by row, so only the routing needs the
@@ -274,9 +279,13 @@ def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False
     token meets an expert once).  ``aux`` is the reference's over every
     token: the router probabilities' sums added over the data axes
     (reader ``"moe_aux"``) with their gradient handed back unchanged, so
-    each rank's share of it reaches its own loss once."""
+    each rank's share of it reaches its own loss once.  The data axes
+    outside ``baxes`` (which split the tokens; every one by default) hold
+    the same tokens: the counts and sums cross ``baxes`` only, and the
+    probabilities' gradient is divided among those copies."""
     daxes = sharding.data_axes(mesh)
-    i, n = sharding.block_index(mesh, daxes)
+    baxes = daxes if baxes is None else baxes
+    i, n = sharding.block_index(mesh, baxes)
     T = x.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     capacity = _capacity(T * n, cfg)
@@ -287,7 +296,7 @@ def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False
     counts.scatter_add_(1, torch.cat([ids_flat, ids[:, 0].long() + e])[None],
                         torch.ones((1, T * k + T), dtype=torch.int32,
                                    device=x.device))
-    for a in reversed(daxes):
+    for a in reversed(baxes):
         counts = collectives.gather_cat(counts, mesh.get_group(a), dim=0,
                                         reader="moe_counts")
     before = counts[:i, :e].sum(0)
@@ -295,8 +304,12 @@ def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False
     y_tok = _dispatch_ffn(p, x, ids_flat, slot, keep, e, min(capacity, T),
                           train)
     out = _combine(y_tok, gates.reshape(-1), keep, T, k, y_tok.dtype)
-    me = collectives.sum_forward(probs.sum(0), mesh, daxes,
-                                 reader="moe_aux") / (T * n)
+    me = collectives.sum_forward(probs.sum(0), mesh, baxes,
+                                 reader="moe_aux")
+    copies = tuple(a for a in daxes if a not in baxes)
+    if copies:
+        me = collectives.data_mean(me, mesh, copies, reader="moe_aux")
+    me = me / (T * n)
     ce = counts[:, e:].sum(0).float() / (T * n)
     return out.to(x.dtype), e * (me * ce).sum()
 
@@ -306,12 +319,16 @@ def moe_block(p: MoE, x: torch.Tensor, cfg, train: bool = False
     """x (T, d) token-major -> (out (T, d), aux loss scalar); ``train``
     runs the einsum FFN under autograd (module docstring).  Under a mesh
     policy: ``_moe_sharded`` when its ``model`` axis is larger than 1,
-    else ``_moe_data_parallel`` when it has more than one data rank."""
+    else ``_moe_data_parallel`` when it has more than one data rank; the
+    expert weights that training splits over the data axes are gathered
+    at their use (``collectives.at_use``)."""
+    p = collectives.layer_weights(p, ("router", "w_gate", "w_up", "w_down"))
     policy = current_policy()
     if policy is not None:
         shape = sharding.mesh_shape(policy.mesh)
+        baxes = batch_axes(policy)
         if shape.get("model", 1) > 1:
-            return _moe_sharded(p, x, cfg, policy.mesh, train)
+            return _moe_sharded(p, x, cfg, policy.mesh, train, baxes)
         if math.prod(shape[a] for a in sharding.data_axes(policy.mesh)) > 1:
-            return _moe_data_parallel(p, x, cfg, policy.mesh, train)
+            return _moe_data_parallel(p, x, cfg, policy.mesh, train, baxes)
     return _moe_local(p, x, cfg, train)

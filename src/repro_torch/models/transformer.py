@@ -29,6 +29,29 @@ order (see ``decode_step``); under a sliding window the ring cache is not
 a prefix of positions, so the kernel masks it by ``kv_pos``, as the
 reference's plain ``decode_attention`` does.
 
+Under a ``MeshPolicy`` whose ``model`` axis is larger than 1 a layer
+computes Megatron-style on this rank's blocks (``models.io.ShardedLM``):
+attention on its ``H/m`` query heads, with its ``KV/m`` heads where the
+KV heads divide and else the whole KV, of which its query heads read
+their groups (``kv_heads``); ``wo`` row-parallel; the MLP's ``w_gate``
+and ``w_up`` column-parallel and ``w_down`` row-parallel.  Each such
+layer takes its input through ``collectives.sum_backward`` (its gradient
+summed over ``model``) and sums its partial output over ``model``
+(``sum_forward``), one all-reduce; a weight that ``model`` does not split
+but the rank reads in part (the whole KV) takes its gradient through
+``sum_backward`` too.  The embedding is vocab-parallel (``embed_body``:
+the rank's rows, zeros for the ids outside them, then the all-reduce),
+and ``unembed`` returns the rank's vocab slice of the logits, the padded
+ids masked by their global index (``models.model.lm_loss`` is the
+vocab-parallel cross entropy).  A leaf that ``model`` does not divide is
+whole on every rank, which computes that part whole.  A rank's part of
+each layer is a function of its blocks and its ``model`` index that
+returns the partial output before the all-reduce (``attention_body``,
+``attention_decode_body``, ``mlp_body``, ``embed_body``,
+``unembed_body``), so one process can run every rank's and sum them; each
+layer takes its weights through ``collectives.at_use``, which gathers a
+block that training splits over the data axes (FSDP) at its use.
+
 The KV cache is a dict with the reference's layout (``k``/``v`` of
 ``(n_layers, B, S, KV, dh)``, ``kv_pos (B, S)``, ``pos (B,)``), but
 ``decode_step`` updates it in place, ``pos`` included, and returns the same
@@ -37,12 +60,16 @@ so a CUDA graph of the step replays on it.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.device import generator, resolve
+from repro_torch.distributed import collectives
+from repro_torch.distributed.api import current_policy, model_parallel
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.flash_attn.ops import flash_attn
 from repro_torch.models import layers, moe as moe_lib
@@ -126,18 +153,11 @@ class Block(nn.Module):
         attention, the slots ``kv_pos`` marks under a sliding window
         (``decode_step``)."""
         cfg = self.cfg
-        bidx = torch.arange(x.shape[0], device=x.device)
         hn = layers.rms_norm(x, self.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(self.attn, cfg, hn, pos[:, None])
-        k_cache[bidx, slot] = k[:, 0]
-        v_cache[bidx, slot] = v[:, 0]
-        q = q[:, 0].contiguous()
-        k_t, v_t = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
-        if cfg.attention == "full":
-            o = decode_attn(q, k_t, v_t, lengths)
-        else:
-            o = decode_attn(q, k_t, v_t, kv_pos=kv_pos, pos=pos)
-        x = x + torch.einsum("bhe,hed->bd", o, self.attn.wo)[:, None]
+        w, tp = attention_weights(self.attn, cfg)
+        h = attention_decode_body(w, cfg, hn, pos, slot, k_cache, v_cache,
+                                  kv_pos, lengths, 0 if tp is None else tp[2])
+        x = x + split_output(h, tp)[:, None]
         out, _ = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps))
         return x + out
 
@@ -202,7 +222,8 @@ def init_params(cfg, seed: int = 0, device=None) -> Transformer:
 
 
 def _qkv(p: Attention, cfg, x, positions):
-    """x (B, S, d) -> q (B, S, H, dh), k/v (B, S, KV, dh) with RoPE."""
+    """x (B, S, d) -> q (B, S, H, dh), k/v (B, S, KV, dh) with RoPE (the
+    heads of ``p``'s blocks: a rank's under the split)."""
     q = torch.einsum("bsd,dhe->bshe", x, p.wq)
     k = torch.einsum("bsd,dke->bske", x, p.wk)
     v = torch.einsum("bsd,dke->bske", x, p.wv)
@@ -215,30 +236,147 @@ def _qkv(p: Attention, cfg, x, positions):
     return q, k, v
 
 
-def attention_full(p: Attention, cfg, x, positions, train: bool = False):
-    """Causal (or sliding-window) attention over whole sequences.  Serving
-    goes through the flash-attention kernel, which reads q, k and v as (B,
-    H, S, dh) views of the (B, S, H, dh) tensors (no copies); ``train``
-    follows ``cfg.attn_impl`` (module docstring).  Returns (out, k, v)."""
-    q, k, v = _qkv(p, cfg, x, positions)
+# ---------------------------------------------------------------------------
+# The split over ``model``
+# ---------------------------------------------------------------------------
+
+
+def split_layer(split: bool):
+    """The policy's ``(mesh, m, index)`` for a layer whose blocks ``model``
+    splits (``split``), else None; blocks split without a policy raise."""
+    if not split:
+        return None
+    tp = model_parallel(current_policy())
+    if tp is None:
+        raise RuntimeError("a layer holding its blocks of a model split "
+                           "computes under a mesh policy only")
+    return tp
+
+
+def split_input(x, tp):
+    """A split layer's input: its gradient summed over ``model``."""
+    if tp is None:
+        return x
+    return collectives.sum_backward(x, tp[0], ("model",), reader="tp_grads")
+
+
+def split_output(x, tp):
+    """A split layer's partial output summed over ``model``."""
+    if tp is None:
+        return x
+    return collectives.sum_forward(x, tp[0], ("model",), reader="tp_sum")
+
+
+def kv_heads(n_q: int, n_kv: int, cfg, m_idx: int):
+    """The KV heads that model rank ``m_idx``'s ``n_q`` query heads (from
+    ``m_idx * n_q`` on) read, as indices into the ``n_kv`` it holds: None
+    where those are its own block (or all heads are its), each serving
+    ``n_q / n_kv`` consecutive query heads; else, the KV whole, one index
+    per run of ``gcd(n_q, G)`` consecutive query heads (G = H / KV), all
+    in one group."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if n_kv != kv or n_q == h:
+        return None
+    g = h // kv
+    run = math.gcd(n_q, g)
+    h0 = m_idx * n_q
+    return [(h0 + i * run) // g for i in range(n_q // run)]
+
+
+def take_heads(x: torch.Tensor, idx, dim: int) -> torch.Tensor:
+    """``x``'s heads ``idx`` along ``dim`` (``kv_heads``): a view where they
+    are consecutive, else a copy."""
+    if idx is None:
+        return x
+    if idx == list(range(idx[0], idx[0] + len(idx))):
+        return x.narrow(dim, idx[0], len(idx))
+    return x.index_select(dim, torch.tensor(idx, device=x.device))
+
+
+def attention_weights(p: Attention, cfg):
+    """(``p``'s weights as the layer computes with them, the split's
+    ``(mesh, m, index)`` or None).  Under the split with the KV heads
+    whole, ``wk``/``wv``/``bk``/``bv`` take their gradient summed over
+    ``model``: each rank reads only its query heads' groups."""
+    w = collectives.layer_weights(p, ("wq", "wk", "wv", "wo", "bq", "bk", "bv"))
+    tp = split_layer(w.wq.shape[1] != cfg.n_heads)
+    if tp is not None and w.wk.shape[1] == cfg.n_kv_heads:
+        for n in ("wk", "wv", "bk", "bv"):
+            if getattr(w, n) is not None:
+                setattr(w, n, split_input(getattr(w, n), tp))
+    return w, tp
+
+
+def attention_body(w, cfg, x, positions, m_idx: int = 0,
+                   train: bool = False):
+    """Model rank ``m_idx``'s part of ``attention_full`` on its blocks
+    ``w`` (``wq (d, H/m, dh)``, ``wk``/``wv`` its KV heads or all, ``wo
+    (H/m, dh, d)``, the biases; the whole weights at m = 1): (its partial
+    output (B, S, d), which the model ranks sum, and its k, v (B, S, KV
+    held, dh))."""
+    q, k, v = _qkv(w, cfg, x, positions)
+    sel = kv_heads(q.shape[2], k.shape[2], cfg, m_idx)
+    ka, va = take_heads(k, sel, 2), take_heads(v, sel, 2)
     window = cfg.window if cfg.attention == "swa" else 0
     if train and cfg.attn_impl == "xla":
-        o = layers.blockwise_attention(q, k, v, causal=True, window=window,
+        o = layers.blockwise_attention(q, ka, va, causal=True, window=window,
                                        block_q=cfg.attn_block_q,
                                        block_kv=cfg.attn_block_kv)
-        return torch.einsum("bshe,hed->bsd", o, p.wo), k, v
+        return layers.heads_out(o, w.wo), k, v
     if train and torch.is_grad_enabled() and q.requires_grad:
         raise NotImplementedError(
             f"{cfg.name}: attn_impl='pallas' trains through the flash-"
             "attention kernel (B2), which has a backward in neither "
             "package; train with attn_impl='xla' (the default)")
-    o = flash_attn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+    o = flash_attn(q.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
                    causal=True, window=window).transpose(1, 2)
-    return torch.einsum("bshe,hed->bsd", o, p.wo), k, v
+    return layers.heads_out(o, w.wo), k, v
+
+
+def attention_full(p: Attention, cfg, x, positions, train: bool = False):
+    """Causal (or sliding-window) attention over whole sequences.  Serving
+    goes through the flash-attention kernel, which reads q, k and v as (B,
+    H, S, dh) views of the (B, S, H, dh) tensors (no copies); ``train``
+    follows ``cfg.attn_impl`` (module docstring).  Returns (out, k, v),
+    k and v the heads this rank holds."""
+    w, tp = attention_weights(p, cfg)
+    out, k, v = attention_body(w, cfg, split_input(x, tp), positions,
+                               0 if tp is None else tp[2], train)
+    return split_output(out, tp), k, v
+
+
+def attention_decode_body(w, cfg, x, pos, slot, k_cache, v_cache, kv_pos,
+                          lengths, m_idx: int = 0):
+    """Model rank ``m_idx``'s part of one decode step's attention
+    (``Block.decode``) on its blocks ``w``: x (B, 1, d); the token's k, v
+    written into the rank's cache (B, S, KV held, dh) at ``slot``, in
+    place; returns its partial output (B, d)."""
+    bidx = torch.arange(x.shape[0], device=x.device)
+    q, k, v = _qkv(w, cfg, x, pos[:, None])
+    k_cache[bidx, slot] = k[:, 0]
+    v_cache[bidx, slot] = v[:, 0]
+    sel = kv_heads(q.shape[2], k.shape[2], cfg, m_idx)
+    q = q[:, 0].contiguous()
+    k_t = take_heads(k_cache.transpose(1, 2), sel, 1)
+    v_t = take_heads(v_cache.transpose(1, 2), sel, 1)
+    if cfg.attention == "full":
+        o = decode_attn(q, k_t, v_t, lengths)
+    else:
+        o = decode_attn(q, k_t, v_t, kv_pos=kv_pos, pos=pos)
+    return torch.einsum("bhe,hed->bd", o, w.wo)
+
+
+def mlp_body(w, x):
+    """A model rank's part of the SwiGLU MLP on its blocks ``w``
+    (``w_gate``/``w_up (d, f/m)``, ``w_down (f/m, d)``): its partial
+    output, which the model ranks sum."""
+    return layers.swiglu(x, w.w_gate, w.w_up, w.w_down)
 
 
 def mlp_block(p: MLP, cfg, x):
-    return layers.swiglu(x, p.w_gate, p.w_up, p.w_down)
+    w = collectives.layer_weights(p, ("w_gate", "w_up", "w_down"))
+    tp = split_layer(w.w_gate.shape[1] != cfg.d_ff)
+    return split_output(mlp_body(w, split_input(x, tp)), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -246,13 +384,31 @@ def mlp_block(p: MLP, cfg, x):
 # ---------------------------------------------------------------------------
 
 
+def embed_body(embed, ids, lo: int):
+    """A model rank's part of the vocab-parallel embedding: the rows of
+    ``ids`` (global, in ``[0, Vp)``) that fall in its block ``embed``
+    (rows ``lo .. lo + V/m - 1``), zeros for the others, which the model
+    ranks sum.  ``F.embedding`` of the ids in range: its backward sums a
+    token's rows without atomics, the others adding zeros to row 0."""
+    local = ids - lo
+    inside = (local >= 0) & (local < embed.shape[0])
+    x = F.embedding(torch.where(inside, local, 0), embed)
+    return x * inside[..., None].to(x.dtype)
+
+
 def _embed(params: Transformer, cfg, tokens, train: bool = False):
     # training looks up through F.embedding, whose backward sums a
     # token's rows without atomics; a negative id (a masked target's
     # input) reads from the end, as indexing does
-    x = (torch.nn.functional.embedding(
-        tokens.remainder(params.embed.shape[0]), params.embed) if train
-         else params.embed[tokens])
+    embed = collectives.at_use(params.embed)
+    tp = split_layer(embed.shape[0] != cfg.vocab_padded)
+    if tp is not None:
+        x = split_output(embed_body(embed, tokens.remainder(cfg.vocab_padded),
+                                  tp[2] * embed.shape[0]), tp)
+    elif train:
+        x = F.embedding(tokens.remainder(embed.shape[0]), embed)
+    else:
+        x = embed[tokens]
     return x.to(getattr(torch, cfg.compute_dtype))
 
 
@@ -276,16 +432,31 @@ def forward(params: Transformer, cfg, tokens: torch.Tensor,
     return unembed(params, cfg, x), aux
 
 
-def unembed(params: Transformer, cfg, x):
-    """Logits over the padded vocab; padded ids get -1e9."""
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params.embed)
+def unembed_body(w, cfg, x, lo: int = 0, tied: bool = False):
+    """A model rank's slice of the logits: ``x`` through its vocab block
+    ``w`` (the tied ``embed (V/m, d)`` or ``lm_head (d, V/m)``), whose
+    first id is ``lo``; padded ids (global id at or past ``cfg.vocab``)
+    get -1e9."""
+    if tied:
+        logits = torch.einsum("bsd,vd->bsv", x, w)
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, params.lm_head)
+        logits = torch.einsum("bsd,dv->bsv", x, w)
     if cfg.vocab_padded != cfg.vocab:
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        pad = torch.arange(lo, lo + logits.shape[-1],
+                           device=x.device) >= cfg.vocab
         logits = torch.where(pad, -1e9, logits.float()).to(logits.dtype)
     return logits
+
+
+def unembed(params: Transformer, cfg, x):
+    """Logits over the padded vocab; padded ids get -1e9.  Under the split
+    the rank's vocab slice (module docstring)."""
+    tied = cfg.tie_embeddings
+    w = collectives.at_use(params.embed if tied else params.lm_head)
+    n = w.shape[0] if tied else w.shape[1]
+    tp = split_layer(n != cfg.vocab_padded)
+    return unembed_body(w, cfg, split_input(x, tp),
+                        0 if tp is None else tp[2] * n, tied)
 
 
 # --------------------------- KV cache ---------------------------------------

@@ -21,8 +21,11 @@ norms is a matrix to the reference), and its state is stacked too.
     stats = opt.update(grads)          # grads in the order of opt.tensors()
 
 On a mesh the parameters are a rank's blocks (``models.io.ShardedLM``'s
-``leaves``) and ``layout`` (the ``ShardedLM``: its ``mesh``, and per leaf
-its ``specs`` and whole ``shapes``) says how each is split.  AdamW's
+``leaves``, which are the tensors its model computes with: there is no
+whole copy to update) and ``layout`` (the ``ShardedLM``: its ``mesh``, and
+per leaf its ``specs`` and whole ``shapes``) says how each is split; the
+gradients come as the blocks' (reduce-scattered over the data axes, or
+summed over them where those do not split the block).  AdamW's
 moments split as their leaves, so its update is elementwise on the blocks.
 The global norm counts every element once: each tensor's sum of squares
 is added by the ranks that hold its block at coordinate 0 on every axis

@@ -23,7 +23,10 @@ step included) and each checkpoint's (``save_s``, ``restore_s``).
 blocks of the parameters by ``param_spec(..., train=True)`` (a
 ``models.io.ShardedLM``) and the optimizer's state likewise, the data are
 each rank's rows (``SyntheticLM(mesh=)``), checkpoints are written whole
-by rank 0 and restored onto any mesh, and only rank 0 logs.
+by rank 0 and restored onto any mesh, and only rank 0 logs.  The model
+computes on the blocks Megatron-style (``launch/steps.py``), and a batch
+whose rows do not split over every data axis is held whole by the ranks
+outside the axes that split it (``bind``).
 """
 from __future__ import annotations
 
@@ -155,8 +158,19 @@ class Trainer:
         except ValueError:
             pass  # not main thread
 
+    def bind(self, data) -> None:
+        """Tell the step which mesh axes split ``data``'s rows (its
+        ``sharding`` spec, as ``SyntheticLM(mesh=)`` gives it): the data
+        axes outside them hold the same rows, and the loss divides its
+        share among them (``models.model.lm_loss``).  ``run`` calls it;
+        call it before the first step when stepping by hand."""
+        spec = getattr(data, "sharding", None)
+        if self.policy is not None and spec is not None:
+            self.policy.rules["batch"] = spec[-2]
+
     def run(self, state: dict, data) -> dict:
         cfg = self.cfg
+        self.bind(data)
         self._install_sigterm()
         start = int(state["step"])
         for step in range(start, cfg.total_steps):

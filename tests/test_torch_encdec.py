@@ -358,17 +358,32 @@ def test_reference_groups_round_trip_the_reference_tree():
 
 
 def test_encdec_on_a_mesh_of_more_than_one_rank_raises():
-    """Enc-dec's mesh comes with the Megatron split: ``ShardedLM`` and the
-    steps raise for a mesh of two ranks and name ROADMAP."""
+    """Enc-dec on a mesh of two ranks: ``ShardedLM`` keeps the rank's
+    blocks (every leaf that training splits over ``data`` halved, gathered
+    at its use) and the steps build under its policy (the Megatron split:
+    ``tests/test_torch_mesh.py`` trains and serves whisper on 4 ranks);
+    what raises is the ``Trainer``, whose stream is tokens only, as the
+    reference's launcher's."""
+    from repro_torch.distributed import sharding
     from repro_torch.distributed.api import MeshPolicy
+    from repro_torch.train import trainer as trainer_lib
 
     _, cfg, _, model = _pair()
-    mesh = type("FakeMesh", (), {"shape": {"data": 2, "model": 1}})()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        io.ShardedLM(model, cfg, mesh, train=True)
+    whole = {k: tuple(_stacked(v).shape)
+             for k, v in io.reference_groups(model, cfg).items()}
+    mesh = sharding.Coord({"data": 2, "model": 1}, {"data": 1, "model": 0})
+    sp = io.ShardedLM(model, cfg, mesh, train=True)
+    for k, leaf in sp.leaves.items():
+        spec = sp.specs[k]
+        halves = ["data" in sharding.spec_axes(e) for e in spec]
+        assert tuple(_stacked(leaf).shape) == tuple(
+            n // 2 if h else n for n, h in zip(whole[k], halves)), k
+    assert sp.gathers and set(sp.model.parameters()) == set(
+        sp.compute_tensors())
     policy = MeshPolicy(mesh, {})
-    for make in (lambda: steps.make_train_step(cfg, policy),
-                 lambda: steps.make_prefill_step(cfg, MAX_LEN, policy),
-                 lambda: steps.make_decode_step(cfg, policy)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
+    steps.make_train_step(cfg, policy)
+    steps.make_prefill_step(cfg, MAX_LEN, policy)
+    steps.make_decode_step(cfg, policy)
+    with pytest.raises(NotImplementedError, match="frames"):
+        trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(), mesh=mesh,
+                            device="cpu")

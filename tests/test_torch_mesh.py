@@ -16,9 +16,13 @@ In one process, with the reference's duck-typed ``FakeMesh``
     with a capacity that drops tokens, and the fallbacks.
 
 On 4 and 2 gloo ranks (``tests/torch_dist_worker.py``, one CPU process
-each): LM training on 2 x 2 and 4 x 1 against one process, each rank's
-blocks, an elastic restart, MoE serving under a 2 x 2 policy, and
-``launch/train.py --data-parallel 2``.
+each): LM training (reduced qwen1.5-0.5b, dbrx-132b and whisper-medium)
+on 2 x 2, 4 x 1 and 1 x 4 against one process, computing Megatron-style
+on each rank's blocks, which are all a rank holds; a batch that does not
+split over the data axis; an elastic restart; serving every arch under
+1 x 4 and 2 x 2 policies; and ``launch/train.py --data-parallel 2``.
+The per-rank bodies of the split, summed in one process, are
+``tests/test_torch_megatron.py``.
 """
 import json
 import os
@@ -42,8 +46,8 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import io, moe
 from repro_torch.train import checkpoint, optimizer as opt_lib
 from repro_torch.train import trainer as trainer_lib
-from torch_dist_worker import (LM_ARCHS, LM_TRAIN, lm_cfg, moe_dp_grads,
-                               moe_dp_inputs, run_world)
+from torch_dist_worker import (LM_ARCHS, LM_SHAPES, LM_TRAIN, SERVE_SHAPES,
+                               lm_cfg, moe_dp_grads, moe_dp_inputs, run_world)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
@@ -159,8 +163,11 @@ def test_batch_axes_data_spec_and_batch_spec():
     assert sharding.data_spec(host, 8, 3) == ("data", None, None)
     assert sharding.batch_spec(host, 8, 1) == ("data", None)
     assert sharding.batch_spec(host, 8, 2) == (None, "data", None)
-    with pytest.raises(ValueError, match="does not split"):
-        sharding.batch_spec(host, 6, 2)
+    # rows that do not split over the data axis: every data rank holds
+    # them all (the reference's fallback; the loss divides its share,
+    # test_batch_that_does_not_split_matches_one_process)
+    assert sharding.batch_spec(host, 6, 2) == (None, None, None)
+    assert sharding.batch_spec(MESHES["pod2x16x16"], 16) == ("data", None)
 
 
 def test_activation_rules_policy_and_its_nesting():
@@ -214,29 +221,14 @@ def test_host_mesh_clips_as_the_reference(world, monkeypatch):
         (2, 16, 16), ("pod", "data", "model"))
 
 
-class Coord:
-    """One rank of a mesh in one process: axis names, sizes and this
-    rank's coordinate on each axis (what ``ShardedLM`` reads of a
-    ``DeviceMesh``)."""
-
-    def __init__(self, sizes: dict, at: dict):
-        self.mesh_dim_names = tuple(sizes)
-        self.sizes, self.at = sizes, at
-
-    def size(self, i=None):
-        return self.sizes[self.mesh_dim_names[i]]
-
-    def get_local_rank(self, axis):
-        return self.at[axis]
-
-
 @pytest.mark.parametrize("train", [True, False], ids=["train", "serve"])
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "dbrx-132b"])
 def test_reference_weights_carried_onto_each_rank(arch, train):
     """``sharded_params_from_numpy`` on every coordinate of a 2 x 2 mesh:
     each rank's blocks are the reference's tree cut by the reference's
-    spec at that coordinate, and the model it computes with holds every
-    leaf whole but the experts of its ``model`` coordinate."""
+    spec at that coordinate, and they are the parameters of the model it
+    computes with: no whole tensor of a split leaf; a block split over
+    ``data`` carries its spec to be gathered at its use."""
     from repro.configs import reduce_config as jax_reduce_config
     from repro.models import transformer as jtf
 
@@ -251,8 +243,8 @@ def test_reference_weights_carried_onto_each_rank(arch, train):
     for d in range(2):
         for m in range(2):
             sp = io.sharded_params_from_numpy(
-                tree, cfg, Coord({"data": 2, "model": 2},
-                                 {"data": d, "model": m}),
+                tree, cfg, sharding.Coord({"data": 2, "model": 2},
+                                          {"data": d, "model": m}),
                 train=train, device="cpu")
             assert set(sp.leaves) == set(ref)
             for k, (path, shape) in ref.items():
@@ -271,6 +263,16 @@ def test_reference_weights_carried_onto_each_rank(arch, train):
                 got = (leaf if isinstance(leaf, torch.Tensor)
                        else torch.stack(list(leaf)))
                 np.testing.assert_array_equal(got.numpy(), want, err_msg=k)
+            held = {id(x) for leaf in sp.leaves.values() for x in
+                    (leaf if isinstance(leaf, list) else [leaf])}
+            assert {id(p) for p in sp.model.parameters()} == held
+            for k, leaf in sp.leaves.items():
+                spec = sp.specs[k]
+                for x in (leaf if isinstance(leaf, list) else [leaf]):
+                    data = any("data" in sharding.spec_axes(e)
+                               for e in spec)
+                    assert (getattr(x, "gather_spec", None) ==
+                            (spec[-x.dim():] if data else None)), k
             for name, p in sp.model.named_parameters():
                 if ".moe.w_" in name:
                     assert p.shape[0] == cfg.n_experts // 2, name
@@ -420,7 +422,11 @@ def test_moe_sharded_on_a_world_of_one_is_the_local_moe():
 # gradient is near 0 can move its update by a share of the lr
 PARAM_TOL = dict(atol=2e-6, rtol=1e-5)
 METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
-RUNS = [(arch, shape) for arch in LM_ARCHS for shape in ((2, 2), (4, 1))]
+RUNS = [(arch, shape) for arch in LM_ARCHS for shape in LM_SHAPES]
+SERVE_RUNS = [(arch, shape) for arch in LM_ARCHS for shape in SERVE_SHAPES]
+# serving logits in float32 against one process: row-parallel partial
+# sums added over the ranks in another order than one product's
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -459,7 +465,8 @@ def _oracle(res, arch, shape):
 @pytest.mark.parametrize("arch,shape", RUNS, ids=[f"{a}-{s[0]}x{s[1]}"
                                                   for a, s in RUNS])
 def test_mesh_training_matches_one_process(lm_world, arch, shape):
-    """Three trainer steps on ``make_host_mesh(*shape)`` of 4 ranks: the
+    """Three training steps on ``make_host_mesh(*shape)`` of 4 ranks (the
+    trainer's; whisper's through ``launch.steps.make_train_step``): the
     whole parameters and optimizer state (gathered), loss, aux loss, grad
     norm and lr of every step equal one process's; every rank's metrics
     alike; the one process's parameters moved from their start by more
@@ -492,49 +499,90 @@ def test_2x2_moe_differs_only_by_the_data_rank_aux(lm_world):
     assert _excess(got, whole_aux, PARAM_TOL) > 10 * PARAM_TOL["atol"]
 
 
+def _share(spec, sizes, axes=("data", "model")) -> int:
+    """How many blocks the axes ``axes`` of ``spec`` cut a leaf into."""
+    n = 1
+    for e in spec:
+        for a in sharding.spec_axes(e):
+            n *= sizes[a] if a in axes else 1
+    return n
+
+
 @pytest.mark.parametrize("arch,shape", RUNS, ids=[f"{a}-{s[0]}x{s[1]}"
                                                   for a, s in RUNS])
 def test_each_rank_stores_its_blocks(lm_world, arch, shape):
-    """A leaf whose spec splits it over all 4 ranks is stored as a
-    quarter on every rank (parameters and moments); a leaf split over
-    fewer as that share; the blocks at most ~0.3 of the whole a rank.
-    What a rank holds between steps is those blocks and the tensors it
-    computes with, which stay whole but for the experts' dim over
-    ``model``: the mesh cuts the stored blocks and the optimizer state,
-    not the parameters a rank computes with (ROADMAP queue A, the
-    gather-and-free split), so a rank holds more than the whole
-    parameters."""
+    """Between steps a rank holds, for every leaf, its block and nothing
+    whole: a leaf split over all 4 ranks is a quarter on every rank
+    (parameters and moments); the tensors the model computes with are
+    the parameter blocks themselves; and all a rank holds (blocks and
+    optimizer state) is below the whole parameters.  No weight gathered
+    at its use is alive after a training forward, nor after its backward.
+    A training step's ``"lm_params"`` bytes are the leaves split over
+    ``data`` gathered twice for each use (at the forward's product and
+    again where the backward reads it; the embedding's lookup saves no
+    weight, so one gather there); ``"lm_grads"`` are one reduce-scatter
+    into each such block for each forward use, plus the all-reduce of
+    every block that ``data`` does not split: no whole gradient of a
+    split leaf crosses the mesh.  Served on the same shape, a rank's K/V
+    cache is its rows and ``1/m`` of the heads where they divide."""
     _, res = lm_world
+    cfg = lm_cfg(arch)
     plain = res[0][f"{arch} plain"]
     whole_params = sum(v for k, v in plain["whole_bytes"].items()
                        if k.startswith("params/"))
-    expert_params = sum(v for k, v in plain["whole_bytes"].items()
-                        if k.startswith("params/")
-                        and sharding.is_expert_weight(k))
     assert plain["held_bytes"] == sum(plain["whole_bytes"].values())
+    sizes = {"data": shape[0], "model": shape[1]}
     for r in res:
         run = r[f"{arch} {shape}"]
-        sizes = {"data": shape[0], "model": shape[1]}
         n_split = 0
         for k, spec in run["specs"].items():
-            share = 1
-            for e in spec:
-                for a in sharding.spec_axes(e):
-                    share *= sizes[a]
+            share = _share(spec, sizes)
             assert run["block_bytes"][k] * share == run["whole_bytes"][k], k
             n_split += share == 4
         assert n_split >= 8
-        total = lambda b: sum(v for k, v in b.items() if k != "step")
-        assert total(run["block_bytes"]) < 0.3 * total(run["whole_bytes"])
-        # the compute copy: whole, but the experts over model
-        assert run["compute_bytes"] == (whole_params - expert_params
-                                        + expert_params // shape[1])
-        split_params = sum(v for k, v in run["block_bytes"].items()
-                           if k.startswith("params/")
-                           and any(sharding.spec_axes(e)
-                                   for e in run["specs"][k]))
-        assert run["held_bytes"] >= run["compute_bytes"] + split_params
-        assert run["held_bytes"] > whole_params > 0
+        blocks = {k[len("params/"):]: v for k, v in run["block_bytes"].items()
+                  if k.startswith("params/")}
+        assert run["compute_bytes"] == sum(blocks.values())
+        assert run["held_bytes"] == sum(run["block_bytes"].values())
+        assert run["held_bytes"] < whole_params
+        assert run["live_gathers"] == (0, 0)
+        # the collectives of one training step
+        want_params = want_grads = 0
+        for k, b in blocks.items():
+            spec = run["specs"][f"params/{k}"]
+            n_data = _share(spec, sizes, ("data",))
+            uses = (1 + (2 if cfg.tie_embeddings else 0)) if k == "embed" \
+                else 2
+            fwd = 2 if k == "embed" and cfg.tie_embeddings else 1
+            if n_data > 1:
+                assert all(g == spec[-len(g):]
+                           for g in run["gather_specs"][k]), k
+                want_params += uses * b * n_data * cfg.microbatches
+                want_grads += fwd * b * cfg.microbatches
+            else:
+                assert set(run["gather_specs"][k]) == {None}, k
+                want_grads += b * (shape[0] > 1)
+        got = run["step_bytes"]
+        assert got.get("lm_params", 0) == want_params, (got, want_params)
+        assert got.get("lm_grads", 0) == want_grads, (got, want_grads)
+        assert (want_params > 0) == (shape[0] > 1)
+    if shape not in SERVE_SHAPES:
+        return
+    # serving: each rank's K/V cache holds its rows and its KV/m heads
+    # where the KV heads divide, all of them where they do not (qwen's 2
+    # on 4 ranks)
+    n_data, m = shape
+    kv = cfg.n_kv_heads if cfg.family != "encdec" else cfg.n_heads
+    held = kv // m if kv % m == 0 else kv
+    assert kv % m or arch != "qwen1.5-0.5b" or m != 4
+    want = res[0][f"serve {arch} plain"]["cache_shapes"]
+    for r in res:
+        got = r[f"serve {arch} {shape}"]["cache_shapes"]
+        for k in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
+            if k in want:
+                w = want[k]
+                assert got[k] == (w[0], w[1] // n_data, w[2], held,
+                                  w[4]), (k, got[k], w)
 
 
 def test_data_parallel_moe_is_the_local_moe_of_all_tokens(lm_world):
@@ -605,21 +653,66 @@ def test_checkpoint_from_2x2_restores_in_a_world_of_one(lm_world):
 
 
 def test_moe_serving_steps_under_a_2x2_policy(lm_world):
-    """Reduced dbrx's prefill and two decode steps under a 2 x 2 policy
-    (serving blocks: experts over ``model``, replicated over ``data``;
-    each data rank its two prompts; ``_moe_sharded`` with B4b and B4a's
-    plain versions): each data row's logits, concatenated, equal the
-    unsharded steps'; the model ranks alike; the collectives counted."""
+    """Reduced dbrx's prefill and greedy decode steps under a 2 x 2 policy
+    (serving blocks: experts, heads, ff and vocab over ``model``,
+    replicated over ``data``; each data rank its two prompts;
+    ``_moe_sharded`` with B4b and B4a's plain versions): each data row's
+    logits, concatenated, equal the unsharded steps'; the model ranks
+    alike; the collectives counted: no parameter gathered, the row-parallel
+    sums, the experts' combine and the logits' gather over ``model``."""
     _, res = lm_world
-    by = {r["coord(2, 2)"]: r["serve"] for r in res}
+    by = {r["coord(2, 2)"]: r["serve dbrx-132b (2, 2)"]["logits"]
+          for r in res}
     for d in range(2):
         assert torch.equal(by[(d, 0)], by[(d, 1)])
     got = torch.cat([by[(0, 0)], by[(1, 0)]], dim=1)
-    np.testing.assert_allclose(got.numpy(), res[0]["serve plain"].numpy(),
-                               rtol=1e-5, atol=1e-5)
-    seen = res[0]["serve bytes"]
-    assert seen["lm_params"] > 0 and seen["moe_combine"] > 0
-    assert "lm_grads" not in seen
+    np.testing.assert_allclose(
+        got.numpy(), res[0]["serve dbrx-132b plain"]["logits"].numpy(),
+        rtol=1e-5, atol=1e-5)
+    seen = res[0]["serve bytes dbrx-132b (2, 2)"]
+    assert seen["moe_combine"] > 0 and seen["tp_sum"] > 0
+    assert seen["lm_logits"] > 0
+    assert "lm_grads" not in seen and "lm_params" not in seen
+
+
+@pytest.mark.parametrize("arch,shape", SERVE_RUNS,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in SERVE_RUNS])
+def test_mesh_serving_matches_one_process(lm_world, arch, shape):
+    """A prefill and greedy decode steps under a policy on
+    ``make_host_mesh(*shape)``: every data rank's rows of the whole logits
+    (its vocab slices gathered over ``model``), concatenated, within
+    ``SERVE_TOL`` of one process's, the model ranks bit-equal, and the
+    greedy tokens equal (each rank's cache: test_each_rank_stores_its_blocks)."""
+    _, res = lm_world
+    cfg = lm_cfg(arch)
+    plain = res[0][f"serve {arch} plain"]
+    by = {r[f"coord{shape}"]: r[f"serve {arch} {shape}"] for r in res}
+    n_data, m = shape
+    for d in range(n_data):
+        for j in range(1, m):
+            assert torch.equal(by[(d, 0)]["logits"], by[(d, j)]["logits"])
+    logits = torch.cat([by[(d, 0)]["logits"] for d in range(n_data)], 1)
+    tokens = torch.cat([by[(d, 0)]["tokens"] for d in range(n_data)], 1)
+    np.testing.assert_allclose(logits.numpy(), plain["logits"].numpy(),
+                               **SERVE_TOL)
+    assert torch.equal(tokens, plain["tokens"])
+
+
+def test_batch_that_does_not_split_matches_one_process(lm_world):
+    """Reduced qwen on 4 x 1 with 6 rows, which do not split over a data
+    axis of 4: ``batch_spec`` falls back to no split, every rank holds all
+    6 rows, and the loss divides its share among the 4 copies, so the
+    gradients summed over ``data`` are one process's: the state and every
+    step's metrics equal the one-process run of 6 rows, whose parameters
+    moved far past the tolerance."""
+    _, res = lm_world
+    want = res[0]["qwen replicated rows plain"]
+    _same_run(res[0]["qwen replicated rows"], want, PARAM_TOL, METRIC_TOL)
+    params = {k: v for k, v in want["state"].items()
+              if k.startswith("params/")}
+    moved = min(float(np.abs(v - want["init"][k]).max())
+                for k, v in params.items())
+    assert moved > 100 * PARAM_TOL["atol"]
 
 
 def _paths(tree, prefix="") -> dict:

@@ -29,7 +29,8 @@ from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.core import sac as sac_lib, training  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.distributed import collectives, sharding  # noqa: E402
-from repro_torch.distributed.api import MeshPolicy  # noqa: E402
+from repro_torch.distributed.api import (MeshPolicy,  # noqa: E402
+                                         use_mesh_policy)
 from repro_torch.env import engine, engine_layout as layout  # noqa: E402
 from repro_torch.env import env as env_lib, profiles  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib, steps, train  # noqa: E402
@@ -204,46 +205,108 @@ def collective_ops(rank, world, _arg):
             "gathered": collectives.gather_rows(rows, group)}
 
 
-# LM training on a mesh: reduced qwen1.5-0.5b (AdamW) and reduced dbrx-132b
-# (Adafactor, 2 microbatches); 8 sequences of 16 tokens, 3 steps after a
-# warmup of one (the learning rates 0, peak and about half of it, so the
-# parameters move far past the tests' tolerance).  dbrx's capacity factor
-# of 2 gives every expert room for all 32 tokens of a data rank's
-# microbatch, so neither the unsharded capacity nor the sharded one drops
-# a token and the two runs compute the same function
-LM_ARCHS = {"qwen1.5-0.5b": {}, "dbrx-132b": {"microbatches": 2,
-                                              "capacity_factor": 2.0}}
+# LM training on a mesh: reduced qwen1.5-0.5b (AdamW) with 2 KV heads, so
+# the KV heads split over a model axis of 2 and stay whole on every rank of
+# one of 4; reduced dbrx-132b (Adafactor, 2 microbatches); reduced
+# whisper-medium (AdamW, 16 frames a row); 8 sequences of 16 tokens, 3
+# steps after a warmup of one (the learning rates 0, peak and about half
+# of it, so the parameters move far past the tests' tolerance).  dbrx's
+# capacity factor of 2 gives every expert room for all 32 tokens of a data
+# rank's microbatch, so neither the unsharded capacity nor the sharded one
+# drops a token and the two runs compute the same function
+LM_ARCHS = {"qwen1.5-0.5b": {"n_kv_heads": 2},
+            "dbrx-132b": {"microbatches": 2, "capacity_factor": 2.0},
+            "whisper-medium": {}}
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 16, 3
 LM_TRAIN = dict(total_steps=LM_STEPS, warmup_steps=1)
+LM_SHAPES = ((2, 2), (4, 1), (1, 4))
+SERVE_SHAPES = ((1, 4), (2, 2))
+REPLICATED_BATCH = 6       # rows that do not split over a data axis of 4
 
 
 def lm_cfg(arch):
     return reduce_config(get_config(arch), **LM_ARCHS[arch])
 
 
-def _lm_run(arch, mesh, ckpt_dir=""):
-    """``LM_STEPS`` trainer steps of ``arch`` on ``mesh`` (None: one
-    process): each step's metrics, the whole final state (gathered; every
-    rank calls) and the bytes of this rank's parameter and state blocks
-    against the whole's."""
+def _encdec_batch(cfg, step, mesh, rows=LM_BATCH):
+    """A whisper training batch of step ``step`` (seeded): frames (B, 16,
+    d) and tokens (B, 16), this rank's rows on ``mesh``."""
+    rng = np.random.default_rng(100 + step)
+    batch = {"frames": torch.as_tensor(rng.standard_normal(
+                 (rows, LM_SEQ, cfg.d_model)), dtype=torch.float32),
+             "tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                    (rows, LM_SEQ)),
+                                       dtype=torch.int32)}
+    if mesh is not None:
+        batch = {k: sharding.local_shard(
+            x, sharding.data_spec(mesh, rows, x.dim()), mesh).contiguous()
+            for k, x in batch.items()}
+    return batch
+
+
+def _lm_setup(arch, mesh, ckpt_dir, rows):
+    """(state, step function, batch(i), trainer or None) of ``arch``."""
     cfg = lm_cfg(arch)
     tc = trainer_lib.TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=2,
                                    log_every=1, **LM_TRAIN)
+    if cfg.family == "encdec":
+        from repro_torch.train import optimizer as opt_lib
+
+        model = model_lib.init_params(cfg, seed=0, device="cpu")
+        params = (model_io.ShardedLM(model, cfg, mesh, train=True)
+                  if mesh is not None else model)
+        opt = opt_lib.make_optimizer(cfg.optimizer, peak_lr=tc.peak_lr,
+                                     warmup_steps=tc.warmup_steps,
+                                     total_steps=tc.total_steps)
+        policy = (MeshPolicy(mesh, sharding.activation_rules(mesh,
+                                                             train=True))
+                  if mesh is not None else None)
+        return (steps.train_state(cfg, params, opt),
+                steps.make_train_step(cfg, policy),
+                lambda i: _encdec_batch(cfg, i, mesh, rows), None)
     tr = trainer_lib.Trainer(cfg, tc, mesh=mesh, device="cpu",
                              log_fn=lambda *a, **k: None)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=LM_SEQ,
-                                  global_batch=LM_BATCH,
+                                  global_batch=rows,
                                   microbatches=cfg.microbatches),
                        mesh=mesh, device="cpu")
-    st = tr.init_state(seed=0)
+    tr.bind(data)
+    return tr.init_state(seed=0), tr._step_fn, data.batch, tr
+
+
+def _live_after_forward(arch, st, batch, mesh):
+    """Weights gathered at their use still alive after a training
+    forward (under the step's saved-tensor hooks), and after its
+    backward."""
+    cfg = lm_cfg(arch)
+    sp = st["params"]
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=True))
+    first = {k: (x[0] if cfg.microbatches > 1 else x)
+             for k, x in batch.items()}
+    with use_mesh_policy(policy), sp.regathered():
+        total, _ = model_lib.lm_loss(sp.model, cfg, first)
+        after_forward = collectives.live_gathers()
+        torch.autograd.grad(total, sp.compute_tensors(), allow_unused=True)
+    return after_forward, collectives.live_gathers()
+
+
+def _lm_run(arch, mesh, ckpt_dir="", rows=LM_BATCH):
+    """``LM_STEPS`` training steps of ``arch`` on ``mesh`` (None: one
+    process): each step's metrics, the whole final state (gathered; every
+    rank calls), the bytes of this rank's parameter and state blocks
+    against the whole's, and the collectives' bytes of the first step."""
+    st, step_fn, batch_of, tr = _lm_setup(arch, mesh, ckpt_dir, rows)
     # copies: a float32 leaf's numpy form shares the tensor's memory,
     # which the steps update in place
     init = {k: np.array(checkpoint._to_numpy(v)) for k, v in
             checkpoint._flatten(trainer_lib.tree(st)).items()
             } if mesh is None else None
-    metrics = []
+    metrics, step_bytes = [], None
     for i in range(LM_STEPS):
-        st, m = tr._step_fn(st, data.batch(i))
+        collectives.BYTES.clear()
+        st, m = step_fn(st, batch_of(i))
+        if i == 0:
+            step_bytes = dict(collectives.BYTES)
         metrics.append({k: float(v) for k, v in m.items()})
         if ckpt_dir and i + 1 == 2:
             checkpoint.save(ckpt_dir, i + 1, trainer_lib.tree(st),
@@ -266,7 +329,15 @@ def _lm_run(arch, mesh, ckpt_dir=""):
                                                 flat.items()},
            "whole_bytes": {k: size(v) for k, v in whole.items()},
            "compute_bytes": size(compute), "held_bytes": sum(held.values()),
-           "specs": specs, "init": init}
+           "compute_shapes": [tuple(x.shape) for x in compute],
+           "specs": specs, "init": init, "step_bytes": step_bytes}
+    if mesh is not None:
+        out["gather_specs"] = {
+            k: [getattr(x, "gather_spec", None) for x in
+                (v if isinstance(v, list) else [v])]
+            for k, v in st["params"].leaves.items()}
+        out["live_gathers"] = _live_after_forward(arch, st, batch_of(0),
+                                                  mesh)
     if mesh is None or dist_rank() == 0:
         out["state"] = {k: checkpoint._to_numpy(v) for k, v in whole.items()}
     return out
@@ -277,30 +348,47 @@ def dist_rank():
     return dist.get_rank()
 
 
+SERVE_DECODES = 3
+
+
 def _serve(arch, mesh, policy):
-    """A 4 x 8 prefill and two decode steps of reduced ``arch`` (serving
-    weights, seed 1), under ``policy`` on this rank's rows."""
+    """A prefill of 4 prompts (8 tokens; whisper's 8 frames) and
+    ``SERVE_DECODES`` greedy decode steps of reduced ``arch`` (serving
+    weights, seed 1), under ``policy`` on this rank's rows: the logits of
+    each step, the greedy tokens and the shapes of the cache's tensors."""
     cfg = lm_cfg(arch)
     model = model_lib.init_params(cfg, seed=1, device="cpu")
     params = (model_io.ShardedLM(model, cfg, mesh, train=False)
               if mesh is not None else model)
     rng = np.random.default_rng(2)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 8)),
-                           dtype=torch.int32)
-    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4)),
-                          dtype=torch.int32)
+    encdec = cfg.family == "encdec"
+    prompt = (torch.as_tensor(rng.standard_normal((4, 8, cfg.d_model)),
+                              dtype=torch.float32) if encdec else
+              torch.as_tensor(rng.integers(0, cfg.vocab, (4, 8)),
+                              dtype=torch.int32))
     if mesh is not None:
-        spec = sharding.data_spec(mesh, 4, 2)
-        toks = sharding.local_shard(toks, spec, mesh).contiguous()
-        nxt = sharding.local_shard(nxt, (None,) + spec[:1], mesh).contiguous()
+        prompt = sharding.local_shard(
+            prompt, sharding.data_spec(mesh, 4, prompt.dim()),
+            mesh).contiguous()
     prefill = steps.make_prefill_step(cfg, 16, policy)
     decode = steps.make_decode_step(cfg, policy)
-    logits, cache = prefill(params, toks)
-    out = [logits]
-    for t in nxt:
-        logits, cache = decode(params, cache, t)
+    out = []
+    if encdec:
+        cache = prefill(params, {"frames": prompt})
+        token = torch.zeros(prompt.shape[0], dtype=torch.int32)
+    else:
+        logits, cache = prefill(params, prompt)
         out.append(logits)
-    return torch.stack(out)
+        token = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+    shapes = {k: tuple(v.shape) for k, v in cache.items()}
+    tokens = [token]
+    for _ in range(SERVE_DECODES):
+        logits, cache = decode(params, cache, token)
+        out.append(logits)
+        token = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        tokens.append(token)
+    return {"logits": torch.stack(out), "tokens": torch.stack(tokens),
+            "cache_shapes": shapes}
 
 
 def moe_dp_inputs():
@@ -343,13 +431,14 @@ def _moe_data_parallel(mesh):
 
 
 def lm_mesh(rank, world, out_dir):
-    """LM training on ``make_host_mesh(2, 2)`` and ``(4, 1)`` for both
-    archs (qwen's 2 x 2 run also checkpoints step 2 under
-    ``out_dir/ckpt22``),
-    and reduced dbrx served under a 2 x 2 policy; rank 0 also runs all of
-    it in one process."""
+    """LM training on ``make_host_mesh`` of every shape in ``LM_SHAPES``
+    for every arch (qwen's 2 x 2 run also checkpoints step 2 under
+    ``out_dir/ckpt22``), qwen on 4 x 1 with a batch that does not split
+    over the data axis, and every arch served under a policy of each
+    shape in ``SERVE_SHAPES``; rank 0 also runs all of it in one
+    process."""
     out = {}
-    for shape in ((2, 2), (4, 1)):
+    for shape in LM_SHAPES:
         mesh = mesh_lib.make_host_mesh(*shape)
         out[f"coord{shape}"] = tuple(sharding.axis_index(mesh, a)
                                      for a in ("data", "model"))
@@ -359,15 +448,21 @@ def lm_mesh(rank, world, out_dir):
             out[f"{arch} {shape}"] = _lm_run(arch, mesh, ckpt)
         if shape == (4, 1):
             out["moe data parallel"] = _moe_data_parallel(mesh)
-    mesh = mesh_lib.make_host_mesh(2, 2)
-    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
-    collectives.BYTES.clear()
-    out["serve"] = _serve("dbrx-132b", mesh, policy)
-    out["serve bytes"] = dict(collectives.BYTES)
+            out["qwen replicated rows"] = _lm_run(
+                "qwen1.5-0.5b", mesh, rows=REPLICATED_BATCH)
+        if shape in SERVE_SHAPES:
+            policy = MeshPolicy(mesh, sharding.activation_rules(mesh,
+                                                                train=False))
+            for arch in LM_ARCHS:
+                collectives.BYTES.clear()
+                out[f"serve {arch} {shape}"] = _serve(arch, mesh, policy)
+                out[f"serve bytes {arch} {shape}"] = dict(collectives.BYTES)
     if rank == 0:
         for arch in LM_ARCHS:
             out[f"{arch} plain"] = _lm_run(arch, None)
-        out["serve plain"] = _serve("dbrx-132b", None, None)
+            out[f"serve {arch} plain"] = _serve(arch, None, None)
+        out["qwen replicated rows plain"] = _lm_run(
+            "qwen1.5-0.5b", None, rows=REPLICATED_BATCH)
         # dbrx alone with the load-balancing loss of each half of a
         # microbatch's tokens averaged: the 2 x 2 mesh's, whose aux is
         # each data rank's averaged over ``data`` (the reference's pmean)
