@@ -23,7 +23,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 4 envs x 6 experts (the N=6 serving rows), over 100
                 consecutive advances per admission order, every fourth one
                 held against the plain loop (at 16,384 rows those of the
-                first 50, and advance 50, where B1 is timed), with arrivals
+                first 16, and advance 50, where B1 is timed; at 24 rows
+                those of the first 40), with arrivals
                 pushed between advances, ragged caps, about 1/8 of experts
                 down, admission floors on some rows and a t_next per env.
                 Queues, clocks and wait-valid bits must be bit-exact,
@@ -38,7 +39,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 final state must be equal bit for bit, and requests routed
                 per second are printed for both.  Each run must launch
                 B1 once per env step; a shorter QLL run on the plain engine
-                (40 steps at N=6, 25 at N=1,024) must end in the same state
+                (20 steps at N=6, 12 at N=1,024) must end in the same state
                 as on the kernel.
   4. profile  — for QLL and SAC in each setting: the graphed step's wall
                 time, each layer's device time (observation, policy, env
@@ -169,9 +170,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 100,000, warmup 2,000, 400 iterations, padded obs).  (a) 24
                 iterations with every collect step and update replayed from
                 CUDA graphs against the same 24 run eagerly from the same
-                seeds (15 collect only, then 9 updating), and against the
-                same 24 run eagerly on B1's plain version (96 rows):
-                parameters, AdamW moments and step, replay buffer, env
+                seeds (15 collect only, then 9 updating), and the first 4
+                run eagerly on B1's plain version (96 rows) against the
+                graphed state then: parameters, AdamW moments and step, replay buffer, env
                 state and observation bit-equal; each iteration's time,
                 graphed and eager.  (c) Where a
                 graphed iteration's time goes: a collect step's and an
@@ -199,8 +200,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 failover (retry budget 2, shed watermark 0.9) at 8
                 arrivals/s, N=6 x 4 envs x 750 steps: QLL, SQF and the
                 trained router, graphed and eager (bit-equal metrics and
-                final state, retry buffer included), the trained router also
-                eagerly on B1's plain version (bit-equal); the failover run
+                final state, retry buffer included), the trained router's
+                first 250 steps also eagerly on B1's plain version
+                (bit-equal, past 20 s of simulated time); the failover run
                 must drain and shed.  B1 once per step, under live ``up``,
                 ``k_scale`` and ``admit_min`` channels.
  16. train_cli — ``launch/train.py --router --iters 20 --scenario
@@ -208,8 +210,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 --straggler-z 4.0``: finite rewards, ``straggler_flags`` in
                 the history, B1 once per collect step; then the CLI's
                 configs' 20 iterations graphed (the CLI's router bit for
-                bit) against eagerly on B1's plain version (96 rows, past
-                the first outage), bit-equal.
+                bit, past the first outage), their first 10 against 10
+                run eagerly on B1's plain version (96 rows), bit-equal.
  17. sharded  — sharded router training and the sharded engine advance in
                 a world of one NCCL rank (one card; ``launch/mesh.py
                 init_world``), every collective launched and captured in
@@ -227,7 +229,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 caps), final state and metrics bit-equal to
                 ``engine_backend="cuda"`` and to the whole-state design
                 (``whole_state``, its B1 launches not counted; QLL's avg
-                QoS at N=6 still 0.7336170673370361), QLL's state after 50
+                QoS at N=6 still 0.7336170673370361), QLL's state after 20
                 steps bit-equal to the plain loop as each rank's body
                 (``shard_body="torch"``, eager); requests/s of the three;
                 the bytes each reader's collectives bring a rank in one
@@ -289,6 +291,30 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 partials summed by hand within 2^-6 of the whole layer's
                 largest output; each rank's B2, B3 and B4 calls against
                 their plain versions at its shapes, and their times
+                (checks only: not counted).  (f) rwkv6-7b and
+                recurrentgemma-2b at published widths and depth in bf16:
+                a 4 x 128 prefill (eager, then a replay) and 8 greedy
+                decodes through ``launch/steps.py`` under a 1 x 1 policy
+                over a ``ShardedLM`` of serving blocks, graphed, bit-equal
+                to no policy (logits and caches; B5 32 and B6 18 per
+                prefill, B3 8 per recurrentgemma decode, counted for the
+                kernels line).  (g) the recurrent families and the
+                sequence split at published widths in bf16, every
+                ``model`` rank's body for m = 2 and 4 in this process:
+                one rwkv6-7b layer (time mix on H/m heads through B5,
+                channel mix reduce-scattered and gated by hand) and one
+                recurrentgemma-2b superblock (rec1, rec2 on rnn/m
+                channels through B6 with the conv output gathered by
+                hand; the attention on its heads), a 2 x 256 prefill and
+                one decode, summed within 2^-6 of the whole layer's
+                largest output; recurrentgemma's decode over a wrapped
+                ring of 2,048 and one granite-34b layer's decode over a
+                cache of 2 x 4,096, each split by sequence: each rank's
+                B3 (o, lse) over its slots merged by hand against B3 over
+                the whole cache and the whole layer; every B3 (with lse),
+                B5 and B6 call against its plain version at the rank's
+                shapes, timed beside the whole width's; the bytes per
+                reader of one decode step at m = 2 and 4 by the specs
                 (checks only: not counted).
  21. lm_encdec — whisper-medium at its published widths and depth in bf16
                 (24 + 24 layers, 814,190,592 parameters, random weights from
@@ -359,7 +385,14 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t``, the seconds since the
+    script started, so that a run's log shows where its time went."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -494,7 +527,7 @@ def bulk_arrivals(layout, q, rng, t, wait_caps, p_arrive, dev):
 # advances per admission order at 16,384 rows held against the plain
 # loop, whose 0.3-0.6 s a call sets this phase's time; the kernel still
 # runs all 100, and B1 is timed at advance 50 (the 24-row run holds all)
-KERNEL_CHECKED = 50
+KERNEL_CHECKED = 16
 
 
 def kernel_phase(dev, n_envs=16, n=1024, steps=100, checked=None,
@@ -712,6 +745,25 @@ def serve_phase(dev, n_experts, n_envs, n_steps, n_check, obs_fmt, ragged,
     return launches, rows
 
 
+def trace_events(prof, device: str) -> list:
+    """The ``device`` ("CPU" or "CUDA") records of a finished torch.profiler
+    session, each with the ``name`` and ``time_range`` (us from the trace's
+    start) that ``prof.events()`` gives it, read from the raw Kineto events:
+    ``prof.events()`` also builds every CPU op's record and links it to its
+    kernels, which takes some 26 s for an eager LM window of 330,000
+    events."""
+    from types import SimpleNamespace
+
+    from torch.autograd.profiler_util import Interval
+
+    result = prof.profiler.kineto_results
+    t0 = result.trace_start_ns()
+    return [SimpleNamespace(name=e.name(), time_range=Interval(
+                (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3))
+            for e in result.events()
+            if str(e.device_type()).endswith(device)]
+
+
 def profiled(run, expected, label):
     """``run()`` under torch.profiler (CPU and CUDA, synchronised at its
     end): its result, the window's kernel records and the takes it needed.
@@ -729,8 +781,7 @@ def profiled(run, expected, label):
                                  ProfilerActivity.CUDA]) as prof:
             result = run()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        kernels = trace_events(prof, "CUDA")
         got = {tag: sum(any(n in e.name for n in TRACE_KERNELS[tag])
                         for e in kernels) for tag in expected}
         assert all(got[t] <= expected[t] for t in expected), (
@@ -882,10 +933,14 @@ def profile_window(env_cfg, pool, policy, n_envs, steps=30):
 
 TRAIN_SEEDS = (0, 1, 2)
 TRAIN_CHECK_ITERS = 24       # graphed against eager: 15 collect, then 9 updating
+# iterations held against B1's plain version, which waits for the card once
+# per turn (~3 s an iteration): B1 runs only in the collect steps, so a
+# prefix of collect-only iterations holds all of it
+TRAIN_PLAIN_ITERS = 4
 # steps of the scenario runs held against B1's plain version, which waits
-# for the card once per turn: past the cap claim at 40 s of ``stress`` and
-# into the first outage (20-50 s) of ``rolling_outage``
-SCENARIO_PLAIN_STEPS = 400
+# for the card once per turn (~0.09 s a step): into the first outage (20-50
+# s) of ``rolling_outage``
+SCENARIO_PLAIN_STEPS = 250
 EVAL = dict(n_steps=750, n_envs=4)     # the serve phase's protocol, seed 1234
 EVAL_KEYS = ("mean_reward", "avg_qos", "completed", "dropped",
              "violation_rate")
@@ -893,6 +948,8 @@ EVAL_KEYS = ("mean_reward", "avg_qos", "completed", "dropped",
 # overload shedding and drains both happen in 750 steps x 4 envs
 SCENARIO_RATE = 8.0
 SCALE_ITERS = 10
+# the CLI's iterations held against B1's plain version (~2.7 s an iteration)
+CLI_PLAIN_ITERS = 10
 
 
 def differing(a: dict, b: dict) -> list:
@@ -1005,10 +1062,10 @@ def train_phase(dev):
     launches = 0
 
     # (a) graphed and eager from the same seeds; eager on B1's plain
-    # version (slow: it waits for the card once per turn) through the first
-    # updating iteration, held against the graphed state then (the plain
-    # run launches no B1 and is not counted)
-    n_plain = first_update + 1
+    # version (slow: it waits for the card once per turn) for
+    # TRAIN_PLAIN_ITERS iterations, held against the graphed state then (the
+    # plain run launches no B1 and is not counted)
+    n_plain = TRAIN_PLAIN_ITERS
     states, fns, secs = {}, {}, {}
     for mode in ("graphed", "eager", "plain"):
         cfg = plain_loop(env_cfg) if mode == "plain" else env_cfg
@@ -1249,7 +1306,7 @@ def scenario_phase(dev, trained):
                 assert ops.LAUNCHES == 0, (name, ops.LAUNCHES)
                 assert all(m_g[k] == m_p[k] for k in run_keys), name
                 assert same_state(s_g, s_p), name
-                assert float(s_g["clock"].min()) > 40.0, name
+                assert float(s_g["clock"].min()) > 20.0, name
                 plain = {"plain_loop_steps": SCENARIO_PLAIN_STEPS,
                          "plain_loop_equal": True,
                          "plain_loop_s": time.perf_counter() - t}
@@ -1270,8 +1327,8 @@ def scenario_phase(dev, trained):
 def train_cli_phase(dev):
     """``launch/train.py --router`` as the reference's docstring runs it,
     at 20 iterations; then its configs' iterations graphed (the CLI's
-    router again, bit for bit) against eager on B1's plain version,
-    bit-equal, past the first outage."""
+    router again, bit for bit, past the first outage), the first
+    ``CLI_PLAIN_ITERS`` against eager on B1's plain version, bit-equal."""
     from repro_torch.core import training
     from repro_torch.kernels.lockstep_advance import ops
     from repro_torch.launch import train
@@ -1296,18 +1353,23 @@ def train_cli_phase(dev):
         st = training.init_train_state(cfg, sac_cfg, tc, pool)
         it_fn = training.make_iteration(cfg, tc, pool, st,
                                         graphs=mode == "graphed")
-        for it in range(tc.iterations):
+        for it in range(CLI_PLAIN_ITERS):
             it_fn(it)
+        if mode == "graphed":
+            snap = {k: x.clone() for k, x in st.tensors().items()}
+            for it in range(CLI_PLAIN_ITERS, tc.iterations):
+                it_fn(it)
         states[mode] = st
     got = states["graphed"].sac.state_dict()
     for k, x in model.state_dict().items():
         assert torch.equal(x, got[k]), k
-    diff = differing(states["graphed"].tensors(), states["plain"].tensors())
+    diff = differing(snap, states["plain"].tensors())
     assert not diff, diff[:10]
     first_down = 20.0                     # rolling_outage: expert 0 at 20 s
     assert float(states["graphed"].env["clock"].min()) > first_down
     emit({"phase": "train_cli", "argv": argv, "seconds": secs,
           "b1_rows": tc.n_envs * env_cfg.n_experts, "plain_loop_equal": True,
+          "plain_loop_iterations": CLI_PLAIN_ITERS,
           "history": hist})
     return launches
 
@@ -1318,7 +1380,7 @@ def train_cli_phase(dev):
 
 # the plain loop waits for the card once per turn: the "shard" engine is
 # held against it over its first steps only
-SHARD_PLAIN_STEPS = 50
+SHARD_PLAIN_STEPS = 20
 SHARD_ENGINE_CASES = ((6, 4, 750, "padded", False),
                       (1024, 16, 200, "segments", True))
 
@@ -2248,21 +2310,55 @@ def check_attention_calls(calls, label) -> list:
     rows = {}
     for name, args, kw, out in calls:
         kernel, plain = kernels[name]
-        err = float((out.float() - plain(*args, **kw).float()).abs().max())
+        want = plain(*args, **kw)
+        lse_err = None
+        if isinstance(out, tuple):                # B3 with its lse
+            (out, lse), (want, lse_want) = out, want
+            lse_err = lse_over(lse, lse_want, f"{name} {label}")
+        err = float((out.float() - want.float()).abs().max())
         tol = FLASH_TOL[out.dtype]
         if not err <= tol:
             raise AssertionError(f"{name} {label} q {tuple(args[0].shape)} "
                                  f"k {tuple(args[1].shape)}: max abs error "
                                  f"{err} above {tol}")
-        key = (name, tuple(args[0].shape), tuple(args[1].shape))
+        key = (name, tuple(args[0].shape), tuple(args[1].shape),
+               lse_err is not None)
         if key not in rows:
             rows[key] = {"kernel": name, "q": list(args[0].shape),
                          "k": list(args[1].shape), "calls": 0,
                          "max_abs_err": 0.0, "tol": tol,
                          "ms": device_ms(lambda: kernel(*args, **kw), 20)}
+            if lse_err is not None:
+                rows[key].update(lse=True, lse_over_tol=0.0,
+                                 lse_tol=LSE_REL_TOL)
         rows[key]["calls"] += 1
         rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+        if lse_err is not None:
+            rows[key]["lse_over_tol"] = max(rows[key]["lse_over_tol"],
+                                            lse_err)
     return list(rows.values())
+
+
+# B3's log-sum-exp against its plain version's: float32 sums of the same
+# scores in another order and exp2 approximations, within 1e-4 of
+# max(1, |lse|); -inf exactly where a row has no valid key
+LSE_REL_TOL = 1e-4
+
+
+def lse_over(got, want, label) -> float:
+    """The largest error of a log-sum-exp over ``LSE_REL_TOL`` of
+    ``max(1, |want|)``; fails if it is above 1 or the -inf rows differ."""
+    empty = want == float("-inf")
+    if not torch.equal(got == float("-inf"), empty):
+        raise AssertionError(f"{label}: lse -inf rows differ")
+    if bool(empty.all()):
+        return 0.0
+    g, w = got[~empty], want[~empty]
+    over = float(((g - w).abs() / (LSE_REL_TOL * w.abs().clamp(min=1.0)))
+                 .max())
+    if not over <= 1.0:
+        raise AssertionError(f"{label}: lse {over} times its tolerance")
+    return over
 
 
 def check_expert_calls(calls) -> list:
@@ -2417,6 +2513,502 @@ def mesh_rank_layer(dev, arch) -> None:
     free_cuda()
 
 
+MESH_RECURRENT = (("rwkv6-7b", 10), ("recurrentgemma-2b", 11))
+MESH_RANK_RING = 2048         # recurrentgemma's window: the ring's slots
+MESH_RANK_LONG = 4096         # granite's decode cache: slots a row
+
+
+def mesh_recurrent(dev, mesh, arch, seed) -> dict:
+    """(f) ``arch`` at published widths and depth in bf16: a 4 x 128
+    prefill (eager, then a replay) and 8 greedy decodes through the steps
+    under a 1 x 1 policy over a ``ShardedLM`` of serving blocks, graphed,
+    against the same steps without one: logits and caches bit-equal.
+    Returns the policy run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.api import MeshPolicy
+    from repro_torch.launch import steps
+    from repro_torch.models import io as model_io, model as model_lib
+
+    cfg = get_config(arch)
+    model = model_lib.init_params(cfg, seed=seed, device=dev)
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    own = list(model.parameters())
+    sp = model_io.ShardedLM(model, cfg, mesh, train=False)
+    assert not sp.gathers and all(
+        a is b for a, b in zip(own, sp.model.parameters()))
+    rng = np.random.default_rng(seed)
+    b, n = REC_BATCH, REC_PROMPT
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (b, n)),
+                           dtype=torch.int32, device=dev)
+
+    def run(params, pol):
+        prefill = steps.make_prefill_step(cfg, n + MESH_DECODES, pol)
+        decode = steps.make_decode_step(cfg, pol)
+        first, _ = prefill(params, toks)            # eager, then captured
+        logits, cache = prefill(params, toks)       # a replay
+        out = {"prefill_first": first, "prefill": logits}
+        out.update({f"cache{i}": x.clone()
+                    for i, x in enumerate(cache_leaves(cache))})
+        tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        for i in range(MESH_DECODES):
+            logits, cache = decode(params, cache, tok)
+            out[f"decode{i}"] = logits
+            tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+        out.update({f"final cache{i}": x.clone()
+                    for i, x in enumerate(cache_leaves(cache))})
+        return out
+
+    plain = run(model, None)
+    before = counters()
+    got = run(sp, policy)
+    launches = {k: counters()[k] - before[k] for k in before}
+    want = dict.fromkeys(launches, 0)
+    for k, v in scan_launches_per_pass(cfg).items():
+        want[k] += 2 * v
+    want["decode_attn"] += MESH_DECODES * b3_launches_per_decode(cfg)
+    assert launches == want, (launches, want)
+    differs = [k for k in plain if not torch.equal(plain[k], got[k])]
+    assert not differs, differs
+    assert all(bool(torch.isfinite(got[f"decode{i}"].float()).all())
+               for i in range(MESH_DECODES))
+    emit({"phase": "lm_mesh", "check": "recurrent_under_policy",
+          "model": arch, "layers": cfg.n_layers, "prompts": [b, n],
+          "decodes": MESH_DECODES, "bit_equal_to_no_policy": True,
+          "launches": launches})
+    del model, sp, plain, got
+    free_cuda()
+    return launches
+
+
+@contextlib.contextmanager
+def scan_calls():
+    """Record every B5 and B6 call of the recurrent layers (inputs,
+    keywords, output), in call order."""
+    from repro_torch.models import rglru, rwkv6
+
+    real = (rwkv6.wkv, rglru.lru)
+    calls = []
+
+    def wkv(*args, **kw):
+        out = real[0](*args, **kw)
+        calls.append(("rwkv6_scan", args, kw, out))
+        return out
+
+    def lru(*args):
+        out = real[1](*args)
+        calls.append(("rglru_scan", args, {}, out))
+        return out
+
+    rwkv6.wkv, rglru.lru = wkv, lru
+    try:
+        yield calls
+    finally:
+        rwkv6.wkv, rglru.lru = real
+
+
+def check_scan_calls(calls, label) -> list:
+    """Each recorded B5 call against the token recurrence
+    (``rwkv6_scan_ref``: y within ``WKV_TOL`` of its dtype, the state
+    within float32's) and each B6 call against its plain version
+    (``LRU_TOL``), as phases 10 and 11 hold them; a row per shape with
+    its time on the card."""
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    rows = {}
+    for name, args, kw, out in calls:
+        if name == "rwkv6_scan":
+            (y, state), (y_ref, s_ref) = out, rwkv6_scan_ref(*args[:5])
+            over = max(over_limit(y, y_ref, WKV_TOL[y.dtype]),
+                       over_limit(state, s_ref, WKV_TOL[torch.float32]))
+            err = float((y.float() - y_ref.float()).abs().max())
+            fn = lambda: wkv_ops.wkv(*args, **kw)
+            shape = list(args[0].shape)             # (B, H, T, K)
+        else:
+            ref = plain_lru(*args)
+            over = over_limit(out, ref, LRU_TOL[out.dtype])
+            err = float((out.float() - ref.float()).abs().max())
+            fn = lambda: lru_ops.lru(*args)
+            shape = list(args[0].shape)             # (B, T, channels)
+        if not over <= 1.0:
+            raise AssertionError(f"{name} {label} {shape}: error {err}, "
+                                 f"{over} times its tolerance")
+        key = (name, tuple(shape))
+        if key not in rows:
+            rows[key] = {"kernel": name, "shape": shape, "calls": 0,
+                         "max_abs_err": 0.0, "over_tol": 0.0,
+                         "ms": device_ms(fn, 20)}
+        row = rows[key]
+        row["calls"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["over_tol"] = max(row["over_tol"], over)
+    return list(rows.values())
+
+
+def state_check(whole, parts, dim, what) -> dict:
+    """Every rank's state side by side along ``dim`` against the whole
+    layer's (``MESH_RANK_REL_TOL`` of its largest value)."""
+    got = torch.cat([p.float() for p in parts], dim)
+    err = float((got - whole.float()).abs().max())
+    scale = float(whole.float().abs().max())
+    row = {"part": what, "max_abs_diff": err, "max_abs_whole": scale,
+           "tol": MESH_RANK_REL_TOL * scale}
+    if not err <= row["tol"]:
+        raise AssertionError(f"rank states vs whole layer: {row}")
+    return row
+
+
+def rank_inputs(cfg, dev, seed, t):
+    """A normalised bf16 input (B, t, d) of the rank bodies."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((MESH_RANK_PROMPT[0], t, cfg.d_model), generator=gen,
+                    device=dev)
+    return layers.rms_norm(x, torch.zeros(cfg.d_model, device=dev),
+                           cfg.norm_eps).to(torch.bfloat16)
+
+
+def mesh_rank_rwkv6(dev) -> list:
+    """(g) One rwkv6-7b layer at published widths in bf16: every ``model``
+    rank's ``time_mix_body`` (its H/m heads through B5) and
+    ``channel_mix_body`` for m = 2 and 4, over a 2 x 256 prefill from the
+    zero state and one decode from the prefill's state, summed (the
+    channel mix's partial outputs summed, then each rank's gate on its
+    channels) against the whole layer; the states side by side."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import rwkv6
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=1)
+    layer = rwkv6.init_params(cfg, seed=12, device=dev).layers[0]
+    b, s = MESH_RANK_PROMPT
+    h, dh, d = cfg.n_heads, cfg.head_size, cfg.d_model
+    x, xd = rank_inputs(cfg, dev, 13, s), rank_inputs(cfg, dev, 14, 1)
+    tm_prev, cm_prev = x[:, 0] * 0.5, x[:, 1] * 0.5
+    zero = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=dev)
+    tm = lambda m, r: sharding.rank_blocks(layer, "layers", rwkv6.TIME_MIX,
+                                           m, r)
+    cm = lambda m, r: sharding.rank_blocks(layer, "layers",
+                                           rwkv6.CHANNEL_MIX, m, r)
+
+    def channel(m, xx):
+        parts = [rwkv6.channel_mix_body(cm(m, r), cfg, xx, cm_prev)
+                 for r in range(m)]
+        total = sum(p[0].float() for p in parts)
+        dl = d // m
+        return torch.cat([p[1].float() * total[..., r * dl:(r + 1) * dl]
+                          for r, p in enumerate(parts)], -1)
+
+    rows = []
+    with torch.no_grad(), scan_calls() as calls:
+        whole, _, s_whole = rwkv6.time_mix_body(tm(1, 0), cfg, x, tm_prev,
+                                                zero.clone(), single=False)
+        dec_whole, _, sd_whole = rwkv6.time_mix_body(
+            tm(1, 0), cfg, xd, tm_prev, s_whole.clone(), single=True)
+        cm_whole, cmd_whole = channel(1, x), channel(1, xd)
+        whole_calls = list(calls)
+        for m in MESH_RANK_MS:
+            hl = h // m
+            del calls[:]
+            outs, states, decs, dstates = [], [], [], []
+            for r in range(m):
+                o, _, st = rwkv6.time_mix_body(
+                    tm(m, r), cfg, x, tm_prev, zero[:, r * hl:(r + 1) * hl]
+                    .clone(), r, single=False)
+                od, _, sd = rwkv6.time_mix_body(
+                    tm(m, r), cfg, xd, tm_prev,
+                    s_whole[:, r * hl:(r + 1) * hl].clone(), r, single=True)
+                outs.append(o)
+                states.append(st)
+                decs.append(od)
+                dstates.append(sd)
+            row = {"phase": "lm_mesh", "check": "rank_bodies",
+                   "model": "rwkv6-7b", "dtype": "bfloat16", "m": m,
+                   "prompt": [b, s], "heads_per_rank": hl,
+                   "sums": [rank_sum_check(whole, outs, "time_mix"),
+                            state_check(s_whole, states, 1, "S"),
+                            rank_sum_check(dec_whole, decs,
+                                           "time_mix decode"),
+                            state_check(sd_whole, dstates, 1, "S decode"),
+                            rank_sum_check(cm_whole, [channel(m, x)],
+                                           "channel_mix"),
+                            rank_sum_check(cmd_whole, [channel(m, xd)],
+                                           "channel_mix decode")],
+                   "scan_kernels": check_scan_calls(calls, f"rwkv6 m={m}"),
+                   "whole_width_kernels": check_scan_calls(
+                       whole_calls, "rwkv6 whole")}
+            assert len(calls) == m, len(calls)
+            emit(row)
+            rows.append(row)
+    del layer, calls, whole_calls
+    free_cuda()
+    return rows
+
+
+def merge_check(parts, whole, what) -> dict:
+    """Every rank's B3 (output, lse) over its slots merged by hand
+    (``merge_partials``) against B3 over the whole cache
+    (``MESH_RANK_REL_TOL`` of the largest output), no NaN."""
+    from repro_torch.kernels.decode_attn.ref import merge_partials
+
+    merged = merge_partials([p[0] for p in parts], [p[1] for p in parts])
+    row = rank_sum_check(whole, [merged], what)
+    row["ranks_without_a_valid_slot"] = [
+        int((p[1] == float("-inf")).all(-1).sum()) for p in parts]
+    return row, merged
+
+
+def mesh_rank_rglru(dev) -> list:
+    """(g) One recurrentgemma-2b superblock at published widths in bf16:
+    every ``model`` rank's body for m = 2 and 4 over a 2 x 256 prefill
+    (rec1 and rec2: ``rec_in_body``, the conv outputs side by side,
+    ``rec_out_body`` through B6 on its rnn/m channels, the GeGLU MLP; the
+    attention on its query heads: 5 over 2 ranks, all 10 over 4) and one
+    decode (the recurrent step from the prefill's states; the attention
+    over a wrapped ring of 2,048 split by sequence: each rank's query
+    heads gathered by hand, the token written on the owning rank, B3
+    with its lse on its slots, the partial softmaxes merged by hand),
+    summed or, where the heads are whole, alike, against the whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.decode_attn.ref import merge_partials
+    from repro_torch.models import rglru, transformer
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), n_layers=3)
+    model = rglru.init_params(cfg, seed=15, device=dev)
+    b, s = MESH_RANK_PROMPT
+    x, xd = rank_inputs(cfg, dev, 16, s), rank_inputs(cfg, dev, 17, 1)
+    rw, cw, w_all = cfg.rnn_width, cfg.conv_width, MESH_RANK_RING
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=dev)[None].expand(b, s)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    ring = torch.randn((2, b, w_all, 1, cfg.d_head), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    kv_pos = (w_all + torch.arange(w_all, dtype=torch.int32, device=dev)
+              )[None].expand(b, w_all).contiguous()     # a wrapped ring
+    pos = torch.tensor(2 * w_all, dtype=torch.int32, device=dev)
+    slot = int(pos) % w_all
+    rec = lambda i, m, r: sharding.rank_blocks(
+        model.layers[i], f"super/rec{i + 1}", rglru.REC, m, r)
+    mlp = lambda i, m, r: sharding.rank_blocks(
+        model.layers[i].mlp, "super/rec1/mlp", rglru.MLP_NAMES, m, r)
+    attn = lambda m, r: sharding.rank_blocks(model.layers[2], "super/attn",
+                                             rglru.ATTN, m, r)
+
+    def recurrent(i, m, xx, conv, h0, single):
+        n = rw // m
+        ins = [rglru.rec_in_body(rec(i, m, r), cfg, xx,
+                                 conv[..., r * n:(r + 1) * n])
+               for r in range(m)]
+        bx_all = torch.cat([t[0] for t in ins], -1)
+        # a rank's state is its own tensor (the cache's ``h``): contiguous
+        outs = [rglru.rec_out_body(rec(i, m, r), cfg, bx_all, ins[r][1],
+                                   h0[:, r * n:(r + 1) * n].contiguous(), r,
+                                   single=single) for r in range(m)]
+        return ([o[0] for o in outs], torch.cat([o[1] for o in outs], -1),
+                torch.cat([t[2] for t in ins], -1))
+
+    def decode_attention(m):
+        """Every rank's decode over its slots of the ring, merged."""
+        hq = cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
+        qs = [rglru.decode_query(attn(m, r), cfg, xd, pos) for r in range(m)]
+        q_all = (torch.cat([t[0] for t in qs], 1) if hq < cfg.n_heads
+                 else qs[0][0])
+        n = w_all // m
+        parts = []
+        for r in range(m):
+            st = {"k": ring[0][:, r * n:(r + 1) * n].clone(),
+                  "v": ring[1][:, r * n:(r + 1) * n].clone(),
+                  "kv_pos": kv_after}
+            transformer.write_owned(st["k"], st["v"], qs[r][1], qs[r][2],
+                                    pos % w_all, r * n)
+            parts.append(rglru.ring_attend(q_all, st, pos, r * n))
+        merged = merge_partials([p[0] for p in parts],
+                                [p[1] for p in parts])
+        outs = [rglru.attention_out(attn(m, r), transformer.own_heads(
+            merged, hq, r)) for r in range(m)]
+        return q_all, parts, outs
+
+    rows = []
+    zero_h = torch.zeros((b, rw), dtype=torch.float32, device=dev)
+    zero_c = torch.zeros((b, cw - 1, rw), dtype=torch.bfloat16, device=dev)
+    with torch.no_grad(), scan_calls() as scans, \
+            attention_calls() as acalls:
+        whole = {}
+        for i in (0, 1):
+            outs, h, c = recurrent(i, 1, x, zero_c, zero_h, False)
+            whole[f"rec{i + 1}"], whole[f"h{i}"], whole[f"c{i}"] = \
+                outs[0], h, c
+            outs, h, c = recurrent(i, 1, xd, whole[f"c{i}"], whole[f"h{i}"],
+                                   True)
+            whole[f"rec{i + 1} decode"], whole[f"hd{i}"] = outs[0], h
+            whole[f"mlp{i}"] = rglru.mlp_body(mlp(i, 1, 0), x)
+        whole["attn"], k, v = rglru.attention_full_body(attn(1, 0), cfg, x,
+                                                        positions)
+        q, kn, vn = rglru.decode_query(attn(1, 0), cfg, xd, pos)
+        kv_after = kv_pos.clone()
+        kv_after[:, slot] = pos
+        ring_after = ring.clone()
+        ring_after[0][:, slot], ring_after[1][:, slot] = kn, vn
+        whole_b3 = lambda qq: transformer.decode_attn(
+            qq, ring_after[0].transpose(1, 2), ring_after[1].transpose(1, 2),
+            kv_pos=kv_after, pos=pos, return_lse=True)[0]
+        whole["attn decode"] = rglru.attention_out(attn(1, 0), whole_b3(q))
+        whole_scans, whole_calls = list(scans), list(acalls)
+        for m in MESH_RANK_MS:
+            del scans[:], acalls[:]
+            sums = []
+            for i in (0, 1):
+                outs, h, c = recurrent(i, m, x, zero_c, zero_h, False)
+                sums += [rank_sum_check(whole[f"rec{i + 1}"], outs,
+                                        f"rec{i + 1}"),
+                         state_check(whole[f"h{i}"], [h], -1, f"h{i}")]
+                assert torch.equal(c, whole[f"c{i}"])
+                outs, h, _ = recurrent(i, m, xd, whole[f"c{i}"],
+                                       whole[f"h{i}"], True)
+                sums += [rank_sum_check(whole[f"rec{i + 1} decode"], outs,
+                                        f"rec{i + 1} decode"),
+                         state_check(whole[f"hd{i}"], [h], -1,
+                                     f"h{i} decode"),
+                         rank_sum_check(whole[f"mlp{i}"], [
+                             rglru.mlp_body(mlp(i, m, r), x)
+                             for r in range(m)], f"mlp{i}")]
+            split = cfg.n_heads % m == 0
+            outs = [rglru.attention_full_body(attn(m, r), cfg, x,
+                                              positions)[0]
+                    for r in range(m)]
+            if not split:                  # every head on every rank
+                assert all(torch.equal(o, outs[0]) for o in outs), m
+                outs = outs[:1]
+            sums.append(rank_sum_check(whole["attn"], outs, "attention"))
+            q_all, parts, outs = decode_attention(m)
+            # B3 over the whole ring for the same (gathered) query heads
+            merge_row, _ = merge_check(parts, whole_b3(q_all), "ring merge")
+            if not split:
+                assert all(torch.equal(o, outs[0]) for o in outs), m
+                outs = outs[:1]
+            sums += [merge_row, rank_sum_check(whole["attn decode"], outs,
+                                               "attention decode")]
+            row = {"phase": "lm_mesh", "check": "rank_bodies",
+                   "model": "recurrentgemma-2b", "dtype": "bfloat16",
+                   "m": m, "prompt": [b, s], "ring": w_all,
+                   "channels_per_rank": rw // m,
+                   "heads_per_rank": cfg.n_heads // m if split
+                   else cfg.n_heads, "sums": sums,
+                   "scan_kernels": check_scan_calls(scans, f"rglru m={m}"),
+                   "attention_kernels": check_attention_calls(
+                       acalls, f"rglru m={m}"),
+                   "whole_width_kernels": check_scan_calls(
+                       whole_scans, "rglru whole") + check_attention_calls(
+                       whole_calls, "rglru whole")}
+            assert len(scans) == 2 * m and len(acalls) == m + 1, (
+                len(scans), len(acalls))
+            emit(row)
+            rows.append(row)
+    del model, ring, ring_after, scans, acalls, whole_scans, whole_calls
+    free_cuda()
+    return rows
+
+
+def mesh_rank_granite(dev) -> list:
+    """(g) One granite-34b layer's decode at published widths in bf16 over
+    a cache of 2 x 4,096 slots (its one KV head: the cache split by
+    sequence), lengths 4,096 and 2,500: every ``model`` rank's query
+    heads (24 or 12) gathered by hand, the token written on the rank that
+    owns each row's slot, B3 with its lse over the rank's slots (its
+    valid ones ``clamp(lengths - lo, 0, S/m)``), the partial softmaxes
+    merged by hand against B3 over the whole cache, each rank's heads
+    through its ``wo`` rows, summed against the whole layer's
+    ``attention_decode_body``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config("granite-34b"), n_layers=1)
+    attn = transformer.init_params(cfg, seed=19, device=dev).layers[0].attn
+    b, sc = MESH_RANK_PROMPT[0], MESH_RANK_LONG
+    xd = rank_inputs(cfg, dev, 20, 1)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cache = torch.randn((2, b, sc, cfg.n_kv_heads, cfg.d_head),
+                        generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([sc, 2500], dtype=torch.int32, device=dev)
+    pos = lengths - 1
+    slot = pos.long()
+    kv_pos = torch.where(torch.arange(sc, device=dev)[None] <= pos[:, None],
+                         torch.arange(sc, device=dev)[None],
+                         -1).to(torch.int32)
+    blocks = lambda m, r: sharding.rank_blocks(attn, "layers/attn",
+                                               ATTN_NAMES, m, r)
+    rows = []
+    with torch.no_grad(), attention_calls() as acalls:
+        kw, vw = cache[0].clone(), cache[1].clone()
+        whole = transformer.attention_decode_body(
+            blocks(1, 0), cfg, xd, pos, slot, kw, vw, kv_pos, lengths)
+        whole_calls = list(acalls)
+        for m in MESH_RANK_MS:
+            del acalls[:]
+            n = sc // m
+            qs = [transformer.decode_query(blocks(m, r), cfg, xd, pos)
+                  for r in range(m)]
+            q_all = torch.cat([t[0] for t in qs], 1)
+            parts = []
+            for r in range(m):
+                rk = cache[0][:, r * n:(r + 1) * n].clone()
+                rv = cache[1][:, r * n:(r + 1) * n].clone()
+                transformer.write_owned(rk, rv, qs[r][1], qs[r][2], slot,
+                                        r * n)
+                assert torch.equal(rk, kw[:, r * n:(r + 1) * n])
+                parts.append(transformer.seq_attend(q_all, rk, rv, r * n,
+                                                    lengths=lengths))
+            # B3 over the whole cache for the same (gathered) query heads
+            o_whole, _ = transformer.decode_attn(
+                q_all, kw.transpose(1, 2), vw.transpose(1, 2), lengths,
+                return_lse=True)
+            merge_row, merged = merge_check(parts, o_whole, "cache merge")
+            hq = cfg.n_heads // m
+            outs = [torch.einsum("bhe,hed->bd", transformer.own_heads(
+                merged, hq, r), blocks(m, r).wo) for r in range(m)]
+            row = {"phase": "lm_mesh", "check": "rank_bodies",
+                   "model": "granite-34b", "dtype": "bfloat16", "m": m,
+                   "cache_slots": [b, sc], "lengths": lengths.tolist(),
+                   "slots_per_rank": n, "heads_per_rank": hq,
+                   "sums": [merge_row,
+                            rank_sum_check(whole, outs, "decode")],
+                   "attention_kernels": check_attention_calls(
+                       acalls, f"granite m={m}"),
+                   "whole_width_kernels": check_attention_calls(
+                       whole_calls, "granite whole")}
+            assert len(acalls) == m + 1, len(acalls)
+            emit(row)
+            rows.append(row)
+    del attn, cache, kw, vw, acalls, whole_calls
+    free_cuda()
+    return rows
+
+
+def decode_bytes() -> None:
+    """The bytes per reader of one decode step of 2 rows a rank receives
+    at m = 2 and 4 (``sharding.serve_step_bytes``, from the specs):
+    rwkv6-7b, recurrentgemma-2b over its ring of 2,048, granite-34b over
+    a cache of 4,096."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+
+    for arch, cache_len in (("rwkv6-7b", 0),
+                            ("recurrentgemma-2b", MESH_RANK_RING),
+                            ("granite-34b", MESH_RANK_LONG)):
+        cfg = get_config(arch)
+        emit({"phase": "lm_mesh", "check": "decode_bytes", "model": arch,
+              "rows": MESH_RANK_PROMPT[0], "cache_slots": cache_len,
+              "dtype": cfg.compute_dtype,
+              **{f"m{m}": sharding.serve_step_bytes(
+                  cfg, m, MESH_RANK_PROMPT[0], 1, cache_len, True)
+                 for m in MESH_RANK_MS}})
+
+
 def lm_mesh_phase(dev) -> dict:
     """The LM model mesh in a world of one NCCL rank on
     ``make_host_mesh(1, 1)`` (module docstring).  Returns the kernel
@@ -2440,9 +3032,16 @@ def lm_mesh_phase(dev) -> dict:
         free_cuda()
         more = mesh_whisper(dev, mesh)
         launches = {k: launches[k] + more[k] for k in launches}
+        for arch, seed in MESH_RECURRENT:
+            more = mesh_recurrent(dev, mesh, arch, seed)
+            launches = {k: launches[k] + more[k] for k in launches}
         # the rank bodies: checks, outside the counted runs
         for arch in MESH_RANK_ARCHS:
             mesh_rank_layer(dev, arch)
+        mesh_rank_rwkv6(dev)
+        mesh_rank_rglru(dev)
+        mesh_rank_granite(dev)
+        decode_bytes()
         return launches
     finally:
         mesh_lib.close_world()
@@ -3496,11 +4095,9 @@ def scan_pass_times(dev, calls=5, sessions=3):
                     for _ in range(calls):
                         sides[i][3]()
                     torch.cuda.synchronize()
-        events = prof.events()
         spans = {labels[e.name]: (e.time_range.start, e.time_range.end)
-                 for e in events if e.name in labels}
-        kernels = [e for e in events
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                 for e in trace_events(prof, "CPU") if e.name in labels}
+        kernels = trace_events(prof, "CUDA")
         for i in labels.values():
             key, tag, per_call, _ = sides[i]
             t0, t1 = spans[i]
@@ -4434,10 +5031,10 @@ def main() -> int:
     # phases 10 and 11's per-pass traces, first (see scan_pass_times)
     passes = timed("rwkv6_scan", scan_pass_times, dev)
     kernel = timed("kernel", kernel_phase, dev, 16, 1024, 100, KERNEL_CHECKED)
-    timed("kernel", kernel_phase, dev, 4, 6)            # the N=6 x 4 rows
-    launches, _ = timed("serve", serve_phase, dev, 6, 4, 750, 40, "padded",
+    timed("kernel", kernel_phase, dev, 4, 6, 100, 40)   # the N=6 x 4 rows
+    launches, _ = timed("serve", serve_phase, dev, 6, 4, 750, 20, "padded",
                         False, 0)
-    more, _ = timed("serve", serve_phase, dev, 1024, 16, 200, 25,
+    more, _ = timed("serve", serve_phase, dev, 1024, 16, 200, 12,
                     "segments", True, 0)
     launches += more
     flash = timed("flash", flash_phase, dev)

@@ -15,6 +15,12 @@ experts' dim over ``model``, beside the blocks of the leaves the mesh
 splits, and whole gradients).
 Training cases are AdamW's; a serving case counts the parameters alone,
 split into the experts' and the rest.
+
+Then the serving caches: for each cache case, the bytes a ``model`` rank
+holds of ``streams`` caches of ``tokens`` (``models.model.init_cache``
+under a policy on the meta device, by ``sharding.serve_cache_spec``) for
+a ``model`` axis of 1, 2 and 4, and the bytes per reader of one decode
+step of ``streams`` rows (``sharding.serve_step_bytes``).
 """
 from __future__ import annotations
 
@@ -25,11 +31,18 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding
-from repro_torch.models import io
+from repro_torch.distributed.api import MeshPolicy, use_mesh_policy
+from repro_torch.models import io, model as model_lib
 
 # (arch, data, model, train)
 CASES = [("starcoder2-15b", 4, 1, True), ("starcoder2-15b", 2, 2, True),
          ("dbrx-132b", 1, 4, False), ("qwen1.5-0.5b", 4, 1, True)]
+
+
+# (arch, streams, tokens a stream) of the serving caches
+CACHE_CASES = [("granite-34b", 32, 8192), ("recurrentgemma-2b", 32, 8192),
+               ("rwkv6-7b", 32, 8192)]
+CACHE_MS = (1, 2, 4)
 
 
 class FakeMesh:
@@ -100,9 +113,36 @@ def rank_bytes(arch: str, data: int, model: int, train: bool) -> dict:
     return out
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [x for item in items for x in _leaves(item)]
+
+
+def cache_bytes(arch: str, streams: int, tokens: int) -> dict:
+    cfg = get_config(arch)
+    out = {"arch": arch, "streams": streams, "tokens": tokens,
+           "dtype": cfg.compute_dtype}
+    for m in CACHE_MS:
+        mesh = FakeMesh({"data": 1, "model": m})
+        with use_mesh_policy(MeshPolicy(mesh, {}) if m > 1 else None):
+            cache = model_lib.init_cache(cfg, streams, tokens, device="meta")
+        held = sum(x.numel() * x.element_size() for x in _leaves(cache))
+        out[f"m{m}_cache_gb"] = held / 1e9
+        if m > 1:
+            slots = (min(cfg.window, tokens) if cfg.family == "hybrid"
+                     else tokens)
+            out[f"m{m}_decode_bytes"] = sharding.serve_step_bytes(
+                cfg, m, streams, 1, slots, True)
+    return out
+
+
 def main() -> None:
     for case in CASES:
         print(json.dumps(rank_bytes(*case)))
+    for case in CACHE_CASES:
+        print(json.dumps(cache_bytes(*case)))
 
 
 if __name__ == "__main__":

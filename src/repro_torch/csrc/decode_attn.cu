@@ -14,7 +14,10 @@
 //     kv_pos (B,S) int32 with pos (B,) or a scalar: slot j counts when
 //       0 <= kv_pos[b,j] <= pos[b] (a ring cache; every slot is read);
 //   s = (q . k) / sqrt(dh), float32 softmax; a row with no valid key gives 0
-//   through the max(l, 1e-30) denominator; output in q's dtype.
+//   through the max(l, 1e-30) denominator; output in q's dtype;
+//   optionally the row's log-sum-exp ln(sum_j exp(s_j)) over its valid
+//   keys, float32 (B,H), -inf for a row with no valid key: what a merge of
+//   partial softmaxes over caches split across ranks reads.
 //
 // What bounds it: bytes.  A decode reads each K and V row once and does 4
 // flops per (query head, key, dh) on it, G = H/KV heads per row: at most 12
@@ -84,6 +87,7 @@ struct Params {
   const int* pos;
   float2* part_ml;     // (B, H, splits) when splits > 1
   float* part_acc;     // (B, H, splits, dh)
+  float* lse;          // (B, H) log-sum-exp, or null
   int H, KV, S, dh, G, gtiles, splits, split_keys, pos_stride;
   long long kb, kh, ks, vb, vh, vs, pb;
   float scale_log2;
@@ -125,6 +129,12 @@ __device__ __forceinline__ Block block_setup(const Params& P) {
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
+// The natural log-sum-exp of a row from its (m in log2 units, l) state:
+// -inf where no key counted (l = 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m * 0.69314718055994531f + logf(l) : -INFINITY;
+}
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Row r (< rows) of the block at column c (< dh): the split's state (m in
@@ -136,6 +146,7 @@ __device__ __forceinline__ void write_state(const Params& P, const Block& B,
   const size_t row = (size_t)B.b * P.H + B.kvh * P.G + B.g0 + r;
   if (P.splits == 1) {
     store(static_cast<T*>(P.o) + row * P.dh + c, acc / fmaxf(l, 1e-30f));
+    if (c == 0 && P.lse != nullptr) P.lse[row] = row_lse(m, l);
     return;
   }
   const size_t at = row * P.splits + B.split;
@@ -157,6 +168,7 @@ __device__ __forceinline__ void write_state4(const Params& P, const Block& B, in
     raw.x = *reinterpret_cast<const uint32_t*>(&lo);
     raw.y = *reinterpret_cast<const uint32_t*>(&hi);
     *reinterpret_cast<uint2*>(static_cast<bf16*>(P.o) + row * P.dh + c) = raw;
+    if (c == 0 && P.lse != nullptr) P.lse[row] = row_lse(m, l);
     return;
   }
   const size_t at = row * P.splits + B.split;
@@ -624,6 +636,7 @@ decode_attn_merge(const Params P) {
     }
     store(static_cast<T*>(P.o) + row * P.dh + c, acc / d);
   }
+  if (threadIdx.x == 0 && P.lse != nullptr) P.lse[row] = row_lse(mx, lsum);
 }
 
 // ---------------------------------------------------------------------------
@@ -662,6 +675,7 @@ static int launch_dht(const Params& p, int B, int bf16_in, cudaStream_t s) {
 // keys are cut into `splits` ranges of `split_keys` (a multiple of 64; the
 // last may be shorter, none empty); with splits > 1, `part_ml` (B,H,splits)
 // float2 and `part_acc` (B,H,splits,dh) float32 are the merge's scratch.
+// `lse`, when not null, takes each row's log-sum-exp, float32 (B,H).
 // `bf16` selects bfloat16 (1) or float32 (0) for q, k, v and o alike.
 // Launches on `stream` (the merge too, when splits > 1) and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
@@ -669,7 +683,7 @@ static int launch_dht(const Params& p, int B, int bf16_in, cudaStream_t s) {
 extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   void* o, const int* lengths, const int* kv_pos,
                                   const int* pos, void* part_ml, void* part_acc,
-                                  int B, int H, int KV, int S, int dh, int splits,
+                                  float* lse, int B, int H, int KV, int S, int dh, int splits,
                                   int split_keys, long long kb, long long kh,
                                   long long ks, long long vb, long long vh,
                                   long long vs, long long pb, int pos_stride,
@@ -684,7 +698,7 @@ extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.lengths = lengths; p.kv_pos = kv_pos; p.pos = pos;
-  p.part_ml = (float2*)part_ml; p.part_acc = (float*)part_acc;
+  p.part_ml = (float2*)part_ml; p.part_acc = (float*)part_acc; p.lse = lse;
   p.H = H; p.KV = KV; p.S = S; p.dh = dh; p.G = H / KV;
   p.gtiles = (p.G + ROWS - 1) / ROWS;
   p.splits = splits; p.split_keys = split_keys; p.pos_stride = pos_stride;

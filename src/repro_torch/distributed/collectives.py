@@ -64,6 +64,20 @@ graph):
   style, ``models/transformer.py``) ends in ``sum_forward`` (the
   row-parallel output's all-reduce) and starts from ``sum_backward`` (its
   input's gradient summed over the ranks that each used it for a part).
+
+A serving cache split by sequence over ``model`` (``sharding.serve_cache_spec``)
+decodes with two more, both forward-only:
+
+* ``gather_heads``: a rank's query heads (B, H/m, dh) whole over ``model``
+  (one all-gather, reader ``"kv_query"``), so that it reads every head
+  against its own slots;
+* ``softmax_merge``: each rank's decode output over its slots and its
+  log-sum-exp merged into the output over the whole cache (flash
+  decoding): an all-reduce MAX of the log-sum-exp, then one all-reduce
+  SUM of ``exp(lse - max)·o`` beside ``exp(lse - max)``, then the
+  quotient (reader ``"kv_merge"``); a rank with no valid slot adds
+  nothing, and where no rank has one the output is 0, as the
+  decode-attention kernel gives over an empty cache.
 """
 from __future__ import annotations
 
@@ -76,6 +90,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import spec_axes
+from repro_torch.kernels.decode_attn.ref import merge_quotient
 
 _WORD = torch.int32
 _TO_WORDS = (torch.float32, torch.int32, torch.bool)
@@ -307,6 +322,28 @@ def max_over(x: torch.Tensor, mesh, axes, reader: Optional[str] = None
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
         _count(reader, x)
     return x
+
+
+def gather_heads(q: torch.Tensor, mesh, reader: Optional[str] = "kv_query"
+                 ) -> torch.Tensor:
+    """Every ``model`` rank's heads of ``q`` (B, H/m, dh), in rank order:
+    the whole (B, H, dh), contiguous."""
+    return gather_cat(q, mesh.get_group("model"), dim=1,
+                      reader=reader).contiguous()
+
+
+def softmax_merge(o: torch.Tensor, lse: torch.Tensor, mesh,
+                  reader: Optional[str] = "kv_merge") -> torch.Tensor:
+    """Each ``model`` rank's decode output ``o`` (B, H, dh) over its
+    slots of a cache and its log-sum-exp ``lse`` (B, H) merged over
+    ``model`` into the output over the whole cache, in ``o``'s dtype
+    (module docstring; ``kernels.decode_attn.ref.merge_partials`` in one
+    process)."""
+    big = max_over(lse.clone(), mesh, ("model",), reader)
+    w = torch.exp(lse - torch.where(big == float("-inf"), 0.0, big))
+    part = torch.cat([o.float() * w[..., None], w[..., None]], dim=-1)
+    sum_over(part, mesh, ("model",), reader)
+    return merge_quotient(part[..., :-1], part[..., -1]).to(o.dtype)
 
 
 # storage address of a gathered weight -> (a weak reference to it, the

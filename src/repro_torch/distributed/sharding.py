@@ -29,7 +29,12 @@ through ``mesh_shape``, so a stand-in with a ``.shape`` dict (the
 production meshes' 256 and 512 ranks) gives the same specs.
 ``local_shard`` is this rank's part of a tensor by its spec;
 ``compute_spec`` the part a layer computes with (the ``model`` split
-kept, the data axes gathered at the use).
+kept, the data axes gathered at the use; RWKV6's ``wk``, ``wv`` and
+``wo`` split by head where the reference's rule splits other dims).
+``serve_cache_spec`` is the port's serving cache layout beside the
+reference's ``cache_spec``: K/V by KV head where the heads divide
+``model``, else by sequence where the length divides, else whole; the
+recurrent states by head or channel.
 """
 from __future__ import annotations
 
@@ -449,14 +454,174 @@ def local_shape(shape: Sequence[int], spec: Sequence, mesh) -> tuple:
                  for n, e in zip(shape, spec))
 
 
+# RWKV6's time-mix leaves (d, d) that the reference's 3-D attention rules
+# ("wk", "wv", "wo") reach: the port's layout over ``model`` (compute_spec)
+_RWKV_TIME_MIX = {"wk": (None, "model"), "wv": (None, "model"),
+                  "wo": ("model", None)}
+
+
+def _rwkv_time_mix(names) -> bool:
+    """An RWKV6 ``wk``, ``wv`` or ``wo``: directly under ``layers`` (the
+    attention weights of the other families sit under an attention
+    module)."""
+    return (len(names) >= 2 and names[-2] == "layers"
+            and names[-1] in _RWKV_TIME_MIX)
+
+
 def compute_spec(path, shape: Sequence[int], mesh, *, train: bool) -> tuple:
     """The spec of the tensor a layer computes with for the leaf at
     ``path`` of ``shape``: ``param_spec``'s ``model`` entries (tensor
     parallelism), the data axes gathered at the use (FSDP).  A dim that
     ``model`` does not divide stays whole, and the layer computes that
-    part whole on every ``model`` rank."""
+    part whole on every ``model`` rank.
+
+    One departure from ``param_spec``: RWKV6's ``wk``, ``wv`` and ``wo``
+    (each (d, d) a layer) take the reference's 3-D attention rules, which
+    on the stacked (L, d, d) leaf split ``wk``/``wv`` by input rows and
+    ``wo`` by the layer axis.  The port splits ``wk`` and ``wv`` into
+    columns and ``wo`` into rows, by head, as ``wr`` and ``u`` split:
+    each rank's time mix runs on its ``H/m`` heads with ``wo``
+    row-parallel, and no layer's ``wo`` moves between ranks.  (A whole
+    ``wo`` a rank per layer, as the layer-axis split would need, is 32
+    MiB of rwkv6-7b a layer a step.)  ``models.io.sharded_params_to_numpy``
+    gathers by these specs, so it still returns the reference's tree."""
+    names = _names(path)
+    if _rwkv_time_mix(names):
+        m = axis_size(mesh, "model")
+        d = shape[-1]
+        split = _RWKV_TIME_MIX[names[-1]] if m > 1 and d % m == 0 \
+            else (None, None)
+        return (None,) * (len(shape) - 2) + split
     return tuple(e if "model" in spec_axes(e) else None
                  for e in param_spec(path, shape, mesh, train=train))
+
+
+_KV_NAMES = ("k", "v", "self_k", "self_v", "cross_k", "cross_v")
+
+
+def serve_cache_spec(path: Sequence, arr_shape: Tuple[int, ...], mesh,
+                     batch_size: int) -> tuple:
+    """The port's serving cache layout (``cache_spec`` is the
+    reference's): the batch over the data axes as there; over ``model``,
+
+      * K/V ``(L?, B, S, KV, dh)``: the KV heads where they divide
+        ``model`` (a rank's ``wk``/``wv`` blocks give its heads), else the
+        sequence ``S`` where it divides (each rank its ``S/m`` slots: the
+        decode merges the ranks' partial softmaxes,
+        ``collectives.softmax_merge``), else whole on every rank;
+      * ``kv_pos (B, S)``: whole (4 bytes a slot: each rank reads the
+        positions of its slots and writes every slot's, so the ranks agree
+        on which slot the next token takes);
+      * RWKV6's ``S (L, B, H, dk, dv)`` by head; RG-LRU's ``h (B, rnn)``
+        and ``conv (B, cw-1, rnn)`` (the port's per-layer states) by
+        channel;
+      * ``tm_prev``, ``cm_prev (L, B, d)`` whole: the token shift's input
+        feeds the column-parallel products, which need it whole."""
+    name = _names(path)[-1]
+    shape = mesh_shape(mesh)
+    m = shape.get("model", 1)
+    bax = spec_entry(batch_axes(mesh, batch_size))
+    divides = lambda d: m > 1 and d % m == 0
+    spec = [None] * len(arr_shape)
+    if name in ("pos", "enc_len"):
+        return (bax,) if len(arr_shape) == 1 else tuple(spec)
+    if name in _KV_NAMES:
+        spec[-4] = bax
+        if divides(arr_shape[-2]):
+            spec[-2] = "model"
+        elif divides(arr_shape[-3]):
+            spec[-3] = "model"
+        return tuple(spec)
+    if name == "S":
+        spec[-4] = bax
+        if divides(arr_shape[-3]):
+            spec[-3] = "model"
+        return tuple(spec)
+    if name in ("h", "conv"):
+        spec[0] = bax
+        if divides(arr_shape[-1]):
+            spec[-1] = "model"
+        return tuple(spec)
+    if name in ("tm_prev", "cm_prev"):
+        spec[-2] = bax
+        return tuple(spec)
+    if len(arr_shape) >= 2:                   # kv_pos
+        spec[-2] = bax
+    return tuple(spec)
+
+
+def serve_step_bytes(cfg, m: int, rows: int, tokens: int, cache_len: int,
+                     decode: bool) -> dict:
+    """The bytes a rank of a ``model`` axis of ``m`` receives, by
+    ``collectives.BYTES`` reader, in one serving step (a prefill of
+    ``rows`` x ``tokens``, or a decode of ``rows`` tokens over caches of
+    ``cache_len`` slots) of a transformer, RWKV6 or RecurrentGemma model,
+    from the specs: an all-reduce or a gather counts its output, a
+    reduce-scatter its rank's block.  Activations in the compute dtype,
+    the RG-LRU's gathered conv output and the merge's sums in float32:
+
+      * ``tp_sum``: the embedding's and each row-parallel product's sum
+        (B T d), RWKV6's channel-mix reduce-scatter (B T d/m);
+      * ``tp_gather``: RWKV6's gated channels (B T d), the RG-LRU's conv
+        output (B T rnn, float32);
+      * ``kv_query``, ``kv_merge``: a decode over a cache split by
+        sequence, the query heads gathered where they split (B H dh),
+        and the merge's MAX (B H) and SUM (B H (dh + 1)) in float32;
+      * ``lm_logits``: the logits gathered (B Vp)."""
+    elt = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                      ).element_size()
+    f32, d, h = 4, cfg.d_model, cfg.n_heads
+    n = rows * (1 if decode else tokens)
+    splits = lambda k: m > 1 and k % m == 0
+    got = dict.fromkeys(("tp_sum", "tp_gather", "lm_logits", "kv_query",
+                         "kv_merge"), 0)
+    if splits(cfg.vocab_padded):
+        got["tp_sum"] += n * d * elt                        # the embedding
+        got["lm_logits"] += rows * cfg.vocab_padded * elt
+    if cfg.family == "ssm":
+        if splits(cfg.n_heads) and splits(d):
+            got["tp_sum"] += cfg.n_layers * n * d * elt     # the time mix
+        if splits(d):                                       # the channel mix
+            got["tp_sum"] += cfg.n_layers * n * (d // m if splits(cfg.d_ff)
+                                                 else 0) * elt
+            got["tp_gather"] += cfg.n_layers * n * d * elt
+        elif splits(cfg.d_ff):
+            got["tp_sum"] += cfg.n_layers * n * d * elt
+        return {k: v for k, v in got.items() if v}
+    if cfg.family == "hybrid":
+        from repro_torch.models import rglru
+
+        kinds = rglru.layer_kinds(cfg)
+    else:
+        kinds = ["attn"] * cfg.n_layers
+    for kind in kinds:
+        if kind == "rec":
+            if splits(cfg.rnn_width):
+                got["tp_gather"] += n * cfg.rnn_width * f32
+                got["tp_sum"] += n * d * elt
+        else:
+            if splits(h):
+                got["tp_sum"] += n * d * elt
+            if (decode and not splits(cfg.n_kv_heads)
+                    and splits(cache_len)):
+                if splits(h):
+                    got["kv_query"] += rows * h * cfg.d_head * elt
+                got["kv_merge"] += rows * h * (cfg.d_head + 2) * f32
+        if splits(cfg.d_ff):
+            got["tp_sum"] += n * d * elt                    # the MLP
+    return {k: v for k, v in got.items() if v}
+
+
+def serve_cache_shape(name: str, shape: Sequence[int], mesh) -> tuple:
+    """The shape a rank holds over ``model`` of the cache tensor ``name``
+    whose whole shape is ``shape`` (the rank's rows: the data axes'
+    split is the caller's), by ``serve_cache_spec``; ``shape`` itself
+    without a mesh."""
+    if mesh is None:
+        return tuple(shape)
+    spec = tuple(e if e == "model" else None for e in
+                 serve_cache_spec((name,), tuple(shape), mesh, 1))
+    return local_shape(shape, spec, mesh)
 
 
 class Coord:

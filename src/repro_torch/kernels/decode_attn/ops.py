@@ -16,6 +16,13 @@ is a second launch inside the same call; its scratch comes from
 ``torch.empty``.  The reference's ``block_kv`` is the TPU kernel's VMEM
 tiling and does not change the function, so the port does not take it.
 
+With ``return_lse=True`` the call also returns each row's log-sum-exp
+of its scaled scores over its valid keys, float32 (B, H), -inf for a row
+with no valid key (its output is 0): the one-split kernel writes it, or
+the merge launch.  Two caches' partial outputs merge by it
+(``distributed.collectives.softmax_merge``).  Without it the kernel
+writes nothing more, and its output is the same.
+
 ``LAUNCHES`` counts calls that launched the kernel (plain-version calls do
 not count), so a run can show that its main path went through it.
 """
@@ -36,7 +43,7 @@ NAME = "decode_attn"
 MAX_HEAD_DIM = 256
 LAUNCHES = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 7
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -102,16 +109,18 @@ def _check(q, k, v, lengths, kv_pos, pos):
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, *,
                 kv_pos: Optional[torch.Tensor] = None,
-                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos: Optional[torch.Tensor] = None, return_lse: bool = False):
     """q (B, H, dh); k, v (B, KV, S, dh), any strides with dh contiguous;
     one mask: ``lengths`` (B,) int32, or ``kv_pos`` (B, S) int32 with
     ``pos`` (B,) or () int32 -> (B, H, dh) in q's dtype, float32 or
-    bfloat16."""
+    bfloat16; with ``return_lse``, (that, the rows' log-sum-exp (B, H)
+    float32)."""
     global LAUNCHES
     if (lengths is None) == (kv_pos is None) or (kv_pos is None) != (pos is None):
         raise ValueError("give either lengths, or kv_pos and pos")
     if q.device.type == "cpu":
-        return decode_attn_plain(q, k, v, lengths, kv_pos=kv_pos, pos=pos)
+        return decode_attn_plain(q, k, v, lengths, kv_pos=kv_pos, pos=pos,
+                                 return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, lengths, kv_pos, pos)
@@ -120,6 +129,8 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n, per = split_plan(s, b * kv * -(-(h // kv) // BLOCK_ROWS),
                         sm_count(q.device.index or 0))
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     ml = acc = None
     if n > 1:
         ml = torch.empty((b, h, n, 2), dtype=torch.float32, device=q.device)
@@ -130,7 +141,7 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.decode_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            ptr(lengths), ptr(kv_pos), ptr(pos), ptr(ml), ptr(acc),
+            ptr(lengths), ptr(kv_pos), ptr(pos), ptr(ml), ptr(acc), ptr(lse),
             b, h, kv, s, dh, n, per, *k.stride()[:3], *v.stride()[:3],
             0 if kv_pos is None else kv_pos.stride(0),
             0 if pos is None or pos.dim() == 0 else pos.stride(0),
@@ -138,4 +149,4 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    return o
+    return (o, lse) if return_lse else o

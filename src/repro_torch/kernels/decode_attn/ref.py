@@ -14,6 +14,8 @@ The two masks:
 
 A row with no valid key gives 0 under both, as the kernel's ``max(l,
 1e-30)`` denominator does (the reference's plain version gives NaN there).
+With ``return_lse`` each also returns the rows' log-sum-exp of the scaled
+scores over the valid keys, float32 (B, H), -inf for a row with none.
 """
 from __future__ import annotations
 
@@ -33,19 +35,19 @@ MAX_SPLITS = 1024
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, return_lse: bool = False):
     """q (B, H, dh); k, v (B, KV, S, dh); lengths (B,) -> (B, H, dh) in q's
     dtype.  Query head h reads KV head h // (H / KV); key j takes part when
     ``j < lengths[b]``."""
     s = k.shape[2]
     mask = (torch.arange(s, device=q.device)[None, :]
             < lengths.to(q.device)[:, None])                       # (B, S)
-    return _masked(q, k, v, mask)
+    return _masked(q, k, v, mask, return_lse)
 
 
 def decode_attention_kv_pos_ref(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, kv_pos: torch.Tensor,
-                                pos: torch.Tensor) -> torch.Tensor:
+                                pos: torch.Tensor, return_lse: bool = False):
     """q (B, H, dh); k, v (B, KV, S, dh); kv_pos (B, S) absolute positions,
     -1 for an empty slot; pos (B,) or a scalar, the query's position ->
     (B, H, dh) in q's dtype.  Slot j takes part when ``0 <= kv_pos[b, j]
@@ -53,10 +55,10 @@ def decode_attention_kv_pos_ref(q: torch.Tensor, k: torch.Tensor,
     pos = torch.broadcast_to(torch.as_tensor(pos, device=q.device),
                              (q.shape[0],))
     mask = (kv_pos >= 0) & (kv_pos <= pos[:, None])
-    return _masked(q, k, v, mask)
+    return _masked(q, k, v, mask, return_lse)
 
 
-def _masked(q, k, v, mask):
+def _masked(q, k, v, mask, return_lse=False):
     b, h, dh = q.shape
     kv = k.shape[1]
     k = k.repeat_interleave(h // kv, dim=1)
@@ -65,16 +67,19 @@ def _masked(q, k, v, mask):
     mask = mask[:, None, :]                                        # (B, 1, S)
     scores = scores.masked_fill(~mask, float("-inf"))
     p = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
-    o = torch.einsum("bhs,bhsd->bhd", p, v.float())
-    return o.to(q.dtype)
+    o = torch.einsum("bhs,bhsd->bhd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(scores, dim=-1)         # -inf: no valid key
 
 
-def decode_attn_plain(q, k, v, lengths=None, *, kv_pos=None, pos=None):
+def decode_attn_plain(q, k, v, lengths=None, *, kv_pos=None, pos=None,
+                      return_lse: bool = False):
     """The plain version behind ``ops.decode_attn``'s signature: one of the
     two masks."""
     if lengths is not None:
-        return decode_attention_ref(q, k, v, lengths)
-    return decode_attention_kv_pos_ref(q, k, v, kv_pos, pos)
+        return decode_attention_ref(q, k, v, lengths, return_lse)
+    return decode_attention_kv_pos_ref(q, k, v, kv_pos, pos, return_lse)
 
 
 def split_plan(s: int, blocks: int, n_sm: int = H100_SMS) -> Tuple[int, int]:
@@ -140,7 +145,8 @@ def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor,
                                lengths: Optional[torch.Tensor] = None, *,
                                kv_pos: Optional[torch.Tensor] = None,
-                               pos=None, n_sm: int = H100_SMS) -> torch.Tensor:
+                               pos=None, n_sm: int = H100_SMS,
+                               return_lse: bool = False):
     """The kernel's algorithm in plain PyTorch, under either mask: the G
     query heads of a KV head as one block's rows; the keys cut by
     ``split_plan`` for a card of ``n_sm`` SMs; per split, in bf16 four
@@ -148,7 +154,9 @@ def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
     softmax, P rounded to bf16 for P V, l over the float32 p) merged in
     order, in float32 one stream of 8-key steps; the splits merged in
     split order; scores in log2 units.  A split wholly past a length
-    contributes m = -inf.  Returns (B, H, dh) in q's dtype."""
+    contributes m = -inf.  Returns (B, H, dh) in q's dtype; with
+    ``return_lse``, also the rows' log-sum-exp (B, H) from the merged
+    (m, l): ``m ln 2 + ln l``, -inf where l = 0."""
     b, h, dh = q.shape
     kv, s = k.shape[1], k.shape[2]
     g = h // kv
@@ -169,6 +177,37 @@ def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
     states = [_online(sc[..., j0:j0 + per], vf[:, :, j0:j0 + per], chunk,
                       streams, bf16)
               for j0 in range(0, n * per, per)]
-    _, l_sum, acc_sum = _merge(states)
+    big, l_sum, acc_sum = _merge(states)
     out = acc_sum / l_sum.clamp(min=1e-30)[..., None]
-    return out.reshape(b, h, dh).to(q.dtype)
+    out = out.reshape(b, h, dh).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l_sum > 0, big * math.log(2.0) + torch.log(l_sum),
+                      float("-inf"))
+    return out, lse.reshape(b, h)
+
+
+def merge_partials(outs, lses) -> torch.Tensor:
+    """Partial decode outputs over disjoint parts of one cache merged into
+    the output over all of it (flash-decoding): ``outs`` (each (B, H, dh),
+    normalised over its part) and their log-sum-exps ``lses`` (each (B,
+    H)), merged with weights ``exp(lse - max)``, in float32, the result in
+    the outputs' dtype.  A part with no valid key (lse -inf) adds nothing;
+    where no part has one the result is 0, as a cache with no valid key
+    gives.  ``distributed.collectives.softmax_merge`` is this over the
+    ranks of ``model``."""
+    big = torch.stack(lses).amax(0)
+    base = torch.where(big == float("-inf"), 0.0, big)
+    num = den = 0.0
+    for o, lse in zip(outs, lses):
+        w = torch.exp(lse - base)
+        num = num + o.float() * w[..., None]
+        den = den + w
+    return merge_quotient(num, den).to(outs[0].dtype)
+
+
+def merge_quotient(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """The merged output from the weighted sums: ``num / den``, 0 where
+    ``den`` is 0 (no part had a valid key)."""
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp(min=1e-30)[..., None], 0.0)

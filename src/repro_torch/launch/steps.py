@@ -64,16 +64,34 @@ the blocks the data axes do not split over them
 (``ShardedLM.sum_replicated_grads``) and the optimizer updates the blocks
 (``train_state`` builds it with the ``ShardedLM`` as its layout); the
 microbatches' accumulators take the blocks' shapes.  The loss keeps the
-global normaliser (``model.lm_loss``).  The serving caches hold the
-rank's rows and the KV heads its ``wk``/``wv`` blocks give (the rank's
-``KV/m`` where the KV heads divide, all of them where they do not: no
-step reshards a cache; ``sharding.cache_spec`` is the reference's
-sequence split, which the port does not take), and prefill and decode
-return whole logits, the vocab slices gathered over ``model`` (one
-all-gather, reader ``"lm_logits"``), as the reference's steps return
-global arrays.  Every collective runs inside the step's CUDA graph.  The
-spec functions (``param_specs`` through ``make_step``) are tooling,
-item 6.
+global normaliser (``model.lm_loss``).  The recurrent families (RWKV6,
+RecurrentGemma) are served so too, on a ``ShardedLM`` of serving blocks:
+RWKV6's time mix on the rank's heads and RecurrentGemma's recurrent
+blocks on its channels (``models/rwkv6.py``, ``models/rglru.py``).
+
+The serving caches follow ``sharding.serve_cache_spec`` (the reference's
+``cache_spec`` splits every K/V by sequence; the port splits by head
+where it can, so that a step reshards nothing): a rank holds its rows
+and, over ``model``,
+
+  * K/V: the rank's ``KV/m`` heads where the KV heads divide ``model``
+    (its ``wk``/``wv`` blocks give them); else its ``S/m`` slots of the
+    sequence where the length divides (granite-34b's one KV head,
+    RecurrentGemma's ring of 2,048), whose decode writes the token's K/V
+    on the owning rank, gathers the query heads over ``model`` (reader
+    ``"kv_query"``), runs the decode-attention kernel over the rank's
+    slots with its log-sum-exp and merges the ranks' partial softmaxes
+    (``collectives.softmax_merge``, reader ``"kv_merge"``); else whole;
+    ``kv_pos`` whole;
+  * RWKV6's ``S``: the rank's ``H/m`` heads; ``tm_prev``, ``cm_prev``
+    whole;
+  * RecurrentGemma's ``h`` and ``conv``: the rank's ``rnn/m`` channels.
+
+Prefill and decode return whole logits, the vocab slices gathered over
+``model`` (one all-gather, reader ``"lm_logits"``), as the reference's
+steps return global arrays.  Every collective runs inside the step's
+CUDA graph.  The spec functions (``param_specs`` through ``make_step``)
+are tooling, item 6.
 """
 from __future__ import annotations
 

@@ -22,7 +22,8 @@ a bf16 model.
 ``reference_groups`` is the other way: the port's tensors by the
 reference's leaf paths.  On a mesh (``launch/mesh.py``) a model is a
 ``ShardedLM``: a model whose parameters are this rank's block of every
-leaf by ``distributed.sharding.param_spec``
+leaf by ``distributed.sharding.param_spec`` (the recurrent families,
+served only, by ``compute_spec``)
 (``sharded_params_from_numpy`` carries the reference's tree onto a mesh,
 ``sharded_params_to_numpy`` gathers it back).
 """
@@ -39,6 +40,8 @@ from repro_torch.distributed import collectives, sharding
 from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models.transformer import Transformer
 
+# the families served on a mesh but not trained there
+RECURRENT = ("ssm", "hybrid")
 # the port's per-layer module lists (names start ``<list>.<i>.``)
 LAYER_LISTS = ("layers", "enc_layers", "dec_layers")
 
@@ -136,9 +139,19 @@ class ShardedLM:
     ``regathered`` keeps the gathered weight out of the saved tensors).
     ``sum_replicated_grads`` sums the gradients of the blocks that the
     data axes do not split (norms, the router, a dim that does not
-    divide) over those axes."""
+    divide) over those axes.
+
+    The recurrent families (RWKV6, RecurrentGemma) are served only: their
+    blocks follow ``sharding.compute_spec(..., train=False)``, whose
+    RWKV6 ``wk``/``wv``/``wo`` split by head where ``param_spec`` would
+    split the stacked ``wo`` by its layer axis, and ``train=True`` raises
+    (their training is ROADMAP queue A item 5)."""
 
     def __init__(self, model, cfg, mesh, train: bool):
+        if train and cfg.family in RECURRENT:
+            raise NotImplementedError(
+                f"{cfg.name}: the recurrent families are served on a mesh "
+                "only; their training waits for ROADMAP queue A item 5")
         self.model, self.cfg, self.mesh, self.train = model, cfg, mesh, train
         owner = {id(p): (mod, attr) for mod in model.modules()
                  for attr, p in mod.named_parameters(recurse=False)}
@@ -151,7 +164,9 @@ class ShardedLM:
             members = list(leaf) if stacked else [leaf]
             shape = (((len(members),) if stacked else ())
                      + tuple(members[0].shape))
-            spec = sharding.param_spec(path, shape, mesh, train=train)
+            spec = (sharding.compute_spec(path, shape, mesh, train=False)
+                    if cfg.family in RECURRENT else
+                    sharding.param_spec(path, shape, mesh, train=train))
             mspec = spec[1:] if stacked else spec
             assert not stacked or spec[0] is None, (path, spec)
             used = {a for e in mspec for a in sharding.spec_axes(e)}

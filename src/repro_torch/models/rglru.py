@@ -24,6 +24,39 @@ scalar}`` with, per layer, ``{"h" (B, r) float32, "conv" (B, cw-1, r)}``
 (attention), W = min(window, max_len); ``decode_step`` updates it in place,
 ``pos`` included, and returns the same dict.  The batch shares one
 ``pos``, so prefill takes equal-length prompts.
+
+Under a ``MeshPolicy`` whose ``model`` axis is larger than 1 a layer
+computes Megatron-style on this rank's blocks (``models.io.ShardedLM``):
+
+  * the recurrent block on the rank's ``rnn/m`` channels: ``w_x`` and
+    ``w_gate`` column-parallel and the causal conv on its channels; the
+    gates' ``w_r``/``w_i`` are dense (rnn, rnn) products, column-parallel,
+    so the conv output is gathered whole over ``model`` once a layer
+    (B × T × rnn float32, reader ``"tp_gather"``); B6 (or the decode's
+    step) on its channels, so ``h`` is (B, rnn/m) and ``conv`` (B, cw-1,
+    rnn/m); ``w_out`` row-parallel, its partial output summed over
+    ``model`` (reader ``"tp_sum"``);
+  * the GeGLU MLP column- and row-parallel;
+  * the local attention on the rank's ``H/m`` query heads with ``wo``
+    row-parallel where the heads divide, else every head on every rank
+    (``wq``, ``wo`` whole, the output whole and not summed); the one KV
+    head whole, and the ring split by sequence where ``W`` divides: rank
+    ``r`` holds slots ``[r W/m, (r+1) W/m)`` of K/V and ``kv_pos`` whole
+    (``sharding.serve_cache_spec``).  Prefill runs the plain local
+    attention as without a mesh and keeps the rank's slots; a decode
+    step writes the token's K/V on the rank that owns slot ``pos % W``
+    (the same rank for every row: the batch shares ``pos``), gathers
+    ``q`` over ``model`` where the heads are split, runs the
+    decode-attention kernel for every head over its slots with the
+    log-sum-exp, merges the ranks' partial softmaxes
+    (``collectives.softmax_merge``) and keeps its heads.
+
+The embedding and the logits are vocab-parallel
+(``transformer.embed_body``, ``unembed``).  Each rank's part is a
+function of its blocks (``rec_in_body`` then ``rec_out_body`` around the
+gather, ``attention_full_body``, ``decode_query``/``ring_attend``/
+``attention_out`` around the decode's collectives, ``mlp_body``), so one
+process can run every rank's.
 """
 from __future__ import annotations
 
@@ -34,13 +67,23 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.device import generator, resolve
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.api import current_policy, model_parallel
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.rglru_scan.ops import lru
-from repro_torch.models import layers
-from repro_torch.models.transformer import MLP, unembed
+from repro_torch.models import layers, transformer
+from repro_torch.models.transformer import (MLP, own_heads, seq_part,
+                                            split_input, split_layer,
+                                            split_output, unembed,
+                                            write_owned)
 
 _C = 8.0                                   # RG-LRU temperature
 PATTERN = ("rec", "rec", "attn")
+REC = ("w_x", "w_gate", "conv_w", "conv_b", "w_r", "b_r", "w_i", "b_i",
+       "lam", "w_out")
+ATTN = ("wq", "wk", "wv", "wo")
+MLP_NAMES = ("w_gate", "w_up", "w_down")
+CHANNELS = (None, None, "model")           # a (B, T, rnn) activation's split
 
 
 class RecLayer(nn.Module):
@@ -163,26 +206,58 @@ def rg_lru_scan(x, r_gate, i_gate, lam, h0):
     return h, h[:, -1]
 
 
-def rec_block(p: RecLayer, cfg, x, st: dict, *, single: bool):
-    """The temporal-mixing recurrent block: x (B, T, d); ``st`` {h, conv}
-    is updated in place."""
-    bx = torch.einsum("btd,dr->btr", x, p.w_x)
-    gate = F.gelu(torch.einsum("btd,dr->btr", x, p.w_gate), approximate="tanh")
-    bx, conv_state = causal_conv1d(bx, p.conv_w, p.conv_b, st["conv"])
-    bx32 = bx.float()
-    r_gate = torch.sigmoid(torch.einsum("btr,rs->bts", bx32, p.w_r.float())
-                           + p.b_r.float())
-    i_gate = torch.sigmoid(torch.einsum("btr,rs->bts", bx32, p.w_i.float())
-                           + p.b_i.float())
+def rec_in_body(w, cfg, x, conv_state):
+    """A model rank's recurrent block up to its conv, on its blocks ``w``
+    (``w_x``/``w_gate (d, rnn/m)``, ``conv_w``/``conv_b`` its channels;
+    whole at m = 1): x (B, T, d), ``conv_state`` (B, cw-1, rnn/m) ->
+    (the conv output (B, T, rnn/m) in float32, the GELU gate (B, T,
+    rnn/m), the new conv state)."""
+    bx = torch.einsum("btd,dr->btr", x, w.w_x)
+    gate = F.gelu(torch.einsum("btd,dr->btr", x, w.w_gate), approximate="tanh")
+    bx, conv_state = causal_conv1d(bx, w.conv_w, w.conv_b, conv_state)
+    return bx.float(), gate, conv_state
+
+
+def rec_out_body(w, cfg, bx_all, gate, h0, m_idx: int = 0, *,
+                 single: bool):
+    """The rest of a model rank's recurrent block: ``bx_all`` (B, T, rnn)
+    float32, every rank's conv output side by side (the gates' ``w_r``,
+    ``w_i (rnn, rnn/m)`` read all of it); the RG-LRU on its channels from
+    ``h0`` (B, rnn/m) (B6 over a whole sequence, one step when
+    ``single``); ``w_out (rnn/m, d)`` -> (its partial output (B, T, d),
+    which the model ranks sum, its last state (B, rnn/m))."""
+    n = w.lam.shape[0]
+    bx32 = bx_all.narrow(2, m_idx * n, n)
+    r_gate = torch.sigmoid(torch.einsum("btr,rs->bts", bx_all, w.w_r.float())
+                           + w.b_r.float())
+    i_gate = torch.sigmoid(torch.einsum("btr,rs->bts", bx_all, w.w_i.float())
+                           + w.b_i.float())
     if single:
-        a = torch.exp(_log_a(p.lam, r_gate))
-        h = a * st["h"][:, None] + _gated(a, i_gate, bx32)
+        a = torch.exp(_log_a(w.lam, r_gate))
+        h = a * h0[:, None] + _gated(a, i_gate, bx32)
         h_last = h[:, -1]
     else:
-        h, h_last = rg_lru_scan(bx32, r_gate, i_gate, p.lam, st["h"])
+        h, h_last = rg_lru_scan(bx32, r_gate, i_gate, w.lam, h0)
+    return (torch.einsum("btr,rd->btd", h.to(gate.dtype) * gate, w.w_out),
+            h_last)
+
+
+def rec_block(p: RecLayer, cfg, x, st: dict, *, single: bool):
+    """The temporal-mixing recurrent block: x (B, T, d); ``st`` {h, conv}
+    is updated in place.  Under the split the conv output is gathered
+    over ``model`` between ``rec_in_body`` and ``rec_out_body`` and the
+    partial outputs summed."""
+    w = collectives.layer_weights(p, REC)
+    tp = split_layer(w.lam.shape[0] != cfg.rnn_width)
+    bx32, gate, conv_state = rec_in_body(w, cfg, split_input(x, tp),
+                                         st["conv"])
+    bx_all = bx32 if tp is None else collectives.gather_spec(
+        bx32, CHANNELS, tp[0], reader="tp_gather")
+    out, h_last = rec_out_body(w, cfg, bx_all, gate, st["h"],
+                               0 if tp is None else tp[2], single=single)
     st["h"].copy_(h_last)
     st["conv"].copy_(conv_state)
-    return torch.einsum("btr,rd->btd", h.to(gate.dtype) * gate, p.w_out)
+    return split_output(out, tp)
 
 
 def _qkv(p: AttnLayer, cfg, x, positions):
@@ -197,38 +272,107 @@ def _qkv(p: AttnLayer, cfg, x, positions):
     return q, k, v
 
 
-def _mlp(p: MLP, x):
-    return layers.geglu(x, p.w_gate, p.w_up, p.w_down)
+def mlp_body(w, x):
+    """A model rank's part of the GeGLU MLP on its blocks (``w_gate``/
+    ``w_up (d, f/m)``, ``w_down (f/m, d)``): its partial output."""
+    return layers.geglu(x, w.w_gate, w.w_up, w.w_down)
+
+
+def _mlp(p: MLP, cfg, x):
+    w = collectives.layer_weights(p, MLP_NAMES)
+    tp = split_layer(w.w_gate.shape[1] != cfg.d_ff)
+    return split_output(mlp_body(w, split_input(x, tp)), tp)
 
 
 def rec_layer(p: RecLayer, cfg, x, st, *, single: bool):
     x = x + rec_block(p, cfg, layers.rms_norm(x, p.norm1, cfg.norm_eps), st,
                       single=single)
-    return x + _mlp(p.mlp, layers.rms_norm(x, p.norm2, cfg.norm_eps))
+    return x + _mlp(p.mlp, cfg, layers.rms_norm(x, p.norm2, cfg.norm_eps))
+
+
+def attention_weights(p: AttnLayer, cfg):
+    """(``p``'s weights as the layer computes with them, the split's
+    ``(mesh, m, index)`` where ``model`` splits the query heads, else
+    None).  The KV heads must be whole: RecurrentGemma's one KV head never
+    divides ``model``."""
+    w = collectives.layer_weights(p, ATTN)
+    if w.wk.shape[1] != cfg.n_kv_heads:
+        raise NotImplementedError(
+            f"{cfg.name}: the local attention on a mesh takes its KV heads "
+            "whole (one KV head); a KV split over model is not ported")
+    tp = split_layer(w.wq.shape[1] != cfg.n_heads)
+    return w, tp
+
+
+def attention_full_body(w, cfg, x, positions):
+    """A model rank's local attention over whole sequences on its blocks
+    ``w`` (``wq (d, H/m, dh)``, ``wo (H/m, dh, d)``; the KV whole; every
+    head where ``model`` does not split them): (its partial output (B, S,
+    d), k, v (B, S, KV, dh))."""
+    q, k, v = _qkv(w, cfg, x, positions)
+    o = layers.local_attention(q, k, v, window=cfg.window)
+    return torch.einsum("bshe,hed->bsd", o, w.wo), k, v
 
 
 def attn_layer_full(p: AttnLayer, cfg, x, positions):
     """Whole sequences: returns (x, k, v)."""
-    q, k, v = _qkv(p, cfg, layers.rms_norm(x, p.norm1, cfg.norm_eps), positions)
-    o = layers.local_attention(q, k, v, window=cfg.window)
-    x = x + torch.einsum("bshe,hed->bsd", o, p.wo)
-    return x + _mlp(p.mlp, layers.rms_norm(x, p.norm2, cfg.norm_eps)), k, v
+    w, tp = attention_weights(p, cfg)
+    out, k, v = attention_full_body(
+        w, cfg, split_input(layers.rms_norm(x, p.norm1, cfg.norm_eps), tp),
+        positions)
+    x = x + split_output(out, tp)
+    return x + _mlp(p.mlp, cfg, layers.rms_norm(x, p.norm2, cfg.norm_eps)), k, v
+
+
+def decode_query(w, cfg, x, pos):
+    """One token's q (B, H held, dh) and k, v (B, KV, dh) with RoPE at the
+    shared position ``pos`` (a scalar), on blocks ``w``."""
+    b = x.shape[0]
+    q, k, v = _qkv(w, cfg, x, pos.reshape(1, 1).expand(b, 1))
+    return q[:, 0].contiguous(), k[:, 0], v[:, 0]
+
+
+def ring_attend(q, st: dict, pos, lo: int):
+    """A rank's decode over its ring slots ``lo ..`` (``st["k"]``,
+    ``st["v"]`` (B, W/m, KV, dh); ``st["kv_pos"]`` (B, W) whole), for every
+    query head of ``q`` (B, H, dh): (output (B, H, dh), log-sum-exp (B,
+    H)), which ``collectives.softmax_merge`` merges over the ranks."""
+    return transformer.seq_attend(q, st["k"], st["v"], lo,
+                                  kv_pos=st["kv_pos"], pos=pos)
+
+
+def attention_out(w, o):
+    """A rank's heads of the decode's merged output through its ``wo``:
+    its partial output (B, d)."""
+    return torch.einsum("bhe,hed->bd", o, w.wo)
 
 
 def attn_layer_decode(p: AttnLayer, cfg, x, pos, st: dict):
     """One token against the ring cache ``st``, written in place at slot
-    ``pos % W`` before attending."""
-    b, w = x.shape[0], st["k"].shape[1]
-    slot = (pos % w).long().reshape(1)
-    q, k, v = _qkv(p, cfg, layers.rms_norm(x, p.norm1, cfg.norm_eps),
-                   pos.reshape(1, 1).expand(b, 1))
-    st["k"].index_copy_(1, slot, k)
-    st["v"].index_copy_(1, slot, v)
+    ``pos % W`` before attending; under the sequence split, on the rank
+    that owns the slot, and the ranks' partial softmaxes merged (module
+    docstring)."""
+    b, w_all = x.shape[0], st["kv_pos"].shape[1]
+    w, tp = attention_weights(p, cfg)
+    slot = (pos % w_all).long().reshape(1)
+    q, k, v = decode_query(w, cfg, split_input(
+        layers.rms_norm(x, p.norm1, cfg.norm_eps), tp), pos)
     st["kv_pos"].index_copy_(1, slot, pos.reshape(1, 1).expand(b, 1))
-    o = decode_attn(q[:, 0].contiguous(), st["k"].transpose(1, 2),
-                    st["v"].transpose(1, 2), kv_pos=st["kv_pos"], pos=pos)
-    x = x + torch.einsum("bhe,hed->bd", o, p.wo)[:, None]
-    return x + _mlp(p.mlp, layers.rms_norm(x, p.norm2, cfg.norm_eps))
+    n = st["k"].shape[1]
+    if n == w_all:
+        st["k"].index_copy_(1, slot, k[:, None])
+        st["v"].index_copy_(1, slot, v[:, None])
+        o = decode_attn(q, st["k"].transpose(1, 2), st["v"].transpose(1, 2),
+                        kv_pos=st["kv_pos"], pos=pos)
+    else:                                     # the ring split by sequence
+        mesh, _, idx = model_parallel(current_policy())
+        write_owned(st["k"], st["v"], k, v, slot[0], idx * n)
+        q_all = q if tp is None else collectives.gather_heads(q, mesh)
+        o, lse = ring_attend(q_all, st, pos, idx * n)
+        o = own_heads(collectives.softmax_merge(o, lse, mesh), q.shape[1],
+                      idx)
+    x = x + split_output(attention_out(w, o), tp)[:, None]
+    return x + _mlp(p.mlp, cfg, layers.rms_norm(x, p.norm2, cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
@@ -236,21 +380,28 @@ def attn_layer_decode(p: AttnLayer, cfg, x, pos, st: dict):
 # ---------------------------------------------------------------------------
 
 
-def _rec_state(cfg, batch, dev):
+def _rec_state(cfg, batch, dev, mesh):
     dtype = getattr(torch, cfg.compute_dtype)
-    return {"h": torch.zeros((batch, cfg.rnn_width), dtype=torch.float32,
-                             device=dev),
-            "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.rnn_width),
+    shape = lambda name, *s: sharding.serve_cache_shape(name, s, mesh)
+    return {"h": torch.zeros(shape("h", batch, cfg.rnn_width),
+                             dtype=torch.float32, device=dev),
+            "conv": torch.zeros(shape("conv", batch, cfg.conv_width - 1,
+                                      cfg.rnn_width),
                                 dtype=dtype, device=dev)}
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    """The zero cache; under a mesh policy each tensor the rank's part
+    (``sharding.serve_cache_spec``; ``kv_pos`` whole)."""
     dev = resolve(device)
     w = min(cfg.window, max_len)
     dtype = getattr(torch, cfg.compute_dtype)
-    kv_shape = (batch, w, cfg.n_kv_heads, cfg.d_head)
+    policy = current_policy()
+    mesh = policy.mesh if policy is not None else None
+    kv_shape = sharding.serve_cache_shape(
+        "k", (batch, w, cfg.n_kv_heads, cfg.d_head), mesh)
     return {"layers": [
-        _rec_state(cfg, batch, dev) if kind == "rec" else
+        _rec_state(cfg, batch, dev, mesh) if kind == "rec" else
         {"k": torch.zeros(kv_shape, dtype=dtype, device=dev),
          "v": torch.zeros(kv_shape, dtype=dtype, device=dev),
          "kv_pos": torch.full((batch, w), -1, dtype=torch.int32, device=dev)}
@@ -259,7 +410,7 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
 
 
 def _embed(params: RecurrentGemma, cfg, tokens):
-    x = params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+    x = transformer._embed(params, cfg, tokens)
     # gemma's scaling, the factor rounded to x's dtype first (50.5 in bf16
     # at d = 2560, not 50.596)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -296,7 +447,8 @@ def prefill(params: RecurrentGemma, cfg, tokens: torch.Tensor, max_len: int
     """tokens (B, T), equal-length prompts -> (next-token logits (B, Vp),
     the cache, ``pos = T``).  Each ring keeps the last W positions at slot
     ``p % W`` (``rglru.py:323-338``); a prompt shorter than W leaves the
-    rest empty (-1)."""
+    rest empty (-1).  Under the sequence split a rank keeps its slots of
+    K/V and ``kv_pos`` whole."""
     b, n = tokens.shape
     cache = init_cache(cfg, b, max_len, params.embed.device)
     x, kvs = _run_full(params, cfg, tokens, cache)
@@ -311,10 +463,12 @@ def prefill(params: RecurrentGemma, cfg, tokens: torch.Tensor, max_len: int
                                      device=dev)])
         order = torch.arange(w, device=dev)
     attn = [st for st in cache["layers"] if "kv_pos" in st]
+    part = seq_part(cfg.n_kv_heads, w)
     for st, (k, v) in zip(attn, kvs):
         for name, t in (("k", k), ("v", v)):
             t = t[:, -w:] if n >= w else F.pad(t, (0, 0, 0, 0, 0, w - n))
-            st[name] = t[:, order]
+            t = t[:, order]
+            st[name] = t if part is None else t.narrow(1, *part).contiguous()
         st["kv_pos"] = kept[order][None].expand(b, w).contiguous()
     cache["pos"] = torch.full((), n, dtype=torch.int32, device=dev)
     return unembed(params, cfg, x[:, -1:])[:, 0], cache

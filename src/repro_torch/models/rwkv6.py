@@ -18,6 +18,27 @@ state is a dict with the reference's layout (``tm_prev``, ``cm_prev``
 ``(n_layers, B, d)`` in the compute dtype, ``S (n_layers, B, H, K, V)``
 float32, a scalar ``pos``); ``decode_step`` updates it in place, ``pos``
 included, and returns the same dict, where the reference builds a new one.
+
+Under a ``MeshPolicy`` whose ``model`` axis is larger than 1 a layer
+computes Megatron-style on this rank's blocks (``models.io.ShardedLM``,
+by ``sharding.compute_spec``): the time mix on its ``H/m`` heads (``wr``,
+``wk``, ``wv``, ``wg`` column-parallel; the decay LoRA ``wA``/``wB``
+whole, of which the rank takes its heads' columns of ``wB`` and of
+``w0``; ``u`` and the group norm's ``gn_w``/``gn_b`` on its heads; B5 and
+the decode's ``wkv_step`` on its heads, so ``S`` holds ``(B, H/m, K,
+V)``), ``wo`` row-parallel and its partial output summed over ``model``
+(one all-reduce, reader ``"tp_sum"``); the channel mix with ``wk_c``
+column-parallel and ``wv_c`` row-parallel, and ``wr_c``'s columns giving
+the rank's ``d/m`` gate channels: the partial output is reduce-scattered
+over ``model`` into those channels (``"tp_sum"``), gated there and
+gathered whole (``"tp_gather"``), which moves the bytes of one all-reduce
+(an all-reduce and a slice would move them and gather again).  The token
+shift's ``tm_prev``/``cm_prev`` stay whole on every rank: the shifted
+input feeds the column-parallel products whole.  The embedding and the
+logits are vocab-parallel (``transformer.embed_body``, ``unembed``).
+Each rank's part is a function of its blocks and its ``model`` index
+(``time_mix_body``, ``channel_mix_body``), so one process can run every
+rank's.
 """
 from __future__ import annotations
 
@@ -28,9 +49,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.device import generator, resolve
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.api import current_policy
 from repro_torch.kernels.rwkv6_scan.ops import wkv
-from repro_torch.models import layers
-from repro_torch.models.transformer import unembed
+from repro_torch.models import layers, transformer
+from repro_torch.models.transformer import (split_input, split_layer,
+                                            split_output, unembed)
+
+TIME_MIX = ("mu", "wr", "wk", "wv", "wg", "wo", "wA", "wB", "w0", "u",
+            "gn_w", "gn_b")
+CHANNEL_MIX = ("mu_c", "wk_c", "wv_c", "wr_c")
 
 
 class Layer(nn.Module):
@@ -122,12 +150,15 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
 
 
-def _decay_log(p: Layer, x_w: torch.Tensor) -> torch.Tensor:
-    """log w_t (B, T, d) in float32, in [-e^2, -e^-8]: the exponent is
-    clipped to [-8, 2] for the chunk cumsum's safety."""
+def _decay_log(p: Layer, x_w: torch.Tensor, lo: int, n: int
+               ) -> torch.Tensor:
+    """log w_t (B, T, n) in float32, in [-e^2, -e^-8], of channels ``lo ..
+    lo + n - 1``: the exponent is clipped to [-8, 2] for the chunk
+    cumsum's safety."""
     lora = torch.tanh(torch.einsum("btd,dl->btl", x_w, p.wA))
-    lora = torch.einsum("btl,ld->btd", lora, p.wB)
-    return -torch.exp((p.w0.float() + lora.float()).clamp(-8.0, 2.0))
+    lora = torch.einsum("btl,ld->btd", lora, p.wB.narrow(1, lo, n))
+    return -torch.exp((p.w0.narrow(0, lo, n).float()
+                       + lora.float()).clamp(-8.0, 2.0))
 
 
 def wkv_step(r, k, v, dlog, u, state):
@@ -142,23 +173,34 @@ def wkv_step(r, k, v, dlog, u, state):
     return y.to(r.dtype), state
 
 
-def time_mix(p: Layer, cfg, x, tm_prev, state, *, single: bool):
-    """x (B, T, d), T = 1 when ``single``.  Returns (out, x's last token,
-    the new state).  A whole-sequence pass starts from the zero state, as
-    forward and prefill do, and takes the chunked scan (B5); a decode step
-    carries ``state``."""
-    b, n, d = x.shape
-    h, dh = cfg.n_heads, cfg.head_size
+def time_mix_body(w, cfg, x, tm_prev, state, m_idx: int = 0, *,
+                  single: bool):
+    """Model rank ``m_idx``'s part of the time mix on its blocks ``w``
+    (``wr``/``wk``/``wv``/``wg (d, d/m)``, ``wo (d/m, d)``, ``u (H/m,
+    K)``; ``mu``, ``wA``, ``wB``, ``w0``, ``gn_w``, ``gn_b`` whole, of
+    which it reads its heads' channels; the whole weights at m = 1): x
+    (B, T, d), T = 1 when ``single``; ``state`` (B, H/m, K, V), its heads.
+    Returns (its partial output (B, T, d), which the model ranks sum, x's
+    last token, the new state).  A whole-sequence pass starts from the
+    zero state, as forward and prefill do, and takes the chunked scan
+    (B5); a decode step carries ``state``."""
+    b, n, _ = x.shape
+    h, dh = w.u.shape[0], cfg.head_size
+    dl = h * dh
+    lo = m_idx * dl
+    if w.wr.shape[1] != dl or w.wo.shape[0] != dl:
+        raise ValueError(f"{cfg.name}: the time mix's blocks do not split "
+                         f"by head ({tuple(w.wr.shape)} for {h} heads)")
     xs = _token_shift(x, tm_prev)
-    mu = p.mu.to(x.dtype)
+    mu = w.mu.to(x.dtype)
     xr, xk, xv, xg, xw = (x + mu[i] * (xs - x) for i in range(5))
-    r = torch.einsum("btd,de->bte", xr, p.wr).reshape(b, n, h, dh)
-    k = torch.einsum("btd,de->bte", xk, p.wk).reshape(b, n, h, dh)
-    v = torch.einsum("btd,de->bte", xv, p.wv).reshape(b, n, h, dh)
-    g = F.silu(torch.einsum("btd,de->bte", xg, p.wg))
-    dlog = _decay_log(p, xw).reshape(b, n, h, dh)
+    r = torch.einsum("btd,de->bte", xr, w.wr).reshape(b, n, h, dh)
+    k = torch.einsum("btd,de->bte", xk, w.wk).reshape(b, n, h, dh)
+    v = torch.einsum("btd,de->bte", xv, w.wv).reshape(b, n, h, dh)
+    g = F.silu(torch.einsum("btd,de->bte", xg, w.wg))
+    dlog = _decay_log(w, xw, lo, dl).reshape(b, n, h, dh)
     if single:
-        y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], dlog[:, 0], p.u, state)
+        y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], dlog[:, 0], w.u, state)
         y = y[:, None]
     else:
         chunk = min(cfg.rwkv_chunk, n)
@@ -167,21 +209,61 @@ def time_mix(p: Layer, cfg, x, tm_prev, state, *, single: bool):
                              f"chunk {chunk}")
         d_dtype = r.dtype if cfg.rwkv_d_dtype == "compute" else torch.float32
         y, state = wkv(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                       dlog.transpose(1, 2), p.u, chunk=chunk, d_dtype=d_dtype)
+                       dlog.transpose(1, 2), w.u, chunk=chunk, d_dtype=d_dtype)
         y = y.transpose(1, 2)
-    y = layers.group_norm_heads(y.reshape(b, n, d), p.gn_w, p.gn_b, h, eps=1e-5)
-    return torch.einsum("btd,de->bte", y * g, p.wo), x[:, -1], state
+    y = layers.group_norm_heads(y.reshape(b, n, dl), w.gn_w.narrow(0, lo, dl),
+                                w.gn_b.narrow(0, lo, dl), h, eps=1e-5)
+    return torch.einsum("btd,de->bte", y * g, w.wo), x[:, -1], state
+
+
+def time_mix(p: Layer, cfg, x, tm_prev, state, *, single: bool):
+    """The time mix (``time_mix_body``), under the split its partial
+    outputs summed over ``model``: (out, x's last token, the new state)."""
+    w = collectives.layer_weights(p, TIME_MIX)
+    tp = split_layer(w.u.shape[0] != cfg.n_heads)
+    out, last, state = time_mix_body(w, cfg, split_input(x, tp), tm_prev,
+                                     state, 0 if tp is None else tp[2],
+                                     single=single)
+    return split_output(out, tp), last, state
+
+
+def channel_mix_body(w, cfg, x, cm_prev):
+    """A model rank's part of the channel mix on its blocks ``w``
+    (``wk_c (d, f/m)``, ``wv_c (f/m, d)``, ``wr_c (d, d/m)``; whole at m =
+    1): (its partial output (B, T, d), which the model ranks sum, the
+    sigmoid gate of its ``wr_c`` channels, x's last token).  The layer's
+    output is the gate times the summed output, channel for channel."""
+    xs = _token_shift(x, cm_prev)
+    mu = w.mu_c.to(x.dtype)
+    xk = x + mu[0] * (xs - x)
+    xr = x + mu[1] * (xs - x)
+    k = torch.square(F.relu(torch.einsum("btd,df->btf", xk, w.wk_c)))
+    out = torch.einsum("btf,fd->btd", k, w.wv_c)
+    rgate = torch.sigmoid(torch.einsum("btd,de->bte", xr, w.wr_c))
+    return out, rgate, x[:, -1]
 
 
 def channel_mix(p: Layer, cfg, x, cm_prev):
-    xs = _token_shift(x, cm_prev)
-    mu = p.mu_c.to(x.dtype)
-    xk = x + mu[0] * (xs - x)
-    xr = x + mu[1] * (xs - x)
-    k = torch.square(F.relu(torch.einsum("btd,df->btf", xk, p.wk_c)))
-    out = torch.einsum("btf,fd->btd", k, p.wv_c)
-    rgate = torch.sigmoid(torch.einsum("btd,de->bte", xr, p.wr_c))
-    return rgate * out, x[:, -1]
+    """The channel mix (``channel_mix_body``).  Under the split the
+    partial outputs are reduce-scattered over ``model`` into the rank's
+    gate channels, gated, and gathered whole (module docstring); where
+    ``model`` splits only ``d_ff`` they are summed, where it splits only
+    ``d`` each rank gates its channels of the whole output."""
+    w = collectives.layer_weights(p, CHANNEL_MIX)
+    f_split = w.wk_c.shape[1] != cfg.d_ff
+    d_split = w.wr_c.shape[1] != cfg.d_model
+    tp = split_layer(f_split or d_split)
+    out, rgate, last = channel_mix_body(w, cfg, x, cm_prev)
+    if not d_split:
+        return rgate * split_output(out, tp), last
+    mesh, chans = tp[0], (None, None, "model")
+    if f_split:
+        out = collectives.reduce_scatter_spec(out, chans, mesh,
+                                              reader="tp_sum")
+    else:
+        out = out.narrow(2, tp[2] * rgate.shape[2], rgate.shape[2])
+    return collectives.gather_spec(rgate * out, chans, mesh,
+                                   reader="tp_gather"), last
 
 
 def block(p: Layer, cfg, x, state: dict, i: int, *, single: bool):
@@ -206,8 +288,14 @@ def block(p: Layer, cfg, x, state: dict, i: int, *, single: bool):
 
 
 def init_state(cfg, batch: int, device=None) -> dict:
+    """The zero state; under a mesh policy ``S`` holds the rank's heads
+    (``sharding.serve_cache_shape``)."""
     dev = resolve(device)
     h, dh, d = cfg.n_heads, cfg.head_size, cfg.d_model
+    policy = current_policy()
+    h = sharding.serve_cache_shape(
+        "S", (1, batch, h, dh, dh),
+        policy.mesh if policy is not None else None)[2]
     dtype = getattr(torch, cfg.compute_dtype)
     return {"tm_prev": torch.zeros((cfg.n_layers, batch, d), dtype=dtype,
                                    device=dev),
@@ -224,7 +312,7 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
 
 
 def _run(params: RWKV6, cfg, tokens, state, *, single: bool):
-    x = params.embed[tokens].to(getattr(torch, cfg.compute_dtype))
+    x = transformer._embed(params, cfg, tokens)
     x = layers.layer_norm(x, params.ln0_w, params.ln0_b, cfg.norm_eps)
     for i, p in enumerate(params.layers):
         x = block(p, cfg, x, state, i, single=single)

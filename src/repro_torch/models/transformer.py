@@ -52,6 +52,19 @@ returns the partial output before the all-reduce (``attention_body``,
 layer takes its weights through ``collectives.at_use``, which gathers a
 block that training splits over the data axes (FSDP) at its use.
 
+KV heads that do not divide ``model`` split the serving cache by sequence
+where its length divides (``sharding.serve_cache_spec``): a rank holds
+slots ``[r S/m, (r+1) S/m)`` of K/V, and ``kv_pos`` whole.  Prefill keeps
+the rank's slots of the K/V it computed; a decode step writes the
+token's K/V only on the rank that owns its slot (``write_owned``),
+gathers the query heads over ``model`` where they are split
+(``collectives.gather_heads``), runs the decode-attention kernel for
+every head over the rank's slots with its log-sum-exp
+(``seq_attend``), merges the ranks' partial softmaxes
+(``collectives.softmax_merge``), keeps the rank's heads and applies
+``wo`` row-parallel (``attention_decode_seq``).  Where neither the KV
+heads nor the length divide, the cache is whole on every rank.
+
 The KV cache is a dict with the reference's layout (``k``/``v`` of
 ``(n_layers, B, S, KV, dh)``, ``kv_pos (B, S)``, ``pos (B,)``), but
 ``decode_step`` updates it in place, ``pos`` included, and returns the same
@@ -68,7 +81,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.device import generator, resolve
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.api import current_policy, model_parallel
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.flash_attn.ops import flash_attn
@@ -155,8 +168,13 @@ class Block(nn.Module):
         cfg = self.cfg
         hn = layers.rms_norm(x, self.attn_norm, cfg.norm_eps)
         w, tp = attention_weights(self.attn, cfg)
-        h = attention_decode_body(w, cfg, hn, pos, slot, k_cache, v_cache,
-                                  kv_pos, lengths, 0 if tp is None else tp[2])
+        if k_cache.shape[1] != kv_pos.shape[1]:        # split by sequence
+            h = attention_decode_seq(w, cfg, hn, pos, slot, k_cache,
+                                     v_cache, kv_pos, lengths)
+        else:
+            h = attention_decode_body(w, cfg, hn, pos, slot, k_cache,
+                                      v_cache, kv_pos, lengths,
+                                      0 if tp is None else tp[2])
         x = x + split_output(h, tp)[:, None]
         out, _ = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps))
         return x + out
@@ -366,6 +384,89 @@ def attention_decode_body(w, cfg, x, pos, slot, k_cache, v_cache, kv_pos,
     return torch.einsum("bhe,hed->bd", o, w.wo)
 
 
+def seq_part(n_kv: int, n_slots: int):
+    """(this model rank's first slot, its slots) of a cache of ``n_slots``
+    slots and ``n_kv`` KV heads that the current policy splits by
+    sequence (``sharding.serve_cache_spec``), else None."""
+    tp = model_parallel(current_policy())
+    if tp is None:
+        return None
+    n = sharding.serve_cache_shape("k", (1, n_slots, n_kv, 1), tp[0])[1]
+    return None if n == n_slots else (tp[2] * n, n)
+
+
+def write_owned(k_cache, v_cache, k, v, slot, lo: int) -> None:
+    """The token's k, v (B, KV, dh) into a rank's slots ``lo ..`` of a
+    cache split by sequence (``k_cache``/``v_cache`` (B, S/m, KV, dh)), in
+    place, in the rows whose ``slot`` ((B,) or a scalar, global) the rank
+    owns; the other rows keep theirs.  No host sync: a CUDA graph
+    replays it."""
+    b, n = k_cache.shape[:2]
+    local = torch.broadcast_to(slot, (b,)).long() - lo
+    own = ((local >= 0) & (local < n))[:, None, None]
+    idx = local.clamp(0, n - 1)
+    bidx = torch.arange(b, device=k.device)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache[bidx, idx] = torch.where(own, new.to(cache.dtype),
+                                       cache[bidx, idx])
+
+
+def seq_attend(q, k_cache, v_cache, lo: int, lengths=None, kv_pos=None,
+               pos=None):
+    """A rank's decode over its slots ``lo ..`` of a cache split by
+    sequence, for every query head: q (B, H, dh) against ``k_cache``/
+    ``v_cache`` (B, S/m, KV, dh), masked by ``lengths`` (B,) over the
+    whole cache (its valid slots are ``clamp(lengths - lo, 0, S/m)``) or
+    by the whole ``kv_pos`` (B, S) (its slots' columns) with ``pos``;
+    returns (output (B, H, dh), log-sum-exp (B, H)): the decode-attention
+    kernel's partial softmax, which ``collectives.softmax_merge`` merges
+    over the ranks."""
+    n = k_cache.shape[1]
+    k_t, v_t = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    if lengths is not None:
+        own = (lengths - lo).clamp(0, n).to(torch.int32)
+        return decode_attn(q, k_t, v_t, own, return_lse=True)
+    return decode_attn(q, k_t, v_t, kv_pos=kv_pos.narrow(1, lo, n), pos=pos,
+                       return_lse=True)
+
+
+def own_heads(o, n: int, m_idx: int):
+    """Model rank ``m_idx``'s ``n`` heads of the merged output ``o`` (B,
+    H, dh): all of them where ``n`` is H."""
+    return o if n == o.shape[1] else o.narrow(1, m_idx * n, n)
+
+
+def decode_query(w, cfg, x, pos):
+    """One token's q (B, H held, dh) and k, v (B, KV held, dh) with RoPE
+    at ``pos`` (B,), on blocks ``w``."""
+    q, k, v = _qkv(w, cfg, x, pos[:, None])
+    return q[:, 0].contiguous(), k[:, 0], v[:, 0]
+
+
+def attention_decode_seq(w, cfg, x, pos, slot, k_cache, v_cache, kv_pos,
+                         lengths):
+    """One decode step's attention over a cache split by sequence
+    (module docstring) on the rank's blocks ``w``: x (B, 1, d); its part
+    of the cache (B, S/m, KV, dh) written in place where it owns the
+    token's slot; returns its partial output (B, d), which the model
+    ranks sum where ``model`` splits the query heads, or the whole output
+    where it does not."""
+    mesh, _, idx = model_parallel(current_policy())
+    n = k_cache.shape[1]
+    lo = idx * n
+    q, k, v = decode_query(w, cfg, x, pos)
+    write_owned(k_cache, v_cache, k, v, slot, lo)
+    q_all = (q if q.shape[1] == cfg.n_heads
+             else collectives.gather_heads(q, mesh))
+    if cfg.attention == "full":
+        o, lse = seq_attend(q_all, k_cache, v_cache, lo, lengths=lengths)
+    else:
+        o, lse = seq_attend(q_all, k_cache, v_cache, lo, kv_pos=kv_pos,
+                            pos=pos)
+    o = own_heads(collectives.softmax_merge(o, lse, mesh), q.shape[1], idx)
+    return torch.einsum("bhe,hed->bd", o, w.wo)
+
+
 def mlp_body(w, x):
     """A model rank's part of the SwiGLU MLP on its blocks ``w``
     (``w_gate``/``w_up (d, f/m)``, ``w_down (f/m, d)``): its partial
@@ -470,11 +571,16 @@ def cache_len(cfg, max_len: int) -> int:
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """Slot-based cache with a position per sequence (``pos`` (B,)), so a
-    continuous-batching engine can stagger requests across slots."""
+    continuous-batching engine can stagger requests across slots.  Under
+    a mesh policy K/V take the rank's part (``sharding.serve_cache_spec``),
+    ``kv_pos`` stays whole."""
     _check_family(cfg)
     dev = resolve(device)
     s = cache_len(cfg, max_len)
     shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.d_head)
+    policy = current_policy()
+    if policy is not None:
+        shape = sharding.serve_cache_shape("k", shape, policy.mesh)
     dtype = getattr(torch, cfg.compute_dtype)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -496,7 +602,7 @@ def decode_step(params: Transformer, cfg, cache: dict, token: torch.Tensor
     through ``lengths`` and computes what the ``kv_pos`` mask computes."""
     b = token.shape[0]
     pos = cache["pos"].expand(b)
-    s = cache["k"].shape[2]
+    s = cache["kv_pos"].shape[1]              # the whole cache's slots
     slot = pos % s if cfg.attention == "swa" else pos.clamp(max=s - 1)
     lengths = (pos + 1).clamp(max=s).to(torch.int32)
     x = _embed(params, cfg, token)[:, None]
@@ -551,6 +657,10 @@ def prefill(params: Transformer, cfg, tokens: torch.Tensor, max_len: int,
         kv_pos = torch.cat([positions, torch.full((b, c - s), -1,
                                                   dtype=torch.int32, device=dev)], 1)
 
+    part = seq_part(cfg.n_kv_heads, c)
+    if part is not None:                      # the rank's slots
+        k = k.narrow(2, *part).contiguous()
+        v = v.narrow(2, *part).contiguous()
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     if lengths is None:
         cache = {"k": k, "v": v, "kv_pos": kv_pos,

@@ -447,6 +447,81 @@ def test_decode_attn_kernel_matches_plain_versions_in_both_masks_on_card(
     assert torch.equal(again, got)                    # deterministic merges
 
 
+# B3's log-sum-exp: the serving ring (danube's heads over 192 slots, one
+# split), granite's heads and one KV head over 4,096 slots (16 splits and
+# the merge launch) under a lengths mask and as a wrapped ring, and
+# recurrentgemma's ring of 2,048
+LSE_CASES = [(4, 32, 8, 120, 192, "kv_pos"), (2, 48, 1, 128, 4096, "lengths"),
+             (2, 48, 1, 128, 4096, "kv_pos"), (4, 10, 1, 256, 2048, "kv_pos")]
+# float32 sums of the same scores in another order and exp2 approximations:
+# within 1e-4 of max(1, |lse|)
+LSE_REL_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,dh,s,mask", LSE_CASES)
+def test_decode_attn_lse_matches_plain_version_on_card(
+        cuda_device, b, h, kv, dh, s, mask, dtype):
+    """``return_lse=True``: the output is bit-equal to the call without it,
+    and the log-sum-exp is the plain version's (and the split algorithm's)
+    within ``LSE_REL_TOL``; row 0 has no valid key: output 0, lse -inf."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * s + dh + 1)
+    q = torch.randn((b, h, dh), generator=gen, device=cuda_device).to(dtype)
+    cache = torch.randn((2, b, s, kv, dh), generator=gen,
+                        device=cuda_device).to(dtype)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    rng = np.random.default_rng(s + h + 1)
+    if mask == "lengths":
+        lengths = torch.as_tensor(rng.integers(1, s + 1, b), dtype=torch.int32)
+        lengths[0] = 0
+        kw = {"lengths": lengths.to(cuda_device)}
+    else:
+        kv_pos, pos = _ring_kv_pos(b, s, rng)
+        kw = {"kv_pos": kv_pos.to(cuda_device), "pos": pos.to(cuda_device)}
+    before = da_ops.LAUNCHES
+    got, lse = da_ops.decode_attn(q, k, v, return_lse=True, **kw)
+    assert da_ops.LAUNCHES == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(got, da_ops.decode_attn(q, k, v, **kw))
+    ref, ref_lse = decode_attn_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    n_sm = da_ops.sm_count(cuda_device.index or 0)
+    _, split_lse = decode_attention_split_ref(q, k, v, n_sm=n_sm,
+                                              return_lse=True, **kw)
+    for want in (ref_lse, split_lse):
+        empty = want == float("-inf")
+        assert torch.equal(lse == float("-inf"), empty)
+        err = (lse[~empty] - want[~empty]).abs()
+        assert float((err / want[~empty].abs().clamp(min=1.0)).max()) \
+            <= LSE_REL_TOL
+    assert bool((lse[0] == float("-inf")).all())
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [192, 4096])
+def test_decode_attn_lse_of_rows_with_no_valid_slot_on_card(cuda_device, s):
+    """Rows with no valid slot, through one split (192 slots) and through
+    the merge launch (4,096): output 0 and lse -inf, no NaN, under
+    ``lengths`` of 0 and under a ring whose slots are all empty or all
+    past ``pos``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    q = torch.randn((3, 48, 128), generator=gen,
+                    device=cuda_device).bfloat16()
+    k = torch.randn((3, 1, s, 128), generator=gen,
+                    device=cuda_device).bfloat16()
+    lengths = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    kv_pos = torch.full((3, s), -1, dtype=torch.int32, device=cuda_device)
+    kv_pos[2] = 50                                  # all past pos = 10
+    pos = torch.tensor([5, 7, 10], dtype=torch.int32, device=cuda_device)
+    for kw in ({"lengths": lengths}, {"kv_pos": kv_pos, "pos": pos}):
+        got, lse = da_ops.decode_attn(q, k, k, return_lse=True, **kw)
+        assert bool((lse == float("-inf")).all())
+        assert torch.equal(got, torch.zeros_like(got))
+
+
 @pytest.mark.cuda
 def test_decode_attn_wrapper_rejects_bad_kv_pos_on_card(cuda_device):
     q = torch.zeros((2, 8, 64), device=cuda_device)

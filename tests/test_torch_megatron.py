@@ -28,11 +28,16 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduce_config as jax_reduce_config
 from repro.models import encdec as jencdec
+from repro.models import layers as jlayers
 from repro.models import model as jmodel
+from repro.models import rglru as jrglru
+from repro.models import rwkv6 as jrwkv6
 from repro.models import transformer as jtf
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.distributed import sharding
-from repro_torch.models import encdec, io, model as model_lib, transformer
+from repro_torch.kernels.decode_attn import ref as da_ref
+from repro_torch.models import encdec, io, model as model_lib, rglru, rwkv6
+from repro_torch.models import transformer
 
 TP_TOL = 1e-5          # of the largest output: partial sums reordered
 REF_TOL = 2e-5         # against the reference, as tests/test_torch_lm.py
@@ -399,3 +404,342 @@ def test_compute_spec_keeps_model_and_gathers_the_data_axes():
     holder = type("H", (), {"embed": w})()
     assert torch.equal(sharding.rank_blocks(holder, "", ("embed",), 4,
                                             3).embed, w[1536:])
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families over ``model``
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _rwkv_case(single):
+    """Reduced rwkv6-7b's first layer, inputs of a 2 x 16 prefill (or one
+    decode token from a random state) and the reference's ``time_mix`` and
+    ``channel_mix`` on them (one compile a case)."""
+    cfg, jcfg = _cfgs("rwkv6-7b", {})
+    layer = rwkv6.init_params(cfg, seed=17, device="cpu").layers[0]
+    rng = np.random.default_rng(18)
+    t = 1 if single else 16
+    f32 = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=torch.float32)
+    x, tm_prev, cm_prev = f32(2, t, cfg.d_model), f32(2, cfg.d_model), \
+        f32(2, cfg.d_model)
+    state = (f32(2, cfg.n_heads, cfg.head_size, cfg.head_size) if single
+             else torch.zeros(2, cfg.n_heads, cfg.head_size, cfg.head_size))
+    jp = {n: _j(getattr(layer, n)) for n in rwkv6.TIME_MIX + rwkv6.CHANNEL_MIX}
+    jout, _, jstate = jax.jit(lambda p, a, b, c: jrwkv6.time_mix(
+        p, jcfg, a, b, c, single=single))(jp, _j(x), _j(tm_prev), _j(state))
+    jcm, _ = jax.jit(lambda p, a, b: jrwkv6.channel_mix(p, jcfg, a, b))(
+        jp, _j(x), _j(cm_prev))
+    return cfg, layer, (x, tm_prev, cm_prev, state), tuple(
+        np.asarray(a) for a in (jout, jstate, jcm))
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["prefill", "decode"])
+@pytest.mark.parametrize("m", MS)
+def test_rwkv6_bodies_sum_to_the_whole_layer(m, single):
+    """RWKV6's time mix on every rank's ``H/m`` heads (``wr``/``wk``/
+    ``wv``/``wg`` columns, ``wo`` rows, ``u``, and its heads' channels of
+    ``wB``, ``w0`` and the group norm; B5's plain version, or the decode's
+    step from the rank's heads of a random state), the partial outputs
+    summed and the states side by side; the channel mix's partial outputs
+    summed and each rank's ``wr_c`` gate applied to its channels: against
+    the port's whole layer and the reference's ``time_mix`` and
+    ``channel_mix``."""
+    cfg, layer, (x, tm_prev, cm_prev, state), ref = _rwkv_case(single)
+    h = cfg.n_heads // m
+    tm = lambda mm, r: sharding.rank_blocks(layer, "layers", rwkv6.TIME_MIX,
+                                            mm, r)
+    cm = lambda mm, r: sharding.rank_blocks(layer, "layers",
+                                            rwkv6.CHANNEL_MIX, mm, r)
+    with torch.no_grad():
+        want, _, s_want = rwkv6.time_mix_body(tm(1, 0), cfg, x, tm_prev,
+                                              state.clone(), single=single)
+        outs, states = [], []
+        for r in range(m):
+            w = tm(m, r)
+            assert w.u.shape[0] == h and w.wk.shape[1] == h * cfg.head_size
+            assert w.wo.shape[0] == h * cfg.head_size
+            o, _, s = rwkv6.time_mix_body(
+                w, cfg, x, tm_prev, state[:, r * h:(r + 1) * h].clone(), r,
+                single=single)
+            outs.append(o)
+            states.append(s)
+        out, rgate, _ = rwkv6.channel_mix_body(cm(1, 0), cfg, x, cm_prev)
+        parts = [rwkv6.channel_mix_body(cm(m, r), cfg, x, cm_prev)
+                 for r in range(m)]
+    got, got_s = sum(outs[1:], outs[0]), torch.cat(states, 1)
+    total = sum(p[0] for p in parts)
+    dl = cfg.d_model // m
+    gated = torch.cat([p[1] * total[..., r * dl:(r + 1) * dl]
+                       for r, p in enumerate(parts)], -1)
+    _close(got.numpy(), want.numpy(), TP_TOL)
+    _close(got_s.numpy(), s_want.numpy(), TP_TOL)
+    _close(gated.numpy(), (rgate * out).numpy(), TP_TOL)
+    for a, b in zip((got, got_s, gated), ref):
+        _close(a.numpy(), b, REF_TOL)
+
+
+REC_CFG = ("recurrentgemma-2b", {"n_heads": 6, "window": 16})
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["prefill", "decode"])
+@pytest.mark.parametrize("m", MS)
+def test_rglru_recurrent_bodies_sum_to_the_whole_block(m, single):
+    """The recurrent block on every rank's ``rnn/m`` channels: each rank's
+    ``rec_in_body`` (``w_x``, ``w_gate``, the conv on its channels), the
+    conv outputs side by side (the gather), each rank's ``rec_out_body``
+    (its columns of ``w_r``/``w_i``, B6's plain version or the decode's
+    step on its channels, ``w_out`` rows), summed; the states side by
+    side; the GeGLU MLP's bodies summed: against the port's whole block
+    and the reference's ``rec_block``."""
+    cfg, jcfg = _cfgs(*REC_CFG)
+    layer = rglru.init_params(cfg, seed=21, device="cpu").layers[0]
+    rng = np.random.default_rng(22)
+    t, r_w, cw = (1 if single else 12), cfg.rnn_width, cfg.conv_width
+    f32 = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=torch.float32)
+    x, conv, h0 = f32(2, t, cfg.d_model), f32(2, cw - 1, r_w), f32(2, r_w)
+    blocks = lambda mm, r: sharding.rank_blocks(layer, "super/rec1",
+                                                rglru.REC, mm, r)
+    n = r_w // m
+    with torch.no_grad():
+        bx, gate, c_want = rglru.rec_in_body(blocks(1, 0), cfg, x, conv)
+        want, h_want = rglru.rec_out_body(blocks(1, 0), cfg, bx, gate, h0,
+                                          single=single)
+        ins = [rglru.rec_in_body(blocks(m, r), cfg, x,
+                                 conv[..., r * n:(r + 1) * n])
+               for r in range(m)]
+        bx_all = torch.cat([i[0] for i in ins], -1)
+        outs = [rglru.rec_out_body(blocks(m, r), cfg, bx_all, ins[r][1],
+                                   h0[:, r * n:(r + 1) * n], r,
+                                   single=single) for r in range(m)]
+        mlp = lambda mm, r: rglru.mlp_body(sharding.rank_blocks(
+            layer.mlp, "super/rec1/mlp", rglru.MLP_NAMES, mm, r), x)
+        mlp_want, mlp_got = mlp(1, 0), sum(mlp(m, r) for r in range(m))
+    got = sum(o[0] for o in outs)
+    got_h = torch.cat([o[1] for o in outs], -1)
+    got_c = torch.cat([i[2] for i in ins], -1)
+    _close(got.numpy(), want.numpy(), TP_TOL)
+    _close(got_h.numpy(), h_want.numpy(), TP_TOL)
+    assert torch.equal(got_c, c_want)
+    _close(mlp_got.numpy(), mlp_want.numpy(), TP_TOL)
+    jp = {n: _j(getattr(layer, n)) for n in rglru.REC}
+    jout, jst = jax.jit(lambda p, a, s: jrglru.rec_block(
+        p, jcfg, a, s, single=single))(jp, _j(x), {"h": _j(h0),
+                                                  "conv": _j(conv)})
+    _close(got.numpy(), np.asarray(jout), REF_TOL)
+    _close(got_h.numpy(), np.asarray(jst["h"]), REF_TOL)
+
+
+@pytest.mark.parametrize("m", MS)
+def test_rglru_attention_bodies_with_the_ring_split_by_sequence(m):
+    """The local attention on every rank: a 2 x 24 prefill on its query
+    heads (6: 3 a rank over 2, all over 4, where every rank's output is
+    the whole and nothing is summed); a decode at position 24 against a
+    ring of 16 split by sequence (4 or 8 slots a rank): each rank's
+    ``decode_query``, ``q`` gathered by hand where the heads split, the
+    token's K/V written only into the owner's slots, each rank's
+    ``ring_attend`` with its log-sum-exp, the partial softmaxes merged
+    (``merge_partials``), each rank's heads through its ``wo``: against
+    the whole layer, and the merged output against the reference's
+    ``decode_attention`` over the whole ring."""
+    cfg, _ = _cfgs(*REC_CFG)
+    layer = rglru.init_params(cfg, seed=23, device="cpu").layers[2]
+    rng = np.random.default_rng(24)
+    f32 = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=torch.float32)
+    b, s, w_all = 2, 24, cfg.window
+    x = f32(b, s, cfg.d_model)
+    positions = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    blocks = lambda mm, r: sharding.rank_blocks(layer, "super/attn",
+                                                rglru.ATTN, mm, r)
+    split = cfg.n_heads % m == 0
+    with torch.no_grad():
+        want, k, v = rglru.attention_full_body(blocks(1, 0), cfg, x,
+                                               positions)
+        got = _rank_outputs(split, m, lambda r: rglru.attention_full_body(
+            blocks(m, r), cfg, x, positions)[0])
+    _close(got.numpy(), want.numpy(), TP_TOL)
+
+    # the ring after the prompt: positions 8 .. 23 at slot p % 16
+    kept = torch.arange(s - w_all, s, dtype=torch.int32)
+    order = torch.argsort(kept % w_all)
+    ring = {"k": k[:, -w_all:][:, order], "v": v[:, -w_all:][:, order],
+            "kv_pos": kept[order][None].expand(b, w_all).contiguous()}
+    pos = torch.tensor(s, dtype=torch.int32)
+    slot = int(pos) % w_all
+    xd = f32(b, 1, cfg.d_model)
+    with torch.no_grad():
+        q, kn, vn = rglru.decode_query(blocks(1, 0), cfg, xd, pos)
+        whole = {n: t.clone() for n, t in ring.items()}
+        whole["k"][:, slot], whole["v"][:, slot] = kn, vn
+        whole["kv_pos"][:, slot] = pos
+        o_want = transformer.decode_attn(
+            q, whole["k"].transpose(1, 2), whole["v"].transpose(1, 2),
+            kv_pos=whole["kv_pos"], pos=pos)
+        d_want = rglru.attention_out(blocks(1, 0), o_want)
+        qs = [rglru.decode_query(blocks(m, r), cfg, xd, pos)
+              for r in range(m)]
+        q_all = torch.cat([t[0] for t in qs], 1) if split else qs[0][0]
+        n = w_all // m
+        partial = []
+        for r in range(m):
+            st = {"k": ring["k"][:, r * n:(r + 1) * n].clone(),
+                  "v": ring["v"][:, r * n:(r + 1) * n].clone(),
+                  "kv_pos": whole["kv_pos"]}
+            transformer.write_owned(st["k"], st["v"], qs[r][1], qs[r][2],
+                                    pos % w_all, r * n)
+            assert torch.equal(st["k"], whole["k"][:, r * n:(r + 1) * n])
+            assert torch.equal(st["v"], whole["v"][:, r * n:(r + 1) * n])
+            partial.append(rglru.ring_attend(q_all, st, pos, r * n))
+        merged = da_ref.merge_partials([p[0] for p in partial],
+                                       [p[1] for p in partial])
+        hq = qs[0][0].shape[1]
+        d_got = _rank_outputs(split, m, lambda r: rglru.attention_out(
+            blocks(m, r), transformer.own_heads(merged, hq, r)))
+    assert torch.equal(q_all, q)
+    _close(merged.numpy(), o_want.numpy(), TP_TOL)
+    _close(d_got.numpy(), d_want.numpy(), TP_TOL)
+    ref = jlayers.decode_attention(_j(q), _j(whole["k"]), _j(whole["v"]),
+                                   _j(whole["kv_pos"]), _j(pos))
+    _close(merged.numpy(), np.asarray(ref), REF_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The sequence split of the transformer's cache
+# ---------------------------------------------------------------------------
+
+# (arch, overrides, m): KV heads that do not divide m -- granite's one KV
+# head (full attention), qwen's 2 on 4 ranks, danube's sliding-window ring
+# with one KV head, and 6 query heads over one KV head (whole on every
+# rank of 4: nothing summed)
+SEQ_CASES = [(a, o, m) for a, o, ms in (
+    ("granite-34b", {}, MS),
+    ("qwen1.5-0.5b", {"n_kv_heads": 2}, (4,)),
+    ("h2o-danube-3-4b", {"n_kv_heads": 1}, MS),
+    ("qwen1.5-0.5b", {"n_heads": 6, "n_kv_heads": 1}, MS)) for m in ms]
+
+
+@pytest.mark.parametrize("arch,over,m", SEQ_CASES,
+                         ids=[f"{i}-m{c[2]}" for i, c in
+                              zip(_ids([c[:2] for c in SEQ_CASES]),
+                                  SEQ_CASES)])
+def test_sequence_split_decode_merges_to_the_whole_step(arch, over, m):
+    """One decode step of a cache of 16 slots split by sequence over m
+    ranks: each rank's ``decode_query``, ``q`` gathered by hand where the
+    heads split, the token's K/V written only where a rank owns the row's
+    slot (``write_owned``; rows whose slots fall on different ranks), its
+    ``seq_attend`` under ``lengths`` (full attention: its valid slots
+    ``clamp(lengths - lo, 0, S/m)``) or the whole ``kv_pos`` (the ring),
+    the ranks' partial softmaxes merged by hand (``merge_partials``; some
+    ranks hold no valid slot of a row), each rank's heads through its
+    ``wo``, summed where the heads split: against the port's whole step
+    (``attention_decode_body``) and the reference's
+    ``attention_decode``."""
+    cfg, jcfg = _cfgs(arch, over)
+    attn = transformer.init_params(cfg, seed=25, device="cpu").layers[0].attn
+    rng = np.random.default_rng(26)
+    b, s = 3, 16
+    swa = cfg.attention == "swa"
+    pos = torch.tensor([3, 9, 21] if swa else [3, 9, 14], dtype=torch.int32)
+    slot = (pos % s if swa else pos.clamp(max=s - 1)).long()
+    lengths = (pos + 1).clamp(max=s).to(torch.int32)
+    # before the step: each row's last positions below pos at slot p % s
+    j = torch.arange(s)[None]
+    last = pos[:, None] - 1 - (pos[:, None] - 1 - j) % s
+    kv_pos = torch.where(last >= 0, last, -1).to(torch.int32)
+    kv_pos[torch.arange(b), slot] = pos
+    x = torch.as_tensor(rng.standard_normal((b, 1, cfg.d_model)),
+                        dtype=torch.float32)
+    kc = torch.as_tensor(rng.standard_normal(
+        (b, s, cfg.n_kv_heads, cfg.d_head)), dtype=torch.float32)
+    vc = torch.as_tensor(rng.standard_normal(kc.shape), dtype=torch.float32)
+    blocks = lambda mm, r: sharding.rank_blocks(attn, "layers/attn", ATTN,
+                                                mm, r)
+    wk, wv = kc.clone(), vc.clone()
+    split = cfg.n_heads % m == 0
+    n = s // m
+    with torch.no_grad():
+        want = transformer.attention_decode_body(
+            blocks(1, 0), cfg, x, pos, slot, wk, wv, kv_pos, lengths)
+        qs = [transformer.decode_query(blocks(m, r), cfg, x, pos)
+              for r in range(m)]
+        q_all = torch.cat([t[0] for t in qs], 1) if split else qs[0][0]
+        parts = []
+        for r in range(m):
+            rk, rv = kc[:, r * n:(r + 1) * n].clone(), \
+                vc[:, r * n:(r + 1) * n].clone()
+            transformer.write_owned(rk, rv, qs[r][1], qs[r][2], slot, r * n)
+            assert torch.equal(rk, wk[:, r * n:(r + 1) * n])
+            assert torch.equal(rv, wv[:, r * n:(r + 1) * n])
+            parts.append(transformer.seq_attend(
+                q_all, rk, rv, r * n,
+                **(dict(kv_pos=kv_pos, pos=pos) if swa
+                   else dict(lengths=lengths))))
+        assert any(bool((p[1] == float("-inf")).any()) for p in parts)
+        merged = da_ref.merge_partials([p[0] for p in parts],
+                                       [p[1] for p in parts])
+        hq = qs[0][0].shape[1]
+        got = _rank_outputs(split, m, lambda r: torch.einsum(
+            "bhe,hed->bd", transformer.own_heads(merged, hq, r),
+            blocks(m, r).wo))
+    _close(got.numpy(), want.numpy(), TP_TOL)
+    jp = {nm: _j(getattr(attn, nm)) for nm in ATTN
+          if getattr(attn, nm) is not None}
+    ref, _, _ = jax.jit(lambda p, a, q, kk, vv, kp: jtf.attention_decode(
+        p, jcfg, a, q, kk, vv, kp))(jp, _j(x), _j(pos), _j(wk), _j(wv),
+                                    _j(kv_pos))
+    _close(got.numpy(), np.asarray(ref)[:, 0], REF_TOL)
+
+
+def test_plain_lse_and_the_merge_with_empty_ranks():
+    """B3's plain versions' log-sum-exp: the natural log of the sum of
+    exp(q·k/sqrt(dh)) over the valid keys, -inf for a row with none (its
+    output 0), the kernel's split algorithm's alike, under ``lengths`` and
+    ``kv_pos``; every rank's slots of a cache of 12 (4 a rank) merged
+    (``merge_partials``) equal the whole cache's output, with a rank that
+    holds no valid slot of a row and a row that no rank holds, which
+    merges to 0 with no NaN; ``collectives.softmax_merge`` over a world of
+    one is the output itself (0 and no NaN on the empty row)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as mesh_lib
+
+    rng = np.random.default_rng(27)
+    f32 = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=torch.float32)
+    q, k, v = f32(3, 4, 16), f32(3, 2, 12, 16), f32(3, 2, 12, 16)
+    lengths = torch.tensor([0, 5, 12], dtype=torch.int32)
+    o, lse = da_ref.decode_attn_plain(q, k, v, lengths, return_lse=True)
+    scores = torch.einsum("bhd,bhsd->bhs", q,
+                          k.repeat_interleave(2, 1)) / 4.0
+    for row in (1, 2):
+        want = torch.logsumexp(scores[row, :, :int(lengths[row])], -1)
+        np.testing.assert_allclose(lse[row].numpy(), want.numpy(),
+                                   rtol=1e-6)
+    assert bool((lse[0] == float("-inf")).all()) and bool((o[0] == 0).all())
+    o2, lse2 = da_ref.decode_attention_split_ref(q, k, v, lengths,
+                                                 return_lse=True)
+    np.testing.assert_allclose(lse2.numpy(), lse.numpy(), rtol=1e-6)
+    kv_pos = torch.where(torch.arange(12)[None] < lengths[:, None],
+                         torch.arange(12)[None], -1).to(torch.int32)
+    o3, lse3 = da_ref.decode_attn_plain(q, k, v, kv_pos=kv_pos,
+                                        pos=lengths - 1, return_lse=True)
+    np.testing.assert_allclose(lse3.numpy(), lse.numpy(), rtol=1e-6)
+    assert torch.equal(o3[0], o[0])
+    parts = [da_ref.decode_attn_plain(
+        q, k[:, :, lo:lo + 4], v[:, :, lo:lo + 4],
+        (lengths - lo).clamp(0, 4).to(torch.int32), return_lse=True)
+        for lo in (0, 4, 8)]
+    assert bool((parts[2][1][1] == float("-inf")).all())   # rank 2, row 1
+    merged = da_ref.merge_partials([p[0] for p in parts],
+                                   [p[1] for p in parts])
+    assert bool(torch.isfinite(merged).all()) and bool((merged[0] == 0).all())
+    _close(merged.numpy(), o.numpy(), TP_TOL)
+    mesh_lib.init_world("cpu")
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        one = collectives.softmax_merge(o, lse, mesh)
+    finally:
+        mesh_lib.close_world()
+    assert torch.equal(one, o)

@@ -43,10 +43,11 @@ from repro.train import optimizer as jopt
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.distributed import api, sharding
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import io, moe
+from repro_torch.models import io, model as model_lib, moe
 from repro_torch.train import checkpoint, optimizer as opt_lib
 from repro_torch.train import trainer as trainer_lib
-from torch_dist_worker import (LM_ARCHS, LM_SHAPES, LM_TRAIN, SERVE_SHAPES,
+from torch_dist_worker import (LM_ARCHS, LM_SHAPES, LM_TRAIN, SERVE_ARCHS,
+                               SERVE_DECODES, SERVE_PROMPTS, SERVE_SHAPES,
                                lm_cfg, moe_dp_grads, moe_dp_inputs, run_world)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -423,7 +424,9 @@ def test_moe_sharded_on_a_world_of_one_is_the_local_moe():
 PARAM_TOL = dict(atol=2e-6, rtol=1e-5)
 METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 RUNS = [(arch, shape) for arch in LM_ARCHS for shape in LM_SHAPES]
-SERVE_RUNS = [(arch, shape) for arch in LM_ARCHS for shape in SERVE_SHAPES]
+SERVE_RUNS = [(arch, shape) for arch in (*LM_ARCHS, *SERVE_ARCHS)
+              for shape in SERVE_SHAPES]
+SERVED_ONLY = [(arch, shape) for arch in SERVE_ARCHS for shape in SERVE_SHAPES]
 # serving logits in float32 against one process: row-parallel partial
 # sums added over the ranks in another order than one product's
 SERVE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -524,7 +527,8 @@ def test_each_rank_stores_its_blocks(lm_world, arch, shape):
     into each such block for each forward use, plus the all-reduce of
     every block that ``data`` does not split: no whole gradient of a
     split leaf crosses the mesh.  Served on the same shape, a rank's K/V
-    cache is its rows and ``1/m`` of the heads where they divide."""
+    cache is its rows and ``1/m`` of the heads where they divide, else
+    ``1/m`` of the slots (qwen's 2 KV heads on 4 ranks)."""
     _, res = lm_world
     cfg = lm_cfg(arch)
     plain = res[0][f"{arch} plain"]
@@ -569,8 +573,8 @@ def test_each_rank_stores_its_blocks(lm_world, arch, shape):
     if shape not in SERVE_SHAPES:
         return
     # serving: each rank's K/V cache holds its rows and its KV/m heads
-    # where the KV heads divide, all of them where they do not (qwen's 2
-    # on 4 ranks)
+    # where the KV heads divide, else S/m slots (qwen's 2 on 4 ranks:
+    # the cache split by sequence)
     n_data, m = shape
     kv = cfg.n_kv_heads if cfg.family != "encdec" else cfg.n_heads
     held = kv // m if kv % m == 0 else kv
@@ -581,7 +585,9 @@ def test_each_rank_stores_its_blocks(lm_world, arch, shape):
         for k in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
             if k in want:
                 w = want[k]
-                assert got[k] == (w[0], w[1] // n_data, w[2], held,
+                slots = w[2] // m if kv % m else w[2]
+                assert kv % m == 0 or w[2] % m == 0
+                assert got[k] == (w[0], w[1] // n_data, slots, held,
                                   w[4]), (k, got[k], w)
 
 
@@ -752,3 +758,75 @@ def test_mesh_cli_on_two_ranks(tmp_path):
         np.testing.assert_array_equal(saved[meta["name"]], w)
     assert not (tmp_path / "cli_ckpt" / "step_00000002" /
                 "shard_1.npz").exists()
+
+
+def serve_bytes(cfg, m, rows, n_prompt, decodes) -> dict:
+    """``sharding.serve_step_bytes`` summed over a prefill of ``rows`` x
+    ``n_prompt`` tokens and ``decodes`` decode steps of the serving runs
+    (``torch_dist_worker._serve``)."""
+    max_len = SERVE_PROMPTS.get(cfg.name, (8, 16))[1]
+    cache_len = (min(cfg.window, max_len) if cfg.family == "hybrid"
+                 else max_len)
+    got = {}
+    for decode in [False] + [True] * decodes:
+        for k, v in sharding.serve_step_bytes(cfg, m, rows, n_prompt,
+                                              cache_len, decode).items():
+            got[k] = got.get(k, 0) + v
+    return got
+
+
+@pytest.mark.parametrize("arch,shape", SERVED_ONLY,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in SERVED_ONLY])
+def test_served_caches_and_bytes_follow_the_specs(lm_world, arch, shape):
+    """Reduced rwkv6-7b, recurrentgemma-2b and granite-34b served on
+    ``make_host_mesh(*shape)`` (test_mesh_serving_matches_one_process
+    holds their logits and tokens): each rank's cache is its rows and,
+    over ``model``, RWKV6's ``S`` its ``H/m`` heads, the RG-LRU's ``h``
+    and ``conv`` its ``rnn/m`` channels, the K/V of one KV head (the ring
+    and granite's cache) its ``S/m`` slots, ``kv_pos``, ``tm_prev`` and
+    ``cm_prev`` whole; and the bytes each reader's collectives brought a
+    rank are the specs' count (``sharding.serve_step_bytes``)."""
+    _, res = lm_world
+    cfg = lm_cfg(arch)
+    n_data, m = shape
+    want = res[0][f"serve {arch} plain"]["cache_shapes"]
+    div = {"S": (2, m), "h": (1, m), "conv": (2, m), "k": (-3, m),
+           "v": (-3, m)}
+    n_prompt = SERVE_PROMPTS.get(arch, (8, 16))[0]
+    for r in res:
+        got = r[f"serve {arch} {shape}"]["cache_shapes"]
+        assert set(got) == set(want)
+        for key, w in want.items():
+            name = key.rsplit("/", 1)[-1]
+            shape_want = list(w)
+            if name != "pos" or len(w) == 1:
+                batch = 0 if cfg.family == "hybrid" or name == "kv_pos" \
+                    else (1 if len(w) > 1 else 0)
+                shape_want[batch] //= n_data
+            if name in div:
+                dim, k = div[name]
+                shape_want[dim] //= k
+            assert got[key] == tuple(shape_want), (key, got[key], w)
+        assert r[f"serve bytes {arch} {shape}"] == serve_bytes(
+            cfg, m, 4 // n_data, n_prompt, SERVE_DECODES), r[
+                f"serve bytes {arch} {shape}"]
+
+
+def test_recurrent_training_is_refused_on_a_mesh():
+    """``ShardedLM`` serves the recurrent families and refuses their
+    training, naming the queue that holds it; their stacked leaves no
+    longer reach the layer-axis split (rwkv6's ``wo``)."""
+    for arch in SERVE_ARCHS:
+        cfg = lm_cfg(arch)
+        if cfg.family not in ("ssm", "hybrid"):
+            continue
+        coord = sharding.Coord({"data": 1, "model": 2},
+                               {"data": 0, "model": 1})
+        with pytest.raises(NotImplementedError, match="queue A"):
+            io.ShardedLM(model_lib.init_params(cfg, device="cpu"), cfg,
+                         coord, train=True)
+        sp = io.ShardedLM(model_lib.init_params(cfg, device="cpu"), cfg,
+                          coord, train=False)
+        assert all(spec[0] is None for path, spec in sp.specs.items()
+                   if not isinstance(sp.leaves[path], torch.Tensor))
+

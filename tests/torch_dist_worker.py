@@ -217,6 +217,19 @@ def collective_ops(rank, world, _arg):
 LM_ARCHS = {"qwen1.5-0.5b": {"n_kv_heads": 2},
             "dbrx-132b": {"microbatches": 2, "capacity_factor": 2.0},
             "whisper-medium": {}}
+# served only (their training is refused), beside LM_ARCHS: reduced
+# rwkv6-7b (4 heads: 2 or 1 a rank); reduced recurrentgemma-2b with a
+# tail, a window of 16 that its prompts of 22 pass (the ring wraps, and
+# the decodes' slots cross from one rank's part to the next) and 6 query
+# heads (split over 2 ranks, whole over 4); reduced granite-34b with its
+# one KV head (the cache split by sequence: 8 or 4 slots a rank, the last
+# of 4 ranks empty after the prompt)
+SERVE_ARCHS = {"rwkv6-7b": {},
+               "recurrentgemma-2b": {"n_layers": 5, "window": 16,
+                                     "n_heads": 6},
+               "granite-34b": {}}
+# (prompt tokens, max_len) of the serving runs; the others' (8, 16)
+SERVE_PROMPTS = {"recurrentgemma-2b": (22, 32)}
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 16, 3
 LM_TRAIN = dict(total_steps=LM_STEPS, warmup_steps=1)
 LM_SHAPES = ((2, 2), (4, 1), (1, 4))
@@ -225,7 +238,8 @@ REPLICATED_BATCH = 6       # rows that do not split over a data axis of 4
 
 
 def lm_cfg(arch):
-    return reduce_config(get_config(arch), **LM_ARCHS[arch])
+    over = LM_ARCHS[arch] if arch in LM_ARCHS else SERVE_ARCHS[arch]
+    return reduce_config(get_config(arch), **over)
 
 
 def _encdec_batch(cfg, step, mesh, rows=LM_BATCH):
@@ -362,15 +376,16 @@ def _serve(arch, mesh, policy):
               if mesh is not None else model)
     rng = np.random.default_rng(2)
     encdec = cfg.family == "encdec"
-    prompt = (torch.as_tensor(rng.standard_normal((4, 8, cfg.d_model)),
+    n, max_len = SERVE_PROMPTS.get(arch, (8, 16))
+    prompt = (torch.as_tensor(rng.standard_normal((4, n, cfg.d_model)),
                               dtype=torch.float32) if encdec else
-              torch.as_tensor(rng.integers(0, cfg.vocab, (4, 8)),
+              torch.as_tensor(rng.integers(0, cfg.vocab, (4, n)),
                               dtype=torch.int32))
     if mesh is not None:
         prompt = sharding.local_shard(
             prompt, sharding.data_spec(mesh, 4, prompt.dim()),
             mesh).contiguous()
-    prefill = steps.make_prefill_step(cfg, 16, policy)
+    prefill = steps.make_prefill_step(cfg, max_len, policy)
     decode = steps.make_decode_step(cfg, policy)
     out = []
     if encdec:
@@ -380,7 +395,7 @@ def _serve(arch, mesh, policy):
         logits, cache = prefill(params, prompt)
         out.append(logits)
         token = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
-    shapes = {k: tuple(v.shape) for k, v in cache.items()}
+    shapes = cache_shapes(cache)
     tokens = [token]
     for _ in range(SERVE_DECODES):
         logits, cache = decode(params, cache, token)
@@ -389,6 +404,19 @@ def _serve(arch, mesh, policy):
         tokens.append(token)
     return {"logits": torch.stack(out), "tokens": torch.stack(tokens),
             "cache_shapes": shapes}
+
+
+def cache_shapes(cache, prefix=""):
+    """Every tensor's shape in a cache, by its ``/``-joined key path
+    (a list's entries by index)."""
+    if isinstance(cache, torch.Tensor):
+        return {prefix: tuple(cache.shape)}
+    items = (cache.items() if isinstance(cache, dict)
+             else enumerate(cache))
+    out = {}
+    for k, x in items:
+        out.update(cache_shapes(x, f"{prefix}/{k}" if prefix else str(k)))
+    return out
 
 
 def moe_dp_inputs():
@@ -453,13 +481,14 @@ def lm_mesh(rank, world, out_dir):
         if shape in SERVE_SHAPES:
             policy = MeshPolicy(mesh, sharding.activation_rules(mesh,
                                                                 train=False))
-            for arch in LM_ARCHS:
+            for arch in (*LM_ARCHS, *SERVE_ARCHS):
                 collectives.BYTES.clear()
                 out[f"serve {arch} {shape}"] = _serve(arch, mesh, policy)
                 out[f"serve bytes {arch} {shape}"] = dict(collectives.BYTES)
     if rank == 0:
         for arch in LM_ARCHS:
             out[f"{arch} plain"] = _lm_run(arch, None)
+        for arch in (*LM_ARCHS, *SERVE_ARCHS):
             out[f"serve {arch} plain"] = _serve(arch, None, None)
         out["qwen replicated rows plain"] = _lm_run(
             "qwen1.5-0.5b", None, rows=REPLICATED_BATCH)
