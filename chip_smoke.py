@@ -3,10 +3,11 @@ NVIDIA GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py predictor lm_train shard_engine lm_mesh  # alone
-    python3 chip_smoke.py lm_encdec flash decode_attn             # alone
+    python3 chip_smoke.py lm_recurrent_train lm_encdec flash decode_attn
 
-With phase names (``predictor``, ``lm_train``, ``shard_engine``,
-``lm_mesh``, ``lm_encdec``, ``flash``, ``decode_attn``) it runs those
+With phase names (``predictor``, ``lm_train``, ``lm_recurrent_train``,
+``shard_engine``, ``lm_mesh``, ``lm_encdec``, ``flash``, ``decode_attn``)
+it runs those
 phases alone, checks no kernel, prints no
 kernels line, and its last line is ``{"ok": null, "partial": [...]}``:
 only a run with no argument ends with ``{"ok": true, ...}``.
@@ -170,7 +171,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 100,000, warmup 2,000, 400 iterations, padded obs).  (a) 24
                 iterations with every collect step and update replayed from
                 CUDA graphs against the same 24 run eagerly from the same
-                seeds (15 collect only, then 9 updating), and the first 4
+                seeds (15 collect only, then 9 updating), and the first 2
                 run eagerly on B1's plain version (96 rows) against the
                 graphed state then: parameters, AdamW moments and step, replay buffer, env
                 state and observation bit-equal; each iteration's time,
@@ -210,7 +211,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 --straggler-z 4.0``: finite rewards, ``straggler_flags`` in
                 the history, B1 once per collect step; then the CLI's
                 configs' 20 iterations graphed (the CLI's router bit for
-                bit, past the first outage), their first 10 against 10
+                bit, past the first outage), their first 5 against 5
                 run eagerly on B1's plain version (96 rows), bit-equal.
  17. sharded  — sharded router training and the sharded engine advance in
                 a world of one NCCL rank (one card; ``launch/mesh.py
@@ -229,7 +230,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 caps), final state and metrics bit-equal to
                 ``engine_backend="cuda"`` and to the whole-state design
                 (``whole_state``, its B1 launches not counted; QLL's avg
-                QoS at N=6 still 0.7336170673370361), QLL's state after 20
+                QoS at N=6 still 0.7336170673370361), QLL's state after 10
                 steps bit-equal to the plain loop as each rank's body
                 (``shard_body="torch"``, eager); requests/s of the three;
                 the bytes each reader's collectives bring a rank in one
@@ -250,10 +251,35 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 checkpoint under ``build/``, 10 more, bit-equal to the 20; 3
                 graphed against 3 eager; forward, backward and AdamW each
                 captured alone; tokens/s, peak memory, save and restore
-                seconds); dbrx-132b at published widths cut to 1 of 40
+                seconds; every step recomputes each layer under
+                ``cfg.remat``, qwen's default); the recompute checked: one
+                8 x 128 batch's loss and every gradient bit-equal with and
+                without it, and with and without it the eager forward and
+                backward's ms and peak memory, 3 graphed steps' ms and
+                peak memory, and the forward and backward captured alone;
+                dbrx-132b at published widths cut to 1 of 40
                 layers, Adafactor, 4 microbatches: the peak reckoned first,
                 2 eager steps against the first 2 of 5 graphed (every
                 parameter and state tensor bit-equal).
+ 19b. lm_recurrent_train — the recurrent families' training at
+                published widths in bf16 with AdamW (``REC_TRAIN``):
+                rwkv6-7b cut to 8 of 32 layers on 2 x 512 tokens, and
+                recurrentgemma-2b at its 26 layers on 1 x 2,560 (past its
+                window of 2,048), random weights from a seed.  Each: the
+                training forward's logits (the plain scans) against the
+                serving forward's (B5 or B6) on 2 x 512 tokens within
+                2^-4 of the largest logit, the training forward launching
+                neither kernel; the loss and every gradient bit-equal with
+                and without ``cfg.remat`` (their eager ms and peak memory);
+                2 eager AdamW steps against the first 2 of 5 graphed
+                (every parameter, moment and the step equal by exact int64
+                sums of their bit patterns, ``bit_prints``; the losses
+                equal), the loss falling over the 5 steps on the one
+                batch, a replayed step traced with no B5 or B6 record and
+                its graph holding no launch of either; ms a step, tokens/s
+                and peak memory; the step's forward and backward captured
+                alone with remat on and off (2 x 512, 3 replays each), and
+                AdamW once, with the peak memory of each set.
  20. lm_mesh  — the LM model mesh in a world of one NCCL rank on
                 ``make_host_mesh(1, 1)``: (a) qwen1.5-0.5b at published
                 width in bf16, AdamW, 8 x 128 tokens, 6 steps through
@@ -262,7 +288,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 graph) against the meshless ``Trainer`` from seed 0:
                 parameters, moments and every step's metrics bit-equal; ms
                 a step, tokens/s, peak memory and the collectives' bytes
-                of both.  (b) dbrx-132b at published widths cut to 4 of 40
+                of both; the same with ``cfg.seq_parallel`` set (on a
+                ``model`` axis of 1 nothing splits), and a 4 x 128 prefill
+                with the flag under the policy bit-equal to the meshless
+                one.  (b) dbrx-132b at published widths cut to 4 of 40
                 layers (as in 9): ``_moe_sharded`` called with model = 1
                 on the first MoE layer's 512 tokens of a 4 x 128 prefill
                 against ``_moe_local`` (within 2^-6 of the largest
@@ -272,7 +301,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 serving blocks, graphed, bit-equal to the same steps
                 without a policy, B2 n_layers per prefill, B3 n_layers per
                 decode, B4b and B4a once per MoE layer of each (counted
-                for the kernels line); (c) one prefill and decode under
+                for the kernels line), and again with ``cfg.seq_parallel``
+                set (not counted); (c) one prefill and decode under
                 the policy through the kernels against their plain
                 versions (the plain run replays the kernel run's expert
                 routing), as in 8.  (d) whisper-medium at published
@@ -355,7 +385,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 per call).
 
 The phases run in the order 1, 10 and 11's per-pass traces (one profiler
-session), 2-9, 12, 21's serving, 10, 11, 13-20, 21's training: every
+session), 2-9, 12, 21's serving, 10, 11, 13-19, 19b, 20, 21's training: every
 profiled LM window comes before the first backward pass (whisper's
 prefill window, taken after the training phases, lost one B2 record in
 each of three takes; taken before them it held every record).  Every kernel library is built and loaded
@@ -936,7 +966,7 @@ TRAIN_CHECK_ITERS = 24       # graphed against eager: 15 collect, then 9 updatin
 # iterations held against B1's plain version, which waits for the card once
 # per turn (~3 s an iteration): B1 runs only in the collect steps, so a
 # prefix of collect-only iterations holds all of it
-TRAIN_PLAIN_ITERS = 4
+TRAIN_PLAIN_ITERS = 2
 # steps of the scenario runs held against B1's plain version, which waits
 # for the card once per turn (~0.09 s a step): into the first outage (20-50
 # s) of ``rolling_outage``
@@ -949,7 +979,7 @@ EVAL_KEYS = ("mean_reward", "avg_qos", "completed", "dropped",
 SCENARIO_RATE = 8.0
 SCALE_ITERS = 10
 # the CLI's iterations held against B1's plain version (~2.7 s an iteration)
-CLI_PLAIN_ITERS = 10
+CLI_PLAIN_ITERS = 5
 
 
 def differing(a: dict, b: dict) -> list:
@@ -1380,7 +1410,7 @@ def train_cli_phase(dev):
 
 # the plain loop waits for the card once per turn: the "shard" engine is
 # held against it over its first steps only
-SHARD_PLAIN_STEPS = 20
+SHARD_PLAIN_STEPS = 10
 SHARD_ENGINE_CASES = ((6, 4, 750, "padded", False),
                       (1024, 16, 200, "segments", True))
 
@@ -1780,12 +1810,42 @@ def step_rates(step_s, tokens, n_params) -> dict:
             "model_flops_share": 6 * n_params * tokens / s / BF16_OPS_PER_S}
 
 
-def train_step_layers(state, cfg, dev, batch=None) -> dict:
+C4_STEPS = 3       # graphed qwen steps each way (the first captures)
+
+
+def graphed_steps(state, cfg, batch, n) -> dict:
+    """``n`` training steps of ``state`` on one ``batch`` under ``cfg``
+    through ``make_train_step`` (the first the eager warm-up and the
+    capture, the rest replays): each step's loss, the replays' median ms,
+    and the first call's peak memory (every tensor of the step: the
+    state, the warm-up's activations, then the graph's pool)."""
+    from repro_torch.launch import steps
+
+    step = steps.make_train_step(cfg)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(n):
+        t = synced()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(synced() - t)
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated()
+    del step
+    free_cuda()
+    return {"graphed_losses": losses, "graphed_first_step_s": times[0],
+            "graphed_ms_per_step": float(np.median(times[1:])) * 1e3,
+            "graphed_max_memory_allocated": peak}
+
+
+def train_step_layers(state, cfg, dev, batch=None, reps=10,
+                      optimizer=True) -> dict:
     """A training step's parts, each captured alone and replayed (device
-    ms by CUDA events, median of 10): the forward and loss; forward, loss
-    and backward; the optimizer's update on those gradients (it moves the
-    state: call last).  ``batch`` defaults to 8 x 128 ``SyntheticLM``
-    tokens."""
+    ms by CUDA events, median of ``reps``): the forward and loss; forward,
+    loss and backward; with ``optimizer`` the optimizer's update on those
+    gradients (it moves the state: call last).  ``batch`` defaults to 8 x
+    128 ``SyntheticLM`` tokens."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.graphs import capture
     from repro_torch.models import model as model_lib
@@ -1807,17 +1867,60 @@ def train_step_layers(state, cfg, dev, batch=None) -> dict:
     out = {}
     for name, fn in (("forward", forward), ("forward_backward", backward)):
         graph, grads = capture(fn)
-        out[name] = cuda_ms(graph.replay, 10)
+        out[name] = cuda_ms(graph.replay, reps)
         del graph
-    graph, _ = capture(lambda: opt.update(list(grads)))
-    out["optimizer"] = cuda_ms(graph.replay, 10)
     out["backward"] = out["forward_backward"] - out["forward"]
+    if optimizer:
+        graph, _ = capture(lambda: opt.update(list(grads)))
+        out["optimizer"] = cuda_ms(graph.replay, reps)
+    return out
+
+
+def remat_pair(model, cfg, batch) -> dict:
+    """The loss and every gradient of ``batch`` on ``model``'s weights
+    with ``cfg.remat`` off, then on (each layer recomputed in the
+    backward): bit-equal (asserted).  For each, eagerly after one warm-up
+    call: its synchronised ms and its peak memory above what was
+    allocated before it (the weights and the other run's gradients)."""
+    from repro_torch.models import model as model_lib
+
+    wrt = [p.requires_grad_(True) for p in model.parameters()]
+
+    def run(c):
+        total, _ = model_lib.lm_loss(model, c, batch)
+        return total.detach(), torch.autograd.grad(total, wrt)
+
+    runs = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        run(c)                                   # the warm-up
+        free_cuda()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = synced()
+        loss, grads = run(c)
+        runs[remat] = {"ms": (synced() - t) * 1e3, "loss": loss,
+                       "grads": grads,
+                       "peak_above_start":
+                           torch.cuda.max_memory_allocated() - base}
+    off, on = runs[False], runs[True]
+    same = torch.equal(off["loss"], on["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(off["grads"], on["grads"]))
+    assert same, "remat changed the loss or a gradient"
+    out = {"loss_and_grads_bit_equal": True, "loss": float(on["loss"]),
+           **{f"remat_{str(k).lower()}": {"fwd_bwd_ms_eager": r["ms"],
+                                          "peak_above_start": r[
+                                              "peak_above_start"]}
+              for k, r in runs.items()}}
+    del runs, off, on
+    free_cuda()
     return out
 
 
 def lm_train_phase(dev):
     """LM training (module docstring): qwen1.5-0.5b through ``launch/
-    train.py``'s LM path, dbrx-132b cut to one layer through its step."""
+    train.py``'s LM path, with its recompute (``cfg.remat``) checked and
+    timed both ways, dbrx-132b cut to one layer through its step."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -1850,21 +1953,41 @@ def lm_train_phase(dev):
     graphed, g_tr = train.main(LM_TRAIN + ["--steps", "3"])
     eager, e_tr = train.main(LM_TRAIN + ["--steps", "3", "--eager"])
     assert same_train_state(graphed, eager)
-    layers_ms = train_step_layers(graphed, get_config("qwen1.5-0.5b"), dev)
+    qwen = get_config("qwen1.5-0.5b")
+    assert qwen.remat
+    layers_ms = train_step_layers(graphed, qwen, dev)
+    layers_off = train_step_layers(
+        graphed, dataclasses.replace(qwen, remat=False), dev,
+        optimizer=False)
     emit({"phase": "lm_train", "model": "qwen1.5-0.5b", "dtype": "bfloat16",
           "optimizer": "adamw", "global_batch": 8, "seq_len": 128,
           "argv": LM_TRAIN, "restart_bit_equal": {"steps": [10, 10],
                                                   "straight": 20},
           "graphed_equals_eager_steps": 3,
+          "remat": True,
           "graphed": step_rates(straight, tokens, QWEN_PARAMS),
           "eager": step_rates(e_tr.step_s, tokens, QWEN_PARAMS),
-          "layers_ms": layers_ms,
+          "layers_ms": layers_ms, "layers_ms_remat_false": layers_off,
           "max_memory_allocated": peak, "save_s": save_s,
           "restore_s": restore_s, "checkpoint_bytes": sum(
               os.path.getsize(os.path.join(d, f))
               for d, _, fs in os.walk(ckpt) for f in fs)})
-    del graphed, eager, g_tr, e_tr
+    del eager, g_tr, e_tr
     shutil.rmtree(ckpt, ignore_errors=True)
+    free_cuda()
+
+    # C4: the step recomputes each layer under cfg.remat: one step's loss
+    # and gradients bit-equal both ways; graphed steps timed both ways
+    batch = SyntheticLM(DataConfig(vocab=qwen.vocab, seq_len=128,
+                                   global_batch=8), device=dev).batch(0)
+    c4 = remat_pair(graphed["params"], qwen, batch)
+    for remat in (True, False):
+        c4[f"remat_{str(remat).lower()}"].update(graphed_steps(
+            graphed, dataclasses.replace(qwen, remat=remat), batch,
+            C4_STEPS))
+    emit({"phase": "lm_train", "check": "remat", "model": qwen.name,
+          "dtype": "bfloat16", "global_batch": 8, "seq_len": 128, **c4})
+    del graphed
     free_cuda()
 
     # dbrx-132b at its published widths, one of 40 layers: Adafactor and 4
@@ -1935,6 +2058,174 @@ def lm_train_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 19b: the recurrent families' training on one card
+# ---------------------------------------------------------------------------
+
+# (arch, depth (None: the published one), the fixed batch (B, T), seed):
+# rwkv6-7b cut to 8 of 32 layers (weights, gradients and AdamW's moments
+# 12 bytes a parameter: 27.4 GB of 2.29 B parameters, where all 32 layers'
+# 7.54 B would take 90 GB); recurrentgemma-2b whole (3.55 B, 42.6 GB), its
+# batch one sequence of 2,560 tokens, past its window of 2,048
+REC_TRAIN = (("rwkv6-7b", 8, (2, 512), 20),
+             ("recurrentgemma-2b", None, (1, 2560), 21))
+REC_TRAIN_SMALL = (2, 512)   # the remat comparisons, the split, the logits
+REC_TRAIN_STEPS, REC_TRAIN_EAGER = 5, 2
+REC_SPLIT_REPS = 3           # replays of each captured part of a step
+# AdamW at the trainer's peak rate, with no warmup (a first step at rate 0
+# would leave the weights as they were)
+REC_TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=0, total_steps=5)
+# the training forward's logits (plain scans: rwkv6's D rounded to bf16 as
+# the reference rounds it, the RG-LRU's log-depth scan) against the serving
+# forward's (B5, which keeps D in float32; B6's serial walk), both bf16:
+# within 2^-4 of the largest logit, as the kernels' other full-width logit
+# checks (LOGIT_REL_TOL)
+TRAIN_SERVE_REL_TOL = 2.0 ** -4
+
+
+def bit_prints(state) -> dict:
+    """Each tensor of a train state (parameters, moments, step) by its
+    checkpoint path as two exact int64 sums of its bit patterns: the words
+    plain, and each weighted by its position mod 65,521 plus one.  Equal
+    states give equal prints; a changed bit changes the first sum."""
+    prints = {}
+    for k, v in train_leaves(state).items():
+        for i, x in enumerate(v if isinstance(v, list) else [v]):
+            w = x.detach().reshape(-1)
+            if w.is_floating_point():
+                w = w.view({2: torch.int16, 4: torch.int32}[w.element_size()])
+            acc = torch.zeros(2, dtype=torch.int64, device=w.device)
+            for lo in range(0, w.numel(), 1 << 26):
+                part = w[lo:lo + (1 << 26)].to(torch.int64)
+                pos = torch.arange(lo, lo + part.numel(),
+                                   device=w.device) % 65521 + 1
+                acc += torch.stack([part.sum(), (part * pos).sum()])
+            prints[f"{k}/{i}"] = acc
+    keys = sorted(prints)
+    return dict(zip(keys, torch.stack([prints[k] for k in keys]).tolist()))
+
+
+def recurrent_training(dev, arch, depth, shape, seed) -> None:
+    """One family's training at published widths in bf16 (module
+    docstring, 19b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    assert cfg.remat and cfg.optimizer == "adamw"
+    rng = np.random.default_rng(seed)
+    draw = lambda b, t: {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (b, t)), dtype=torch.int32, device=dev)}
+    batch, small = draw(*shape), draw(*REC_TRAIN_SMALL)
+    model = model_lib.init_params(cfg, seed=seed, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    line = {"phase": "lm_recurrent_train", "model": arch,
+            "layers": cfg.n_layers, "published_layers":
+                get_config(arch).n_layers, "params": n, "dtype": "bfloat16",
+            "optimizer": "adamw", "batch": list(shape),
+            "small_batch": list(REC_TRAIN_SMALL)}
+
+    # the training forward's plain scans against the serving forward's
+    # kernels, on the small batch
+    before = counters()
+    with torch.no_grad():
+        trained, _ = model_lib.forward(model, cfg, small["tokens"],
+                                       train=True)
+        mid = counters()
+        served, _ = model_lib.forward(model, cfg, small["tokens"])
+    after = counters()
+    scans = ("rwkv6_scan", "rglru_scan")
+    assert all(mid[k] == before[k] for k in scans), (before, mid)
+    assert any(after[k] > mid[k] for k in scans), (mid, after)
+    a, b = (x[..., :cfg.vocab].float() for x in (trained, served))
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    line["train_vs_serve_logits"] = {
+        "max_abs_diff": err, "max_abs_logit": scale,
+        "tol": TRAIN_SERVE_REL_TOL * scale,
+        "greedy_agree_share": float((a.argmax(-1) == b.argmax(-1))
+                                    .float().mean())}
+    assert err <= TRAIN_SERVE_REL_TOL * scale, line["train_vs_serve_logits"]
+    del trained, served, a, b
+    free_cuda()
+
+    # remat: the loss and every gradient bit-equal both ways
+    line["remat_check"] = remat_pair(model, cfg, small)
+
+    # two eager steps on the batch, then the graphed twin from the same
+    # weights: five steps (the first the warm-up and capture), its state
+    # after two bit-equal to the eager one's, the loss falling, a replay
+    # traced with no B5 or B6 record
+    opt = opt_lib.make_optimizer("adamw", **REC_TRAIN_OPT)
+    st = steps.train_state(cfg, model, opt)
+    eager = steps.make_train_step(cfg, graphs=False)
+    e_losses = []
+    for _ in range(REC_TRAIN_EAGER):
+        st, m = eager(st, batch)
+        e_losses.append(float(m["loss"]))
+    prints = bit_prints(st)
+    del st, model, eager
+    free_cuda()
+    model = model_lib.init_params(cfg, seed=seed, device=dev)
+    st = steps.train_state(cfg, model, opt)
+    step = steps.make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launched = [], [], counters()
+    for i in range(REC_TRAIN_STEPS):
+        t = synced()
+        if i == REC_TRAIN_EAGER:
+            (st, m), kernels, takes = profiled(
+                lambda: step(st, batch), {"b5": 0, "b6": 0},
+                f"{arch} training step")
+            line["traced_step"] = {"kernels": len(kernels),
+                                   "b5_records": 0, "b6_records": 0,
+                                   "trace_takes": takes}
+        else:
+            st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        times.append(synced() - t)
+        if i == 0:
+            line["graphed_max_memory_allocated"] = (
+                torch.cuda.max_memory_allocated())
+        if i + 1 == REC_TRAIN_EAGER:
+            assert bit_prints(st) == prints, "graphed step differs"
+            assert losses == e_losses, (losses, e_losses)
+    assert all(counters()[k] == launched[k] for k in scans)
+    (graph,) = [g for _, _, g in step.graphs.values()]
+    assert all(graph.launches[COUNTER_NAMES.index(k)] == 0 for k in scans)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    line.update(graphed_equals_eager_steps=REC_TRAIN_EAGER,
+                losses=losses, graphed_first_step_s=times[0],
+                graphed_ms_per_step=float(np.median(times[1:])) * 1e3,
+                tokens_per_s=shape[0] * shape[1] / np.median(times[1:]))
+    del step, graph
+    free_cuda()
+
+    # the step's parts with remat on and off, each captured alone, and
+    # the peak memory of each set of captures (AdamW's update, which remat
+    # does not touch, once)
+    for remat in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        parts = train_step_layers(st, dataclasses.replace(cfg, remat=remat),
+                                  dev, small, reps=REC_SPLIT_REPS,
+                                  optimizer=remat)
+        parts["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        line[f"layers_ms_remat_{str(remat).lower()}"] = parts
+        free_cuda()
+    emit(line)
+    del st, model
+    free_cuda()
+
+
+def lm_recurrent_train_phase(dev) -> None:
+    """The recurrent families' training on one card (module docstring)."""
+    for arch, depth, shape, seed in REC_TRAIN:
+        recurrent_training(dev, arch, depth, shape, seed)
+
+
+# ---------------------------------------------------------------------------
 # Phase 20: the LM model mesh in a world of one NCCL rank
 # ---------------------------------------------------------------------------
 
@@ -1979,22 +2270,30 @@ def mesh_training(dev, mesh) -> None:
     """(a) qwen1.5-0.5b at published width in bf16, AdamW, 8 x 128 tokens:
     ``Trainer(mesh=)`` against the meshless ``Trainer`` from seed 0, each
     step a CUDA graph replay after the first; state and every step's
-    metrics bit-equal."""
+    metrics bit-equal; the same with ``cfg.seq_parallel`` set (on 1 x 1
+    nothing splits), and a 4 x 128 prefill under the policy with the flag
+    bit-equal to the meshless one."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.distributed import collectives
     from repro_torch.train import trainer as trainer_lib
 
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.api import MeshPolicy
+    from repro_torch.launch import steps
+
     cfg = get_config("qwen1.5-0.5b")
+    seq_cfg = dataclasses.replace(cfg, seq_parallel=True)
     runs = {}
-    for name, m in (("meshless", None), ("mesh", mesh)):
+    for name, m, c in (("meshless", None, cfg), ("mesh", mesh, cfg),
+                       ("mesh_seq_parallel", mesh, seq_cfg)):
         free_cuda()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()     # the other run's state
         collectives.BYTES.clear()
         tc = trainer_lib.TrainerConfig(total_steps=MESH_TRAIN_STEPS,
                                        log_every=10 ** 9)
-        tr = trainer_lib.Trainer(cfg, tc, mesh=m, device=dev,
+        tr = trainer_lib.Trainer(c, tc, mesh=m, device=dev,
                                  log_fn=lambda *a, **k: None)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
                                       global_batch=8), mesh=m, device=dev)
@@ -2015,13 +2314,26 @@ def mesh_training(dev, mesh) -> None:
                       "bytes": dict(collectives.BYTES),
                       "graphs": len(step.graphs)}
         assert runs[name]["graphs"] == 1, runs[name]["graphs"]
-    same = same_train_state(runs["meshless"]["state"], runs["mesh"]["state"])
-    assert same and runs["mesh"]["metrics"] == runs["meshless"]["metrics"]
+    for name in ("mesh", "mesh_seq_parallel"):
+        same = same_train_state(runs["meshless"]["state"],
+                                runs[name]["state"])
+        assert same and runs[name]["metrics"] == runs["meshless"]["metrics"]
     assert all(np.isfinite(m["loss"]) for m in runs["mesh"]["metrics"])
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        2, cfg.vocab, (4, 128)), dtype=torch.int32, device=dev)
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    with torch.no_grad():
+        plain = steps.make_prefill_step(cfg, 136)(
+            runs["meshless"]["state"]["params"], toks)
+        seq = steps.make_prefill_step(seq_cfg, 136, policy)(
+            runs["mesh_seq_parallel"]["state"]["params"].model, toks)
+    assert torch.equal(plain[0], seq[0]) and all(
+        torch.equal(plain[1][k], seq[1][k]) for k in plain[1])
     emit({"phase": "lm_mesh", "check": "training", "model": cfg.name,
           "mesh": str(mesh), "dtype": "bfloat16", "optimizer": "adamw",
           "global_batch": 8, "seq_len": 128, "steps": MESH_TRAIN_STEPS,
-          "bit_equal": True,
+          "bit_equal": True, "seq_parallel_bit_equal": True,
+          "seq_parallel_prefill_bit_equal": [4, 128],
           "losses": [m["loss"] for m in runs["mesh"]["metrics"]],
           **{name: {k: r[k] for k in ("rates", "peak_memory_above_start",
                                       "max_memory_allocated", "bytes")}
@@ -2110,9 +2422,9 @@ def mesh_steps(dev, mesh, model, cfg) -> dict:
     nxt = torch.as_tensor(rng.integers(2, cfg.vocab, (MESH_DECODES, 4)),
                           dtype=torch.int32, device=dev)
 
-    def run(params, pol):
-        prefill = steps.make_prefill_step(cfg, max_len, pol)
-        decode = steps.make_decode_step(cfg, pol)
+    def run(params, pol, c=cfg):
+        prefill = steps.make_prefill_step(c, max_len, pol)
+        decode = steps.make_decode_step(c, pol)
         first, _ = prefill(params, toks)            # eager, then captured
         logits, cache = prefill(params, toks)       # a replay
         out = {"prefill_first": first, "prefill": logits,
@@ -2126,6 +2438,12 @@ def mesh_steps(dev, mesh, model, cfg) -> dict:
     before = counters()
     got = run(sp, policy)
     launches = {k: counters()[k] - before[k] for k in before}
+    # cfg.seq_parallel under the 1 x 1 policy: nothing splits (not counted)
+    seq = run(sp, policy, dataclasses.replace(cfg, seq_parallel=True))
+    assert all((all(torch.equal(plain[k][c], seq[k][c]) for c in plain[k])
+                if isinstance(plain[k], dict)
+                else torch.equal(plain[k], seq[k])) for k in plain)
+    del seq
     n_moe = cfg.n_layers - cfg.n_dense_layers
     want = dict.fromkeys(launches, 0)
     want.update(flash_attn=2 * cfg.n_layers,
@@ -2161,6 +2479,7 @@ def mesh_steps(dev, mesh, model, cfg) -> dict:
     emit({"phase": "lm_mesh", "check": "steps_under_policy",
           "model": cfg.name, "layers": cfg.n_layers, "prompts": [4, 128],
           "decodes": MESH_DECODES, "bit_equal_to_no_policy": True,
+          "seq_parallel_bit_equal_to_no_policy": True,
           "launches": launches, "kernels_vs_plain": checks})
     return launches
 
@@ -4964,6 +5283,7 @@ def only_phases(names, dev, timed) -> None:
     from repro_torch.launch import mesh as mesh_lib
 
     known = {"predictor": predictor_phase, "lm_train": lm_train_phase,
+             "lm_recurrent_train": lm_recurrent_train_phase,
              "shard_engine": shard_engine_runs, "lm_mesh": lm_mesh_phase,
              "lm_encdec": lm_encdec_phase, "flash": flash_phase,
              "decode_attn": decode_attn_phase}
@@ -5058,6 +5378,7 @@ def main() -> int:
     del unsharded
     timed("predictor", predictor_phase, dev)
     timed("lm_train", lm_train_phase, dev)
+    timed("lm_recurrent_train", lm_recurrent_train_phase, dev)
     on_mesh = timed("lm_mesh", lm_mesh_phase, dev)
     timed("lm_encdec", encdec_train_phase, dev)
     emit({"phase": "seconds", **seconds,

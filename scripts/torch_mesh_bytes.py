@@ -21,9 +21,19 @@ holds of ``streams`` caches of ``tokens`` (``models.model.init_cache``
 under a policy on the meta device, by ``sharding.serve_cache_spec``) for
 a ``model`` axis of 1, 2 and 4, and the bytes per reader of one decode
 step of ``streams`` rows (``sharding.serve_step_bytes``).
+
+Then the sequence split (``cfg.seq_parallel``): for each case, training
+``global batch`` sequences of ``seq`` tokens with the flag off and on,
+per layer, the bytes of the residual stream and of the two norms'
+inputs a rank holds, and the bytes the layer's ``model`` collectives
+bring a rank, forward, backward and in the recompute under ``cfg.remat``
+(by reader: ``tp_sum``/``tp_grads`` the all-reduces without the split,
+``sharding.seq_split_bytes`` with it).  The data axes' FSDP gathers are
+the same either way and are left out.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 
@@ -43,6 +53,10 @@ CASES = [("starcoder2-15b", 4, 1, True), ("starcoder2-15b", 2, 2, True),
 CACHE_CASES = [("granite-34b", 32, 8192), ("recurrentgemma-2b", 32, 8192),
                ("rwkv6-7b", 32, 8192)]
 CACHE_MS = (1, 2, 4)
+
+# (arch, data, model, global batch, tokens a sequence) of the sequence split
+SEQ_CASES = [("starcoder2-15b", 1, 4, 8, 4096),
+             ("starcoder2-15b", 4, 1, 8, 4096)]
 
 
 class FakeMesh:
@@ -138,11 +152,66 @@ def cache_bytes(arch: str, streams: int, tokens: int) -> dict:
     return out
 
 
+def _minus(a: dict, b: dict) -> dict:
+    keys = sorted(set(a) | set(b))
+    return {k: a.get(k, 0) - b.get(k, 0) for k in keys
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+def layer_collectives(cfg, m: int, rows: int, seq: int) -> dict:
+    """One layer's ``model`` collectives' bytes a rank receives:
+    forward, backward and the recompute's."""
+    if m == 1:
+        return {"forward": {}, "backward": {}, "recompute": {}}
+    if not cfg.seq_parallel:
+        # a split layer's all-reduce of its output, and of its input's
+        # gradient; the recompute repeats the attention's (the FFN's
+        # all-reduce is the layer's last op, which nothing saved needs)
+        e = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                        ).element_size()
+        whole = rows * seq * cfg.d_model * e
+        attn, ffn = cfg.n_heads % m == 0, cfg.d_ff % m == 0
+        return {"forward": {"tp_sum": (attn + ffn) * whole},
+                "backward": {"tp_grads": (attn + ffn) * whole},
+                "recompute": {"tp_sum": attn * whole}}
+
+    def count(layers: int, train: bool, remat: bool = False) -> dict:
+        c = dataclasses.replace(cfg, n_layers=layers, remat=remat)
+        return sharding.seq_split_bytes(c, m, rows, seq, train)
+
+    fwd = _minus(count(1, False), count(0, False))
+    return {"forward": fwd,
+            "backward": _minus(_minus(count(1, True), count(0, True)), fwd),
+            "recompute": _minus(count(1, True, True), count(1, True))}
+
+
+def seq_bytes(arch: str, data: int, model: int, batch: int, seq: int
+              ) -> dict:
+    cfg = get_config(arch)
+    rows = batch // data
+    e = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                    ).element_size()
+    out = {"arch": arch, "mesh": [data, model], "global_batch": batch,
+           "seq": seq, "dtype": cfg.compute_dtype}
+    for flag in (False, True):
+        c = dataclasses.replace(cfg, seq_parallel=flag)
+        held = -(-seq // model) if flag and model > 1 else seq
+        resid = rows * held * cfg.d_model * e
+        out[f"seq_parallel_{str(flag).lower()}"] = {
+            "residual_bytes_per_layer": resid,
+            "norm_inputs_bytes_per_layer": 2 * resid,
+            "collectives_bytes_per_layer": layer_collectives(c, model, rows,
+                                                             seq)}
+    return out
+
+
 def main() -> None:
     for case in CASES:
         print(json.dumps(rank_bytes(*case)))
     for case in CACHE_CASES:
         print(json.dumps(cache_bytes(*case)))
+    for case in SEQ_CASES:
+        print(json.dumps(seq_bytes(*case)))
 
 
 if __name__ == "__main__":

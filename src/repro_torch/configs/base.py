@@ -3,9 +3,13 @@
 Every assigned architecture is a ``ModelConfig`` in its own module; the
 registry in ``repro_torch.configs`` exposes ``get_config(name)`` and shape
 cells.  A copy of the reference's ``repro/configs`` (the port imports
-nothing of ``repro``); the fields keep their names and defaults, including
-the TPU-only ones (``attn_impl``, ``scan_layers``, ``remat``, ...) that the
-port does not read, so a config means the same in both packages.
+nothing of ``repro``); the fields keep their names and defaults, so a
+config means the same in both packages.  The port reads ``remat`` (each
+layer recomputed in the training backward, as the reference's
+``jax.checkpoint``), ``seq_parallel`` (the residual stream split by
+sequence over ``model``, ``models/transformer.py``) and ``attn_impl``
+(the training forward's attention); ``scan_layers`` and the other
+TPU-only fields it keeps but does not read.
 """
 from __future__ import annotations
 

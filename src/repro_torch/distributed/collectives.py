@@ -65,6 +65,33 @@ graph):
   row-parallel output's all-reduce) and starts from ``sum_backward`` (its
   input's gradient summed over the ranks that each used it for a part).
 
+Under ``cfg.seq_parallel`` the residual stream of a whole-sequence pass
+lives split by sequence over ``model`` between the layers
+(``SeqSplit``, the reference's ``("batch", "seq", None)``): a rank holds
+rows ``[r n/m, (r+1) n/m)`` of every sequence (``n`` padded up to a
+multiple of ``m``, the padded rows zero).  Its autograd functions:
+
+* ``SeqSplit.gather``: forward an all-gather along the sequence, the pad
+  dropped; backward a reduce-scatter (the gradients of a layer split over
+  ``model``, each rank's partial, summed into each rank's rows), or, with
+  ``whole=True`` for a layer every rank computes alike, the rank's rows of
+  the gradient, with no collective;
+* ``SeqSplit.scatter``: forward a reduce-scatter (a split layer's partial
+  outputs summed into each rank's rows, in place of the all-reduce);
+  backward an all-gather;
+* ``SeqSplit.rows``: a tensor whole and alike on every rank cut to the
+  rank's rows; backward an all-gather, so what computed it alike gets
+  the whole gradient on every rank;
+* ``SeqSplit.own_grads``: forward the tensor; backward its gradient kept
+  in the rank's rows only (zeros elsewhere): a computation every rank
+  makes alike from a gathered input (the MoE's routing) hands the
+  reduce-scatter its whole gradient once.
+
+The all-gathers count their bytes under reader ``"sp_gather"``, the
+reduce-scatters under ``"sp_scatter"`` (forward or backward alike).  A
+weight that acts on the rank's rows (a norm's) takes its gradient
+through ``sum_backward`` (reader ``"sp_norms"``).
+
 A serving cache split by sequence over ``model`` (``sharding.serve_cache_spec``)
 decodes with two more, both forward-only:
 
@@ -482,3 +509,122 @@ def data_mean(x, mesh, axes, reader: Optional[str] = None):
     for a in axes:
         n *= dist.get_world_size(mesh.get_group(a))
     return _DataMean.apply(x, mesh, tuple(axes), n, reader)
+
+
+# ---------------------------------------------------------------------------
+# The sequence split of the residual stream (``cfg.seq_parallel``)
+# ---------------------------------------------------------------------------
+
+
+def _seq_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows (B, r, ...) along dim 1 in rank order: (B, k r,
+    ...)."""
+    return gather_cat(x, group, dim=1, reader="sp_gather")
+
+
+def _seq_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, k r, ...) summed over the ranks, this rank's block of r rows
+    along dim 1."""
+    k = dist.get_world_size(group)
+    b, n = x.shape[:2]
+    rest = (n // k,) + tuple(x.shape[2:])
+    inp = x.reshape((b, k) + rest).movedim(1, 0).reshape((k * b,) + rest)
+    out = inp.new_empty((b,) + rest)
+    dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM, group=group)
+    _count("sp_scatter", out)
+    return out
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (B, s, ...) with zero rows appended along dim 1 up to ``n``."""
+    if x.shape[1] == n:
+        return x
+    pad = x.new_zeros((x.shape[0], n - x.shape[1]) + tuple(x.shape[2:]))
+    return torch.cat([x, pad], dim=1)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, whole):
+        ctx.split, ctx.whole = split, whole
+        return _seq_all_gather(x, split.group).narrow(1, 0, split.n)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        g = _pad_rows(g, s.m * s.n_own)
+        if ctx.whole:
+            return g.narrow(1, s.lo, s.n_own).contiguous(), None, None
+        return _seq_reduce_scatter(g, s.group), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _seq_reduce_scatter(_pad_rows(x, split.m * split.n_own),
+                                   split.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        return _seq_all_gather(g, s.group).narrow(1, 0, s.n), None
+
+
+class _SeqRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _pad_rows(x, split.m * split.n_own).narrow(
+            1, split.lo, split.n_own).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        return _seq_all_gather(g, s.group).narrow(1, 0, s.n), None
+
+
+class _OwnGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        pos = torch.arange(g.shape[1], device=g.device)
+        own = (pos >= s.lo) & (pos < s.lo + s.n_own)
+        shape = (1, -1) + (1,) * (g.dim() - 2)
+        return torch.where(own.reshape(shape), g, 0.0), None
+
+
+class SeqSplit:
+    """The sequence split over ``model`` of a whole-sequence pass of ``n``
+    positions (module docstring): ``tp`` is the policy's ``(mesh, m,
+    index)`` (``api.model_parallel``).  A rank holds ``n_own = ceil(n /
+    m)`` rows from ``lo = index * n_own``; the last ranks' rows past ``n``
+    are padding."""
+
+    def __init__(self, tp, n: int):
+        self.mesh, self.m, self.idx = tp
+        self.group = self.mesh.get_group("model")
+        self.n = n
+        self.n_own = -(-n // self.m)
+        self.lo = self.idx * self.n_own
+
+    def gather(self, x, whole: bool = False):
+        """The rank's rows (B, n_own, ...) -> the whole (B, n, ...)."""
+        return _SeqGather.apply(x, self, whole)
+
+    def scatter(self, x):
+        """Partial outputs (B, n, ...) -> their sum's rows of this rank."""
+        return _SeqScatter.apply(x, self)
+
+    def rows(self, x):
+        """A tensor (B, n, ...) alike on every rank -> its rows here."""
+        return _SeqRows.apply(x, self)
+
+    def own_grads(self, x):
+        """``x`` (B, n, ...), its gradient kept in this rank's rows."""
+        return _OwnGrads.apply(x, self)

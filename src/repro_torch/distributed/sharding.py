@@ -612,6 +612,74 @@ def serve_step_bytes(cfg, m: int, rows: int, tokens: int, cache_len: int,
     return {k: v for k, v in got.items() if v}
 
 
+def seq_split_bytes(cfg, m: int, rows: int, n: int, train: bool) -> dict:
+    """The bytes a rank of a ``model`` axis of ``m`` > 1 receives, by
+    ``collectives.BYTES`` reader, from the sequence split
+    (``collectives.SeqSplit``, ``cfg.seq_parallel``) of a dense or MoE
+    model in one pass of ``rows`` sequences of ``n`` positions a rank: a
+    forward, and with ``train`` its backward (under ``cfg.remat`` each
+    layer's forward collectives again but its last, the FFN's
+    reduce-scatter: the recompute stops once it has remade the tensors the
+    backward saved, and nothing after that reduce-scatter saves one).  A
+    rank holds ``r = ceil(n / m)`` rows of a sequence; an all-gather
+    counts its output (``rows m r d``), a reduce-scatter its rank's block
+    (``rows r d``):
+
+      * the embedding: a reduce-scatter where ``model`` splits the vocab
+        (its backward an all-gather), else its rows (backward an
+        all-gather), in the parameter dtype;
+      * each attention, MLP and MoE layer: its input gathered (backward a
+        reduce-scatter where ``model`` splits the layer, else nothing) and
+        its output reduce-scattered (the MoE's in ``cfg.moe_psum_dtype``),
+        or its rows taken where ``model`` does not split it (backward an
+        all-gather each way), in the compute dtype;
+      * the final norm's output gathered before the head;
+      * ``sp_norms``: each norm weight's gradient summed (``d``, in the
+        parameter dtype), in the backward."""
+    size = lambda name: torch.empty((), dtype=getattr(torch, name)
+                                    ).element_size()
+    e, ep, d = size(cfg.compute_dtype), size(cfg.param_dtype), cfg.d_model
+    r = -(-n // m)
+    gather = lambda elt: rows * m * r * d * elt
+    scatter = lambda elt: rows * r * d * elt
+    splits = lambda k: k % m == 0
+    fwd = {"sp_gather": 0, "sp_scatter": 0}
+    bwd = {"sp_gather": 0, "sp_scatter": 0, "sp_norms": 0}
+
+    def layer(split: bool, out_elt: int, add: dict, grads: dict,
+              again: dict) -> None:
+        for acc in (add, again):
+            acc["sp_gather"] += gather(e)
+        grads["sp_scatter"] += scatter(e) if split else 0
+        add["sp_scatter"] += scatter(out_elt) if split else 0
+        grads["sp_gather"] += gather(out_elt)
+
+    if splits(cfg.vocab_padded):
+        fwd["sp_scatter"] += scatter(ep)
+    bwd["sp_gather"] += gather(ep)
+    again = {"sp_gather": 0, "sp_scatter": 0}     # the recompute's
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0
+    moe_split = splits(cfg.n_experts)       # else _moe_data_parallel
+    for i in range(cfg.n_layers):
+        attn = splits(cfg.n_heads)
+        layer(attn, e, fwd, bwd, again)
+        again["sp_scatter"] += scatter(e) if attn else 0
+        if i < cfg.n_layers - n_moe:
+            layer(splits(cfg.d_ff), e, fwd, bwd, again)
+        else:
+            layer(moe_split, size(cfg.moe_psum_dtype), fwd, bwd, again)
+        bwd["sp_norms"] += 2 * d * ep
+    fwd["sp_gather"] += gather(e)                   # before the head
+    bwd["sp_scatter"] += (scatter(e) if splits(cfg.vocab_padded) else 0)
+    bwd["sp_norms"] += d * ep
+    out = dict(fwd)
+    if train:
+        for part in (bwd, again if cfg.remat else {}):
+            for k, v in part.items():
+                out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
 def serve_cache_shape(name: str, shape: Sequence[int], mesh) -> tuple:
     """The shape a rank holds over ``model`` of the cache tensor ``name``
     whose whole shape is ``shape`` (the rank's rows: the data axes'

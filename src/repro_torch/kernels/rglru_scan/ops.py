@@ -5,7 +5,10 @@ runs the recurrence of ``ref.rglru_scan_ref``.  For CPU tensors it runs
 that plain version; for CUDA tensors it launches the kernel on the current
 stream or raises: there is no fallback.  The kernel clamps as it loads, so
 the clamp costs no pass of its own there.  The library is built at the
-first CUDA call, never at import.
+first CUDA call, never at import.  The kernel has no backward: on the card
+a call with gradients enabled and an input that requires one raises,
+rather than return an output with no gradient (the model trains through
+``models.rglru.rg_lru_scan_train``).
 
 On the card the scan is chunked in time (``ref.rglru_chunked_ref``): a
 pass over chunks (``plan``) for each chunk's decay and end value,
@@ -94,6 +97,13 @@ def lru(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
         return rglru_scan_ref(log_a.clamp(max=0.0), b, h0)
     if log_a.device.type != "cuda":
         raise ValueError(f"unsupported device {log_a.device}")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (log_a, b, h0)):
+        raise NotImplementedError(
+            f"{NAME} (B6) has a backward in neither package, so its output "
+            "would carry no gradient; train through the training forward "
+            "(models.rglru.forward(..., train=True), the log-depth scan "
+            "rg_lru_scan_train under autograd)")
     _check(log_a, b, h0)
     n_b, n_t, n_w = log_a.shape
     chunk = plan(n_t)

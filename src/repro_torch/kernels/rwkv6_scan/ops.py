@@ -5,6 +5,9 @@ state)``.  For CPU tensors it runs the plain version ``ref.wkv_chunked_ref``
 (rounding ``D`` to ``d_dtype``, as the reference model does); for CUDA
 tensors it launches the kernel on the current stream or raises: there is no
 fallback.  The library is built at the first CUDA call, never at import.
+The kernel has no backward: on the card a call with gradients enabled and
+an input that requires one raises, rather than return an output with no
+gradient (the model trains through ``models.rwkv6.wkv_chunked``).
 
 Either way T need not be a multiple of the chunk: the plain path pads the
 tail with ``k = v = 0`` and ``dlog = 0``, which leaves the state unchanged,
@@ -120,6 +123,13 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dlog: torch.Tensor,
         return y[:, :, :n], state
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, dlog, u)):
+        raise NotImplementedError(
+            f"{NAME} (B5) has a backward in neither package, so its output "
+            "would carry no gradient; train through the training forward "
+            "(models.rwkv6.forward(..., train=True), the chunk algorithm "
+            "wkv_chunked under autograd)")
     _check(r, k, v, dlog, u)
     group = GROUP
     b, h, _, kd = r.shape

@@ -5,17 +5,18 @@
         [--ckpt-dir DIR] [--ckpt-every 50] [--device cuda] [--eager] \
         [--data-parallel 1] [--model-parallel 1] [--production-mesh]
 
-The LM path trains the dense and MoE families (``train.trainer.Trainer``
-over ``data.pipeline.SyntheticLM``) on the CUDA device, each step replayed
+The LM path trains the dense, MoE and recurrent families
+(``train.trainer.Trainer`` over ``data.pipeline.SyntheticLM``; RWKV6 and
+RecurrentGemma through their training forwards' plain scans, on one
+device) on the CUDA device, each step replayed
 from a CUDA graph (``--eager`` runs them eagerly; ``--device cpu`` with
 ``--reduced`` runs the reduced config of the same family on the CPU).  The
 global batch is cut into the config's ``microbatches`` when it divides,
 else taken whole.  With ``--ckpt-dir`` it checkpoints every
 ``--ckpt-every`` steps and at the last one, and a rerun resumes from the
 newest checkpoint (to the same stream: the trainer asks the data for each
-step's batch by its number).  The recurrent families raise, and so does
-enc-dec: ``SyntheticLM`` gives token batches only, as the reference's
-launcher feeds them, and enc-dec's loss needs frames too (its training
+step's batch by its number).  Enc-dec raises: ``SyntheticLM`` gives token
+batches only, as the reference's launcher feeds them, and enc-dec's loss needs frames too (its training
 step is ``launch.steps.make_train_step`` on ``{"frames", "tokens"}``).
 
 ``--data-parallel``/``--model-parallel`` above 1 or ``--production-mesh``

@@ -141,17 +141,20 @@ class ShardedLM:
     data axes do not split (norms, the router, a dim that does not
     divide) over those axes.
 
-    The recurrent families (RWKV6, RecurrentGemma) are served only: their
-    blocks follow ``sharding.compute_spec(..., train=False)``, whose
-    RWKV6 ``wk``/``wv``/``wo`` split by head where ``param_spec`` would
-    split the stacked ``wo`` by its layer axis, and ``train=True`` raises
-    (their training is ROADMAP queue A item 5)."""
+    The recurrent families (RWKV6, RecurrentGemma) are served only on a
+    mesh: their blocks follow ``sharding.compute_spec(..., train=False)``,
+    whose RWKV6 ``wk``/``wv``/``wo`` split by head where ``param_spec``
+    would split the stacked ``wo`` by its layer axis, and ``train=True``
+    raises (they train on one device; their data-axis FSDP and the choice
+    of ``wo``'s split wait for ROADMAP queue A item 5)."""
 
     def __init__(self, model, cfg, mesh, train: bool):
         if train and cfg.family in RECURRENT:
             raise NotImplementedError(
-                f"{cfg.name}: the recurrent families are served on a mesh "
-                "only; their training waits for ROADMAP queue A item 5")
+                f"{cfg.name}: the recurrent families train on one device "
+                "and are served on a mesh; their training on a mesh (the "
+                "data-axis FSDP, the split of RWKV6's stacked wo) waits "
+                "for ROADMAP queue A item 5")
         self.model, self.cfg, self.mesh, self.train = model, cfg, mesh, train
         owner = {id(p): (mod, attr) for mod in model.modules()
                  for attr, p in mod.named_parameters(recurse=False)}

@@ -18,10 +18,14 @@ whisper's enc-dec (``encdec``).  Only the transformer's prefill takes
 ``lengths``: the other families' caches share one position across the
 batch.
 
-``lm_loss`` is the training loss of the dense, MoE and enc-dec families,
-through their training forwards; the recurrent families raise there
-(ROADMAP queue A item 5).  Under a mesh policy the tokens are this rank's
-rows, and the loss keeps the reference's global normaliser: the mask
+``lm_loss`` is the training loss of every family, through its training
+forward (``forward(..., train=True)``): the transformer's and enc-dec's
+attention through ``layers.blockwise_attention``, RWKV6's chunk
+algorithm ``rwkv6.wkv_chunked`` and RecurrentGemma's log-depth scan
+``rglru.rg_lru_scan_train``, all plain PyTorch under autograd, as the
+reference differentiates plain algorithms and never its kernels.  Under a
+mesh policy (the dense, MoE and enc-dec families) the tokens are this
+rank's rows, and the loss keeps the reference's global normaliser: the mask
 counts are summed over the data axes before the division; where
 ``model`` splits the vocab, the logits are this rank's slice and the
 cross entropy is vocab-parallel (``lm_loss``).
@@ -52,8 +56,7 @@ def init_params(cfg, seed: int = 0, device=None):
 
 
 def forward(params, cfg, batch, train: bool = False):
-    """``train`` asks for the training forward (the transformer's and
-    enc-dec's; the recurrent families have none)."""
+    """``train`` asks for the family's training forward."""
     kw = {"train": True} if train else {}
     return _family_mod(cfg).forward(params, cfg, batch, **kw)
 
@@ -98,8 +101,9 @@ def lm_loss(params, cfg, batch: dict):
     returns (loss + 0.01 * aux, {"loss", "aux_loss", "perplexity"}), as
     the reference's ``lm_loss``.  The log-sum-exp is in float32 from the
     logits' own max; padded vocab ids carry -1e9 logits
-    (``transformer.unembed``), so they add nothing to it.  Dense, MoE and
-    enc-dec families only.
+    (``transformer.unembed``), so they add nothing to it.  Every family;
+    the recurrent ones (``ssm``, ``hybrid``) train on one device only
+    (``models.io.ShardedLM`` refuses them).
 
     Under a mesh policy ``batch`` is this rank's rows: the returned total
     is its share, ``sum(nll * mask)`` over its rows divided by the mask
@@ -114,11 +118,6 @@ def lm_loss(params, cfg, batch: dict):
     over the vocab (a MAX over ``model``), the sum of exponentials and
     the label's logit from the rank that holds it, both summed over
     ``model`` (``cross_entropy_parts``)."""
-    if cfg.family not in ("dense", "moe", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.name}: lm_loss trains the dense, MoE and enc-dec "
-            f"families; family {cfg.family!r} waits for ROADMAP queue A "
-            "item 5 (the recurrent families' training)")
     tokens = batch["tokens"]
     logits, aux = forward(params, cfg, batch if cfg.family == "encdec"
                           else tokens, train=True)

@@ -237,32 +237,54 @@ def moe_shard_body(w, x, gates, ids, cfg, m_idx: int, e_local: int,
 
 
 def _moe_sharded(p, x: torch.Tensor, cfg, mesh, train: bool = False,
-                 baxes=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 baxes=None, seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's expert-parallel MoE on ``mesh`` (module docstring);
     ``x`` (T, d) is this rank's tokens, split over the data axes
-    ``baxes`` (every one by default; the others hold the same tokens)."""
-    T = x.shape[0]
+    ``baxes`` (every one by default; the others hold the same tokens).
+    Under the sequence split ``seq`` (``collectives.SeqSplit``) ``x`` and
+    the output are this rank's rows (B, S/m, d) of its sequences: the
+    tokens are gathered whole and routed as without the split (the
+    routing's gradient reaching each rank's rows once,
+    ``SeqSplit.own_grads``), and the partial outputs are reduce-scattered
+    into the rows in place of the all-reduce."""
+    dtype, d = x.dtype, x.shape[-1]
+    T = x.shape[0] if seq is None else x.shape[0] * seq.n
     shape = sharding.mesh_shape(mesh)
     daxes = sharding.data_axes(mesh)
     baxes = daxes if baxes is None else baxes
     n_data = math.prod(shape[a] for a in baxes)
     plan = moe_plan(cfg, T * n_data, n_data, shape["model"])
     if plan is None:
-        return _moe_data_parallel(p, x, cfg, mesh, train, baxes)
+        if seq is None:
+            return _moe_data_parallel(p, x, cfg, mesh, train, baxes)
+        b = x.shape[0]
+        out, aux = _moe_data_parallel(
+            p, seq.gather(x, whole=True).reshape(T, d), cfg, mesh, train,
+            baxes)
+        return seq.rows(out.reshape(b, seq.n, d)), aux
     e_local, cap_local = plan
     m_idx = sharding.axis_index(mesh, "model")
-    gates, ids, probs = route_topk(x.float() @ p.router, cfg.top_k)
+    route = x
+    if seq is not None:
+        b = x.shape[0]
+        full = seq.gather(x)
+        route, x = seq.own_grads(full).reshape(T, d), full.reshape(T, d)
+    gates, ids, probs = route_topk(route.float() @ p.router, cfg.top_k)
     aux = collectives.data_mean(_aux_loss(probs, ids, cfg.n_experts), mesh,
                                 daxes, reader="moe_aux")
     if train:
-        x = collectives.sum_backward(x, mesh, ("model",), reader="moe_grads")
+        if seq is None:
+            x = collectives.sum_backward(x, mesh, ("model",),
+                                         reader="moe_grads")
         gates = collectives.sum_backward(gates, mesh, ("model",),
                                          reader="moe_grads")
     partial = moe_shard_body(local_experts(p, m_idx, e_local), x, gates,
                              ids, cfg, m_idx, e_local, cap_local, train)
+    if seq is not None:
+        return seq.scatter(partial.reshape(b, seq.n, d)).to(dtype), aux
     out = collectives.sum_forward(partial, mesh, ("model",),
                                   reader="moe_combine")
-    return out.to(x.dtype), aux
+    return out.to(dtype), aux
 
 
 def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False,
@@ -314,21 +336,22 @@ def _moe_data_parallel(p, x: torch.Tensor, cfg, mesh, train: bool = False,
     return out.to(x.dtype), e * (me * ce).sum()
 
 
-def moe_block(p: MoE, x: torch.Tensor, cfg, train: bool = False
+def moe_block(p: MoE, x: torch.Tensor, cfg, train: bool = False, seq=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (T, d) token-major -> (out (T, d), aux loss scalar); ``train``
     runs the einsum FFN under autograd (module docstring).  Under a mesh
-    policy: ``_moe_sharded`` when its ``model`` axis is larger than 1,
-    else ``_moe_data_parallel`` when it has more than one data rank; the
-    expert weights that training splits over the data axes are gathered
-    at their use (``collectives.at_use``)."""
+    policy: ``_moe_sharded`` when its ``model`` axis is larger than 1
+    (under the sequence split ``seq``, x and out the rank's rows (B, S/m,
+    d)), else ``_moe_data_parallel`` when it has more than one data rank;
+    the expert weights that training splits over the data axes are
+    gathered at their use (``collectives.at_use``)."""
     p = collectives.layer_weights(p, ("router", "w_gate", "w_up", "w_down"))
     policy = current_policy()
     if policy is not None:
         shape = sharding.mesh_shape(policy.mesh)
         baxes = batch_axes(policy)
         if shape.get("model", 1) > 1:
-            return _moe_sharded(p, x, cfg, policy.mesh, train, baxes)
+            return _moe_sharded(p, x, cfg, policy.mesh, train, baxes, seq)
         if math.prod(shape[a] for a in sharding.data_axes(policy.mesh)) > 1:
             return _moe_data_parallel(p, x, cfg, policy.mesh, train, baxes)
     return _moe_local(p, x, cfg, train)

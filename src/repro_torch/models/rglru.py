@@ -8,13 +8,22 @@ the pattern (rec, rec, attn).
            h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)      (c = 8)
   attention block:  MQA local attention within ``cfg.window``, RoPE.
 
-Whole sequences (forward, prefill) run the recurrence through kernel B6
-(``kernels/rglru_scan/ops.py lru``), once per recurrent layer; a decode
-step computes its one step in plain PyTorch, as the reference computes it
-in XLA.  The local attention of whole sequences is plain PyTorch, as the
-reference's XLA ``blockwise_attention``; a decode step's attention over
-the ring goes through the decode-attention kernel (``kernels/decode_attn``)
-under its ``kv_pos`` mask.
+Whole sequences served (forward, prefill) run the recurrence through
+kernel B6 (``kernels/rglru_scan/ops.py lru``), once per recurrent layer; a
+decode step computes its one step in plain PyTorch, as the reference
+computes it in XLA.  The training forward (``forward(..., train=True)``)
+runs the recurrence as the reference trains it, a log-depth scan of
+``(a, b)`` pairs in float32 (``rg_lru_scan_train``: Hillis-Steele where the
+reference's ``associative_scan`` pairs odd and even steps) in plain
+PyTorch under autograd on any device (B6 has a backward in neither
+package and refuses a gradient); with gradients asked under
+``cfg.remat`` each (rec, rec, attn) superblock and each tail layer is
+recomputed in the backward (the reference's ``jax.checkpoint``), and the
+training forward writes no state.  The local attention of whole
+sequences is plain PyTorch, as the reference's XLA
+``blockwise_attention``; a decode step's attention over the ring goes
+through the decode-attention kernel (``kernels/decode_attn``) under its
+``kv_pos`` mask.
 
 ``RecurrentGemma.layers`` holds one module per layer in execution order:
 superblock i's (rec1, rec2, attn) are layers 3i, 3i+1, 3i+2, the tail's
@@ -60,11 +69,13 @@ process can run every rank's.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import generator, resolve
 from repro_torch.distributed import collectives, sharding
@@ -206,6 +217,26 @@ def rg_lru_scan(x, r_gate, i_gate, lam, h0):
     return h, h[:, -1]
 
 
+def rg_lru_scan_train(x, r_gate, i_gate, lam, h0):
+    """The reference's training ``rg_lru_scan`` (``rglru.py:130-144``),
+    differentiable: x, gates (B, T, r) float32; h0 (B, r) -> (h (B, T, r),
+    h_last).  h0 is folded into step 0's ``b``, and ``h_t = a_t h_{t-1} +
+    b_t`` is a scan of the pairs ``(a, b)`` under ``(a1, b1) ∘ (a2, b2) =
+    (a1 a2, a2 b1 + b2)`` in ``ceil(log2 T)`` rounds, round j combining
+    each step with the one ``2^j`` before it (Hillis-Steele)."""
+    log_a = _log_a(lam, r_gate)
+    a = torch.exp(log_a)
+    b = _gated(a, i_gate, x)
+    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    off = 1
+    while off < b.shape[1]:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
+        off *= 2
+    return b, b[:, -1]
+
+
 def rec_in_body(w, cfg, x, conv_state):
     """A model rank's recurrent block up to its conv, on its blocks ``w``
     (``w_x``/``w_gate (d, rnn/m)``, ``conv_w``/``conv_b`` its channels;
@@ -219,13 +250,14 @@ def rec_in_body(w, cfg, x, conv_state):
 
 
 def rec_out_body(w, cfg, bx_all, gate, h0, m_idx: int = 0, *,
-                 single: bool):
+                 single: bool, train: bool = False):
     """The rest of a model rank's recurrent block: ``bx_all`` (B, T, rnn)
     float32, every rank's conv output side by side (the gates' ``w_r``,
     ``w_i (rnn, rnn/m)`` read all of it); the RG-LRU on its channels from
-    ``h0`` (B, rnn/m) (B6 over a whole sequence, one step when
-    ``single``); ``w_out (rnn/m, d)`` -> (its partial output (B, T, d),
-    which the model ranks sum, its last state (B, rnn/m))."""
+    ``h0`` (B, rnn/m) (B6 over a whole sequence, ``rg_lru_scan_train``
+    when ``train``, one step when ``single``); ``w_out (rnn/m, d)`` ->
+    (its partial output (B, T, d), which the model ranks sum, its last
+    state (B, rnn/m))."""
     n = w.lam.shape[0]
     bx32 = bx_all.narrow(2, m_idx * n, n)
     r_gate = torch.sigmoid(torch.einsum("btr,rs->bts", bx_all, w.w_r.float())
@@ -237,15 +269,19 @@ def rec_out_body(w, cfg, bx_all, gate, h0, m_idx: int = 0, *,
         h = a * h0[:, None] + _gated(a, i_gate, bx32)
         h_last = h[:, -1]
     else:
-        h, h_last = rg_lru_scan(bx32, r_gate, i_gate, w.lam, h0)
+        scan = rg_lru_scan_train if train else rg_lru_scan
+        h, h_last = scan(bx32, r_gate, i_gate, w.lam, h0)
     return (torch.einsum("btr,rd->btd", h.to(gate.dtype) * gate, w.w_out),
             h_last)
 
 
-def rec_block(p: RecLayer, cfg, x, st: dict, *, single: bool):
+def rec_block(p: RecLayer, cfg, x, st: dict, *, single: bool,
+              train: bool = False):
     """The temporal-mixing recurrent block: x (B, T, d); ``st`` {h, conv}
-    is updated in place.  Under the split the conv output is gathered
-    over ``model`` between ``rec_in_body`` and ``rec_out_body`` and the
+    is updated in place, but in the training forward (``train``), which
+    reads the zero state and writes nothing (a recomputed layer would
+    write twice).  Under the split the conv output is gathered over
+    ``model`` between ``rec_in_body`` and ``rec_out_body`` and the
     partial outputs summed."""
     w = collectives.layer_weights(p, REC)
     tp = split_layer(w.lam.shape[0] != cfg.rnn_width)
@@ -254,9 +290,11 @@ def rec_block(p: RecLayer, cfg, x, st: dict, *, single: bool):
     bx_all = bx32 if tp is None else collectives.gather_spec(
         bx32, CHANNELS, tp[0], reader="tp_gather")
     out, h_last = rec_out_body(w, cfg, bx_all, gate, st["h"],
-                               0 if tp is None else tp[2], single=single)
-    st["h"].copy_(h_last)
-    st["conv"].copy_(conv_state)
+                               0 if tp is None else tp[2], single=single,
+                               train=train)
+    if not train:
+        st["h"].copy_(h_last)
+        st["conv"].copy_(conv_state)
     return split_output(out, tp)
 
 
@@ -284,9 +322,10 @@ def _mlp(p: MLP, cfg, x):
     return split_output(mlp_body(w, split_input(x, tp)), tp)
 
 
-def rec_layer(p: RecLayer, cfg, x, st, *, single: bool):
+def rec_layer(p: RecLayer, cfg, x, st, *, single: bool,
+              train: bool = False):
     x = x + rec_block(p, cfg, layers.rms_norm(x, p.norm1, cfg.norm_eps), st,
-                      single=single)
+                      single=single, train=train)
     return x + _mlp(p.mlp, cfg, layers.rms_norm(x, p.norm2, cfg.norm_eps))
 
 
@@ -409,8 +448,8 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
         "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _embed(params: RecurrentGemma, cfg, tokens):
-    x = transformer._embed(params, cfg, tokens)
+def _embed(params: RecurrentGemma, cfg, tokens, train: bool = False):
+    x = transformer._embed(params, cfg, tokens, train)
     # gemma's scaling, the factor rounded to x's dtype first (50.5 in bf16
     # at d = 2560, not 50.596)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -434,11 +473,47 @@ def _run_full(params: RecurrentGemma, cfg, tokens, cache):
     return layers.rms_norm(x, params.final_norm, cfg.norm_eps), kvs
 
 
-def forward(params: RecurrentGemma, cfg, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, T) -> (logits (B, T, Vp), aux loss 0)."""
-    cache = init_cache(cfg, tokens.shape[0], cfg.window, params.embed.device)
-    x, _ = _run_full(params, cfg, tokens, cache)
+def train_groups(cfg) -> List[List[int]]:
+    """The layers the training forward recomputes together under
+    ``cfg.remat``, as the reference checkpoints its scan bodies: each
+    superblock's (rec, rec, attn), then each tail layer alone."""
+    n_super = cfg.n_layers // len(PATTERN)
+    return ([[3 * i, 3 * i + 1, 3 * i + 2] for i in range(n_super)]
+            + [[j] for j in range(3 * n_super, cfg.n_layers)])
+
+
+def _train_group(params: RecurrentGemma, cfg, idx, states, positions, x):
+    for i in idx:
+        p = params.layers[i]
+        if isinstance(p, RecLayer):
+            x = rec_layer(p, cfg, x, states[i], single=False, train=True)
+        else:
+            x = attn_layer_full(p, cfg, x, positions)[0]
+    return x
+
+
+def forward(params: RecurrentGemma, cfg, tokens: torch.Tensor,
+            train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, T) -> (logits (B, T, Vp), aux loss 0); ``train`` is the
+    training forward (module docstring), from the zero recurrent states."""
+    b, n = tokens.shape
+    dev = params.embed.device
+    if not train:
+        cache = init_cache(cfg, b, cfg.window, dev)
+        x, _ = _run_full(params, cfg, tokens, cache)
+        return unembed(params, cfg, x), torch.zeros((), device=x.device)
+    x = _embed(params, cfg, tokens, train=True)
+    positions = torch.arange(n, dtype=torch.int32, device=dev)[None].expand(
+        b, n)
+    states = [_rec_state(cfg, b, dev, None) if kind == "rec" else None
+              for kind in layer_kinds(cfg)]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for idx in train_groups(cfg):
+        group = functools.partial(_train_group, params, cfg, idx, states,
+                                  positions)
+        x = (checkpoint(group, x, use_reentrant=False,
+                        preserve_rng_state=False) if remat else group(x))
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params, cfg, x), torch.zeros((), device=x.device)
 
 

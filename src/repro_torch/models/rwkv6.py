@@ -7,10 +7,16 @@ Per head, with a (K, V) state S:
     y_t = r_t S_{t-1} + (r_t · (u ⊙ k_t)) v_t
 
 with ``log w_t = -exp(clip(w0 + tanh(x_w A) B, -8, 2))``.  Whole sequences
-(forward, prefill) take the chunked scan, kernel B5
+served (forward, prefill) take the chunked scan, kernel B5
 (``kernels/rwkv6_scan/ops.py wkv``), once per layer; a decode step takes
 the single-token recurrence ``wkv_step`` in plain PyTorch, as the
-reference computes it in XLA.
+reference computes it in XLA.  The training forward (``forward(...,
+train=True)``) takes the reference's chunk algorithm ``wkv_chunked`` in
+plain PyTorch under autograd on any device, as the reference trains
+through its jnp ``wkv_chunked`` (B5 has a backward in neither package
+and refuses a gradient); with gradients asked under ``cfg.remat`` each
+layer is recomputed in the backward (the reference's
+``jax.checkpoint``), and the training forward writes no state.
 
 Parameters live in ``nn.Module``s with the reference's names and shapes,
 one ``Layer`` per layer where the reference stacks them.  The serving
@@ -42,11 +48,13 @@ rank's.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import generator, resolve
 from repro_torch.distributed import collectives, sharding
@@ -173,8 +181,56 @@ def wkv_step(r, k, v, dlog, u, state):
     return y.to(r.dtype), state
 
 
+def wkv_chunked(r, k, v, dlog, u, state, chunk: int,
+                d_dtype_name: str = "compute"):
+    """The reference's chunk-parallel RWKV6 core (``rwkv6.py:89-149``) in
+    plain PyTorch, differentiable: r, k, v (B, T, H, K/V), dlog (B, T, H,
+    K) float32, u (H, K), state (B, H, K, V) -> (y (B, T, H, V) in r's
+    dtype, the state after them, float32).  Chunks of ``L = min(chunk,
+    T)``; T must be a multiple of L, as the reference asserts.  Within a
+    chunk the relative decay ``D[i, s] = exp(p_i - p_s - d_s)`` (at most
+    1) is rounded to the compute dtype under ``d_dtype_name ==
+    "compute"``, as are the r and k it multiplies, the contraction in
+    float32.  Every chunk's intra-chunk terms are computed at once; the
+    state is carried through the chunks in turn."""
+    b, n, h, kd = r.shape
+    vd = v.shape[-1]
+    n_l = min(chunk, n)
+    if n % n_l:
+        raise ValueError(f"T={n} is not a multiple of the chunk {n_l}")
+    nc = n // n_l
+    cut = lambda x, e: x.reshape(b, nc, n_l, h, e).transpose(2, 3)
+    rc, kc, vc = cut(r, kd), cut(k, kd), cut(v, vd)     # (B, nc, H, L, e)
+    dc = cut(dlog, kd).float()
+    d_dtype = r.dtype if d_dtype_name == "compute" else torch.float32
+    r32, k32, v32 = rc.float(), kc.float(), vc.float()
+    p = torch.cumsum(dc, dim=3) - dc          # exclusive: sum over j < i
+    pd = p + dc
+    p_end = pd[..., -1, :]                    # (B, nc, H, K) total decay
+    dmat = torch.exp(p[..., :, None, :] - pd[..., None, :, :]).to(d_dtype)
+    a = torch.einsum("bchik,bchsk,bchisk->bchis", rc.to(d_dtype).float(),
+                     kc.to(d_dtype).float(), dmat.float())
+    mask = torch.tril(torch.ones((n_l, n_l), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    a = torch.where(mask, a, 0.0)
+    y_intra = torch.einsum("bchis,bchsv->bchiv", a, v32)
+    diag = torch.einsum("bchik,hk,bchik->bchi", r32, u.float(), k32)
+    k_dec = k32 * torch.exp(p_end[..., None, :] - pd)
+    kv = torch.einsum("bchsk,bchsv->bchkv", k_dec, v32)
+    decay = torch.exp(p_end)[..., None]
+    s = state.float()
+    starts = []
+    for c in range(nc):
+        starts.append(s)
+        s = decay[:, c] * s + kv[:, c]
+    y_inter = torch.einsum("bchlk,bchkv->bchlv", r32 * torch.exp(p),
+                           torch.stack(starts, 1))
+    y = y_inter + y_intra + diag[..., None] * v32
+    return y.transpose(2, 3).reshape(b, n, h, vd).to(r.dtype), s
+
+
 def time_mix_body(w, cfg, x, tm_prev, state, m_idx: int = 0, *,
-                  single: bool):
+                  single: bool, train: bool = False):
     """Model rank ``m_idx``'s part of the time mix on its blocks ``w``
     (``wr``/``wk``/``wv``/``wg (d, d/m)``, ``wo (d/m, d)``, ``u (H/m,
     K)``; ``mu``, ``wA``, ``wB``, ``w0``, ``gn_w``, ``gn_b`` whole, of
@@ -183,7 +239,8 @@ def time_mix_body(w, cfg, x, tm_prev, state, m_idx: int = 0, *,
     Returns (its partial output (B, T, d), which the model ranks sum, x's
     last token, the new state).  A whole-sequence pass starts from the
     zero state, as forward and prefill do, and takes the chunked scan
-    (B5); a decode step carries ``state``."""
+    (B5; ``train``: ``wkv_chunked`` under autograd); a decode step
+    carries ``state``."""
     b, n, _ = x.shape
     h, dh = w.u.shape[0], cfg.head_size
     dl = h * dh
@@ -202,6 +259,9 @@ def time_mix_body(w, cfg, x, tm_prev, state, m_idx: int = 0, *,
     if single:
         y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], dlog[:, 0], w.u, state)
         y = y[:, None]
+    elif train:
+        y, state = wkv_chunked(r, k, v, dlog, w.u, state, cfg.rwkv_chunk,
+                               cfg.rwkv_d_dtype)
     else:
         chunk = min(cfg.rwkv_chunk, n)
         if n % chunk:              # the reference asserts it (rwkv6.py:99)
@@ -216,14 +276,15 @@ def time_mix_body(w, cfg, x, tm_prev, state, m_idx: int = 0, *,
     return torch.einsum("btd,de->bte", y * g, w.wo), x[:, -1], state
 
 
-def time_mix(p: Layer, cfg, x, tm_prev, state, *, single: bool):
+def time_mix(p: Layer, cfg, x, tm_prev, state, *, single: bool,
+             train: bool = False):
     """The time mix (``time_mix_body``), under the split its partial
     outputs summed over ``model``: (out, x's last token, the new state)."""
     w = collectives.layer_weights(p, TIME_MIX)
     tp = split_layer(w.u.shape[0] != cfg.n_heads)
     out, last, state = time_mix_body(w, cfg, split_input(x, tp), tm_prev,
                                      state, 0 if tp is None else tp[2],
-                                     single=single)
+                                     single=single, train=train)
     return split_output(out, tp), last, state
 
 
@@ -266,19 +327,23 @@ def channel_mix(p: Layer, cfg, x, cm_prev):
                                    reader="tp_gather"), last
 
 
-def block(p: Layer, cfg, x, state: dict, i: int, *, single: bool):
+def block(p: Layer, cfg, x, state: dict, i: int, *, single: bool,
+          train: bool = False):
     """Layer ``i``: writes its ``tm_prev``, ``cm_prev`` and ``S`` into
-    ``state`` in place."""
+    ``state`` in place, but in the training forward (``train``), which
+    reads the zero state and writes nothing (a recomputed layer would
+    write twice)."""
     h, tm_prev, s = time_mix(
         p, cfg, layers.layer_norm(x, p.ln1_w, p.ln1_b, cfg.norm_eps),
-        state["tm_prev"][i], state["S"][i], single=single)
+        state["tm_prev"][i], state["S"][i], single=single, train=train)
     x = x + h
     h, cm_prev = channel_mix(
         p, cfg, layers.layer_norm(x, p.ln2_w, p.ln2_b, cfg.norm_eps),
         state["cm_prev"][i])
-    state["tm_prev"][i].copy_(tm_prev)
-    state["cm_prev"][i].copy_(cm_prev)
-    state["S"][i].copy_(s)
+    if not train:
+        state["tm_prev"][i].copy_(tm_prev)
+        state["cm_prev"][i].copy_(cm_prev)
+        state["S"][i].copy_(s)
     return x + h
 
 
@@ -311,20 +376,26 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     return init_state(cfg, batch, device)
 
 
-def _run(params: RWKV6, cfg, tokens, state, *, single: bool):
-    x = transformer._embed(params, cfg, tokens)
+def _run(params: RWKV6, cfg, tokens, state, *, single: bool,
+         train: bool = False):
+    x = transformer._embed(params, cfg, tokens, train)
     x = layers.layer_norm(x, params.ln0_w, params.ln0_b, cfg.norm_eps)
+    remat = train and cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params.layers):
-        x = block(p, cfg, x, state, i, single=single)
+        layer = functools.partial(block, p, cfg, state=state, i=i,
+                                  single=single, train=train)
+        x = (checkpoint(layer, x, use_reentrant=False,
+                        preserve_rng_state=False) if remat else layer(x))
     return layers.layer_norm(x, params.final_norm_w, params.final_norm_b,
                              cfg.norm_eps)
 
 
-def forward(params: RWKV6, cfg, tokens: torch.Tensor
+def forward(params: RWKV6, cfg, tokens: torch.Tensor, train: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, T) -> (logits (B, T, Vp), aux loss 0)."""
+    """tokens (B, T) -> (logits (B, T, Vp), aux loss 0); ``train`` is the
+    training forward (module docstring)."""
     state = init_state(cfg, tokens.shape[0], params.embed.device)
-    x = _run(params, cfg, tokens, state, single=False)
+    x = _run(params, cfg, tokens, state, single=False, train=train)
     return unembed(params, cfg, x), torch.zeros((), device=x.device)
 
 

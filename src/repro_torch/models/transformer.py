@@ -21,13 +21,16 @@ True)``, the reference's training forward: attention follows
 ``"pallas"`` is the flash kernel, which has no backward in either
 package, so asking for gradients through it raises), and an MoE layer's
 expert FFN is the reference's einsums (``moe.moe_block(..., train=True)``).
-Parameters take gradients only there.  Decode attention always goes through the decode-attention kernel
-(``kernels/decode_attn/ops.py``), with its mask chosen by the
-configuration, here and nowhere else (``Block.decode``): under full
-attention ``lengths = min(pos+1, S)``, because such a cache is filled in
-order (see ``decode_step``); under a sliding window the ring cache is not
-a prefix of positions, so the kernel masks it by ``kv_pos``, as the
-reference's plain ``decode_attention`` does.
+Parameters take gradients only there; under ``cfg.remat`` (every
+config's default) each layer is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), its
+collectives with it.  Decode attention always goes through the
+decode-attention kernel (``kernels/decode_attn/ops.py``), with its mask
+chosen by the configuration, here and nowhere else (``Block.decode``):
+under full attention ``lengths = min(pos+1, S)``, because such a cache is
+filled in order (see ``decode_step``); under a sliding window the ring
+cache is not a prefix of positions, so the kernel masks it by
+``kv_pos``, as the reference's plain ``decode_attention`` does.
 
 Under a ``MeshPolicy`` whose ``model`` axis is larger than 1 a layer
 computes Megatron-style on this rank's blocks (``models.io.ShardedLM``):
@@ -51,6 +54,20 @@ returns the partial output before the all-reduce (``attention_body``,
 ``unembed_body``), so one process can run every rank's and sum them; each
 layer takes its weights through ``collectives.at_use``, which gathers a
 block that training splits over the data axes (FSDP) at its use.
+
+Under ``cfg.seq_parallel`` (the reference's ``constrain(x, "batch",
+"seq", None)`` before attention and the FFN) a whole-sequence pass,
+training or prefill, keeps the residual stream split by sequence over
+``model`` between the layers (``seq_split``, ``collectives.SeqSplit``):
+the embedding's partial rows are reduce-scattered to the rank's ``S/m``
+rows, the norms and residual adds run on them, a layer gathers its
+normed input whole before its column-parallel products and
+reduce-scatters its row-parallel output back into the rows in place of
+the all-reduce (``layer_input``, ``layer_output``; a layer ``model``
+does not split gathers its input and keeps its rows of the output), the
+norms' weights take their gradients summed over ``model``, and the final
+norm's output is gathered before the head.  A length ``m`` does not
+divide is padded inside the gathers and scatters.  Decode stays as it is.
 
 KV heads that do not divide ``model`` split the serving cache by sequence
 where its length divides (``sharding.serve_cache_spec``): a rank holds
@@ -79,6 +96,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import generator, resolve
 from repro_torch.distributed import collectives, sharding
@@ -135,27 +153,36 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, dtype, device)
 
-    def ffn(self, y, train: bool = False):
+    def ffn(self, y, train: bool = False, seq=None):
         """y (B, S, d) -> (out (B, S, d), aux loss); the MoE layer routes
-        the B*S tokens together, as the reference does."""
+        the B*S tokens together, as the reference does.  Under the
+        sequence split ``seq`` y and out are the rank's rows."""
         if not self.use_moe:
-            return (mlp_block(self.mlp, self.cfg, y),
+            return (mlp_block(self.mlp, self.cfg, y, seq),
                     torch.zeros((), device=y.device))
+        if seq is not None:
+            return moe_lib.moe_block(self.moe, y, self.cfg, train=train,
+                                     seq=seq)
         b, s, d = y.shape
         out, aux = moe_lib.moe_block(self.moe, y.reshape(b * s, d), self.cfg,
                                      train=train)
         return out.reshape(b, s, d), aux
 
-    def forward(self, x, positions, train: bool = False):
+    def forward(self, x, positions, train: bool = False, seq=None):
         """Whole sequences (forward, prefill; ``train`` the training
-        forward): x (B, S, d) -> (x, k, v, aux loss)."""
+        forward): x (B, S, d) -> (x, k, v, aux loss).  Under the sequence
+        split ``seq`` (``seq_split``) x is the rank's rows (B, S/m, d), on
+        which the norms and residual adds run; k and v are the whole
+        sequence's."""
         cfg = self.cfg
-        h, k, v = attention_full(self.attn, cfg,
-                                 layers.rms_norm(x, self.attn_norm, cfg.norm_eps),
-                                 positions, train=train)
+        h, k, v = attention_full(
+            self.attn, cfg,
+            layers.rms_norm(x, norm_weight(self.attn_norm, seq), cfg.norm_eps),
+            positions, train=train, seq=seq)
         x = x + h
-        out, aux = self.ffn(layers.rms_norm(x, self.mlp_norm, cfg.norm_eps),
-                            train=train)
+        out, aux = self.ffn(
+            layers.rms_norm(x, norm_weight(self.mlp_norm, seq), cfg.norm_eps),
+            train=train, seq=seq)
         return x + out, k, v, aux
 
     def decode(self, x, pos, slot, k_cache, v_cache, kv_pos, lengths):
@@ -285,6 +312,45 @@ def split_output(x, tp):
     return collectives.sum_forward(x, tp[0], ("model",), reader="tp_sum")
 
 
+def seq_split(cfg, n: int):
+    """The sequence split of a whole-sequence pass of ``n`` positions
+    (``collectives.SeqSplit``) under ``cfg.seq_parallel`` and a policy
+    whose ``model`` axis is larger than 1, else None."""
+    if not cfg.seq_parallel:
+        return None
+    tp = model_parallel(current_policy())
+    return None if tp is None else collectives.SeqSplit(tp, n)
+
+
+def layer_input(x, tp, seq):
+    """A layer's input: under the sequence split ``seq`` the rank's rows
+    gathered whole (the gradient reduce-scattered where ``model`` splits
+    the layer, else the rank's rows of it, every rank computing it
+    alike); else ``split_input``."""
+    if seq is None:
+        return split_input(x, tp)
+    return seq.gather(x, whole=tp is None)
+
+
+def layer_output(x, tp, seq):
+    """A layer's output: under the sequence split the partial outputs
+    reduce-scattered into the rank's rows (where ``model`` splits the
+    layer), or the rank's rows of the whole output; else
+    ``split_output``."""
+    if seq is None:
+        return split_output(x, tp)
+    return seq.scatter(x) if tp is not None else seq.rows(x)
+
+
+def norm_weight(w, seq):
+    """A norm's weight: under the sequence split it acts on the rank's
+    rows, so its gradient is summed over ``model``."""
+    if seq is None:
+        return w
+    return collectives.sum_backward(w, seq.mesh, ("model",),
+                                    reader="sp_norms")
+
+
 def kv_heads(n_q: int, n_kv: int, cfg, m_idx: int):
     """The KV heads that model rank ``m_idx``'s ``n_q`` query heads (from
     ``m_idx * n_q`` on) read, as indices into the ``n_kv`` it holds: None
@@ -351,16 +417,18 @@ def attention_body(w, cfg, x, positions, m_idx: int = 0,
     return layers.heads_out(o, w.wo), k, v
 
 
-def attention_full(p: Attention, cfg, x, positions, train: bool = False):
+def attention_full(p: Attention, cfg, x, positions, train: bool = False,
+                   seq=None):
     """Causal (or sliding-window) attention over whole sequences.  Serving
     goes through the flash-attention kernel, which reads q, k and v as (B,
     H, S, dh) views of the (B, S, H, dh) tensors (no copies); ``train``
     follows ``cfg.attn_impl`` (module docstring).  Returns (out, k, v),
-    k and v the heads this rank holds."""
+    k and v the heads this rank holds; under the sequence split ``seq``
+    x and out are the rank's rows, k and v the whole sequence's."""
     w, tp = attention_weights(p, cfg)
-    out, k, v = attention_body(w, cfg, split_input(x, tp), positions,
+    out, k, v = attention_body(w, cfg, layer_input(x, tp, seq), positions,
                                0 if tp is None else tp[2], train)
-    return split_output(out, tp), k, v
+    return layer_output(out, tp, seq), k, v
 
 
 def attention_decode_body(w, cfg, x, pos, slot, k_cache, v_cache, kv_pos,
@@ -474,10 +542,10 @@ def mlp_body(w, x):
     return layers.swiglu(x, w.w_gate, w.w_up, w.w_down)
 
 
-def mlp_block(p: MLP, cfg, x):
+def mlp_block(p: MLP, cfg, x, seq=None):
     w = collectives.layer_weights(p, ("w_gate", "w_up", "w_down"))
     tp = split_layer(w.w_gate.shape[1] != cfg.d_ff)
-    return split_output(mlp_body(w, split_input(x, tp)), tp)
+    return layer_output(mlp_body(w, layer_input(x, tp, seq)), tp, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -497,19 +565,21 @@ def embed_body(embed, ids, lo: int):
     return x * inside[..., None].to(x.dtype)
 
 
-def _embed(params: Transformer, cfg, tokens, train: bool = False):
+def _embed(params: Transformer, cfg, tokens, train: bool = False,
+           seq=None):
     # training looks up through F.embedding, whose backward sums a
     # token's rows without atomics; a negative id (a masked target's
-    # input) reads from the end, as indexing does
+    # input) reads from the end, as indexing does.  Under the sequence
+    # split the rank's rows: the vocab-parallel parts reduce-scattered
     embed = collectives.at_use(params.embed)
     tp = split_layer(embed.shape[0] != cfg.vocab_padded)
     if tp is not None:
-        x = split_output(embed_body(embed, tokens.remainder(cfg.vocab_padded),
-                                  tp[2] * embed.shape[0]), tp)
-    elif train:
-        x = F.embedding(tokens.remainder(embed.shape[0]), embed)
+        x = layer_output(embed_body(embed, tokens.remainder(cfg.vocab_padded),
+                                    tp[2] * embed.shape[0]), tp, seq)
     else:
-        x = embed[tokens]
+        x = (F.embedding(tokens.remainder(embed.shape[0]), embed) if train
+             else embed[tokens])
+        x = x if seq is None else seq.rows(x)
     return x.to(getattr(torch, cfg.compute_dtype))
 
 
@@ -521,16 +591,28 @@ def forward(params: Transformer, cfg, tokens: torch.Tensor,
             train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (logits (B, S, Vp), aux loss: the MoE layers'
     load-balancing losses summed, 0 for a dense model).  ``train`` is the
-    training forward (module docstring)."""
+    training forward (module docstring); with gradients asked under
+    ``cfg.remat`` each layer's activations are recomputed in the backward
+    (the reference's ``jax.checkpoint``; the layers draw no random
+    numbers, so no RNG state is kept).  Under the sequence split
+    (``seq_split``) the residual stream between the layers and the final
+    norm are the rank's rows, gathered whole before the head."""
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens, train)
+    seq = seq_split(cfg, s)
+    x = _embed(params, cfg, tokens, train, seq)
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), device=x.device)
+    remat = train and cfg.remat and torch.is_grad_enabled()
     for blk in params.layers:
-        x, _, _, a = blk(x, positions, train)
+        if remat:
+            x, _, _, a = checkpoint(blk, x, positions, train, seq,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            x, _, _, a = blk(x, positions, train, seq)
         aux = aux + a
-    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return unembed(params, cfg, x), aux
+    x = layers.rms_norm(x, norm_weight(params.final_norm, seq), cfg.norm_eps)
+    return unembed(params, cfg, x, seq), aux
 
 
 def unembed_body(w, cfg, x, lo: int = 0, tied: bool = False):
@@ -549,14 +631,15 @@ def unembed_body(w, cfg, x, lo: int = 0, tied: bool = False):
     return logits
 
 
-def unembed(params: Transformer, cfg, x):
+def unembed(params: Transformer, cfg, x, seq=None):
     """Logits over the padded vocab; padded ids get -1e9.  Under the split
-    the rank's vocab slice (module docstring)."""
+    the rank's vocab slice (module docstring); under the sequence split
+    ``seq`` x is the rank's rows, gathered whole first."""
     tied = cfg.tie_embeddings
     w = collectives.at_use(params.embed if tied else params.lm_head)
     n = w.shape[0] if tied else w.shape[1]
     tp = split_layer(n != cfg.vocab_padded)
-    return unembed_body(w, cfg, split_input(x, tp),
+    return unembed_body(w, cfg, layer_input(x, tp, seq),
                         0 if tp is None else tp[2] * n, tied)
 
 
@@ -629,14 +712,20 @@ def prefill(params: Transformer, cfg, tokens: torch.Tensor, max_len: int,
     last ``window`` positions of the padded row, placed at slot ``p %
     window``; with ``lengths`` the padded ones among them are then marked
     empty, so a padded prompt keeps fewer than ``window`` of its own
-    positions.  This is the reference's behaviour (ROADMAP queue C)."""
+    positions.  This is the reference's behaviour (ROADMAP queue C).
+
+    Under the sequence split (``seq_split``) the residual stream between
+    the layers and the final norm are the rank's rows, gathered whole
+    before the logits are taken; K/V come from each layer's gathered
+    input, as without the split."""
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
+    seq = seq_split(cfg, s)
+    x = _embed(params, cfg, tokens, seq=seq)
     dev = x.device
     positions = _positions(b, s, dev)
     ks, vs = [], []
     for blk in params.layers:
-        x, k, v, _ = blk(x, positions)
+        x, k, v, _ = blk(x, positions, seq=seq)
         ks.append(k)
         vs.append(v)
     k, v = torch.stack(ks), torch.stack(vs)          # (L, B, S, KV, dh)
@@ -662,6 +751,8 @@ def prefill(params: Transformer, cfg, tokens: torch.Tensor, max_len: int,
         k = k.narrow(2, *part).contiguous()
         v = v.narrow(2, *part).contiguous()
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    if seq is not None:
+        x = seq.gather(x)
     if lengths is None:
         cache = {"k": k, "v": v, "kv_pos": kv_pos,
                  "pos": torch.full((b,), s, dtype=torch.int32, device=dev)}

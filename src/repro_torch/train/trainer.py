@@ -88,22 +88,21 @@ def tree_specs(state: dict) -> dict:
 
 
 class Trainer:
-    """Trains ``model_cfg`` (dense or MoE) with its ``optimizer`` on
-    ``device`` (CUDA by default), on ``mesh`` when given (module
-    docstring); ``graphs=False`` runs every step eagerly."""
+    """Trains ``model_cfg`` (dense, MoE, RWKV6 or RecurrentGemma; the
+    recurrent families on one device, ``models.io.ShardedLM`` refusing
+    them on a mesh) with its ``optimizer`` on ``device`` (CUDA by
+    default), on ``mesh`` when given (module docstring); ``graphs=False``
+    runs every step eagerly."""
 
     def __init__(self, model_cfg, cfg: TrainerConfig, mesh=None,
                  log_fn: Callable = print, device=None, graphs: bool = True):
-        if model_cfg.family not in ("dense", "moe"):
-            why = ("it feeds SyntheticLM token batches only, as the "
-                   "reference's launcher does, and enc-dec's lm_loss needs "
-                   "frames too (train it through launch.steps."
-                   "make_train_step on {'frames', 'tokens'} batches)"
-                   if model_cfg.family == "encdec" else
-                   "it does not train yet (ROADMAP queue A item 5)")
+        if model_cfg.family == "encdec":
             raise NotImplementedError(
-                f"{model_cfg.name}: the trainer trains the dense and MoE "
-                f"families; for family {model_cfg.family!r} {why}")
+                f"{model_cfg.name}: the trainer feeds SyntheticLM token "
+                "batches only, as the reference's launcher does, and "
+                "enc-dec's lm_loss needs frames too (train it through "
+                "launch.steps.make_train_step on {'frames', 'tokens'} "
+                "batches)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.mesh = mesh

@@ -1060,6 +1060,53 @@ def test_lru_wrapper_rejects_bad_operands_on_card(cuda_device):
         lru_ops.lru(z, z, h0.cpu())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", range(5))
+def test_wkv_wrapper_refuses_a_gradient_on_card(cuda_device, which):
+    """B5 has a backward in neither package: with gradients enabled and
+    one input that requires one (r, k, v, the decay or u), the wrapper
+    raises, naming the training forward, and launches nothing; under
+    ``torch.no_grad()`` the same inputs run the kernel and agree with the
+    token recurrence."""
+    gen = torch.Generator(device=cuda_device).manual_seed(which)
+    args = list(_wkv_inputs(2, 4, 64, 64, 64, gen, cuda_device,
+                            torch.float32))
+    args[which] = args[which].clone().requires_grad_(True)
+    before = wkv_ops.LAUNCHES
+    with pytest.raises(NotImplementedError, match="training forward"):
+        wkv_ops.wkv(*args)
+    assert wkv_ops.LAUNCHES == before
+    with torch.no_grad():
+        y, state = wkv_ops.wkv(*args)
+        y_ref, s_ref = rwkv6_scan_ref(*args)
+    assert wkv_ops.LAUNCHES == before + 1 and not y.requires_grad
+    _within(y, y_ref, WKV_TOL[torch.float32])
+    _within(state, s_ref, WKV_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", range(3))
+def test_lru_wrapper_refuses_a_gradient_on_card(cuda_device, which):
+    """B6 likewise: with gradients enabled and one input that requires
+    one (log_a, b or h0) the wrapper raises, naming the training forward,
+    and launches nothing; under ``torch.no_grad()`` it runs and agrees
+    with the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(which)
+    args = [-torch.rand((2, 96, 256), generator=gen, device=cuda_device),
+            torch.randn((2, 96, 256), generator=gen, device=cuda_device),
+            torch.randn((2, 256), generator=gen, device=cuda_device)]
+    args[which] = args[which].clone().requires_grad_(True)
+    before = lru_ops.LAUNCHES
+    with pytest.raises(NotImplementedError, match="training forward"):
+        lru_ops.lru(*args)
+    assert lru_ops.LAUNCHES == before
+    with torch.no_grad():
+        got = lru_ops.lru(*args)
+        want = rglru_scan_ref(*args)
+    assert lru_ops.LAUNCHES == before + 1 and not got.requires_grad
+    _within(got, want, LRU_TOL[torch.float32])
+
+
 # ---------------------------------------------------------------------------
 # Redesigned B1 at every group width, B4a's split kernel, and the routing
 # loop and recurrent prefill replayed from CUDA graphs

@@ -138,6 +138,28 @@ def test_lm_loss_and_gradients_match_reference(arch):
                                    **GRAD_TOL)
 
 
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "dbrx-132b"])
+def test_remat_recomputes_the_same_loss_and_gradients(arch):
+    """``cfg.remat`` (every config's default; the reduced config turns it
+    off) recomputes each layer in the backward, dense and MoE alike (the
+    reference's ``jax.checkpoint``): the loss and every gradient
+    bit-equal to the run without (which
+    test_lm_loss_and_gradients_match_reference holds to the
+    reference's)."""
+    cfg = reduce_config(get_config(arch), remat=True)
+    model = model_lib.init_params(cfg, seed=4, device="cpu")
+    toks = _tokens(cfg, 2, 40, seed=4)
+    st = steps.train_state(cfg, model, opt_lib.make_optimizer("adamw"))
+    out = []
+    for c in (dataclasses.replace(cfg, remat=False), cfg):
+        total, _ = model_lib.lm_loss(model, c,
+                                     {"tokens": torch.as_tensor(toks)})
+        out.append((total.detach(), steps._grads(total, st["opt"].tensors())))
+    assert torch.equal(out[1][0], out[0][0])
+    for a, b in zip(out[1][1], out[0][1]):
+        assert torch.equal(a, b)
+
+
 def test_pallas_attention_refuses_gradients_and_other_families_raise():
     _, cfg, _, model = _pair("qwen1.5-0.5b", attn_impl="pallas")
     steps.train_state(cfg, model, opt_lib.make_optimizer("adamw"))
@@ -147,10 +169,14 @@ def test_pallas_attention_refuses_gradients_and_other_families_raise():
     with torch.no_grad():                       # no gradient asked: served
         logits, _ = model_lib.forward(model, cfg, toks, train=True)
     assert logits.shape == (1, 16, cfg.vocab_padded)
+    # the recurrent families train through their plain scans
+    # (tests/test_torch_recurrent_train.py)
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            model_lib.lm_loss(None, reduce_config(get_config(arch)),
-                              {"tokens": toks})
+        rcfg = reduce_config(get_config(arch))
+        total, _ = model_lib.lm_loss(
+            model_lib.init_params(rcfg, device="cpu"), rcfg,
+            {"tokens": toks % rcfg.vocab})
+        assert bool(torch.isfinite(total))
     # enc-dec trains (tests/test_torch_encdec.py), on frames and tokens
     cfg = reduce_config(get_config("whisper-medium"))
     frames = torch.zeros((1, 8, cfg.d_model))
@@ -354,7 +380,7 @@ def test_trainer_restart_reproduces_the_straight_run(tmp_path):
             assert torch.equal(a, b), k
 
 
-def test_train_cli_lm_path(capsys):
+def test_train_cli_lm_path(capsys, tmp_path):
     state, trainer = train_cli.main([
         "--arch", "dbrx-132b", "--reduced", "--device", "cpu", "--steps",
         "2", "--global-batch", "4", "--seq-len", "16"])
@@ -371,8 +397,18 @@ def test_train_cli_lm_path(capsys):
     with pytest.raises(ValueError, match="mesh_shape \\(16, 16\\)"):
         train_cli.main(["--production-mesh", "--reduced", "--device", "cpu",
                         "--steps", "1"])
-    for arch, match in (("rwkv6-7b", "item 5"),
-                        ("whisper-medium", "token batches only")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
-                            "--steps", "1"])
+    # the recurrent families train one step, then a second from its
+    # checkpoint; enc-dec's launcher refuses token batches
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        argv = ["--arch", arch, "--reduced", "--device", "cpu",
+                "--global-batch", "2", "--seq-len", "16", "--ckpt-dir",
+                str(tmp_path / arch), "--steps"]
+        state, trainer = train_cli.main(argv + ["1"])
+        assert int(state["step"]) == 1 and len(trainer.step_s) == 1
+        assert isinstance(state["opt"], opt_lib.AdamW)
+        state, trainer = train_cli.main(argv + ["2"])
+        assert int(state["step"]) == 2 and trainer.restore_s is not None
+        assert len(trainer.step_s) == 1
+    with pytest.raises(NotImplementedError, match="token batches only"):
+        train_cli.main(["--arch", "whisper-medium", "--reduced", "--device",
+                        "cpu", "--steps", "1"])

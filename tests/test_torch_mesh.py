@@ -20,7 +20,11 @@ each): LM training (reduced qwen1.5-0.5b, dbrx-132b and whisper-medium)
 on 2 x 2, 4 x 1 and 1 x 4 against one process, computing Megatron-style
 on each rank's blocks, which are all a rank holds; a batch that does not
 split over the data axis; an elastic restart; serving every arch under
-1 x 4 and 2 x 2 policies; and ``launch/train.py --data-parallel 2``.
+1 x 4 and 2 x 2 policies; the residual stream split by sequence over
+``model`` (``cfg.seq_parallel``: training and prefill of qwen and dbrx on
+1 x 4 and 2 x 2 against one process and the flag off, and the sequence
+split's bytes against the specs); and ``launch/train.py --data-parallel
+2``.
 The per-rank bodies of the split, summed in one process, are
 ``tests/test_torch_megatron.py``.
 """
@@ -46,9 +50,11 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import io, model as model_lib, moe
 from repro_torch.train import checkpoint, optimizer as opt_lib
 from repro_torch.train import trainer as trainer_lib
-from torch_dist_worker import (LM_ARCHS, LM_SHAPES, LM_TRAIN, SERVE_ARCHS,
-                               SERVE_DECODES, SERVE_PROMPTS, SERVE_SHAPES,
-                               lm_cfg, moe_dp_grads, moe_dp_inputs, run_world)
+from torch_dist_worker import (LM_ARCHS, LM_BATCH, LM_SEQ, LM_SHAPES,
+                               LM_TRAIN, SEQ_ARCHS, SEQ_PROMPTS, SEQ_SHAPES,
+                               SERVE_ARCHS, SERVE_DECODES, SERVE_PROMPTS,
+                               SERVE_SHAPES, lm_cfg, moe_dp_grads,
+                               moe_dp_inputs, run_world)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
@@ -719,6 +725,74 @@ def test_batch_that_does_not_split_matches_one_process(lm_world):
     moved = min(float(np.abs(v - want["init"][k]).max())
                 for k, v in params.items())
     assert moved > 100 * PARAM_TOL["atol"]
+
+
+SEQ_RUNS = [(arch, shape) for arch in SEQ_ARCHS for shape in SEQ_SHAPES]
+SEQ_IDS = [f"{a}-{s[0]}x{s[1]}" for a, s in SEQ_RUNS]
+
+
+def _seq_bytes(step_bytes: dict) -> dict:
+    return {k: v for k, v in step_bytes.items() if k.startswith("sp_")}
+
+
+@pytest.mark.parametrize("arch,shape", SEQ_RUNS, ids=SEQ_IDS)
+def test_seq_parallel_training_matches_one_process(lm_world, arch, shape):
+    """Three training steps with the residual stream split by sequence
+    over ``model`` (dbrx's under remat as well; the qwen whose attention
+    and MLP a model axis of 4 does not split, every rank computing them
+    whole) on ``make_host_mesh(*shape)``: the whole state and every
+    step's metrics equal one
+    process's and the same mesh's with the flag off, within the Megatron
+    runs' tolerances; every rank's metrics alike; and the bytes the first
+    step's sequence-split collectives brought each rank (its
+    microbatches' forwards, recomputes and backwards) are the specs'
+    (``sharding.seq_split_bytes``)."""
+    _, res = lm_world
+    got = res[0][f"{arch} {shape} seq"]
+    _same_run(got, _oracle(res, arch, shape), PARAM_TOL, METRIC_TOL)
+    _same_run(got, res[0][f"{arch} {shape}"], PARAM_TOL, METRIC_TOL)
+    cfg = lm_cfg(arch, seq=True)
+    n_data, m = shape
+    mb = cfg.microbatches
+    want = {k: mb * v for k, v in sharding.seq_split_bytes(
+        cfg, m, LM_BATCH // n_data // mb, LM_SEQ, train=True).items()}
+    assert set(want) == {"sp_gather", "sp_scatter", "sp_norms"}
+    for r in res:
+        assert r[f"{arch} {shape} seq"]["metrics"] == got["metrics"]
+        assert _seq_bytes(r[f"{arch} {shape} seq"]["step_bytes"]) == want
+        assert not _seq_bytes(r[f"{arch} {shape}"]["step_bytes"])
+
+
+@pytest.mark.parametrize("arch,shape", SEQ_RUNS, ids=SEQ_IDS)
+def test_seq_parallel_prefill_matches_the_flag_off(lm_world, arch, shape):
+    """Prefills with the residual stream split by sequence against the
+    same mesh's with the flag off, at a length that ``model`` divides and
+    at one that it does not (the split's padding; right-padded rows
+    through ``lengths``): on every rank the whole logits and the caches
+    (K/V from each layer's gathered input) within ``SERVE_TOL``,
+    ``kv_pos`` and ``pos`` equal, and the sequence split's bytes the
+    specs'."""
+    _, res = lm_world
+    cfg = lm_cfg(arch, seq=True)
+    n_data, m = shape
+    assert any(n % m for n in SEQ_PROMPTS)
+    for r in res:
+        for n in SEQ_PROMPTS:
+            on = r[f"prefill {arch} {shape} seq=True"][n]
+            off = r[f"prefill {arch} {shape} seq=False"][n]
+            np.testing.assert_allclose(on["logits"].numpy(),
+                                       off["logits"].numpy(), **SERVE_TOL)
+            assert set(on["cache"]) == set(off["cache"])
+            for k, x in off["cache"].items():
+                if x.is_floating_point():
+                    np.testing.assert_allclose(on["cache"][k].numpy(),
+                                               x.numpy(), err_msg=k,
+                                               **SERVE_TOL)
+                else:
+                    assert torch.equal(on["cache"][k], x), k
+            assert _seq_bytes(on["bytes"]) == sharding.seq_split_bytes(
+                cfg, m, 4 // n_data, n, train=False)
+            assert not _seq_bytes(off["bytes"])
 
 
 def _paths(tree, prefix="") -> dict:

@@ -235,10 +235,33 @@ LM_TRAIN = dict(total_steps=LM_STEPS, warmup_steps=1)
 LM_SHAPES = ((2, 2), (4, 1), (1, 4))
 SERVE_SHAPES = ((1, 4), (2, 2))
 REPLICATED_BATCH = 6       # rows that do not split over a data axis of 4
+# the residual stream split by sequence over model (cfg.seq_parallel), on
+# the mesh shapes with a model axis: qwen, dbrx under remat too (its
+# recompute repeats the layers' collectives), and a qwen whose 6 query
+# heads and d_ff of 130 a model axis of 4 does not split (its layers
+# gather their input and keep their rows), trained as in LM_ARCHS; their
+# prefills of 4 prompts of each length, one that 4 divides and one that
+# neither 4 nor 2 does (right-padded rows through ``lengths``)
+SEQ_ARCHS = {"qwen1.5-0.5b": {"seq_parallel": True},
+             "dbrx-132b": {"seq_parallel": True, "remat": True},
+             "qwen1.5-0.5b whole": {"seq_parallel": True}}
+# a name of SEQ_ARCHS that is not an arch: (its arch, its overrides)
+VARIANTS = {"qwen1.5-0.5b whole": ("qwen1.5-0.5b",
+                                   {"n_heads": 6, "d_ff": 130})}
+SEQ_SHAPES = ((1, 4), (2, 2))
+SEQ_PROMPTS = (16, 13)
+SEQ_MAX_LEN = 24
 
 
-def lm_cfg(arch):
-    over = LM_ARCHS[arch] if arch in LM_ARCHS else SERVE_ARCHS[arch]
+def lm_cfg(name, seq=False):
+    """The reduced config of an arch of ``LM_ARCHS`` or ``SERVE_ARCHS``,
+    or of a name of ``VARIANTS``; ``seq``: with its ``SEQ_ARCHS``
+    overrides."""
+    arch, extra = VARIANTS.get(name, (name, {}))
+    over = dict(LM_ARCHS[arch] if arch in LM_ARCHS else SERVE_ARCHS[arch])
+    over.update(extra)
+    if seq:
+        over.update(SEQ_ARCHS[name])
     return reduce_config(get_config(arch), **over)
 
 
@@ -258,9 +281,10 @@ def _encdec_batch(cfg, step, mesh, rows=LM_BATCH):
     return batch
 
 
-def _lm_setup(arch, mesh, ckpt_dir, rows):
-    """(state, step function, batch(i), trainer or None) of ``arch``."""
-    cfg = lm_cfg(arch)
+def _lm_setup(arch, mesh, ckpt_dir, rows, seq=False):
+    """(state, step function, batch(i), trainer or None) of ``arch``
+    (``seq``: its ``SEQ_ARCHS`` config)."""
+    cfg = lm_cfg(arch, seq)
     tc = trainer_lib.TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=2,
                                    log_every=1, **LM_TRAIN)
     if cfg.family == "encdec":
@@ -288,11 +312,11 @@ def _lm_setup(arch, mesh, ckpt_dir, rows):
     return tr.init_state(seed=0), tr._step_fn, data.batch, tr
 
 
-def _live_after_forward(arch, st, batch, mesh):
+def _live_after_forward(arch, st, batch, mesh, seq=False):
     """Weights gathered at their use still alive after a training
     forward (under the step's saved-tensor hooks), and after its
     backward."""
-    cfg = lm_cfg(arch)
+    cfg = lm_cfg(arch, seq)
     sp = st["params"]
     policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=True))
     first = {k: (x[0] if cfg.microbatches > 1 else x)
@@ -304,12 +328,13 @@ def _live_after_forward(arch, st, batch, mesh):
     return after_forward, collectives.live_gathers()
 
 
-def _lm_run(arch, mesh, ckpt_dir="", rows=LM_BATCH):
-    """``LM_STEPS`` training steps of ``arch`` on ``mesh`` (None: one
-    process): each step's metrics, the whole final state (gathered; every
-    rank calls), the bytes of this rank's parameter and state blocks
-    against the whole's, and the collectives' bytes of the first step."""
-    st, step_fn, batch_of, tr = _lm_setup(arch, mesh, ckpt_dir, rows)
+def _lm_run(arch, mesh, ckpt_dir="", rows=LM_BATCH, seq=False):
+    """``LM_STEPS`` training steps of ``arch`` (``seq``: its
+    ``SEQ_ARCHS`` config) on ``mesh`` (None: one process): each step's
+    metrics, the whole final state (gathered; every rank calls), the bytes
+    of this rank's parameter and state blocks against the whole's, and
+    the collectives' bytes of the first step."""
+    st, step_fn, batch_of, tr = _lm_setup(arch, mesh, ckpt_dir, rows, seq)
     # copies: a float32 leaf's numpy form shares the tensor's memory,
     # which the steps update in place
     init = {k: np.array(checkpoint._to_numpy(v)) for k, v in
@@ -351,7 +376,7 @@ def _lm_run(arch, mesh, ckpt_dir="", rows=LM_BATCH):
                 (v if isinstance(v, list) else [v])]
             for k, v in st["params"].leaves.items()}
         out["live_gathers"] = _live_after_forward(arch, st, batch_of(0),
-                                                  mesh)
+                                                  mesh, seq)
     if mesh is None or dist_rank() == 0:
         out["state"] = {k: checkpoint._to_numpy(v) for k, v in whole.items()}
     return out
@@ -404,6 +429,37 @@ def _serve(arch, mesh, policy):
         tokens.append(token)
     return {"logits": torch.stack(out), "tokens": torch.stack(tokens),
             "cache_shapes": shapes}
+
+
+def _seq_prefill(arch, mesh, seq):
+    """Prefills of reduced ``arch`` (serving weights, seed 1; ``seq``: its
+    ``SEQ_ARCHS`` config) under a serving policy on ``mesh``, 4 prompts
+    of each length in ``SEQ_PROMPTS`` on this rank's rows, the second
+    right-padded through ``lengths``: per length the whole logits, the
+    cache and the bytes by reader."""
+    cfg = lm_cfg(arch, seq)
+    params = model_io.ShardedLM(model_lib.init_params(cfg, seed=1,
+                                                      device="cpu"),
+                                cfg, mesh, train=False)
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=False))
+    rng = np.random.default_rng(4)
+    rows = lambda x: sharding.local_shard(
+        x, sharding.data_spec(mesh, 4, x.dim()), mesh).contiguous()
+    out = {}
+    for n in SEQ_PROMPTS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, n)),
+                               dtype=torch.int32)
+        kw = ({} if n % 4 == 0 else
+              {"lengths": rows(torch.tensor([n, n - 3, n, 2],
+                                            dtype=torch.int32))})
+        collectives.BYTES.clear()
+        with use_mesh_policy(policy), torch.no_grad():
+            logits, cache = model_lib.prefill(params.model, cfg, rows(toks),
+                                              SEQ_MAX_LEN, **kw)
+            logits = steps._whole_logits(logits, cfg, policy)
+        out[n] = {"logits": logits, "cache": cache,
+                  "bytes": dict(collectives.BYTES)}
+    return out
 
 
 def cache_shapes(cache, prefix=""):
@@ -463,8 +519,10 @@ def lm_mesh(rank, world, out_dir):
     for every arch (qwen's 2 x 2 run also checkpoints step 2 under
     ``out_dir/ckpt22``), qwen on 4 x 1 with a batch that does not split
     over the data axis, and every arch served under a policy of each
-    shape in ``SERVE_SHAPES``; rank 0 also runs all of it in one
-    process."""
+    shape in ``SERVE_SHAPES``; on the shapes in ``SEQ_SHAPES`` the
+    ``SEQ_ARCHS`` trained and prefilled with the residual stream split by
+    sequence (and their prefills without); rank 0 also runs all of it in
+    one process."""
     out = {}
     for shape in LM_SHAPES:
         mesh = mesh_lib.make_host_mesh(*shape)
@@ -478,6 +536,14 @@ def lm_mesh(rank, world, out_dir):
             out["moe data parallel"] = _moe_data_parallel(mesh)
             out["qwen replicated rows"] = _lm_run(
                 "qwen1.5-0.5b", mesh, rows=REPLICATED_BATCH)
+        if shape in SEQ_SHAPES:
+            for arch in SEQ_ARCHS:
+                if arch in VARIANTS:
+                    out[f"{arch} {shape}"] = _lm_run(arch, mesh)
+                out[f"{arch} {shape} seq"] = _lm_run(arch, mesh, seq=True)
+                for seq in (False, True):
+                    out[f"prefill {arch} {shape} seq={seq}"] = _seq_prefill(
+                        arch, mesh, seq)
         if shape in SERVE_SHAPES:
             policy = MeshPolicy(mesh, sharding.activation_rules(mesh,
                                                                 train=False))
@@ -486,7 +552,7 @@ def lm_mesh(rank, world, out_dir):
                 out[f"serve {arch} {shape}"] = _serve(arch, mesh, policy)
                 out[f"serve bytes {arch} {shape}"] = dict(collectives.BYTES)
     if rank == 0:
-        for arch in LM_ARCHS:
+        for arch in (*LM_ARCHS, *VARIANTS):
             out[f"{arch} plain"] = _lm_run(arch, None)
         for arch in (*LM_ARCHS, *SERVE_ARCHS):
             out[f"serve {arch} plain"] = _serve(arch, None, None)
