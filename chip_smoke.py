@@ -171,7 +171,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 100,000, warmup 2,000, 400 iterations, padded obs).  (a) 24
                 iterations with every collect step and update replayed from
                 CUDA graphs against the same 24 run eagerly from the same
-                seeds (15 collect only, then 9 updating), and the first 2
+                seeds (15 collect only, then 9 updating), and the first
                 run eagerly on B1's plain version (96 rows) against the
                 graphed state then: parameters, AdamW moments and step, replay buffer, env
                 state and observation bit-equal; each iteration's time,
@@ -211,7 +211,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 --straggler-z 4.0``: finite rewards, ``straggler_flags`` in
                 the history, B1 once per collect step; then the CLI's
                 configs' 20 iterations graphed (the CLI's router bit for
-                bit, past the first outage), their first 5 against 5
+                bit, past the first outage), their first 3 against 3
                 run eagerly on B1's plain version (96 rows), bit-equal.
  17. sharded  — sharded router training and the sharded engine advance in
                 a world of one NCCL rank (one card; ``launch/mesh.py
@@ -230,7 +230,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 caps), final state and metrics bit-equal to
                 ``engine_backend="cuda"`` and to the whole-state design
                 (``whole_state``, its B1 launches not counted; QLL's avg
-                QoS at N=6 still 0.7336170673370361), QLL's state after 10
+                QoS at N=6 still 0.7336170673370361), QLL's state after 5
                 steps bit-equal to the plain loop as each rank's body
                 (``shard_body="torch"``, eager); requests/s of the three;
                 the bytes each reader's collectives bring a rank in one
@@ -345,7 +345,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 B5 and B6 call against its plain version at the rank's
                 shapes, timed beside the whole width's; the bytes per
                 reader of one decode step at m = 2 and 4 by the specs
-                (checks only: not counted).
+                (checks only: not counted).  (h) rwkv6-7b cut to 1 of
+                32 layers and recurrentgemma-2b to 5 of 26 (a superblock
+                and the tail) at published widths in bf16, AdamW with
+                remat, 2 x 512 tokens, 3 steps through ``Trainer(mesh=)``
+                on the 1 x 1 mesh (the blocks by ``block_spec``) against
+                the meshless ``Trainer`` from one seed, each a replay
+                after the first: state (``bit_prints``) and every step's
+                metrics bit-equal; a traced replay of the mesh step with
+                no B5 or B6 record and its graph launching neither;
+                rwkv6's mesh checkpoint restored by a meshless
+                ``Trainer`` bit-equal (save and restore s).  (i) every
+                ``model`` rank's training bodies for m = 2 and 4 in this
+                process (``tests/torch_rank_grads.py``): one rwkv6-7b
+                layer and one recurrentgemma-2b superblock at published
+                widths in bf16 over 2 x 256 tokens, their gradients
+                merged over the ranks (split weights concatenated, whole
+                ones and the input's summed) within 2^-5 of each one's
+                largest magnitude of the whole layer's (checks only).
  21. lm_encdec — whisper-medium at its published widths and depth in bf16
                 (24 + 24 layers, 814,190,592 parameters, random weights from
                 seed 0), through ``launch/steps.py``: 4 streams of 1,500
@@ -966,7 +983,7 @@ TRAIN_CHECK_ITERS = 24       # graphed against eager: 15 collect, then 9 updatin
 # iterations held against B1's plain version, which waits for the card once
 # per turn (~3 s an iteration): B1 runs only in the collect steps, so a
 # prefix of collect-only iterations holds all of it
-TRAIN_PLAIN_ITERS = 2
+TRAIN_PLAIN_ITERS = 1
 # steps of the scenario runs held against B1's plain version, which waits
 # for the card once per turn (~0.09 s a step): into the first outage (20-50
 # s) of ``rolling_outage``
@@ -979,7 +996,7 @@ EVAL_KEYS = ("mean_reward", "avg_qos", "completed", "dropped",
 SCENARIO_RATE = 8.0
 SCALE_ITERS = 10
 # the CLI's iterations held against B1's plain version (~2.7 s an iteration)
-CLI_PLAIN_ITERS = 5
+CLI_PLAIN_ITERS = 3
 
 
 def differing(a: dict, b: dict) -> list:
@@ -1410,7 +1427,7 @@ def train_cli_phase(dev):
 
 # the plain loop waits for the card once per turn: the "shard" engine is
 # held against it over its first steps only
-SHARD_PLAIN_STEPS = 10
+SHARD_PLAIN_STEPS = 5
 SHARD_ENGINE_CASES = ((6, 4, 750, "padded", False),
                       (1024, 16, 200, "segments", True))
 
@@ -3328,6 +3345,173 @@ def decode_bytes() -> None:
                  for m in MESH_RANK_MS}})
 
 
+# (h) the recurrent families trained on the 1 x 1 mesh against no mesh:
+# (arch, layers, seed); 2 x 512 tokens, 3 AdamW steps (warmup 1: the
+# second and third move every weight), the first eager and captured.
+# rwkv6 at one layer: its checkpoint's save and restore (~7.5 GB of state,
+# three quarters of it the embedding and head) take most of the check
+MESH_REC_TRAIN = (("rwkv6-7b", 1, 22), ("recurrentgemma-2b", 5, 23))
+MESH_REC_BATCH = (2, 512)
+MESH_REC_STEPS = 3
+# (i) every model rank's training bodies in bf16, their gradients merged
+# (split weights concatenated, whole ones and the input's summed) against
+# the whole layer's, each within this share of its largest magnitude: the
+# row-parallel partial outputs are rounded to bf16 before their sum, where
+# the whole layer rounds one product
+MESH_GRAD_REL_TOL = 2.0 ** -5
+
+
+def mesh_recurrent_training(dev, mesh, arch, depth, seed, save) -> None:
+    """(h) ``arch`` at published widths cut to ``depth`` layers in bf16,
+    AdamW, ``MESH_REC_BATCH`` tokens: ``Trainer(mesh=)`` on the 1 x 1 mesh
+    against the meshless ``Trainer`` from one seed, each step a replay
+    after the first; the state (``bit_prints``) and every step's metrics
+    bit-equal; a traced replay of the mesh step with no B5 or B6 record,
+    its graph launching neither; with ``save`` the mesh run's checkpoint
+    restored by a meshless ``Trainer`` bit-equal."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import collectives
+    from repro_torch.train import trainer as trainer_lib
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    b, n = MESH_REC_BATCH
+    ckpt = tempfile.mkdtemp(prefix="mesh_rec_ckpt") if save else ""
+    line = {"phase": "lm_mesh", "check": "recurrent_training", "model": arch,
+            "layers": depth, "published_layers": get_config(arch).n_layers,
+            "dtype": "bfloat16", "optimizer": cfg.optimizer,
+            "remat": cfg.remat, "batch": [b, n], "steps": MESH_REC_STEPS}
+    runs = {}
+    try:
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            collectives.BYTES.clear()
+            tc = trainer_lib.TrainerConfig(
+                total_steps=MESH_REC_STEPS, warmup_steps=1,
+                log_every=10 ** 9, ckpt_every=10 ** 9,
+                ckpt_dir=ckpt if m is not None else "")
+            tr = trainer_lib.Trainer(cfg, tc, mesh=m, device=dev,
+                                     log_fn=lambda *a, **k: None)
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=n,
+                                          global_batch=b), mesh=m, device=dev)
+            metrics, step = [], tr._step_fn
+
+            def recorded(st, batch):
+                st, out = step(st, batch)
+                metrics.append({k: float(v) for k, v in out.items()})
+                return st, out
+            tr._step_fn = recorded
+            t = synced()
+            state = tr.run(tr.init_state(seed=seed), data)
+            run = {"prints": bit_prints(state), "metrics": metrics,
+                   "run_s": synced() - t, "step_s": tr.step_s,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "bytes": dict(collectives.BYTES), "save_s": tr.save_s}
+            assert len(step.graphs) == 1, len(step.graphs)
+            if m is not None:
+                launched = counters()
+                _, kernels, takes = profiled(
+                    lambda: step(state, data.batch(MESH_REC_STEPS)),
+                    {"b5": 0, "b6": 0}, f"{arch} mesh training step")
+                (graph,) = [g for _, _, g in step.graphs.values()]
+                assert all(graph.launches[COUNTER_NAMES.index(k)] == 0
+                           for k in ("rwkv6_scan", "rglru_scan"))
+                assert counters() == launched
+                run["traced_step"] = {"kernels": len(kernels),
+                                      "b5_records": 0, "b6_records": 0,
+                                      "trace_takes": takes}
+            runs[name] = run
+            del state, tr, step
+        a, m_run = runs["meshless"], runs["mesh"]
+        assert a["prints"] == m_run["prints"], "mesh state differs"
+        assert a["metrics"] == m_run["metrics"], (a["metrics"],
+                                                   m_run["metrics"])
+        assert all(np.isfinite(x["loss"]) for x in a["metrics"])
+        line.update(bit_equal=True, losses=[x["loss"] for x in a["metrics"]],
+                    traced_step=m_run["traced_step"],
+                    **{name: {k: r[k] for k in ("run_s", "step_s",
+                                                "max_memory_allocated",
+                                                "bytes")}
+                       for name, r in runs.items()})
+        if save:
+            free_cuda()
+            tc = trainer_lib.TrainerConfig(total_steps=MESH_REC_STEPS,
+                                           ckpt_dir=ckpt)
+            tr = trainer_lib.Trainer(cfg, tc, device=dev,
+                                     log_fn=lambda *a, **k: None)
+            state = tr.init_or_restore(seed=seed + 1)
+            assert bit_prints(state) == m_run["prints"], "restore differs"
+            line["mesh_checkpoint_restored_without_mesh"] = {
+                "bit_equal": True, "save_s": m_run["save_s"],
+                "restore_s": tr.restore_s}
+            del state, tr
+    finally:
+        if ckpt:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    emit(line)
+    free_cuda()
+
+
+def mesh_rank_grads(dev) -> None:
+    """(i) The training bodies' backward on every ``model`` rank for m =
+    2 and 4, composed in this process (``tests/torch_rank_grads.py``):
+    one rwkv6-7b layer (time mix through ``wkv_chunked`` on H/m heads,
+    channel mix) and one recurrentgemma-2b superblock (rec1, rec2 through
+    ``rg_lru_scan_train`` on rnn/m channels, the attention on 5 heads of 2
+    ranks or all 10 on each of 4, the GeGLU MLPs) at published widths in
+    bf16 over ``MESH_RANK_PROMPT`` tokens; the input's gradient and every
+    weight's, merged over the ranks, against the whole layer's within
+    ``MESH_GRAD_REL_TOL`` of each one's largest magnitude."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_rank_grads as trg
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru, rwkv6
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=(
+            1 if arch == "rwkv6-7b" else len(rglru.PATTERN)))
+        x = rank_inputs(cfg, dev, 25, MESH_RANK_PROMPT[1])
+        shape = x.shape if arch != "rwkv6-7b" else (2,) + tuple(x.shape)
+        c = torch.randn(shape, generator=gen, device=dev)
+        if arch == "rwkv6-7b":
+            layer = rwkv6.init_params(cfg, seed=26, device=dev).layers[0]
+            run = lambda m: trg.rwkv6_layer(layer, cfg, x, m, c)
+        else:
+            model = rglru.init_params(cfg, seed=27, device=dev)
+            run = lambda m: trg.rglru_superblock(model, cfg, x, m, c)
+        t = synced()
+        gx_want, want = run(1)
+        whole_s = synced() - t
+        for m in MESH_RANK_MS:
+            t = synced()
+            gx, got = run(m)
+            ranks_s = synced() - t
+            x_err = float((gx.float() - gx_want.float()).abs().max()
+                          / gx_want.float().abs().max())
+            w_err = trg.worst(got, want)
+            row = {"phase": "lm_mesh", "check": "rank_grads", "model": arch,
+                   "dtype": "bfloat16", "m": m,
+                   "prompt": list(MESH_RANK_PROMPT), "weights": len(want),
+                   "input_grad_rel_err": x_err,
+                   "worst_weight_grad_rel_err": w_err,
+                   "tol": MESH_GRAD_REL_TOL, "whole_s": whole_s,
+                   "ranks_s": ranks_s}
+            if not (x_err <= MESH_GRAD_REL_TOL and w_err <= MESH_GRAD_REL_TOL
+                    and min(float(g.abs().max()) for g in want.values())
+                    > 0):
+                raise AssertionError(f"rank gradients vs whole layer: {row}")
+            emit(row)
+            del gx, got
+        del want, gx_want, run
+        free_cuda()
+
+
 def lm_mesh_phase(dev) -> dict:
     """The LM model mesh in a world of one NCCL rank on
     ``make_host_mesh(1, 1)`` (module docstring).  Returns the kernel
@@ -3343,6 +3527,9 @@ def lm_mesh_phase(dev) -> dict:
     try:
         mesh = mesh_lib.make_host_mesh(1, 1)
         mesh_training(dev, mesh)
+        for i, (arch, depth, seed) in enumerate(MESH_REC_TRAIN):
+            mesh_recurrent_training(dev, mesh, arch, depth, seed,
+                                    save=i == 0)
         cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=MOE_DEPTH)
         model = model_lib.init_params(cfg, seed=2, device=dev)
         mesh_moe(dev, mesh, model, cfg)
@@ -3360,6 +3547,7 @@ def lm_mesh_phase(dev) -> dict:
         mesh_rank_rwkv6(dev)
         mesh_rank_rglru(dev)
         mesh_rank_granite(dev)
+        mesh_rank_grads(dev)
         decode_bytes()
         return launches
     finally:

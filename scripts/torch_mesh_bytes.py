@@ -5,7 +5,8 @@ specs (arithmetic from the shapes, not a measurement).
 
 For each case it builds the port's model of the published config on the
 meta device (nothing is allocated), takes every leaf's spec
-(``distributed.sharding.param_spec``) and what a layer computes with
+(``distributed.sharding.block_spec``: ``param_spec``'s, RWKV6's
+``wk``/``wv``/``wo`` split by head) and what a layer computes with
 (``compute_spec``), and prints one JSON line: the bytes a rank holds in
 the parameter dtype for its parameter blocks, its gradient blocks, its
 AdamW moments (two float32 tensors split as their leaves), the largest
@@ -13,8 +14,11 @@ layer's weights gathered at their use (the transient), and the same
 figures in the layout before the split (a whole compute copy but for the
 experts' dim over ``model``, beside the blocks of the leaves the mesh
 splits, and whole gradients).
-Training cases are AdamW's; a serving case counts the parameters alone,
-split into the experts' and the rest.
+Training cases are AdamW's, with the whole model's state beside them
+(parameters, gradients and moments on one device); no activation is
+counted.  The recurrent families' training (rwkv6-7b at all 32 layers,
+recurrentgemma-2b) is given on 1 x 4, 2 x 2 and 4 x 1.  A serving case
+counts the parameters alone, split into the experts' and the rest.
 
 Then the serving caches: for each cache case, the bytes a ``model`` rank
 holds of ``streams`` caches of ``tokens`` (``models.model.init_cache``
@@ -46,7 +50,9 @@ from repro_torch.models import io, model as model_lib
 
 # (arch, data, model, train)
 CASES = [("starcoder2-15b", 4, 1, True), ("starcoder2-15b", 2, 2, True),
-         ("dbrx-132b", 1, 4, False), ("qwen1.5-0.5b", 4, 1, True)]
+         ("dbrx-132b", 1, 4, False), ("qwen1.5-0.5b", 4, 1, True)] + [
+    (arch, data, model, True) for arch in ("rwkv6-7b", "recurrentgemma-2b")
+    for data, model in ((1, 4), (2, 2), (4, 1))]
 
 
 # (arch, streams, tokens a stream) of the serving caches
@@ -83,7 +89,7 @@ def rank_bytes(arch: str, data: int, model: int, train: bool) -> dict:
         members = list(leaf) if stacked else [leaf]
         shape = (((len(members),) if stacked else ())
                  + tuple(members[0].shape))
-        spec = sharding.param_spec(path, shape, mesh, train=train)
+        spec = sharding.block_spec(path, shape, mesh, train=train)
         comp = sharding.compute_spec(path, shape, mesh, train=train)
         n_whole = _numel(shape)
         n_block = _numel(sharding.local_shape(shape, spec, mesh))
@@ -115,6 +121,7 @@ def rank_bytes(arch: str, data: int, model: int, train: bool) -> dict:
             grads_block_gb=gb(block), adamw_moments_gb=gb(2 * block, 4),
             largest_layer_gathered_gb=gb(max(layer.values(), default=0)),
             split_total_gb=gb(2 * block) + gb(2 * block, 4),
+            whole_total_gb=gb(2 * whole) + gb(2 * whole, 4),
             before_compute_copy_gb=gb(compute_old),
             before_whole_grads_gb=gb(compute_old),
             before_blocks_gb=gb(split_block),

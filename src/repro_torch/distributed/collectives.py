@@ -63,7 +63,14 @@ graph):
   rank's loss holding its share).  A layer split over ``model`` (Megatron
   style, ``models/transformer.py``) ends in ``sum_forward`` (the
   row-parallel output's all-reduce) and starts from ``sum_backward`` (its
-  input's gradient summed over the ranks that each used it for a part).
+  input's gradient summed over the ranks that each used it for a part);
+* ``model_gather`` and ``model_scatter``: an activation split by channel
+  over ``model`` (RecurrentGemma's conv output, RWKV6's gated channel
+  mix), gathered whole (backward a reduce-scatter, reader
+  ``"tp_grads"``, or the rank's own block where every rank computes
+  alike from the whole) or partial sums reduce-scattered into the rank's
+  channels (backward an all-gather, ``"tp_grads"``); forward readers
+  ``"tp_gather"`` and ``"tp_sum"``.
 
 Under ``cfg.seq_parallel`` the residual stream of a whole-sequence pass
 lives split by sequence over ``model`` between the layers
@@ -116,7 +123,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import spec_axes
+from repro_torch.distributed.sharding import local_shard, spec_axes
 from repro_torch.kernels.decode_attn.ref import merge_quotient
 
 _WORD = torch.int32
@@ -509,6 +516,55 @@ def data_mean(x, mesh, axes, reader: Optional[str] = None):
     for a in axes:
         n *= dist.get_world_size(mesh.get_group(a))
     return _DataMean.apply(x, mesh, tuple(axes), n, reader)
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh, whole, reader):
+        ctx.args = (spec, mesh, whole)
+        return gather_spec(x, spec, mesh, reader=reader)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh, whole = ctx.args
+        if whole:
+            g = local_shard(g, spec, mesh).contiguous()
+        else:
+            g = reduce_scatter_spec(g, spec, mesh, reader="tp_grads")
+        return g, None, None, None, None
+
+
+class _ModelScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh, reader):
+        ctx.args = (spec, mesh)
+        return reduce_scatter_spec(x, spec, mesh, reader=reader)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh = ctx.args
+        return (gather_spec(g, spec, mesh, reader="tp_grads"), None, None,
+                None)
+
+
+def model_gather(x, spec, mesh, whole: bool = False,
+                 reader: Optional[str] = "tp_gather"):
+    """A rank's block of an activation split over ``model`` by ``spec``
+    (its channels) gathered whole: forward an all-gather.  Backward a
+    reduce-scatter (reader ``"tp_grads"``): the ranks' column-parallel
+    products each give a partial gradient of the whole tensor, summed
+    into each rank's block; or, with ``whole=True`` for a tensor that
+    every rank goes on to compute with alike, the rank's block of the
+    gradient, with no collective."""
+    return _ModelGather.apply(x, spec, mesh, whole, reader)
+
+
+def model_scatter(x, spec, mesh, reader: Optional[str] = "tp_sum"):
+    """Partial sums of a whole activation, one on each ``model`` rank,
+    summed into the rank's block by ``spec``: forward a reduce-scatter;
+    backward an all-gather (reader ``"tp_grads"``), each rank's partial
+    taking the gradient of the whole sum."""
+    return _ModelScatter.apply(x, spec, mesh, reader)
 
 
 # ---------------------------------------------------------------------------

@@ -28,9 +28,11 @@ major), as a ``PartitionSpec`` holds them.  The rules read a mesh only
 through ``mesh_shape``, so a stand-in with a ``.shape`` dict (the
 production meshes' 256 and 512 ranks) gives the same specs.
 ``local_shard`` is this rank's part of a tensor by its spec;
-``compute_spec`` the part a layer computes with (the ``model`` split
-kept, the data axes gathered at the use; RWKV6's ``wk``, ``wv`` and
-``wo`` split by head where the reference's rule splits other dims).
+``block_spec`` the block a rank holds (``param_spec``'s, but RWKV6's
+``wk``, ``wv`` and ``wo`` split by head where the reference's rule splits
+other dims, for serving and training alike); ``compute_spec`` the part a
+layer computes with (the ``model`` split kept, the data axes gathered at
+the use).
 ``serve_cache_spec`` is the port's serving cache layout beside the
 reference's ``cache_spec``: K/V by KV head where the heads divide
 ``model``, else by sequence where the length divides, else whole; the
@@ -455,9 +457,9 @@ def local_shape(shape: Sequence[int], spec: Sequence, mesh) -> tuple:
 
 
 # RWKV6's time-mix leaves (d, d) that the reference's 3-D attention rules
-# ("wk", "wv", "wo") reach: the port's layout over ``model`` (compute_spec)
-_RWKV_TIME_MIX = {"wk": (None, "model"), "wv": (None, "model"),
-                  "wo": ("model", None)}
+# ("wk", "wv", "wo") reach: the port's layout (block_spec), the logical
+# rules of wr (column-parallel) and wv_c (row-parallel)
+_RWKV_TIME_MIX = {"wk": (FSDP, TP), "wv": (FSDP, TP), "wo": (TP, FSDP)}
 
 
 def _rwkv_time_mix(names) -> bool:
@@ -468,32 +470,41 @@ def _rwkv_time_mix(names) -> bool:
             and names[-1] in _RWKV_TIME_MIX)
 
 
+def block_spec(path, shape: Sequence[int], mesh, *, train: bool) -> tuple:
+    """The spec of the block a rank holds of the leaf at ``path`` of
+    ``shape`` (``models.io.ShardedLM``): ``param_spec``'s, with one
+    departure.  RWKV6's ``wk``, ``wv`` and ``wo`` (each (d, d) a layer)
+    take the reference's 3-D attention rules, which on the stacked (L, d,
+    d) leaf split ``wk``/``wv`` by input rows and ``wo`` by the layer axis
+    (training gives ``('data', 'model', None)`` and ``('model', None,
+    'data')``).  The port splits them by head for serving and training
+    alike: ``wk`` and ``wv`` column-parallel as ``wr`` is, ``(data,
+    model)`` on a layer's (d, d), and ``wo`` row-parallel as ``wv_c`` is,
+    ``(model, data)`` (the data axes only with ``train``).  So each rank's
+    time mix runs on its ``H/m`` heads, as it does when served, and no
+    layer's ``wo`` moves between ranks (a whole ``wo`` a rank per layer,
+    as the layer-axis split would need, is 32 MiB of rwkv6-7b a layer a
+    step).  ``models.io.sharded_params_to_numpy`` gathers by these specs,
+    so it still returns the reference's tree."""
+    names = _names(path)
+    if not _rwkv_time_mix(names):
+        return param_spec(path, shape, mesh, train=train)
+    fsdp = fsdp_axes_for(mesh, train)
+    spec = [None] * (len(shape) - 2)
+    for dim, lg in zip(shape[-2:], _RWKV_TIME_MIX[names[-1]]):
+        axes = _axes_for(mesh, lg, fsdp, dim)
+        spec.append(None if axes is None else spec_entry(axes))
+    return tuple(spec)
+
+
 def compute_spec(path, shape: Sequence[int], mesh, *, train: bool) -> tuple:
     """The spec of the tensor a layer computes with for the leaf at
-    ``path`` of ``shape``: ``param_spec``'s ``model`` entries (tensor
+    ``path`` of ``shape``: ``block_spec``'s ``model`` entries (tensor
     parallelism), the data axes gathered at the use (FSDP).  A dim that
     ``model`` does not divide stays whole, and the layer computes that
-    part whole on every ``model`` rank.
-
-    One departure from ``param_spec``: RWKV6's ``wk``, ``wv`` and ``wo``
-    (each (d, d) a layer) take the reference's 3-D attention rules, which
-    on the stacked (L, d, d) leaf split ``wk``/``wv`` by input rows and
-    ``wo`` by the layer axis.  The port splits ``wk`` and ``wv`` into
-    columns and ``wo`` into rows, by head, as ``wr`` and ``u`` split:
-    each rank's time mix runs on its ``H/m`` heads with ``wo``
-    row-parallel, and no layer's ``wo`` moves between ranks.  (A whole
-    ``wo`` a rank per layer, as the layer-axis split would need, is 32
-    MiB of rwkv6-7b a layer a step.)  ``models.io.sharded_params_to_numpy``
-    gathers by these specs, so it still returns the reference's tree."""
-    names = _names(path)
-    if _rwkv_time_mix(names):
-        m = axis_size(mesh, "model")
-        d = shape[-1]
-        split = _RWKV_TIME_MIX[names[-1]] if m > 1 and d % m == 0 \
-            else (None, None)
-        return (None,) * (len(shape) - 2) + split
+    part whole on every ``model`` rank."""
     return tuple(e if "model" in spec_axes(e) else None
-                 for e in param_spec(path, shape, mesh, train=train))
+                 for e in block_spec(path, shape, mesh, train=train))
 
 
 _KV_NAMES = ("k", "v", "self_k", "self_v", "cross_k", "cross_v")

@@ -20,9 +20,10 @@ ranks there are, clipped to the world's size as the reference clips it to
 its devices) and ``make_production_mesh`` (the reference's 16 x 16 pod, or
 2 x 16 x 16 with ``("pod", "data", "model")``; it raises, as
 ``jax.make_mesh`` does, in a world with fewer ranks).  A mesh over fewer
-ranks than the world takes the first ones.  ``make_mesh_compat`` (jax's
-axis types) has no meaning here; the reference's TPU v5e constants for its
-roofline are not ported.  Importing this module starts nothing.
+ranks than the world takes the first ones.  ``make_mesh(shape, names)``
+is the reference's ``make_mesh_compat`` (jax's axis types have no meaning
+here); the reference's TPU v5e constants for its roofline are not ported.
+Importing this module starts nothing.
 """
 from __future__ import annotations
 
@@ -164,17 +165,24 @@ def _grid(shape: tuple, names: tuple):
     return DeviceMesh(device_type, ranks, mesh_dim_names=names)
 
 
+def make_mesh(shape, names):
+    """A mesh of axes ``names`` and sizes ``shape`` over the first ranks
+    of the world (the reference's ``make_mesh_compat``); cached.  Raises,
+    with ``jax.make_mesh``'s message, in a smaller world."""
+    shape, n = tuple(shape), dist.get_world_size()
+    if n < math.prod(shape):
+        raise ValueError(f"Number of devices {n} must be >= the product of "
+                         f"mesh_shape {shape}")
+    return _grid(shape, tuple(names))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """16 x 16 = 256 ranks ``("data", "model")``; 2 x 16 x 16 = 512
     ``("pod", "data", "model")`` when ``multi_pod``.  Raises, with
     ``jax.make_mesh``'s message, in a smaller world."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    names = ("pod", "data", "model") if multi_pod else ("data", "model")
-    n = dist.get_world_size()
-    if n < math.prod(shape):
-        raise ValueError(f"Number of devices {n} must be >= the product of "
-                         f"mesh_shape {shape}")
-    return _grid(shape, names)
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(data: int = 1, model: int = 1):

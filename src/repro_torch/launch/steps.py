@@ -1,8 +1,7 @@
 """Step functions over the unified model API (port of
-``repro/launch/steps.py``): the training step of the dense, MoE and
-enc-dec families, and the prefill and decode steps that serve the
-recurrent and enc-dec families, which ``ExpertServer`` does not, as the
-reference serves them.
+``repro/launch/steps.py``): the training step of every family, and the
+prefill and decode steps that serve the recurrent and enc-dec families,
+which ``ExpertServer`` does not, as the reference serves them.
 
     train_step = make_train_step(cfg, opt)
     state, metrics = train_step(state, batch)           # state: train_state
@@ -65,9 +64,9 @@ the blocks the data axes do not split over them
 (``train_state`` builds it with the ``ShardedLM`` as its layout); the
 microbatches' accumulators take the blocks' shapes.  The loss keeps the
 global normaliser (``model.lm_loss``).  The recurrent families (RWKV6,
-RecurrentGemma) are served so too, on a ``ShardedLM`` of serving blocks:
-RWKV6's time mix on the rank's heads and RecurrentGemma's recurrent
-blocks on its channels (``models/rwkv6.py``, ``models/rglru.py``).
+RecurrentGemma) are trained and served so too: RWKV6's time mix on the
+rank's heads and RecurrentGemma's recurrent blocks on its channels
+(``models/rwkv6.py``, ``models/rglru.py``).
 
 The serving caches follow ``sharding.serve_cache_spec`` (the reference's
 ``cache_spec`` splits every K/V by sequence; the port splits by head

@@ -8,7 +8,7 @@
 The LM path trains the dense, MoE and recurrent families
 (``train.trainer.Trainer`` over ``data.pipeline.SyntheticLM``; RWKV6 and
 RecurrentGemma through their training forwards' plain scans, on one
-device) on the CUDA device, each step replayed
+device or a mesh) on the CUDA device, each step replayed
 from a CUDA graph (``--eager`` runs them eagerly; ``--device cpu`` with
 ``--reduced`` runs the reduced config of the same family on the CPU).  The
 global batch is cut into the config's ``microbatches`` when it divides,
@@ -31,6 +31,10 @@ logs and writes the checkpoints:
     PYTHONPATH=src torchrun --standalone --nproc_per_node=4 \
         -m repro_torch.launch.train --arch qwen1.5-0.5b --reduced \
         --device cpu --data-parallel 2 --model-parallel 2 --steps 4
+
+(``--arch rwkv6-7b`` and ``--arch recurrentgemma-2b`` train on a mesh the
+same way; at its published width rwkv6-7b's training state is ~90 GB, a
+quarter of it a rank on 4, by ``scripts/torch_mesh_bytes.py``.)
 
     PYTHONPATH=src python -m repro_torch.launch.train --router --iters 400 \
         [--obs-fmt padded|segments] [--ragged-caps] [--scenario NAME] \

@@ -22,8 +22,8 @@ a bf16 model.
 ``reference_groups`` is the other way: the port's tensors by the
 reference's leaf paths.  On a mesh (``launch/mesh.py``) a model is a
 ``ShardedLM``: a model whose parameters are this rank's block of every
-leaf by ``distributed.sharding.param_spec`` (the recurrent families,
-served only, by ``compute_spec``)
+leaf by ``distributed.sharding.block_spec``, served or trained
+(``param_spec``'s but for RWKV6's ``wk``/``wv``/``wo``, split by head)
 (``sharded_params_from_numpy`` carries the reference's tree onto a mesh,
 ``sharded_params_to_numpy`` gathers it back).
 """
@@ -40,8 +40,6 @@ from repro_torch.distributed import collectives, sharding
 from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models.transformer import Transformer
 
-# the families served on a mesh but not trained there
-RECURRENT = ("ssm", "hybrid")
 # the port's per-layer module lists (names start ``<list>.<i>.``)
 LAYER_LISTS = ("layers", "enc_layers", "dec_layers")
 
@@ -124,14 +122,15 @@ class ShardedLM:
     replaces).
 
     ``leaves``: reference path -> this rank's block of the leaf by
-    ``param_spec(..., train=train)`` (a tensor, or the list of its
+    ``block_spec(..., train=train)`` (a tensor, or the list of its
     per-layer blocks for a stacked leaf): what the optimizer updates and
     the checkpoint saves.  ``specs``: path -> the (stacked) leaf's spec;
     ``shapes``: path -> its whole shape.  ``model``: the port's module,
     whose parameters are those blocks and nothing else: a rank holds no
     whole tensor of a split leaf between steps.  The layers compute on
     them Megatron-style (``models/transformer.py``, ``models/encdec.py``,
-    ``models/moe.py``): a block split over ``model`` is what the layer
+    ``models/moe.py``, ``models/rwkv6.py``, ``models/rglru.py``): a block
+    split over ``model`` is what the layer
     computes with (``sharding.compute_spec``), and a block that training
     splits over the data axes carries its spec as ``gather_spec``, so the
     layer gathers it at its use and frees it after, and its gradient
@@ -139,22 +138,11 @@ class ShardedLM:
     ``regathered`` keeps the gathered weight out of the saved tensors).
     ``sum_replicated_grads`` sums the gradients of the blocks that the
     data axes do not split (norms, the router, a dim that does not
-    divide) over those axes.
-
-    The recurrent families (RWKV6, RecurrentGemma) are served only on a
-    mesh: their blocks follow ``sharding.compute_spec(..., train=False)``,
-    whose RWKV6 ``wk``/``wv``/``wo`` split by head where ``param_spec``
-    would split the stacked ``wo`` by its layer axis, and ``train=True``
-    raises (they train on one device; their data-axis FSDP and the choice
-    of ``wo``'s split wait for ROADMAP queue A item 5)."""
+    divide) over those axes.  Every family trains and serves so; RWKV6's
+    ``wk``/``wv``/``wo`` split by head (``sharding.block_spec``) where
+    ``param_spec`` would split the stacked ``wo`` by its layer axis."""
 
     def __init__(self, model, cfg, mesh, train: bool):
-        if train and cfg.family in RECURRENT:
-            raise NotImplementedError(
-                f"{cfg.name}: the recurrent families train on one device "
-                "and are served on a mesh; their training on a mesh (the "
-                "data-axis FSDP, the split of RWKV6's stacked wo) waits "
-                "for ROADMAP queue A item 5")
         self.model, self.cfg, self.mesh, self.train = model, cfg, mesh, train
         owner = {id(p): (mod, attr) for mod in model.modules()
                  for attr, p in mod.named_parameters(recurse=False)}
@@ -167,9 +155,7 @@ class ShardedLM:
             members = list(leaf) if stacked else [leaf]
             shape = (((len(members),) if stacked else ())
                      + tuple(members[0].shape))
-            spec = (sharding.compute_spec(path, shape, mesh, train=False)
-                    if cfg.family in RECURRENT else
-                    sharding.param_spec(path, shape, mesh, train=train))
+            spec = sharding.block_spec(path, shape, mesh, train=train)
             mspec = spec[1:] if stacked else spec
             assert not stacked or spec[0] is None, (path, spec)
             used = {a for e in mspec for a in sharding.spec_axes(e)}
@@ -226,7 +212,7 @@ class ShardedLM:
 def sharded_params_from_numpy(tree: dict, cfg, mesh, *, train: bool,
                               device=None) -> ShardedLM:
     """The reference's param tree carried onto ``mesh``: this rank's
-    blocks by ``param_spec(..., train=train)``, the parameters of the
+    blocks by ``block_spec(..., train=train)``, the parameters of the
     model it computes with, on ``device`` (CUDA by default)."""
     return ShardedLM(lm_params_from_numpy(tree, cfg, device), cfg, mesh,
                      train)

@@ -101,9 +101,8 @@ def lm_loss(params, cfg, batch: dict):
     returns (loss + 0.01 * aux, {"loss", "aux_loss", "perplexity"}), as
     the reference's ``lm_loss``.  The log-sum-exp is in float32 from the
     logits' own max; padded vocab ids carry -1e9 logits
-    (``transformer.unembed``), so they add nothing to it.  Every family;
-    the recurrent ones (``ssm``, ``hybrid``) train on one device only
-    (``models.io.ShardedLM`` refuses them).
+    (``transformer.unembed``), so they add nothing to it.  Every family,
+    on one device or a mesh.
 
     Under a mesh policy ``batch`` is this rank's rows: the returned total
     is its share, ``sum(nll * mask)`` over its rows divided by the mask

@@ -66,6 +66,19 @@ function of its blocks (``rec_in_body`` then ``rec_out_body`` around the
 gather, ``attention_full_body``, ``decode_query``/``ring_attend``/
 ``attention_out`` around the decode's collectives, ``mlp_body``), so one
 process can run every rank's.
+
+The training forward computes on the same blocks, which training also
+splits over the data axes (``sharding.block_spec``; each gathered at its
+use, ``collectives.at_use``): each split layer takes its input's
+gradient summed over ``model``, the conv output's gather is an autograd
+collective whose backward reduce-scatters the ranks' partial gradients
+into each rank's channels (``collectives.model_gather``), the one KV
+head's ``wk``/``wv`` take their gradient summed over ``model`` where
+the query heads split, and the RG-LRU runs ``rg_lru_scan_train`` on the
+rank's channels from zero states of its width.  Under ``cfg.remat`` each
+superblock and tail layer is recomputed with its collectives.
+``cfg.seq_parallel`` is the transformer's: RecurrentGemma computes whole
+sequences with the flag set, which is the same function.
 """
 from __future__ import annotations
 
@@ -287,8 +300,8 @@ def rec_block(p: RecLayer, cfg, x, st: dict, *, single: bool,
     tp = split_layer(w.lam.shape[0] != cfg.rnn_width)
     bx32, gate, conv_state = rec_in_body(w, cfg, split_input(x, tp),
                                          st["conv"])
-    bx_all = bx32 if tp is None else collectives.gather_spec(
-        bx32, CHANNELS, tp[0], reader="tp_gather")
+    bx_all = bx32 if tp is None else collectives.model_gather(
+        bx32, CHANNELS, tp[0])
     out, h_last = rec_out_body(w, cfg, bx_all, gate, st["h"],
                                0 if tp is None else tp[2], single=single,
                                train=train)
@@ -333,13 +346,16 @@ def attention_weights(p: AttnLayer, cfg):
     """(``p``'s weights as the layer computes with them, the split's
     ``(mesh, m, index)`` where ``model`` splits the query heads, else
     None).  The KV heads must be whole: RecurrentGemma's one KV head never
-    divides ``model``."""
+    divides ``model``.  Under the split ``wk``/``wv`` take their gradient
+    summed over ``model``: each rank's query heads read them in part."""
     w = collectives.layer_weights(p, ATTN)
     if w.wk.shape[1] != cfg.n_kv_heads:
         raise NotImplementedError(
             f"{cfg.name}: the local attention on a mesh takes its KV heads "
             "whole (one KV head); a KV split over model is not ported")
     tp = split_layer(w.wq.shape[1] != cfg.n_heads)
+    if tp is not None:
+        w.wk, w.wv = split_input(w.wk, tp), split_input(w.wv, tp)
     return w, tp
 
 
@@ -505,7 +521,9 @@ def forward(params: RecurrentGemma, cfg, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens, train=True)
     positions = torch.arange(n, dtype=torch.int32, device=dev)[None].expand(
         b, n)
-    states = [_rec_state(cfg, b, dev, None) if kind == "rec" else None
+    policy = current_policy()
+    mesh = policy.mesh if policy is not None else None
+    states = [_rec_state(cfg, b, dev, mesh) if kind == "rec" else None
               for kind in layer_kinds(cfg)]
     remat = cfg.remat and torch.is_grad_enabled()
     for idx in train_groups(cfg):

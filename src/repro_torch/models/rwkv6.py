@@ -66,6 +66,9 @@ from repro_torch.models.transformer import (split_input, split_layer,
 
 TIME_MIX = ("mu", "wr", "wk", "wv", "wg", "wo", "wA", "wB", "w0", "u",
             "gn_w", "gn_b")
+# the time mix's weights that every model rank reads whole, each using
+# its heads' part: their gradients are summed over ``model``
+TIME_MIX_WHOLE = ("mu", "wA", "wB", "w0", "gn_w", "gn_b")
 CHANNEL_MIX = ("mu_c", "wk_c", "wv_c", "wr_c")
 
 
@@ -279,25 +282,35 @@ def time_mix_body(w, cfg, x, tm_prev, state, m_idx: int = 0, *,
 def time_mix(p: Layer, cfg, x, tm_prev, state, *, single: bool,
              train: bool = False):
     """The time mix (``time_mix_body``), under the split its partial
-    outputs summed over ``model``: (out, x's last token, the new state)."""
+    outputs summed over ``model``, and the gradients of its input and of
+    the weights every rank reads whole (``TIME_MIX_WHOLE``) summed over
+    ``model``: (out, x's last token, the new state)."""
     w = collectives.layer_weights(p, TIME_MIX)
     tp = split_layer(w.u.shape[0] != cfg.n_heads)
+    if tp is not None:
+        for n in TIME_MIX_WHOLE:
+            setattr(w, n, split_input(getattr(w, n), tp))
     out, last, state = time_mix_body(w, cfg, split_input(x, tp), tm_prev,
                                      state, 0 if tp is None else tp[2],
                                      single=single, train=train)
     return split_output(out, tp), last, state
 
 
-def channel_mix_body(w, cfg, x, cm_prev):
+def channel_mix_body(w, cfg, x, cm_prev, x_r=None):
     """A model rank's part of the channel mix on its blocks ``w``
     (``wk_c (d, f/m)``, ``wv_c (f/m, d)``, ``wr_c (d, d/m)``; whole at m =
     1): (its partial output (B, T, d), which the model ranks sum, the
     sigmoid gate of its ``wr_c`` channels, x's last token).  The layer's
-    output is the gate times the summed output, channel for channel."""
-    xs = _token_shift(x, cm_prev)
+    output is the gate times the summed output, channel for channel.
+    ``x_r``, the same values as ``x``, feeds the gate where its gradient
+    must not be summed with the products' (``channel_mix``)."""
     mu = w.mu_c.to(x.dtype)
+    xs = _token_shift(x, cm_prev)
     xk = x + mu[0] * (xs - x)
-    xr = x + mu[1] * (xs - x)
+    if x_r is None:
+        xr = x + mu[1] * (xs - x)
+    else:
+        xr = x_r + mu[1] * (_token_shift(x_r, cm_prev) - x_r)
     k = torch.square(F.relu(torch.einsum("btd,df->btf", xk, w.wk_c)))
     out = torch.einsum("btf,fd->btd", k, w.wv_c)
     rgate = torch.sigmoid(torch.einsum("btd,de->bte", xr, w.wr_c))
@@ -309,22 +322,39 @@ def channel_mix(p: Layer, cfg, x, cm_prev):
     partial outputs are reduce-scattered over ``model`` into the rank's
     gate channels, gated, and gathered whole (module docstring); where
     ``model`` splits only ``d_ff`` they are summed, where it splits only
-    ``d`` each rank gates its channels of the whole output."""
+    ``d`` each rank gates its channels of the whole output.  In the
+    backward the whole gradient's channels of the rank come back from
+    the gather, an all-gather gives every rank's partial the gradient of
+    the sum, and the gradients of the input and of the weights a rank
+    reads whole but uses in part are summed over ``model``: ``mu_c``, and
+    ``wk_c``/``wv_c`` where only ``d`` splits; the gate's input and
+    ``mu_c``'s gate row where ``d`` does not split feed a gate every rank
+    computes alike, and keep their gradient."""
     w = collectives.layer_weights(p, CHANNEL_MIX)
     f_split = w.wk_c.shape[1] != cfg.d_ff
     d_split = w.wr_c.shape[1] != cfg.d_model
     tp = split_layer(f_split or d_split)
-    out, rgate, last = channel_mix_body(w, cfg, x, cm_prev)
+    if tp is None:
+        out, rgate, last = channel_mix_body(w, cfg, x, cm_prev)
+        return rgate * out, last
+    x_k = split_input(x, tp)
+    if d_split:
+        x_r, w.mu_c = None, split_input(w.mu_c, tp)
+    else:
+        x_r = x
+        w.mu_c = torch.stack([split_input(w.mu_c[0], tp), w.mu_c[1]])
+    if not f_split:
+        w.wk_c, w.wv_c = split_input(w.wk_c, tp), split_input(w.wv_c, tp)
+    out, rgate, last = channel_mix_body(w, cfg, x_k, cm_prev, x_r)
     if not d_split:
         return rgate * split_output(out, tp), last
     mesh, chans = tp[0], (None, None, "model")
     if f_split:
-        out = collectives.reduce_scatter_spec(out, chans, mesh,
-                                              reader="tp_sum")
+        out = collectives.model_scatter(out, chans, mesh)
     else:
         out = out.narrow(2, tp[2] * rgate.shape[2], rgate.shape[2])
-    return collectives.gather_spec(rgate * out, chans, mesh,
-                                   reader="tp_gather"), last
+    return collectives.model_gather(rgate * out, chans, mesh,
+                                    whole=True), last
 
 
 def block(p: Layer, cfg, x, state: dict, i: int, *, single: bool,

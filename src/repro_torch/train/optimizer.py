@@ -34,8 +34,12 @@ the whole shape; its row and column means, the mean of its row statistic
 and its RMS clip sum over the axes that split the dims they span, and its
 factored moments are stored split as the reference's ``state_specs``
 splits them (``param_spec`` of the moment's own shape), gathered and cut
-where that differs from the leaf's split.  On one rank, or where nothing
-is split, each update is the unsharded one, bit for bit.
+where that differs from the leaf's split; an unfactored second moment
+splits as its leaf.  A leaf whose block departs from ``param_spec``
+(RWKV6's ``wk``/``wv``/``wo``, ``sharding.block_spec``) so keeps AdamW's
+moments and Adafactor's unfactored one as its blocks, and the factored
+ones by ``param_spec``, relaid from the block.  On one rank, or where
+nothing is split, each update is the unsharded one, bit for bit.
 """
 from __future__ import annotations
 
@@ -378,8 +382,10 @@ class Adafactor(_Optimizer):
         for k, leaf in self.params.items():
             s = self._whole_shape(k, leaf)
             for part, x in self.v[k].items():
-                whole = {"vr": s[:-1], "vc": s[:-2] + s[-1:], "v": s}[part]
-                out[f"v/{k}/{part}"] = self.moment_spec(k, whole)
+                out[f"v/{k}/{part}"] = (
+                    self._spec(k, len(s)) if part == "v" else
+                    self.moment_spec(k, s[:-1] if part == "vr"
+                                     else s[:-2] + s[-1:]))
         return out
 
 

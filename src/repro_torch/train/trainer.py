@@ -20,13 +20,15 @@ step included) and each checkpoint's (``save_s``, ``restore_s``).
 ``Trainer(model_cfg, cfg, mesh=...)`` trains on an LM mesh
 (``launch.mesh.make_host_mesh``): its step runs under a ``MeshPolicy`` of
 ``activation_rules(mesh, train=True)``, ``init_state`` keeps each rank's
-blocks of the parameters by ``param_spec(..., train=True)`` (a
-``models.io.ShardedLM``) and the optimizer's state likewise, the data are
-each rank's rows (``SyntheticLM(mesh=)``), checkpoints are written whole
-by rank 0 and restored onto any mesh, and only rank 0 logs.  The model
-computes on the blocks Megatron-style (``launch/steps.py``), and a batch
-whose rows do not split over every data axis is held whole by the ranks
-outside the axes that split it (``bind``).
+blocks of the parameters by ``block_spec(..., train=True)`` (a
+``models.io.ShardedLM``; every family) and the optimizer's state likewise,
+the data are each rank's rows (``SyntheticLM(mesh=)``), checkpoints are
+written whole by rank 0 and restored onto any mesh, or onto none, and
+only rank 0 logs.  The model computes on the blocks Megatron-style
+(``launch/steps.py``), and a batch whose rows do not split over every
+data axis is held whole by the ranks outside the axes that split it
+(``bind``).  ``distributed.fault_tolerance.reshard_state`` moves a state
+onto another mesh of the same world.
 """
 from __future__ import annotations
 
@@ -88,11 +90,10 @@ def tree_specs(state: dict) -> dict:
 
 
 class Trainer:
-    """Trains ``model_cfg`` (dense, MoE, RWKV6 or RecurrentGemma; the
-    recurrent families on one device, ``models.io.ShardedLM`` refusing
-    them on a mesh) with its ``optimizer`` on ``device`` (CUDA by
-    default), on ``mesh`` when given (module docstring); ``graphs=False``
-    runs every step eagerly."""
+    """Trains ``model_cfg`` (dense, MoE, RWKV6 or RecurrentGemma) with
+    its ``optimizer`` on ``device`` (CUDA by default), on ``mesh`` when
+    given (module docstring); ``graphs=False`` runs every step
+    eagerly."""
 
     def __init__(self, model_cfg, cfg: TrainerConfig, mesh=None,
                  log_fn: Callable = print, device=None, graphs: bool = True):

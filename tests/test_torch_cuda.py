@@ -1646,6 +1646,44 @@ def test_lm_mesh_in_a_world_of_one_equals_no_mesh_on_card(nccl_world):
     assert torch.equal(outs[0], outs[1])
 
 
+# every rank's training bodies' gradients, merged, against the whole
+# layer's, each of its largest magnitude (float32, as on the CPU)
+RANK_GRAD_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_recurrent_rank_bodies_backward_to_the_whole_layer_on_card(
+        cuda_device, arch):
+    """Reduced rwkv6-7b's layer and reduced recurrentgemma-2b's superblock
+    (6 query heads, 3 a rank) trained on both ranks of a model axis of 2,
+    composed in one process (``tests/torch_rank_grads.py``) over 2 x 64
+    tokens on the card: the input's gradient and every weight's, merged
+    over the ranks, equal the whole layer's."""
+    import torch_rank_grads as trg
+    from repro_torch.models import rglru, rwkv6
+
+    over = {"n_heads": 6, "window": 16} if arch != "rwkv6-7b" else {}
+    cfg = reduce_config(get_config(arch), **over)
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    rand = lambda *shape: torch.randn(shape, generator=gen,
+                                      device=cuda_device)
+    x = rand(2, 64, cfg.d_model)
+    if arch == "rwkv6-7b":
+        layer = rwkv6.init_params(cfg, seed=42, device=cuda_device).layers[0]
+        c = rand(2, 2, 64, cfg.d_model)
+        run = lambda m: trg.rwkv6_layer(layer, cfg, x, m, c)
+    else:
+        model = rglru.init_params(cfg, seed=43, device=cuda_device)
+        c = rand(2, 64, cfg.d_model)
+        run = lambda m: trg.rglru_superblock(model, cfg, x, m, c)
+    gx_want, want = run(1)
+    gx, got = run(2)
+    scale = float(gx_want.abs().max())
+    assert float((gx - gx_want).abs().max()) <= RANK_GRAD_TOL * scale
+    assert trg.worst(got, want) <= RANK_GRAD_TOL
+
+
 # ---------------------------------------------------------------------------
 # The enc-dec family at whisper's head shapes (16 query heads over 16 KV
 # heads of 64: G = 1)

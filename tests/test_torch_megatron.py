@@ -4,7 +4,9 @@ heads, the MLP on its ff columns, the embedding and the logits on its
 vocab rows, the cross entropy's terms), run one after another in one
 process on its blocks (``sharding.rank_blocks``) and summed by hand,
 against the port's whole layer and the JAX reference's function on the
-same weights, for model axes of 2 and 4.
+same weights, for model axes of 2 and 4; the recurrent families'
+training bodies' gradients, every rank's composed in one process
+(``tests/torch_rank_grads.py``), against the whole layer's.
 
 The configurations cover the split's cases: KV heads that divide the
 model axis (each rank its ``KV/m``), that do not (the whole KV on every
@@ -530,6 +532,43 @@ def test_rglru_recurrent_bodies_sum_to_the_whole_block(m, single):
                                                   "conv": _j(conv)})
     _close(got.numpy(), np.asarray(jout), REF_TOL)
     _close(got_h.numpy(), np.asarray(jst["h"]), REF_TOL)
+
+
+# every rank's training bodies' gradients, merged, against the whole
+# layer's, each of its largest magnitude: float32 partial sums reordered
+GRAD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_recurrent_training_bodies_backward_to_the_whole_layer(arch, m):
+    """The training bodies' backward on every rank of a model axis of
+    ``m``, composed in one process (``tests/torch_rank_grads.py``): one
+    RWKV6 layer's time mix and channel mix (``wkv_chunked``) and one
+    RecurrentGemma superblock (``rg_lru_scan_train``; 6 query heads,
+    split over 2 ranks and whole over 4) over 2 x 16 tokens; the input's
+    gradient summed over the ranks, the split weights' concatenated and
+    the weights every rank reads whole summed equal the whole layer's."""
+    import torch_rank_grads as trg
+
+    cfg = _cfgs(*(REC_CFG if arch == "recurrentgemma-2b" else (arch, {})))[0]
+    rng = np.random.default_rng(31)
+    f32 = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=torch.float32)
+    x = f32(2, 16, cfg.d_model)
+    if arch == "rwkv6-7b":
+        layer = rwkv6.init_params(cfg, seed=32, device="cpu").layers[0]
+        c = f32(2, 2, 16, cfg.d_model)
+        run = lambda mm: trg.rwkv6_layer(layer, cfg, x, mm, c)
+    else:
+        model = rglru.init_params(cfg, seed=33, device="cpu")
+        c = f32(2, 16, cfg.d_model)
+        run = lambda mm: trg.rglru_superblock(model, cfg, x, mm, c)
+    gx_want, want = run(1)
+    gx, got = run(m)
+    _close(gx.numpy(), gx_want.numpy(), GRAD_TOL)
+    assert trg.worst(got, want) <= GRAD_TOL
+    assert min(float(g.abs().max()) for g in want.values()) > 0
 
 
 @pytest.mark.parametrize("m", MS)

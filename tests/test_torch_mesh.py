@@ -16,17 +16,23 @@ In one process, with the reference's duck-typed ``FakeMesh``
     with a capacity that drops tokens, and the fallbacks.
 
 On 4 and 2 gloo ranks (``tests/torch_dist_worker.py``, one CPU process
-each): LM training (reduced qwen1.5-0.5b, dbrx-132b and whisper-medium)
-on 2 x 2, 4 x 1 and 1 x 4 against one process, computing Megatron-style
-on each rank's blocks, which are all a rank holds; a batch that does not
-split over the data axis; an elastic restart; serving every arch under
+each): LM training (reduced qwen1.5-0.5b, dbrx-132b, whisper-medium,
+rwkv6-7b and recurrentgemma-2b, the last under remat with Adafactor) on
+2 x 2, 4 x 1 and 1 x 4 against one process, computing Megatron-style on
+each rank's blocks, which are all a rank holds (and two rwkv6 variants
+whose channel mix keeps one width whole, on 1 x 4); a batch that does not
+split over the data axis; an elastic restart, in a world of one from a
+2 x 2 checkpoint and by ``reshard_state`` between meshes of the same
+world; serving every arch under
 1 x 4 and 2 x 2 policies; the residual stream split by sequence over
 ``model`` (``cfg.seq_parallel``: training and prefill of qwen and dbrx on
 1 x 4 and 2 x 2 against one process and the flag off, and the sequence
 split's bytes against the specs); and ``launch/train.py --data-parallel
-2``.
-The per-rank bodies of the split, summed in one process, are
-``tests/test_torch_megatron.py``.
+2`` and ``--arch recurrentgemma-2b --model-parallel 2``.  In one
+process: the recurrent families' training blocks by ``block_spec`` on
+1 x 2 and 2 x 2 coordinates, and ``best_mesh_after_failure`` against
+the reference's.  The per-rank bodies of the split, summed in one
+process, are ``tests/test_torch_megatron.py``.
 """
 import json
 import os
@@ -50,11 +56,14 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import io, model as model_lib, moe
 from repro_torch.train import checkpoint, optimizer as opt_lib
 from repro_torch.train import trainer as trainer_lib
-from torch_dist_worker import (LM_ARCHS, LM_BATCH, LM_SEQ, LM_SHAPES,
-                               LM_TRAIN, SEQ_ARCHS, SEQ_PROMPTS, SEQ_SHAPES,
-                               SERVE_ARCHS, SERVE_DECODES, SERVE_PROMPTS,
-                               SERVE_SHAPES, lm_cfg, moe_dp_grads,
-                               moe_dp_inputs, run_world)
+from torch_dist_worker import (CKPT22, LM_ARCHS, LM_BATCH, LM_SEQ,
+                               LM_SHAPES, LM_STEPS, LM_TRAIN, MIXED_RUNS,
+                               RESHARD_ARCHS,
+                               RESHARD_SHAPES, SEQ_ARCHS, SEQ_PROMPTS,
+                               SEQ_SHAPES, SERVE_ARCHS, SERVE_DECODES,
+                               SERVE_PROMPTS, SERVE_SHAPES, TRAIN_ARCHS,
+                               lm_cfg, moe_dp_grads, moe_dp_inputs,
+                               run_world)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
@@ -429,7 +438,9 @@ def test_moe_sharded_on_a_world_of_one_is_the_local_moe():
 # gradient is near 0 can move its update by a share of the lr
 PARAM_TOL = dict(atol=2e-6, rtol=1e-5)
 METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
-RUNS = [(arch, shape) for arch in LM_ARCHS for shape in LM_SHAPES]
+RUNS = [(arch, shape) for arch in TRAIN_ARCHS for shape in LM_SHAPES]
+# and the rwkv6 variants whose channel mix keeps one width whole
+MATCH_RUNS = RUNS + list(MIXED_RUNS.items())
 SERVE_RUNS = [(arch, shape) for arch in (*LM_ARCHS, *SERVE_ARCHS)
               for shape in SERVE_SHAPES]
 SERVED_ONLY = [(arch, shape) for arch in SERVE_ARCHS for shape in SERVE_SHAPES]
@@ -471,8 +482,8 @@ def _oracle(res, arch, shape):
     return res[0][f"{arch} plain"]
 
 
-@pytest.mark.parametrize("arch,shape", RUNS, ids=[f"{a}-{s[0]}x{s[1]}"
-                                                  for a, s in RUNS])
+@pytest.mark.parametrize("arch,shape", MATCH_RUNS,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in MATCH_RUNS])
 def test_mesh_training_matches_one_process(lm_world, arch, shape):
     """Three training steps on ``make_host_mesh(*shape)`` of 4 ranks (the
     trainer's; whisper's through ``launch.steps.make_train_step``): the
@@ -563,6 +574,10 @@ def test_each_rank_stores_its_blocks(lm_world, arch, shape):
             n_data = _share(spec, sizes, ("data",))
             uses = (1 + (2 if cfg.tie_embeddings else 0)) if k == "embed" \
                 else 2
+            if k == "layers/wB" and shape[1] > 1:
+                # RWKV6's decay product saves its own copy of the rank's
+                # columns of wB, so the backward gathers nothing
+                uses = 1
             fwd = 2 if k == "embed" and cfg.tie_embeddings else 1
             if n_data > 1:
                 assert all(g == spec[-len(g):]
@@ -810,9 +825,16 @@ def test_mesh_cli_on_two_ranks(tmp_path):
     in a world of two equals the CLI without a mesh; rank 0 alone logs
     and writes the checkpoint, which holds the gathered parameters;
     ``--production-mesh`` raises as the reference's ``jax.make_mesh``
-    does."""
+    does; ``--arch recurrentgemma-2b --reduced --model-parallel 2``
+    trains on the mesh and equals its CLI without one."""
     res = run_world("lm_cli", 2, tmp_path)
     r0, r1 = res
+    assert "data=1, model=2" in r0["rg_mesh"]
+    rg, rg1 = _paths(r0["rg_params"]), _paths(r1["rg_params"])
+    assert set(rg) == set(rg1) == set(r0["rg_plain"])
+    for k, w in r0["rg_plain"].items():
+        np.testing.assert_allclose(rg[k], w, err_msg=k, **PARAM_TOL)
+        np.testing.assert_array_equal(rg[k], rg1[k])
     assert "data=2, model=1" in r0["mesh"]
     assert any("done at step 2" in line for line in r0["logs"])
     assert r1["logs"] == []
@@ -887,20 +909,181 @@ def test_served_caches_and_bytes_follow_the_specs(lm_world, arch, shape):
 
 
 def test_recurrent_training_is_refused_on_a_mesh():
-    """``ShardedLM`` serves the recurrent families and refuses their
-    training, naming the queue that holds it; their stacked leaves no
-    longer reach the layer-axis split (rwkv6's ``wo``)."""
-    for arch in SERVE_ARCHS:
+    """(Named for the refusal this test once held.)  ``ShardedLM`` trains
+    the recurrent families on a mesh by ``sharding.block_spec``: on every
+    coordinate of 1 x 2 and 2 x 2, every stacked leaf's spec keeps its
+    layer axis whole; RWKV6's ``wk``/``wv`` are column-parallel and
+    ``wo`` row-parallel over ``model``, with ``data`` on the other dim
+    (where the reference's 3-D rules would split ``wo``'s layer axis);
+    every other leaf keeps ``param_spec``; and the blocks put together as
+    ``sharded_params_to_numpy`` gathers them are the tree, in the
+    reference's layout, they were cut from, bit for bit."""
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
         cfg = lm_cfg(arch)
-        if cfg.family not in ("ssm", "hybrid"):
-            continue
-        coord = sharding.Coord({"data": 1, "model": 2},
-                               {"data": 0, "model": 1})
-        with pytest.raises(NotImplementedError, match="queue A"):
-            io.ShardedLM(model_lib.init_params(cfg, device="cpu"), cfg,
-                         coord, train=True)
-        sp = io.ShardedLM(model_lib.init_params(cfg, device="cpu"), cfg,
-                          coord, train=False)
-        assert all(spec[0] is None for path, spec in sp.specs.items()
-                   if not isinstance(sp.leaves[path], torch.Tensor))
+        tree = {}
+        for path, leaf in io.reference_groups(model_lib.init_params(
+                cfg, seed=3, device="cpu"), cfg).items():
+            node = tree
+            *head, name = path.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[name] = (leaf if isinstance(leaf, torch.Tensor)
+                          else torch.stack(list(leaf))).detach().numpy()
+        for sizes in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
+            coords = [sharding.Coord(sizes, dict(zip(sizes, c)))
+                      for c in np.ndindex(*sizes.values())]
+            sps = [io.sharded_params_from_numpy(tree, cfg, coord, train=True,
+                                                device="cpu")
+                   for coord in coords]
+            for path, spec in sps[0].specs.items():
+                assert all(sp.specs[path] == spec for sp in sps)
+                stacked = not isinstance(sps[0].leaves[path], torch.Tensor)
+                assert not stacked or spec[0] is None, (path, spec)
+                want = sharding.param_spec(path, sps[0].shapes[path],
+                                           coords[0], train=True)
+                name = path.split("/")[-1]
+                if cfg.family == "ssm" and name in ("wk", "wv", "wo"):
+                    data = "data" if sizes["data"] > 1 else None
+                    mine = ((data, "model") if name != "wo"
+                            else ("model", data))
+                    assert spec == (None,) + mine, (path, spec)
+                    # the reference's: wo's layer axis over model, wk's
+                    # and wv's over data
+                    assert want[0] == ("model" if name == "wo"
+                                       else data), (path, want)
+                else:
+                    assert spec == want, (path, spec, want)
+            # every coordinate's blocks put together by their specs, as
+            # sharded_params_to_numpy's gathers put them: the reference's
+            got = _paths(_gathered(sps, coords))
+            assert got.keys() == _paths(tree).keys()
+            for k, w in _paths(tree).items():
+                np.testing.assert_array_equal(got[k], w, err_msg=k)
 
+
+def _gathered(sps, coords) -> dict:
+    """Every coordinate's ``ShardedLM`` (``sps``, at ``coords``) put
+    together into the whole tree by the blocks' specs."""
+    out = {}
+    for path, spec in sps[0].specs.items():
+        stacked = not isinstance(sps[0].leaves[path], torch.Tensor)
+        members = lambda sp: sp.leaves[path] if stacked else [sp.leaves[path]]
+        mspec = spec[1:] if stacked else spec
+        layers = []
+        for i in range(len(members(sps[0]))):
+            full = torch.empty(sps[0].shapes[path][int(stacked):])
+            for coord, sp in zip(coords, sps):
+                idx = []
+                for dim, e in enumerate(mspec):
+                    j, k = sharding.block_index(coord, sharding.spec_axes(e))
+                    per = full.shape[dim] // k
+                    idx.append(slice(j * per, (j + 1) * per))
+                full[tuple(idx)] = members(sp)[i].detach()
+            layers.append(full)
+        node = out
+        *head, name = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[name] = (torch.stack(layers) if stacked else layers[0]).numpy()
+    return out
+
+
+def test_recurrent_checkpoint_from_2x2_restores_in_a_world_of_one(lm_world):
+    """recurrentgemma's step-2 checkpoint (Adafactor, remat), written
+    whole by rank 0 of the 2 x 2 mesh, restores into a ``Trainer`` on a
+    1 x 1 mesh in a world of one and into the meshless ``Trainer``; each
+    third step equals the straight one-process run's."""
+    d, res = lm_world
+    arch = "recurrentgemma-2b"
+    ckpt = str(d / CKPT22[arch])
+    assert checkpoint.latest_step(ckpt) == 2
+    cfg = lm_cfg(arch)
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    want = res[0][f"{arch} plain"]["state"]
+    mesh_lib.init_world("cpu")
+    try:
+        for mesh in (mesh_lib.make_host_mesh(1, 1), None):
+            tc = trainer_lib.TrainerConfig(ckpt_dir=ckpt, ckpt_every=10,
+                                           **LM_TRAIN)
+            tr = trainer_lib.Trainer(cfg, tc, mesh=mesh, device="cpu",
+                                     log_fn=lambda *a: None)
+            st = tr.init_or_restore(seed=0)
+            assert int(st["step"]) == 2
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=LM_SEQ,
+                                          global_batch=LM_BATCH), mesh=mesh,
+                               device="cpu")
+            tc = trainer_lib.TrainerConfig(**LM_TRAIN)
+            tr.cfg = tc                   # no save after the third step
+            st = tr.run(st, data)
+            got = {k: checkpoint._to_numpy(v) for k, v in
+                   checkpoint._flatten(trainer_lib.tree(st)).items()}
+            assert set(got) == set(want)
+            for k, w in want.items():
+                np.testing.assert_allclose(got[k], w, err_msg=k,
+                                           **PARAM_TOL)
+    finally:
+        mesh_lib.close_world()
+
+
+RESHARDS = [(a, s) for a in RESHARD_ARCHS for s in RESHARD_SHAPES]
+
+
+@pytest.mark.parametrize("arch,shape", RESHARDS,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in RESHARDS])
+def test_reshard_state_equals_a_restore_on_the_new_mesh(lm_world, arch,
+                                                        shape):
+    """``reshard_state`` of a 2 x 2 state after ``LM_STEPS`` steps onto
+    ``shape`` (the same world of 4): on every rank, every parameter
+    block, moment and the step are bit-equal to the state saved on 2 x 2
+    and restored onto that mesh, with the same specs, and a leaf split
+    over all 4 ranks there is a quarter of the whole."""
+    _, res = lm_world
+    sizes = {"data": shape[0], "model": shape[1]}
+    n_quarter = 0
+    for r in res:
+        run = r[f"reshard {arch}"][shape]
+        assert run["step"] == LM_STEPS
+        assert run["specs"] == run["restored_specs"]
+        assert run["moved"].keys() == run["restored"].keys()
+        for k, w in run["restored"].items():
+            np.testing.assert_array_equal(run["moved"][k], w, err_msg=k)
+        whole = res[0][f"{arch} (2, 2)"]["state"]
+        for k, spec in run["specs"].items():
+            if _share(spec, sizes) == 4:
+                n_quarter += 1
+                assert run["moved"][k].size * 4 == whole[k].size, k
+    assert n_quarter >= 8
+
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
+def test_best_mesh_after_failure_is_the_references(n_devices, monkeypatch):
+    """``best_mesh_after_failure`` over ``n_devices`` (the world's size)
+    for every ``model_parallel`` in (1, 2, 4), with and without the pod
+    axis: the reference's mesh shape and axes (its ``jax.devices`` and
+    ``make_mesh_compat`` stood in for), or the reference's error where no
+    ``model`` group fits; a count other than the world's raises."""
+    from repro.distributed import fault_tolerance as jft
+    from repro_torch.distributed import fault_tolerance as ft
+
+    monkeypatch.setattr(mesh_lib.dist, "get_world_size",
+                        lambda *a: n_devices)
+    monkeypatch.setattr(ft.dist, "get_world_size", lambda *a: n_devices)
+    monkeypatch.setattr(mesh_lib, "_grid", lambda shape, names: (shape,
+                                                                 names))
+    monkeypatch.setattr(jmesh.jax, "devices", lambda *a: [None] * n_devices)
+    monkeypatch.setattr(jmesh, "make_mesh_compat", lambda shape, axes: (
+        tuple(shape), tuple(axes)))
+    for mp in (1, 2, 4):
+        for pod in (False, True):
+            try:
+                want = jft.best_mesh_after_failure(n_devices, mp, pod)
+            except ValueError as e:
+                with pytest.raises(ValueError) as got:
+                    ft.best_mesh_after_failure(n_devices, mp, pod)
+                assert str(got.value) == str(e)
+                assert n_devices < mp
+                continue
+            assert ft.best_mesh_after_failure(n_devices, mp, pod) == want
+            with pytest.raises(ValueError, match="world"):
+                ft.best_mesh_after_failure(2 * n_devices, mp, pod)

@@ -38,7 +38,9 @@ from repro_torch.models import io as model_io, model as model_lib  # noqa: E402
 from repro_torch.train import checkpoint, trainer as trainer_lib  # noqa: E402
 
 TIMEOUT = datetime.timedelta(seconds=60)     # each collective's
-DEADLINE_S = 150                             # each run's
+# each run's: the lm_mesh world takes ~28 s alone on 4 CPU processes and
+# ~137 s beside five other pytest workers
+DEADLINE_S = 300
 
 # the reference's multi-device training case (tests/test_multidevice.py)
 ENV_CFG = env_lib.EnvConfig(n_experts=3, run_cap=2, wait_cap=2)
@@ -217,17 +219,25 @@ def collective_ops(rank, world, _arg):
 LM_ARCHS = {"qwen1.5-0.5b": {"n_kv_heads": 2},
             "dbrx-132b": {"microbatches": 2, "capacity_factor": 2.0},
             "whisper-medium": {}}
-# served only (their training is refused), beside LM_ARCHS: reduced
-# rwkv6-7b (4 heads: 2 or 1 a rank); reduced recurrentgemma-2b with a
-# tail, a window of 16 that its prompts of 22 pass (the ring wraps, and
-# the decodes' slots cross from one rank's part to the next) and 6 query
-# heads (split over 2 ranks, whole over 4); reduced granite-34b with its
-# one KV head (the cache split by sequence: 8 or 4 slots a rank, the last
-# of 4 ranks empty after the prompt)
+# served beside LM_ARCHS: reduced rwkv6-7b (4 heads: 2 or 1 a rank);
+# reduced recurrentgemma-2b with a tail, a window of 16 that its prompts of
+# 22 pass (the ring wraps, and the decodes' slots cross from one rank's
+# part to the next) and 6 query heads (split over 2 ranks, whole over 4);
+# reduced granite-34b with its one KV head (the cache split by sequence: 8
+# or 4 slots a rank, the last of 4 ranks empty after the prompt).  The
+# recurrent two also train as LM_ARCHS do (TRAIN_ARCHS): rwkv6 with AdamW,
+# recurrentgemma under remat with Adafactor (neither flag touches serving)
 SERVE_ARCHS = {"rwkv6-7b": {},
                "recurrentgemma-2b": {"n_layers": 5, "window": 16,
-                                     "n_heads": 6},
+                                     "n_heads": 6, "remat": True,
+                                     "optimizer": "adafactor"},
                "granite-34b": {}}
+TRAIN_ARCHS = (*LM_ARCHS, "rwkv6-7b", "recurrentgemma-2b")
+# the 2 x 2 runs that checkpoint their step 2 under out_dir/<dir>
+CKPT22 = {"qwen1.5-0.5b": "ckpt22", "recurrentgemma-2b": "ckpt22_rg"}
+# the 2 x 2 runs whose state reshard_state moves onto these shapes
+RESHARD_ARCHS = ("rwkv6-7b", "recurrentgemma-2b")
+RESHARD_SHAPES = ((4, 1), (1, 4))
 # (prompt tokens, max_len) of the serving runs; the others' (8, 16)
 SERVE_PROMPTS = {"recurrentgemma-2b": (22, 32)}
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 16, 3
@@ -245,9 +255,16 @@ REPLICATED_BATCH = 6       # rows that do not split over a data axis of 4
 SEQ_ARCHS = {"qwen1.5-0.5b": {"seq_parallel": True},
              "dbrx-132b": {"seq_parallel": True, "remat": True},
              "qwen1.5-0.5b whole": {"seq_parallel": True}}
-# a name of SEQ_ARCHS that is not an arch: (its arch, its overrides)
+# a name that is not an arch: (its arch, its overrides).  Beside SEQ_ARCHS'
+# qwen, two rwkv6 trained on 1 x 4 (MIXED_RUNS), each with one of the
+# channel mix's widths whole: d_ff = 130 (d splits, d_ff does not) and d =
+# 50 in 5 heads of 10 (d_ff splits; the time mix whole on every rank)
 VARIANTS = {"qwen1.5-0.5b whole": ("qwen1.5-0.5b",
-                                   {"n_heads": 6, "d_ff": 130})}
+                                   {"n_heads": 6, "d_ff": 130}),
+            "rwkv6-7b ff": ("rwkv6-7b", {"d_ff": 130}),
+            "rwkv6-7b narrow": ("rwkv6-7b", {"n_heads": 5, "head_size": 10,
+                                             "d_model": 50})}
+MIXED_RUNS = {"rwkv6-7b ff": (1, 4), "rwkv6-7b narrow": (1, 4)}
 SEQ_SHAPES = ((1, 4), (2, 2))
 SEQ_PROMPTS = (16, 13)
 SEQ_MAX_LEN = 24
@@ -328,13 +345,16 @@ def _live_after_forward(arch, st, batch, mesh, seq=False):
     return after_forward, collectives.live_gathers()
 
 
-def _lm_run(arch, mesh, ckpt_dir="", rows=LM_BATCH, seq=False):
+def _lm_run(arch, mesh, ckpt_dir="", rows=LM_BATCH, seq=False, keep=None):
     """``LM_STEPS`` training steps of ``arch`` (``seq``: its
     ``SEQ_ARCHS`` config) on ``mesh`` (None: one process): each step's
     metrics, the whole final state (gathered; every rank calls), the bytes
     of this rank's parameter and state blocks against the whole's, and
-    the collectives' bytes of the first step."""
+    the collectives' bytes of the first step; ``keep``, a dict, takes the
+    final state."""
     st, step_fn, batch_of, tr = _lm_setup(arch, mesh, ckpt_dir, rows, seq)
+    if keep is not None:
+        keep["state"] = st
     # copies: a float32 leaf's numpy form shares the tensor's memory,
     # which the steps update in place
     init = {k: np.array(checkpoint._to_numpy(v)) for k, v in
@@ -528,10 +548,17 @@ def lm_mesh(rank, world, out_dir):
         mesh = mesh_lib.make_host_mesh(*shape)
         out[f"coord{shape}"] = tuple(sharding.axis_index(mesh, a)
                                      for a in ("data", "model"))
-        for arch in LM_ARCHS:
-            ckpt = (os.path.join(out_dir, "ckpt22")
-                    if shape == (2, 2) and arch == "qwen1.5-0.5b" else "")
-            out[f"{arch} {shape}"] = _lm_run(arch, mesh, ckpt)
+        for arch in TRAIN_ARCHS:
+            ckpt = (os.path.join(out_dir, CKPT22[arch])
+                    if shape == (2, 2) and arch in CKPT22 else "")
+            keep = {}
+            out[f"{arch} {shape}"] = _lm_run(arch, mesh, ckpt, keep=keep)
+            if shape == (2, 2) and arch in RESHARD_ARCHS:
+                out[f"reshard {arch}"] = _reshards(arch, keep["state"],
+                                                   out_dir)
+            del keep
+        for arch in [a for a, at in MIXED_RUNS.items() if at == shape]:
+            out[f"{arch} {shape}"] = _lm_run(arch, mesh)
         if shape == (4, 1):
             out["moe data parallel"] = _moe_data_parallel(mesh)
             out["qwen replicated rows"] = _lm_run(
@@ -552,7 +579,7 @@ def lm_mesh(rank, world, out_dir):
                 out[f"serve {arch} {shape}"] = _serve(arch, mesh, policy)
                 out[f"serve bytes {arch} {shape}"] = dict(collectives.BYTES)
     if rank == 0:
-        for arch in (*LM_ARCHS, *VARIANTS):
+        for arch in (*TRAIN_ARCHS, *VARIANTS):
             out[f"{arch} plain"] = _lm_run(arch, None)
         for arch in (*LM_ARCHS, *SERVE_ARCHS):
             out[f"serve {arch} plain"] = _serve(arch, None, None)
@@ -563,6 +590,41 @@ def lm_mesh(rank, world, out_dir):
         # each data rank's averaged over ``data`` (the reference's pmean)
         with data_rank_aux(2):
             out["dbrx-132b plain data-rank aux"] = _lm_run("dbrx-132b", None)
+    return out
+
+
+def _local(state) -> dict:
+    """A train state's blocks on this rank by checkpoint path, as numpy
+    (stacked leaves stacked)."""
+    return {k: np.array(checkpoint._to_numpy(v)) for k, v in
+            checkpoint._flatten(trainer_lib.tree(state)).items()}
+
+
+def _reshards(arch, state, out_dir):
+    """``state`` (``arch`` after ``LM_STEPS`` steps on 2 x 2) moved by
+    ``reshard_state`` onto each of ``RESHARD_SHAPES``, and, beside it, the
+    same state saved on 2 x 2 and restored into a fresh ``Trainer`` state
+    on that mesh: this rank's blocks of both, and their specs."""
+    from repro_torch.distributed import fault_tolerance
+
+    cfg = lm_cfg(arch)
+    ckpt = os.path.join(out_dir, f"reshard {arch}")
+    checkpoint.save(ckpt, LM_STEPS, trainer_lib.tree(state),
+                    mesh=state["params"].mesh,
+                    specs=trainer_lib.tree_specs(state))
+    out = {}
+    for shape in RESHARD_SHAPES:
+        mesh = mesh_lib.make_host_mesh(*shape)
+        moved = fault_tolerance.reshard_state(state, mesh)
+        tr = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(**LM_TRAIN),
+                                 mesh=mesh, device="cpu")
+        restored = tr.init_state(seed=1)
+        checkpoint.restore(ckpt, trainer_lib.tree(restored),
+                           **tr._sharded(restored))
+        out[shape] = {"moved": _local(moved), "restored": _local(restored),
+                      "specs": trainer_lib.tree_specs(moved),
+                      "restored_specs": trainer_lib.tree_specs(restored),
+                      "step": int(moved["step"])}
     return out
 
 
@@ -591,10 +653,11 @@ def data_rank_aux(n_data):
 def lm_cli(rank, world, out_dir):
     """``launch/train.py --data-parallel 2`` on reduced qwen in this world
     (its parameters gathered whole; checkpoints under ``out_dir/cli_ckpt``),
-    ``--production-mesh`` refused; rank 0 also runs the CLI without a
-    mesh."""
+    ``--production-mesh`` refused, and ``--model-parallel 2`` on reduced
+    recurrentgemma-2b; rank 0 also runs both without a mesh."""
     argv = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
             "--steps", "2", "--global-batch", "4", "--seq-len", "16"]
+    rg = ["--arch", "recurrentgemma-2b"] + argv[2:]
     logs = []
     state, trainer = train.train_lm_main(train.parser().parse_args(
         argv + ["--data-parallel", "2", "--ckpt-dir",
@@ -605,12 +668,17 @@ def lm_cli(rank, world, out_dir):
         train.main(argv + ["--production-mesh"])
     except ValueError as e:
         out["production"] = str(e)
+    state, trainer = train.main(rg + ["--model-parallel", "2"])
+    out["rg_params"] = model_io.sharded_params_to_numpy(state["params"])
+    out["rg_mesh"] = str(trainer.mesh)
     if rank == 0:
-        plain, _ = train.main(argv)
-        out["plain"] = {k: checkpoint._to_numpy(v) for k, v in
+        for key, args, arch in (("plain", argv, "qwen1.5-0.5b"),
+                                ("rg_plain", rg, "recurrentgemma-2b")):
+            plain, _ = train.main(args)
+            cfg = reduce_config(get_config(arch))
+            out[key] = {k: checkpoint._to_numpy(v) for k, v in
                         model_io.reference_groups(plain["params"],
-                                                  lm_cfg("qwen1.5-0.5b")
-                                                  ).items()}
+                                                  cfg).items()}
     return out
 
 
