@@ -4,9 +4,11 @@ NVIDIA GPU and check them.
     python3 chip_smoke.py
     python3 chip_smoke.py predictor lm_train shard_engine lm_mesh  # alone
     python3 chip_smoke.py lm_recurrent_train lm_encdec flash decode_attn
+    python3 chip_smoke.py tooling
 
 With phase names (``predictor``, ``lm_train``, ``lm_recurrent_train``,
-``shard_engine``, ``lm_mesh``, ``lm_encdec``, ``flash``, ``decode_attn``)
+``shard_engine``, ``lm_mesh``, ``lm_encdec``, ``flash``, ``decode_attn``,
+``tooling``)
 it runs those
 phases alone, checks no kernel, prints no
 kernels line, and its last line is ``{"ok": null, "partial": [...]}``:
@@ -261,6 +263,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 layers, Adafactor, 4 microbatches: the peak reckoned first,
                 2 eager steps against the first 2 of 5 graphed (every
                 parameter and state tensor bit-equal).
+ 19t. tooling — qwen1.5-0.5b at published width in bf16, lm_train's 8 x
+                128 tokens, AdamW: one eager training step on the card
+                under ``launch.cost_analysis.CostCounter`` (after an eager
+                warm-up step), whose totals (every FLOP, byte, collective
+                and op without a formula) must equal the same step's on
+                the meta device (the dry run's arithmetic,
+                ``launch/dryrun.py``); the step's peak
+                (``core.introspect.peak_bytes``) within 15% of the meta
+                run's argument and temp bytes plus what the card held
+                before the step beyond the arguments (the cuBLAS workspace,
+                the allocator's rounding, the warm-up's metrics: named
+                and added, not tolerated); the counter's FLOPs and bytes
+                over the H100's peak rates (``launch.mesh``) against 5
+                graphed steps' median time, as fractions; then
+                ``examples/serve_cluster_torch.py`` on the card with its
+                reduced experts and 12 requests, each stream done, QoS
+                printed for ``rr`` and ``sqf``.
  19b. lm_recurrent_train — the recurrent families' training at
                 published widths in bf16 with AdamW (``REC_TRAIN``):
                 rwkv6-7b cut to 8 of 32 layers on 2 x 512 tokens, and
@@ -402,7 +421,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 per call).
 
 The phases run in the order 1, 10 and 11's per-pass traces (one profiler
-session), 2-9, 12, 21's serving, 10, 11, 13-19, 19b, 20, 21's training: every
+session), 2-9, 12, 21's serving, 10, 11, 13-19, 19t, 19b, 20, 21's training: every
 profiled LM window comes before the first backward pass (whisper's
 prefill window, taken after the training phases, lost one B2 record in
 each of three takes; taken before them it held every record).  Every kernel library is built and loaded
@@ -5457,6 +5476,101 @@ def lm_encdec_phase(dev) -> dict:
     return got
 
 
+TOOLING_EXAMPLE_REQUESTS = 12
+TOOLING_PEAK_TOL = 0.15
+TOOLING_GRAPHED_STEPS = 6
+
+
+def tooling_phase(dev) -> dict:
+    """The tooling (module docstring): the cost counter on the card against
+    the meta run, the peak against the dry run's prediction, the step's
+    counts against the card's peak rates, the serving example."""
+    import importlib.util
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import introspect
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import cost_analysis, mesh as mesh_lib, steps
+    from repro_torch.models import io, model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = get_config("qwen1.5-0.5b")
+    opt = opt_lib.make_optimizer(cfg.optimizer)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                   global_batch=8), device=dev).batch(0)
+    meta_state = steps.train_state(cfg, io.empty_model(cfg, "meta"), opt)
+    meta_batch = {k: torch.empty_like(x, device="meta")
+                  for k, x in batch.items()}
+    meta = cost_analysis.CostCounter(
+        steps.arg_tensors((meta_state, meta_batch)))
+    with meta:
+        steps.make_train_step(cfg)(meta_state, meta_batch)
+    del meta_state
+
+    free_cuda()
+    state = steps.train_state(cfg, model_lib.init_params(cfg, seed=0,
+                                                         device=dev), opt)
+    eager = steps.make_train_step(cfg, graphs=False)
+    eager(state, batch)                              # the warm-up step
+    torch.cuda.synchronize()
+    args = steps.arg_tensors((state, batch))
+    before = torch.cuda.memory_allocated()
+    card = cost_analysis.CostCounter(args)
+    with card:
+        peak = introspect.peak_bytes(eager, state, batch)
+    got, want = card.totals.as_dict(), meta.totals.as_dict()
+    if got != want:
+        raise AssertionError(f"the counter on the card {got} differs from "
+                             f"the meta run's {want}")
+    assert card.argument_bytes == meta.argument_bytes
+    other = before - meta.argument_bytes
+    predicted = meta.argument_bytes + meta.peak_bytes + other
+    share = peak / predicted
+    if not abs(share - 1.0) <= TOOLING_PEAK_TOL:
+        raise AssertionError(f"peak {peak} is {share} of the predicted "
+                             f"{predicted}")
+    del eager
+    timed_steps = graphed_steps(state, cfg, batch, TOOLING_GRAPHED_STEPS)
+    step_s = timed_steps["graphed_ms_per_step"] / 1e3
+    tot = meta.totals
+    flops_s = tot.flops / mesh_lib.PEAK_FLOPS_BF16
+    bytes_s = tot.memory_bytes / mesh_lib.HBM_BW
+    out = {"phase": "tooling", "model": cfg.name, "dtype": cfg.param_dtype,
+           "global_batch": 8, "seq_len": 128, "optimizer": cfg.optimizer,
+           "counter_card_equals_meta": True, "totals": want,
+           "argument_bytes": meta.argument_bytes,
+           "temp_bytes": meta.peak_bytes,
+           "allocated_before_step": before,
+           "held_beyond_arguments": other,
+           "predicted_peak_bytes": predicted, "peak_bytes": peak,
+           "peak_over_predicted": share,
+           "graphed_ms_per_step": timed_steps["graphed_ms_per_step"],
+           "flops_at_peak_ms": flops_s * 1e3,
+           "bytes_at_hbm_rate_ms": bytes_s * 1e3,
+           "flops_fraction_of_step": flops_s / step_s,
+           "bytes_fraction_of_step": bytes_s / step_s,
+           "peak_flops_bf16": mesh_lib.PEAK_FLOPS_BF16,
+           "hbm_bytes_per_s": mesh_lib.HBM_BW}
+    del state, timed_steps
+    free_cuda()
+
+    path = os.path.join(ROOT, "examples", "serve_cluster_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_cluster_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    served = example.main(["--requests", str(TOOLING_EXAMPLE_REQUESTS)])
+    for router in ("rr", "sqf"):
+        m = served[router]
+        assert m["completed"] == TOOLING_EXAMPLE_REQUESTS, (router, m)
+        out[f"example_{router}"] = {k: m[k] for k in (
+            "avg_qos", "avg_latency_per_token_ms",
+            "p95_latency_per_token_ms", "completed", "tokens_per_s")}
+    out["example_fits"] = served["fits"]
+    emit(out)
+    free_cuda()
+    return out
+
+
 def kernel_line(name, source, replaces, launches, row, library_ms):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
@@ -5474,7 +5588,7 @@ def only_phases(names, dev, timed) -> None:
              "lm_recurrent_train": lm_recurrent_train_phase,
              "shard_engine": shard_engine_runs, "lm_mesh": lm_mesh_phase,
              "lm_encdec": lm_encdec_phase, "flash": flash_phase,
-             "decode_attn": decode_attn_phase}
+             "decode_attn": decode_attn_phase, "tooling": tooling_phase}
     for name in names:
         if name not in known:
             raise SystemExit(f"unknown phase {name!r}; known: {sorted(known)}")
@@ -5566,6 +5680,7 @@ def main() -> int:
     del unsharded
     timed("predictor", predictor_phase, dev)
     timed("lm_train", lm_train_phase, dev)
+    timed("tooling", tooling_phase, dev)
     timed("lm_recurrent_train", lm_recurrent_train_phase, dev)
     on_mesh = timed("lm_mesh", lm_mesh_phase, dev)
     timed("lm_encdec", encdec_train_phase, dev)

@@ -78,7 +78,7 @@ def rank_bytes(arch: str, data: int, model: int, train: bool) -> dict:
     cfg = get_config(arch)
     mesh = FakeMesh({"data": data, "model": model})
     elt = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
-    m, _ = io._model_and_offsets(cfg, torch.device("meta"))
+    m = io.empty_model(cfg, "meta")
     out = {"arch": arch, "mesh": [data, model], "train": train,
            "param_dtype": cfg.param_dtype}
     whole = block = compute_old = split_block = 0

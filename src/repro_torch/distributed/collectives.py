@@ -380,10 +380,16 @@ def softmax_merge(o: torch.Tensor, lse: torch.Tensor, mesh,
     return merge_quotient(part[..., :-1], part[..., -1]).to(o.dtype)
 
 
-# storage address of a gathered weight -> (a weak reference to it, the
-# block, its spec, the mesh): what ``regathered``'s hooks need to gather it
-# again
+# storage of a gathered weight -> (a weak reference to it, the block, its
+# spec, the mesh): what ``regathered``'s hooks need to gather it again
 _GATHERED: Dict[int, tuple] = {}
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, shared by its views: the storage
+    object's own address, not its data's (every meta tensor's data
+    address is 0)."""
+    return t.untyped_storage()._cdata
 
 
 def live_gathers() -> int:
@@ -420,7 +426,7 @@ def at_use(p: torch.Tensor) -> torch.Tensor:
     full = _GatherAtUse.apply(p, spec, policy.mesh)
     for k in [k for k, v in _GATHERED.items() if v[0]() is None]:
         del _GATHERED[k]
-    _GATHERED[full.untyped_storage().data_ptr()] = (
+    _GATHERED[_storage_key(full)] = (
         weakref.ref(full), p, spec, policy.mesh)
     return full
 
@@ -434,7 +440,7 @@ def layer_weights(mod, names):
 
 
 def _pack(t: torch.Tensor):
-    entry = _GATHERED.get(t.untyped_storage().data_ptr())
+    entry = _GATHERED.get(_storage_key(t))
     if entry is None or entry[0]() is None:
         return t
     _, block, spec, mesh = entry

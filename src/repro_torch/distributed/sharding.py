@@ -56,8 +56,12 @@ def axis_size(mesh, axis: str) -> int:
 
 
 def axis_index(mesh, axis: str) -> int:
-    """This rank's coordinate on ``axis`` (0 without a mesh or the axis)."""
-    return 0 if axis_size(mesh, axis) == 1 else mesh.get_local_rank(axis)
+    """This rank's coordinate on ``axis`` (0 without a mesh or the axis,
+    and on a stand-in with a ``.shape`` alone, which has no ranks: rank 0's
+    blocks are as large as any)."""
+    if axis_size(mesh, axis) == 1 or not hasattr(mesh, "get_local_rank"):
+        return 0
+    return mesh.get_local_rank(axis)
 
 
 def expert_rows(mesh, n_experts: int) -> slice:

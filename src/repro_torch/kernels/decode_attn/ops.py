@@ -25,6 +25,13 @@ writes nothing more, and its output is the same.
 
 ``LAUNCHES`` counts calls that launched the kernel (plain-version calls do
 not count), so a run can show that its main path went through it.
+
+On the meta device (``launch/dryrun.py``) the wrapper checks its operands
+as for the card and returns the kernel's empty outputs, computing and
+launching nothing.  Under a ``launch.cost_analysis.CostCounter`` a call
+on any device counts ``work``: the products over every slot of the cache
+(which slots a mask keeps is data, and a counter reads none), their
+exponentials, the cache and q read and the output written once.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attn.ref import (BLOCK_ROWS, decode_attn_plain,
                                                  split_plan)
+from repro_torch.launch.cost_analysis import counted
 
 NAME = "decode_attn"
 MAX_HEAD_DIM = 256
@@ -106,6 +114,20 @@ def _check(q, k, v, lengths, kv_pos, pos):
         raise ValueError("q must be contiguous")
 
 
+def work(q, k, v, lengths=None, *, kv_pos=None, pos=None,
+         return_lse: bool = False) -> dict:
+    """The kernel's work on these operands (module docstring)."""
+    b, h, dh = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    masks = lengths if lengths is not None else kv_pos
+    nbytes = ((2 * b * kv * s * dh + 2 * b * h * dh) * q.element_size()
+              + masks.numel() * 4 + (pos.numel() * 4 if pos is not None else 0)
+              + (4 * b * h if return_lse else 0))
+    return {"flops": 4 * b * h * dh * s, "transcendentals": b * h * s,
+            "bytes": nbytes}
+
+
+@counted(NAME, work)
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, *,
                 kv_pos: Optional[torch.Tensor] = None,
@@ -121,16 +143,18 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attn_plain(q, k, v, lengths, kv_pos=kv_pos, pos=pos,
                                  return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, lengths, kv_pos, pos)
     b, h, dh = q.shape
     kv, s = k.shape[1], k.shape[2]
-    n, per = split_plan(s, b * kv * -(-(h // kv) // BLOCK_ROWS),
-                        sm_count(q.device.index or 0))
     o = torch.empty_like(q)
     lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if q.device.type == "meta":
+        return (o, lse) if return_lse else o
+    n, per = split_plan(s, b * kv * -(-(h // kv) // BLOCK_ROWS),
+                        sm_count(q.device.index or 0))
     ml = acc = None
     if n > 1:
         ml = torch.empty((b, h, n, 2), dtype=torch.float32, device=q.device)

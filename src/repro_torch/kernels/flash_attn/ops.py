@@ -10,7 +10,8 @@ model holds v as (B, S, KV, dh) and hands over ``v.transpose(1, 2)`` with
 no copy.  Every other stride must be a multiple of 16 bytes (8 elements in
 bfloat16, 4 in float32), which the bf16 path's TMA copies need.  The
 output is allocated as (B, Sq, H, dh) and returned as its (B, H, Sq, dh)
-view, so the model's transpose back is free.
+view, so the model's transpose back is free; on the CPU the plain
+version's output comes back in the same layout.
 
 bfloat16 runs on the tensor cores (wgmma, K/V tiles by TMA, the query heads
 of a KV head packed into 64-row tiles) and needs dh % 8 == 0; float32 runs
@@ -20,6 +21,13 @@ not change the function, so the port does not take them.
 
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count), so
 a run can show that its main path went through the kernel.
+
+On the meta device (``launch/dryrun.py``) the wrapper checks its operands
+as for the card and returns the kernel's empty output, the same strided
+view, computing and launching nothing.  Under a
+``launch.cost_analysis.CostCounter`` a call on any device counts ``work``:
+the products over the query-key pairs the mask keeps, the scores'
+exponentials, and q, k, v read and the output written once.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attn.ref import attention_ref
+from repro_torch.launch.cost_analysis import counted, visible_pairs
 
 NAME = "flash_attn"
 MAX_HEAD_DIM = 128
@@ -76,20 +85,33 @@ def _check(q, k, v):
                              f"the head dim, with strides multiples of {unit}")
 
 
+def work(q, k, v, *, causal: bool = True, window: int = 0) -> dict:
+    """The kernel's work on these operands (module docstring)."""
+    b, h, sq, dh = q.shape
+    pairs = b * h * visible_pairs(sq, k.shape[2], causal, window)
+    return {"flops": 4 * dh * pairs, "transcendentals": pairs,
+            "bytes": 2 * (q.numel() + k.numel()) * q.element_size()}
+
+
+@counted(NAME, work)
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, H, Sq, dh); k, v (B, KV, Skv, dh), any strides with dh
     contiguous -> (B, H, Sq, dh) in q's dtype, float32 or bfloat16."""
     global LAUNCHES
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+        # in the kernel's layout, so that what follows runs the same ops
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        return o.transpose(1, 2).contiguous().transpose(1, 2)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v)
     b, h, sq, dh = q.shape
     kv, skv = k.shape[1], k.shape[2]
     o = torch.empty((b, sq, h, dh), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
+    if q.device.type == "meta":
+        return o
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -19,6 +19,13 @@ second launch, in a fixed order).
 ``GEMM_LAUNCHES`` and ``SWIGLU_LAUNCHES`` count each wrapper's kernel
 launches (plain-version calls do not count; B4a's merge launch is part of
 its call), so a run can show that its main path went through them.
+
+On the meta device (``launch/dryrun.py``) each wrapper checks its operands
+as for the card and returns the kernel's empty output, computing and
+launching nothing.  Under a ``launch.cost_analysis.CostCounter`` a call
+on any device counts ``gemm_work`` or ``swiglu_work``: the products, the
+gate's sigmoid and product, x and the weights read and the output written
+once.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.moe_gemm.ref import (TILE_N, gemm_plan, gemm_tiled,
                                               grouped_gemm_ref,
                                               grouped_swiglu_ref)
+from repro_torch.launch.cost_analysis import counted
 
 NAME = "moe_gemm"
 GEMM_LAUNCHES = 0
@@ -85,6 +93,24 @@ def _check(x, *ws):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def gemm_work(x, w) -> dict:
+    """B4a's work on these operands (module docstring)."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    return {"flops": 2 * e * c * d * f,
+            "bytes": (e * c * d + e * d * f + e * c * f) * x.element_size()}
+
+
+def swiglu_work(x, w_gate, w_up) -> dict:
+    """B4b's work on these operands (module docstring)."""
+    e, c, d = x.shape
+    f = w_gate.shape[2]
+    return {"flops": 4 * e * c * d * f, "elementwise_flops": 3 * e * c * f,
+            "transcendentals": e * c * f,
+            "bytes": (e * c * d + 2 * e * d * f + e * c * f)
+            * x.element_size()}
+
+
 def _launch_swiglu(x, w, w_up):
     e, c, d = x.shape
     f = w.shape[2]
@@ -100,18 +126,21 @@ def _launch_swiglu(x, w, w_up):
     return out
 
 
+@counted("moe_gemm.grouped_gemm", gemm_work)
 def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D); w (E, D, F) -> (E, C, F) in x's dtype, float32 or
     bfloat16, float32 accumulation (B4a)."""
     global GEMM_LAUNCHES
     if x.device.type == "cpu":
         return grouped_gemm_ref(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     _check(x, w)
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        return out
     ws, ctas, merge = None, 0, False
     if gemm_tiled(x.dtype, d, f):
         ctas, rows, merge = _split(e, c, d, f, sm_count(x.device))
@@ -130,6 +159,7 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@counted("moe_gemm.grouped_swiglu", swiglu_work)
 def expert_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                   w_up: torch.Tensor) -> torch.Tensor:
     """x (E, C, D); w_gate, w_up (E, D, F) -> silu(x@wg) * (x@wu), (E, C, F)
@@ -138,9 +168,12 @@ def expert_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     global SWIGLU_LAUNCHES
     if x.device.type == "cpu":
         return grouped_swiglu_ref(x, w_gate, w_up)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     _check(x, w_gate, w_up)
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], x.shape[1], w_gate.shape[2]),
+                           dtype=x.dtype, device=x.device)
     out = _launch_swiglu(x, w_gate, w_up)
     SWIGLU_LAUNCHES += 1
     return out

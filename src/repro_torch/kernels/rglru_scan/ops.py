@@ -27,6 +27,13 @@ port takes neither (the kernel takes any T and W).
 not count), so a run can show that its main path went through them; a call
 launches ``kernels_per_call(T)`` kernels.  ``plan`` reads ``SINGLE_T``,
 ``CHUNKS`` and ``CHUNK_RANGE`` when the call is made.
+
+On the meta device (``launch/dryrun.py``) the wrapper checks its operands
+as for the card (a gradient refused alike) and returns the kernel's empty
+output, computing and launching nothing.  Under a
+``launch.cost_analysis.CostCounter`` a call on any device counts
+``work``: a multiply-add and an exponential per element, log_a, b and h0
+read and h written once.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.launch.cost_analysis import counted
 
 NAME = "rglru_scan"
 LAUNCHES = 0
@@ -88,6 +96,14 @@ def kernels_per_call(n_t: int) -> int:
     return 1 if n_t <= plan(n_t) else 2
 
 
+def work(log_a, b, h0) -> dict:
+    """The kernel's work on these operands (module docstring)."""
+    n = b.numel()
+    return {"elementwise_flops": 2 * n, "transcendentals": n,
+            "bytes": 3 * n * b.element_size() + 4 * h0.numel()}
+
+
+@counted(NAME, work)
 def lru(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """log_a, b (B, T, W), float32 or bfloat16 alike; h0 (B, W) float32 ->
     h (B, T, W) in b's dtype, ``h_t = exp(min(log_a_t, 0)) * h_{t-1} + b_t``
@@ -95,7 +111,7 @@ def lru(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     if log_a.device.type == "cpu":
         return rglru_scan_ref(log_a.clamp(max=0.0), b, h0)
-    if log_a.device.type != "cuda":
+    if log_a.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {log_a.device}")
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (log_a, b, h0)):
@@ -108,6 +124,8 @@ def lru(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     n_b, n_t, n_w = log_a.shape
     chunk = plan(n_t)
     out = torch.empty_like(b)
+    if log_a.device.type == "meta":
+        return out
     sums = None
     if n_t > chunk:
         sums = torch.empty((n_b, -(-n_t // chunk), n_w, 2), dtype=torch.float32,

@@ -18,7 +18,7 @@ the TPU kernel does.
 ``r``, ``k``, ``v`` and ``dlog`` may be strided views: the model holds them
 as (B, T, H, K) and hands them over as ``x.transpose(1, 2)`` with no copy;
 only the last dimension must be contiguous.  ``y`` comes back in the same
-layout as ``r``.
+layout as ``v``, on either device.
 
 ``chunk`` (1..64 on either device) sets the plain version's chunks
 only.  On the card the kernel runs its own blocking (the function does not
@@ -33,6 +33,15 @@ can be captured in a CUDA graph.
 ``LAUNCHES`` counts calls that launch the kernels (plain-version calls do
 not count), so a run can show that its main path went through them; a call
 launches ``kernels_per_call(T)`` kernels.
+
+On the meta device (``launch/dryrun.py``) the wrapper checks its operands
+as for the card (a gradient refused alike) and returns the kernel's empty
+outputs, computing and launching nothing.  Under a
+``launch.cost_analysis.CostCounter`` a call on any device counts
+``work``: the token recurrence's products (per token and head, ``r S``,
+2 K V, and the state's decay and outer product, 3 K V), the decays'
+exponentials, and r, k, v, dlog, u read and y and the state written
+once.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_scan.ref import wkv_chunked_ref
+from repro_torch.launch.cost_analysis import counted
 
 NAME = "rwkv6_scan"
 MAX_CHUNK = 64
@@ -103,6 +113,18 @@ def _aligned(x: torch.Tensor) -> bool:
             and all(st * size % 16 == 0 for st in x.stride()[:3]))
 
 
+def work(r, k, v, dlog, u, chunk: int = 32, d_dtype=None) -> dict:
+    """The kernel's work on these operands (module docstring)."""
+    b, h, n, kd = r.shape
+    vd = v.shape[3]
+    size = r.element_size()
+    nbytes = (b * h * n * (2 * kd + 2 * vd) * size + 4 * b * h * n * kd
+              + u.numel() * u.element_size() + 4 * b * h * kd * vd)
+    return {"flops": 5 * b * h * n * kd * vd, "transcendentals": b * h * n * kd,
+            "bytes": nbytes}
+
+
+@counted(NAME, work)
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dlog: torch.Tensor,
         u: torch.Tensor, chunk: int = 32, d_dtype: Optional[torch.dtype] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,13 +137,16 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dlog: torch.Tensor,
         raise ValueError(f"chunk {chunk} must be in 1..{MAX_CHUNK}")
     n = r.shape[2]
     if r.device.type == "cpu":
+        # y in the kernel's layout (v's), so that what follows runs the
+        # same ops
+        out = torch.empty_like(v, dtype=r.dtype)
         n_l = min(chunk, n)
         pad = (-n) % n_l
         if pad:
             r, k, v, dlog = (F.pad(x, (0, 0, 0, pad)) for x in (r, k, v, dlog))
         y, state = wkv_chunked_ref(r, k, v, dlog, u, n_l, d_dtype)
-        return y[:, :, :n], state
-    if r.device.type != "cuda":
+        return out.copy_(y[:, :, :n]), state
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {r.device}")
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (r, k, v, dlog, u)):
@@ -136,6 +161,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dlog: torch.Tensor,
     vd = v.shape[3]
     y = torch.empty_like(v, dtype=r.dtype)
     state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        return y, state
     u32 = u.float().contiguous()
     n_g = -(-n // group)
     ws = pws = None

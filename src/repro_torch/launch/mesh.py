@@ -22,8 +22,10 @@ its devices) and ``make_production_mesh`` (the reference's 16 x 16 pod, or
 ``jax.make_mesh`` does, in a world with fewer ranks).  A mesh over fewer
 ranks than the world takes the first ones.  ``make_mesh(shape, names)``
 is the reference's ``make_mesh_compat`` (jax's axis types have no meaning
-here); the reference's TPU v5e constants for its roofline are not ported.
-Importing this module starts nothing.
+here).  The reference's TPU v5e constants for its roofline become an
+H100's (``PEAK_FLOPS_BF16``, ``HBM_BW``, ``NVLINK_BW``), each its data
+sheet's figure for the SXM5 80GB part at 700 W.  Importing this module
+starts nothing.
 """
 from __future__ import annotations
 
@@ -193,3 +195,9 @@ def make_host_mesh(data: int = 1, model: int = 1):
     data = min(data, n)
     model = max(1, min(model, n // max(data, 1)))
     return _grid((data, model), ("data", "model"))
+
+
+# NVIDIA H100 SXM5 80GB at 700 W, from its data sheet (dense rates)
+PEAK_FLOPS_BF16 = 989e12       # bf16 on the tensor cores, per card
+HBM_BW = 3.35e12               # bytes/s of HBM3 per card
+NVLINK_BW = 450e9              # bytes/s per direction of NVLink 4, per card

@@ -89,8 +89,26 @@ and, over ``model``,
 Prefill and decode return whole logits, the vocab slices gathered over
 ``model`` (one all-gather, reader ``"lm_logits"``), as the reference's
 steps return global arrays.  Every collective runs inside the step's
-CUDA graph.  The spec functions (``param_specs`` through ``make_step``)
-are tooling, item 6.
+CUDA graph.
+
+The spec functions (``param_specs`` through ``make_step``, the
+reference's ``ShapeDtypeStruct`` builders) give one rank's inputs of a
+(architecture x shape) cell on a mesh as meta tensors, which allocate
+nothing: each is the rank's block (its shape cut by
+``sharding.block_spec``, ``data_spec`` or ``serve_cache_spec``) and
+carries its ``spec`` and the whole ``global_shape`` as attributes, as a
+``models.io.ShardedLM`` carries ``specs`` and ``shapes`` for its leaves.
+``param_specs`` is such a ``ShardedLM`` over the model built on the meta
+device; ``state_specs`` the training state over it, with the optimizer
+built on its meta blocks in its real layout (Adafactor's factored moments
+by ``param_spec`` of their own shape, which drops to no split where a
+factored moment loses the dim a rule names, as the reference recomputes
+its spec).  Batches follow the reference's shapes: (B, S) tokens, or (M,
+B/M, S) with ``cfg.microbatches = M > 1``, enc-dec's ``frames`` beside
+them, each the rank's rows.  ``make_step`` returns the step and its
+arguments; run on meta tensors (``launch/dryrun.py``) it computes
+nothing.  A mesh here may be a stand-in with a ``.shape`` dict alone
+(the specs are then rank 0's), but a step runs only on a ``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -99,10 +117,12 @@ from typing import Callable
 
 import torch
 
-from repro_torch.distributed import collectives
-from repro_torch.distributed.api import use_mesh_policy
+from repro_torch.configs import SHAPES
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.api import MeshPolicy, use_mesh_policy
 from repro_torch.graphs import StepGraph, capture
 from repro_torch.models import io as model_io, model as model_lib
+from repro_torch.train import optimizer as opt_lib
 
 # prompt shapes whose prefill graphs a prefill step holds
 MAX_PREFILL_GRAPHS = 8
@@ -328,3 +348,168 @@ def make_decode_step(cfg, policy=None) -> Callable:
 
     decode_step.graphs = held
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Specs (meta tensors of a rank's blocks: nothing is allocated)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _spec(shape, dtype, spec, mesh) -> torch.Tensor:
+    """A meta tensor of a rank's block of a tensor of ``shape`` split by
+    ``spec``, carrying ``spec`` and ``global_shape``."""
+    shape = tuple(shape)
+    t = torch.empty(sharding.local_shape(shape, spec, mesh), dtype=dtype,
+                    device=META)
+    t.spec, t.global_shape = tuple(spec), shape
+    return t
+
+
+def param_specs(cfg, mesh, *, train: bool) -> model_io.ShardedLM:
+    """The rank's parameter blocks: a ``ShardedLM`` over the model built on
+    the meta device (``leaves``, ``specs``, ``shapes``)."""
+    return model_io.ShardedLM(model_io.empty_model(cfg, META), cfg, mesh,
+                              train)
+
+
+def state_specs(cfg, opt, mesh) -> dict:
+    """The training state over ``param_specs(..., train=True)``, with
+    ``opt`` (``train.optimizer.make_optimizer``'s factory) built on its
+    blocks: ``{"params", "opt", "step"}`` as ``train_state`` gives it."""
+    return train_state(cfg, param_specs(cfg, mesh, train=True), opt)
+
+
+def batch_specs(cfg, shape, mesh) -> dict:
+    """A training batch's rank rows: ``{"tokens"}`` (B, S) int32, or (M,
+    B/M, S) with ``M = cfg.microbatches > 1`` and dim 1 over the data axes;
+    enc-dec's ``frames`` (..., S, d) in the compute dtype beside them."""
+    b, s = shape.global_batch, shape.seq_len
+    m = max(1, cfg.microbatches)
+
+    def spec(tail, dtype):
+        if m == 1:
+            return _spec((b,) + tail, dtype,
+                         sharding.data_spec(mesh, b, 1 + len(tail)), mesh)
+        base = sharding.data_spec(mesh, b // m, 1 + len(tail))
+        return _spec((m, b // m) + tail, dtype, (None,) + base, mesh)
+
+    out = {"tokens": spec((s,), torch.int32)}
+    if cfg.family == "encdec":
+        out = {"frames": spec((s, cfg.d_model),
+                              getattr(torch, cfg.compute_dtype)), **out}
+    return out
+
+
+def prefill_input_specs(cfg, shape, mesh):
+    """A prefill's rank rows: tokens (B, S) int32, or enc-dec's
+    ``{"frames": (B, S, d)}``."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        return {"frames": _spec((b, s, cfg.d_model),
+                                getattr(torch, cfg.compute_dtype),
+                                sharding.data_spec(mesh, b, 3), mesh)}
+    return _spec((b, s), torch.int32, sharding.data_spec(mesh, b, 2), mesh)
+
+
+def _cache_paths(cache, path=()):
+    if isinstance(cache, dict):
+        for k, x in cache.items():
+            yield from _cache_paths(x, path + (k,))
+    elif isinstance(cache, (list, tuple)):
+        for x in cache:
+            yield from _cache_paths(x, path)
+    else:
+        yield path, cache
+
+
+def cache_specs(cfg, shape, mesh):
+    """A serving cache's rank share: ``models.model.init_cache`` of the
+    rank's rows under a policy on ``mesh`` (``sharding.serve_cache_spec``
+    over ``model``), on the meta device; each tensor carries its spec
+    and whole shape."""
+    b, s = shape.global_batch, shape.seq_len
+    rows = sharding.local_shape((b,), sharding.data_spec(mesh, b, 1), mesh)[0]
+    whole = model_lib.init_cache(cfg, b, s, device=META)
+    with use_mesh_policy(MeshPolicy(mesh, {})):
+        cache = model_lib.init_cache(cfg, rows, s, device=META)
+    for (path, x), (_, w) in zip(_cache_paths(cache), _cache_paths(whole)):
+        spec = sharding.serve_cache_spec(path, tuple(w.shape), mesh, b)
+        if tuple(x.shape) != sharding.local_shape(w.shape, spec, mesh):
+            raise AssertionError(f"{cfg.name} cache {'/'.join(path)}: the "
+                                 f"rank holds {tuple(x.shape)}, its spec "
+                                 f"{spec} of {tuple(w.shape)} says otherwise")
+        x.spec, x.global_shape = spec, tuple(w.shape)
+    return cache
+
+
+def decode_token_specs(cfg, shape, mesh) -> torch.Tensor:
+    """A decode step's tokens: the rank's rows of (B,) int32."""
+    b = shape.global_batch
+    return _spec((b,), torch.int32, sharding.data_spec(mesh, b, 1), mesh)
+
+
+def input_specs(cfg, shape_name: str, mesh, opt=None) -> tuple:
+    """Every input of one (arch x shape) cell's step on ``mesh``: (state,
+    batch) to train, (params, prompt) to prefill, (params, cache, token)
+    to decode."""
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        opt = opt or opt_lib.make_optimizer(cfg.optimizer)
+        return state_specs(cfg, opt, mesh), batch_specs(cfg, shape, mesh)
+    params = param_specs(cfg, mesh, train=False)
+    if shape.kind == "prefill":
+        return params, prefill_input_specs(cfg, shape, mesh)
+    if shape.kind == "decode":
+        return (params, cache_specs(cfg, shape, mesh),
+                decode_token_specs(cfg, shape, mesh))
+    raise ValueError(shape.kind)
+
+
+def arg_tensors(args) -> list:
+    """The tensors of a step's arguments, each once: a ``ShardedLM``'s
+    blocks and its model's buffers, an optimizer's state and step, the
+    tensors in dicts, lists and tuples."""
+    out = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out[id(x)] = x
+        elif isinstance(x, model_io.ShardedLM):
+            for t in x.compute_tensors() + list(x.model.buffers()):
+                walk(t)
+        elif isinstance(x, torch.nn.Module):
+            for t in list(x.parameters()) + list(x.buffers()):
+                walk(t)
+        elif isinstance(x, opt_lib._Optimizer):
+            for t in list(x.state().values()) + [x.step]:
+                walk(t)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(args)
+    return list(out.values())
+
+
+def make_step(cfg, shape_name: str, mesh, opt=None) -> tuple:
+    """(the step, its arguments from ``input_specs``) of a cell, under a
+    policy of the reference's activation rules on ``mesh`` whose
+    ``"batch"`` names the axes that split the cell's rows (none where
+    they do not divide: the data ranks then hold the same rows)."""
+    shape = SHAPES[shape_name]
+    train = shape.kind == "train"
+    policy = MeshPolicy(mesh, sharding.activation_rules(mesh, train=train))
+    rows = (shape.global_batch // max(1, cfg.microbatches) if train
+            else shape.global_batch)
+    policy.rules["batch"] = sharding.batch_axes(mesh, rows)
+    args = input_specs(cfg, shape_name, mesh, opt)
+    if train:
+        return make_train_step(cfg, policy), args
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape.seq_len, policy), args
+    return make_decode_step(cfg, policy), args

@@ -51,7 +51,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import generator, resolve
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.api import current_policy
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.flash_attn.ops import flash_attn
 from repro_torch.models import layers, transformer
@@ -303,11 +304,15 @@ def forward(params: EncDec, cfg, batch: dict, train: bool = False
 
 def init_cache(cfg, batch: int, max_len: int, device=None,
                heads: int = None) -> dict:
-    """The empty cache; ``heads`` the heads a model rank holds (all by
-    default)."""
+    """The empty cache; ``heads`` the heads a model rank holds (by
+    default all, or under a mesh policy the rank's by
+    ``sharding.serve_cache_spec``)."""
     _check_family(cfg)
     dev = resolve(device)
     shape = (cfg.n_layers, batch, max_len, heads or cfg.n_heads, cfg.d_head)
+    policy = current_policy()
+    if heads is None and policy is not None:
+        shape = sharding.serve_cache_shape("self_k", shape, policy.mesh)
     dtype = getattr(torch, cfg.compute_dtype)
     return {name: torch.zeros(shape, dtype=dtype, device=dev)
             for name in ("self_k", "self_v", "cross_k", "cross_v")} | {

@@ -52,6 +52,12 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{key}", value
 
 
+def empty_model(cfg, device):
+    """The port's model of ``cfg`` with uninitialised parameters on
+    ``device``: on the meta device, the shapes and dtypes alone."""
+    return _model_and_offsets(cfg, torch.device(device))[0]
+
+
 def _model_and_offsets(cfg, device):
     """The port's empty model and, per stacked name of the reference's tree,
     the port's layer list it goes to, the index there of its first entry

@@ -110,7 +110,11 @@ def _capacity(T: int, cfg) -> int:
 
 def _aux_loss(probs: torch.Tensor, ids: torch.Tensor, e: int) -> torch.Tensor:
     me = probs.mean(dim=0)
-    ce = F.one_hot(ids[:, 0].long(), e).float().mean(dim=0)
+    # the one-hot of each row's first expert by comparison: ``F.one_hot``
+    # checks its ids on the host on the CPU, and computes otherwise on
+    # another device, so its ops would differ by device
+    ce = (ids[:, 0, None].long() == torch.arange(e, device=ids.device)
+          ).float().mean(dim=0)
     return e * (me * ce).sum()
 
 

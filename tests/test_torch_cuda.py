@@ -1779,3 +1779,64 @@ def test_graphed_encdec_prefill_and_decode_match_eager_on_card(cuda_device):
     assert torch.equal(outs[0][0], outs[1][0])
     for k in outs[0][1]:
         assert torch.equal(outs[0][1][k], outs[1][1][k]), k
+
+
+def _counted_step(cfg, kind, device):
+    """(step, args) of reduced ``cfg`` on one rank, run eagerly: random
+    weights on the card, the empty model on the meta device
+    (``launch/dryrun.py``'s arithmetic)."""
+    from repro_torch.models import io
+    from repro_torch.train import optimizer as opt_lib
+
+    params = (model_lib.init_params(cfg, seed=0, device=device)
+              if device.type == "cuda" else io.empty_model(cfg, "meta"))
+    tokens = torch.randint(2, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(0),
+                           dtype=torch.int32).to(device)
+    if kind == "prefill":
+        return (lambda p, t: model_lib.prefill(p, cfg, t, 64)), (params,
+                                                                 tokens)
+    if kind == "decode":
+        cache = model_lib.init_cache(cfg, 2, 64, device=device)
+        return ((lambda p, c, t: model_lib.decode_step(p, cfg, c, t)),
+                (params, cache, tokens[:, 0]))
+    state = steps.train_state(cfg, params,
+                              opt_lib.make_optimizer(cfg.optimizer))
+    return steps.make_train_step(cfg, graphs=False), (state,
+                                                      {"tokens": tokens})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "dbrx-132b", "rwkv6-7b"])
+def test_cost_counter_on_card_equals_the_meta_run(cuda_device, arch, kind):
+    """Reduced steps counted on the card (eager, after a warm-up call)
+    equal the same steps counted on the meta device: every total and the
+    kernels by their formulas; each counted kernel call launched its
+    kernel on the card and none on meta; the step's peak
+    (``introspect.peak_bytes``) within 15% of the meta run's argument and
+    temp bytes plus what the card held beyond the arguments before it."""
+    from repro_torch.core import introspect
+    from repro_torch.launch import cost_analysis
+
+    cfg = reduce_config(get_config(arch))
+    meta_step, meta_args = _counted_step(cfg, kind, torch.device("meta"))
+    before = graphs.launch_counts()
+    with cost_analysis.CostCounter(steps.arg_tensors(meta_args)) as meta:
+        meta_step(*meta_args)
+    assert graphs.launch_counts() == before
+    step, args = _counted_step(cfg, kind, cuda_device)
+    step(*args)                                     # the warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    counter = cost_analysis.CostCounter(steps.arg_tensors(args))
+    before = graphs.launch_counts()
+    with counter:
+        peak = introspect.peak_bytes(step, *args)
+    launched = sum(a - b for a, b in zip(graphs.launch_counts(), before))
+    assert counter.totals.as_dict() == meta.totals.as_dict()
+    assert launched == sum(meta.totals.kernels.values())
+    assert counter.argument_bytes == meta.argument_bytes
+    predicted = meta.argument_bytes + meta.peak_bytes + (
+        held - meta.argument_bytes)
+    assert abs(peak / predicted - 1.0) <= 0.15, (peak, predicted)

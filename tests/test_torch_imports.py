@@ -1,12 +1,14 @@
-"""The port stands alone: every ``repro_torch`` module imports with ``jax``
-and the reference package ``repro`` blocked, and importing builds nothing
-and starts no process group."""
+"""The port stands alone: every ``repro_torch`` module, ``chip_smoke.py``
+and ``examples/serve_cluster_torch.py`` import with ``jax`` and the
+reference package ``repro`` blocked, and importing builds nothing and
+starts no process group."""
 import os
 import subprocess
 import sys
 import textwrap
 
-SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -24,6 +26,10 @@ SCRIPT = textwrap.dedent("""
     assert "repro_torch.distributed.api" in names, names
     for name in names:
         importlib.import_module(name)
+    import importlib.util
+    for path in sys.argv[1:]:            # files beside the package
+        spec = importlib.util.spec_from_file_location("standalone", path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
     from repro_torch.kernels import build
     assert build._LOADED == {}, build._LOADED
     import torch.distributed as dist
@@ -34,7 +40,9 @@ SCRIPT = textwrap.dedent("""
 
 def test_port_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
-    out = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
+    files = [os.path.abspath(os.path.join(ROOT, f)) for f in
+             ("chip_smoke.py", "examples/serve_cluster_torch.py")]
+    out = subprocess.run([sys.executable, "-c", SCRIPT, *files], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20      # every module was walked
